@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port runs on an NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one CUDA card (H100,
+sm_90a) and the CUDA toolkit.  In order, it
+
+  1. prints the card's name and power limit (nvidia-smi);
+  2. builds the fused-update kernels from ``src/repro_torch/kernels/csrc``
+     with nvcc and prints the build time and the ptxas report;
+  3. holds every kernel variant against its plain PyTorch version on the
+     card at every leaf shape of the GPT-2 117M main path (pass 1 plain,
+     guided, fold; pass 2 shared, two-output, dense) and times each with
+     CUDA events beside its bound and the plain version's time;
+  4. checks the kernel path end to end against the plain path on a small
+     input: the GPT-2 smoke model in fp32 trains a few steps on the card
+     and on the CPU from the same init and sketches, and the losses, ranks
+     and parameters must agree;
+  5. trains GPT-2 117M at full width through ``repro_torch.launch.train``
+     (12 steps, batch 8 x 1024, --no-mixed-groups --fused-update
+     --refresh-every 5) with the launch counters set to 0 just before, and
+     checks a finite, falling loss and one pass-1 launch per factored leaf
+     and one pass-2 launch per leaf per step;
+  6. prints one JSON line with each kernel's launches, error and times,
+     then ``{"ok": true, "device": {...}}`` as the last line.
+
+Any failed check raises, so the script exits non-zero without the last
+line.  It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
+# cores and HBM3 bandwidth, at the full 700 W power limit.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+TRAIN_ARGV = ["--arch", "gpt2-117m", "--steps", "12", "--batch", "8",
+              "--seq", "1024", "--no-mixed-groups", "--fused-update",
+              "--refresh-every", "5", "--log-every", "1", "--device", "cuda"]
+B2, EPS, B1 = 0.999, 1e-8, 0.9
+
+# Tolerances, relative to the largest magnitude of the plain output.
+# Pass 1 sums Q U^T over r (and the fold over m) in another order than the
+# plain matmul, and its whole-matrix reductions in per-block partials; the
+# inputs keep Q U^T away from 0, where u_hat is ill-conditioned.  Pass 2
+# has no reduction: the only difference is fma contraction, a few ulp.
+TOL_PRECOND = 1e-5
+TOL_SUMS = 1e-4
+TOL_APPLY = 1e-6
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()
+    return out[0]
+
+
+def events_ms(fn, reps: int = 10) -> float:
+    """Mean time per call between CUDA events around ``reps`` calls: the
+    stream's time, which includes launch gaps where the host is slower
+    than the card."""
+    import torch
+    fn()
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
+    """Mean device time per call from torch.profiler: the kernels whose
+    name contains ``kernel``, or every kernel the call launches.  Returns
+    0.0 when three profiles in a row record no such kernel (CUPTI can
+    drop microsecond kernels); the caller then falls back to events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if kernel is None or kernel in e.key)
+        if us > 0:
+            return us / reps / 1e3
+    return 0.0
+
+
+def time_pair(kern, plain, kernel_name: str, rec: dict, bound: float,
+              label: str) -> None:
+    """Time a kernel (its own device time) and its plain version (all its
+    device time), print both with the stream times, add to ``rec``."""
+    t_k, t_p = device_ms(kern, kernel_name), device_ms(plain)
+    e_k, e_p = events_ms(kern), events_ms(plain)
+    note = ""
+    if t_k == 0.0 or t_p == 0.0:
+        note = "; profiler saw no kernel, stream time used"
+        t_k, t_p = t_k or e_k, t_p or e_p
+    print(f"    timing {label}: kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+          f"bound_ms {bound:.4f} (stream: kernel {e_k:.4f} plain "
+          f"{e_p:.4f}{note})")
+    rec["ms"] += t_k
+    rec["plain_ms"] += t_p
+    rec["bound_ms"] += bound
+
+
+def main_path_leaves(device):
+    """(factored [(shape, r)], dense [size]) of GPT-2 117M under the
+    launcher's optimizer, read from the optimizer state itself."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.core.factored import FactoredLeaf
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("gpt2-117m")
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(0))
+    flat = tree.flatten(params)
+    opt = build_optimizer(optimizer_config("adapprox", 12, 3e-3,
+                                           refresh_every=5,
+                                           fused_update=True))
+    state = opt.init(flat)[0]
+    fact, dense = [], []
+    for (name, p), leaf in zip(flat.items(), state.leaves):
+        if isinstance(leaf, FactoredLeaf):
+            fact.append((name, tuple(p.shape), leaf.q.shape[-1]))
+        else:
+            dense.append((name, p.numel()))
+    del params, flat, state
+    torch.cuda.empty_cache()
+    return fact, dense
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    import torch
+    got, want = got.detach().float(), want.detach().float()
+    diff = float(torch.max(torch.abs(got - want)))
+    scale = float(torch.max(torch.abs(want)))
+    return diff, diff / max(scale, 1e-30)
+
+
+def check_precond(fact, device):
+    """Pass 1 against its plain version at every factored leaf shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(1)
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, shape, r in fact:
+        *bd, m, n = shape
+        bd = tuple(bd)
+        # Q, U uniform in [0, 1e-5): b2 Q U^T ~ (1 - b2) G^2, no cancellation
+        q = torch.rand(bd + (m, r), generator=gen, device=device) * 1e-5
+        u = torch.rand(bd + (n, r), generator=gen, device=device) * 1e-5
+        g = torch.randn(bd + (m, n), generator=gen, device=device) * 1e-3
+        m1 = torch.randn(bd + (m, n), generator=gen, device=device) * 0.3
+        for variant, kw in (("plain", {}), ("guided", {"m1": m1}),
+                            ("fold", {"with_fold": True})):
+            got = ops.fused_precond(q, u, g, B2, EPS, with_vfro=True, **kw)
+            want = ref.fused_precond(q, u, g, B2, EPS, with_vfro=True, **kw)
+            torch.cuda.synchronize()
+            errs = []
+            for label, a, b, tol in zip(
+                    ("u_hat", "vfro", "usq", "m1dot", "m1sq", "yfold"),
+                    got, want, (TOL_PRECOND, TOL_SUMS, TOL_SUMS, TOL_SUMS,
+                                TOL_SUMS, TOL_SUMS)):
+                if (a is None) != (b is None):
+                    fail(f"fused_precond[{variant}] {name}: {label} missing")
+                if a is None:
+                    continue
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"fused_precond[{variant}] {name}: {label} not "
+                         f"finite")
+                ab, rel = rel_err(a, b)
+                errs.append(f"{label} {ab:.3e} ({rel:.2e})")
+                if rel > tol:
+                    fail(f"fused_precond[{variant}] {name} {shape}: {label} "
+                         f"rel err {rel:.3e} > {tol}")
+                if label == "u_hat":
+                    rec["max_abs_err"] = max(rec["max_abs_err"], ab)
+            print(f"  fused_precond[{variant}] {name} {shape} r={r}: "
+                  + ", ".join(errs))
+        # the main path's variant: fold rider, no guidance, no vfro
+        kern = lambda: ops.fused_precond(q, u, g, B2, EPS, with_vfro=False,
+                                         with_fold=True)
+        plain = lambda: ref.fused_precond(q, u, g, B2, EPS, with_vfro=False,
+                                          with_fold=True)
+        L = math.prod(bd)
+        flops = L * m * n * (4 * r + 10)
+        nbytes = 4 * L * (2 * m * n + m * r + 2 * n * r)
+        time_pair(kern, plain, "precond_kernel", rec, 1e3 * max(
+            flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S), name)
+        del q, u, g, m1
+    return rec
+
+
+def check_apply(fact, dense, device):
+    """Pass 2 against its plain version at every leaf shape: factored
+    leaves (shared and two-output) and dense leaves viewed as (1, size)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(2)
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    cases = [(name, shape, sh) for name, shape, _ in fact
+             for sh in (True, False)]
+    cases += [(name, (1, size), True) for name, size in dense]
+    for name, shape, shared in cases:
+        *bd, m, n = shape
+        bd = tuple(bd)
+        u_hat = torch.randn(shape, generator=gen, device=device)
+        m1 = torch.randn(shape, generator=gen, device=device) * 0.3
+        denom = 1.0 + torch.rand(bd, generator=gen, device=device)
+        os_ = 0.5 + torch.rand(bd, generator=gen, device=device)
+        ss = os_ if shared else torch.ones_like(os_)
+        m1_k = m1.clone()
+        got = ops.fused_apply(u_hat, m1_k, denom, B1, os_, ss,
+                              shared_out=shared)
+        want = ref.fused_apply(u_hat, m1, denom, B1, os_, ss)
+        torch.cuda.synchronize()
+        if shared and not (got[0] is got[1]
+                           and got[1].data_ptr() == m1_k.data_ptr()):
+            fail(f"fused_apply[shared] {name}: m_out is not m1 updated "
+                 f"in place")
+        variant = "shared" if shared else "two-output"
+        if name in dict(dense):
+            variant = "dense"
+        errs = []
+        for label, a, b in (("m_out", got[0], want[0]),
+                            ("m1_new", got[1], want[1])):
+            ab, rel = rel_err(a, b)
+            errs.append(f"{label} {ab:.3e} ({rel:.2e})")
+            if rel > TOL_APPLY:
+                fail(f"fused_apply[{variant}] {name} {shape}: {label} rel err "
+                     f"{rel:.3e} > {TOL_APPLY}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], ab)
+        print(f"  fused_apply[{variant}] {name} {shape}: " + ", ".join(errs))
+        if shared:      # the main path's variant, timed once per leaf
+            kern = lambda: ops.fused_apply(u_hat, m1_k, denom, B1, os_, ss,
+                                           shared_out=True)
+            plain = lambda: ref.fused_apply(u_hat, m1, denom, B1, os_, ss)
+            time_pair(kern, plain, "apply_kernel", rec,
+                      1e3 * 12 * math.prod(shape) / PEAK_BYTES_PER_S, name)
+    return rec
+
+
+class _CallOrderSketch:
+    """Sketch source drawing from one CPU generator in call order, so two
+    runs that call it alike get the same Gaussian sketches on any device."""
+
+    def __init__(self, seed: int):
+        import torch
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def __call__(self, shape, generator):
+        import torch
+        return torch.randn(shape, generator=self.gen)
+
+
+def check_small_parity(device):
+    """Kernel path (card) against plain path (CPU), end to end: GPT-2
+    smoke in fp32, 4 steps with refresh_every=3 (refresh, fold, fold,
+    refresh), same init and sketches."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.archs import get_smoke_config
+    from repro_torch.core.adapprox import adapprox_state
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import LoopConfig, train
+
+    cfg = dataclasses.replace(get_smoke_config("gpt2-117m", max_seq_len=128),
+                              dtype="float32")
+    model = build_model(cfg)
+    init = model.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in (torch.device("cpu"), device):
+        opt = build_optimizer(optimizer_config(
+            "adapprox", 4, 3e-3, refresh_every=3, fused_update=True),
+            sketch=_CallOrderSketch(5))
+        params = {k: v.detach().clone().to(dev)
+                  for k, v in tree.flatten(init).items()}
+        state, hist = train(model, opt,
+                            DataConfig(vocab=cfg.vocab, seq_len=128,
+                                       global_batch=4),
+                            LoopConfig(total_steps=4, log_every=1),
+                            device=dev, params=tree.unflatten(params))
+        runs[dev.type] = (state, [h["loss"] for h in hist])
+    (s_cpu, l_cpu), (s_gpu, l_gpu) = runs["cpu"], runs["cuda"]
+    print(f"  losses cpu {l_cpu}")
+    print(f"  losses gpu {l_gpu}")
+    for a, b in zip(l_cpu, l_gpu):
+        if not abs(a - b) <= 1e-4 * abs(a):
+            fail(f"small-input parity: loss {b} on the card vs {a} on CPU")
+    k_cpu = [leaf.k.tolist() for leaf in adapprox_state(s_cpu.opt_state).leaves
+             if hasattr(leaf, "k")]
+    k_gpu = [leaf.k.tolist() for leaf in adapprox_state(s_gpu.opt_state).leaves
+             if hasattr(leaf, "k")]
+    if k_cpu != k_gpu:
+        fail(f"small-input parity: ranks {k_gpu} on the card vs {k_cpu}")
+    worst = max(rel_err(s_gpu.params[k].cpu(), p)[1]
+                for k, p in s_cpu.params.items())
+    print(f"  ranks {k_cpu}; max param rel err {worst:.2e}")
+    if worst > 1e-4:
+        fail(f"small-input parity: params differ by {worst:.2e}")
+
+
+def train_main_path():
+    import torch
+    from repro_torch.kernels import fused_update as K
+    from repro_torch.launch import train as launcher
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    state, hist = launcher.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    times = [h["step_time_s"] for h in hist]
+    for h in hist:
+        print(f"  step {h['step']:2d} loss {h['loss']:.4f} "
+              f"step_time_s {h['step_time_s']:.4f}")
+    if len(losses) != 12 or not all(math.isfinite(x) for x in losses):
+        fail(f"main path: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"main path: loss did not fall ({losses[0]} -> {losses[-1]})")
+    n_fact = sum(1 for leaf in state.opt_state[0].leaves if hasattr(leaf, "q"))
+    n_all = len(state.opt_state[0].leaves)
+    want = {"fused_precond": 12 * n_fact, "fused_apply": 12 * n_all}
+    print(f"  launches {launches} (expected {want}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != want:
+        fail(f"main path launches {launches}, expected {want}")
+    refresh = [t for i, t in enumerate(times, 1) if i % 5 == 1 and i > 1]
+    fold = [t for i, t in enumerate(times, 1) if i % 5 != 1]
+    tokens = 8 * 1024
+    print(f"  fold-step time median {sorted(fold)[len(fold) // 2]:.4f} s "
+          f"({tokens / sorted(fold)[len(fold) // 2]:.0f} tokens/s); "
+          f"refresh-step times {refresh}")
+    return launches
+
+
+def step_breakdown(device):
+    """Where a main-path step goes: model forward+backward and optimizer
+    timed apart (host clock around synchronised work) over steps 1-7 of
+    the main path's config, and a profile of step 6 (refresh) and step 7
+    (fold) for the device's busy share and its largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.core.types import apply_updates
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.steps import TrainState
+
+    cfg = get_config("gpt2-117m")
+    model = build_model(cfg)
+    opt = build_optimizer(optimizer_config("adapprox", 12, 3e-3,
+                                           refresh_every=5,
+                                           fused_update=True))
+    state = TrainState.create(
+        model.init(torch.Generator(device=device).manual_seed(0)), opt)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=1024,
+                                  global_batch=8))
+    params, opt_state = state.params, state.opt_state
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for t in range(1, 8):
+        tokens = torch.from_numpy(data.batch_at(t - 1)["tokens"]).to(device)
+
+        def model_part():
+            loss, _ = model.loss(tree.unflatten(params), {"tokens": tokens})
+            return dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+
+        def opt_part():
+            with torch.no_grad():
+                upd, st = opt.update(grads, opt_state, params)
+                apply_updates(params, upd)
+            return st
+
+        if t < 6:
+            grads, t_model = timed(model_part)
+            opt_state, t_opt = timed(opt_part)
+            print(f"  step {t}: model fwd+bwd {t_model:.4f} s, optimizer "
+                  f"{t_opt:.4f} s")
+            continue
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            grads, t_model = timed(model_part)
+            opt_state, t_opt = timed(opt_part)
+        busy = sum(e.self_device_time_total for e in prof.key_averages())
+        wall = t_model + t_opt
+        kind = "refresh" if t == 6 else "fold"
+        print(f"  step {t} ({kind}, profiled): model fwd+bwd {t_model:.4f} "
+              f"s, optimizer {t_opt:.4f} s; device busy {busy / 1e6:.4f} s "
+              f"of {wall:.4f} s (idle share {1 - busy / 1e6 / wall:.3f})")
+        top = sorted(prof.key_averages(),
+                     key=lambda e: -e.self_device_time_total)[:8]
+        for e in top:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<5d} {e.key[:90]}")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this script needs a GPU")
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import fused_update as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = resolve_device("cuda")
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{torch.cuda.get_device_name(0)}, "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+
+    t0 = time.monotonic()
+    K.build()
+    print(f"[build] {time.monotonic() - t0:.1f} s")
+    for line in K.BUILD_LOG["output"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  {line.strip()}")
+
+    fact, dense = main_path_leaves(device)
+    print("[kernels] fused_precond vs plain, every factored leaf")
+    pre = check_precond(fact, device)
+    print("[kernels] fused_apply vs plain, every leaf")
+    app = check_apply(fact, dense, device)
+    print("[parity] kernel path on the card vs plain path on the CPU")
+    check_small_parity(device)
+    print("[train] GPT-2 117M, " + " ".join(TRAIN_ARGV))
+    launches = train_main_path()
+    print("[breakdown] model vs optimizer, refresh vs fold step")
+    step_breakdown(device)
+
+    src = "src/repro_torch/kernels/csrc/fused_update.cu"
+    kernels = [
+        dict(name="fused_precond", route="cuda", source=src,
+             replaces="src/repro/kernels/fused_update.py:130",
+             launches=launches["fused_precond"], bound_by="operations",
+             library_ms=None, **pre),
+        dict(name="fused_apply", route="cuda", source=src,
+             replaces="src/repro/kernels/fused_update.py:233",
+             launches=launches["fused_apply"], bound_by="bytes",
+             library_ms=None, **app),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,76 @@
+"""Model and optimizer configs (frozen dataclasses), copied from the JAX
+package's ``config.py`` for the fields the port's slice reads."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch: str
+    family: str                    # dense (the only family ported)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None          # default d_model // n_heads
+    act: str = "swiglu"                     # gelu is the one ported
+    norm: str = "rmsnorm"                   # layernorm is the one ported
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    mlp_bias: bool = False
+    pos_embedding: str = "rope"             # learned is the one ported
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"        # compute dtype
+    param_dtype: str = "float32"   # master params
+    max_seq_len: int = 32_768
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Declarative optimizer spec, the input to ``core.build_optimizer``.
+    Field names and defaults follow the JAX package's ``OptimizerConfig``;
+    the port builds the ``adapprox`` family without parameter groups."""
+
+    name: str = "adapprox"
+    lr: float = 3e-4
+    schedule: str = "cosine"        # cosine | constant
+    warmup_steps: int = 1000
+    total_steps: int = 100_000
+    min_lr: float = 5e-5
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    clip_d: float = 1.0
+    weight_decay: float = 0.1
+    decay_mask: str = "all"         # all | no_1d
+    rank_mode: str = "static"       # static | paper | exact
+    k: int = 64                     # static rank / k_init (adaptive)
+    k_max: int = 256
+    xi_thresh: float = 0.01
+    delta_s: int = 10
+    oversample: int = 5
+    n_iter: int = 5
+    guidance: str = "off"
+    implicit: bool = True
+    use_kernels: bool = False
+    refresh_every: int = 1
+    warm_start: bool = False
+    bucketed: bool = False
+    fused_update: bool = False
+    telemetry: bool = False
+    dynamic_refresh: bool = False
+    guards: bool = False
+    min_dim_factor: int = 128
+    factor_dtype: str = "float32"
+    quantize_factors: bool = False
+    seed: int = 0
+    groups: tuple = ()

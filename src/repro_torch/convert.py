@@ -1,0 +1,45 @@
+"""Carry state across from the JAX package, through numpy.
+
+``params_from_numpy`` takes the JAX parameter pytree (nested dicts of
+numpy arrays, e.g. from ``jax.device_get``) and returns the port's
+parameters; ``adapprox_state_from_numpy`` does the same for the leaves of
+an ``AdapproxState``.  With both, a test can start the two packages from
+the same mid-run state.  Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.adapprox import AdapproxState
+from repro_torch.core.factored import DenseLeaf, FactoredLeaf
+
+
+def _t(x, device, dtype=None) -> torch.Tensor:
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> dict:
+    """Nested dict of arrays -> nested dict of fp32 tensors on ``device``."""
+    return {k: params_from_numpy(v, device) if isinstance(v, dict)
+            else _t(v, device, torch.float32) for k, v in tree.items()}
+
+
+def adapprox_state_from_numpy(step: int, leaves: Sequence,
+                              device: str | torch.device = "cpu"
+                              ) -> AdapproxState:
+    """``leaves``: per-parameter objects in flatten order carrying numpy
+    fields ``q, u, k, xi, m1`` (factored) or ``v, m1`` (dense), as the JAX
+    package's ``FactoredLeaf`` / ``DenseLeaf`` do after ``device_get``."""
+    f32 = lambda x: None if x is None else _t(x, device, torch.float32)
+    out = []
+    for leaf in leaves:
+        if hasattr(leaf, "q"):
+            out.append(FactoredLeaf(q=f32(leaf.q), u=f32(leaf.u),
+                                    k=_t(leaf.k, device, torch.int32),
+                                    xi=f32(leaf.xi), m1=f32(leaf.m1)))
+        else:
+            out.append(DenseLeaf(v=f32(leaf.v), m1=f32(leaf.m1)))
+    return AdapproxState(step=int(step), leaves=tuple(out))

@@ -1,0 +1,349 @@
+"""Adapprox (Algorithm 3): Adam with a randomized-low-rank second moment.
+
+Port of the JAX package's ``core/adapprox.py`` for the paper-faithful
+update and its two engineered knobs on the GPT-2 path:
+
+  * no bias correction; update clipping ``u <- u / max(1, RMS(u)/d)``; the
+    first moment is an EMA of *updates*; decoupled weight decay;
+  * the second moment lives as factors (Q, U) between steps:
+    ``V_t = b2 * max(Q U^T, 0) + (1 - b2) * G_t^2`` is rebuilt each step
+    and re-factored by S-RSI with adaptive rank; optional cosine guidance;
+  * ``refresh_every=T``: full S-RSI at t = 1, 1+T, 1+2T, ...; in between
+    the factors absorb G^2 by the one-sided fold
+    ``U <- b2 U + (1 - b2) (G^2)^T Q`` under the frozen basis Q;
+  * ``fused_update``: the elementwise tail runs as two passes (pass 1:
+    u_hat plus every reduction the tail needs, V never stored; pass 2:
+    clip + first-moment EMA + guidance in one read-modify-write), through
+    ``kernels/ops.py`` -- CUDA kernels on the card, their plain versions on
+    the CPU.  Equal to the unfused tail for ``guidance="off"``.
+
+Stacked ``(L, m, n)`` leaves are batched: each leaf is one batched call,
+not a loop over its matrices.  Leaves are walked in JAX's flatten order;
+leaf ``i``'s sketch at step ``t`` is drawn from a generator seeded by
+``(seed, t, i)``, so the draws are a pure function of the step, as in the
+JAX package (whose threefry numbers the port does not reproduce).
+
+Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
+``implicit``, ``bucketed``, ``warm_start``, ``use_kernels``, int8
+factors, ``telemetry``, ``dynamic_refresh``, ``guards``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import factored as F
+from repro_torch.core import rank as R
+from repro_torch.core import srsi as S
+from repro_torch.core.transform import (add_decayed_weights, scale,
+                                        scale_by_schedule)
+from repro_torch.core.types import GradientTransformation, chain
+from repro_torch.kernels import ops, ref
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapproxConfig:
+    lr: "float | Callable" = 1e-3          # float or schedule(step) -> lr
+    b1: float = 0.9                        # 0.0 disables the first moment
+    b2: float = 0.999
+    eps: float = 1e-8
+    clip_d: float = 1.0                    # RMS clip threshold d
+    weight_decay: float = 0.0
+    rank: R.RankConfig = dataclasses.field(default_factory=R.RankConfig)
+    k_max_frac: float = 0.25               # k_max = frac * min(m, n)
+    oversample: int = 5                    # p
+    n_iter: int = 5                        # l (power iterations)
+    min_dim_factor: int = 128              # factor only if min(m,n) >= this
+    guidance: str = "off"                  # "off" | "update" | "stored"
+    guidance_max_scale: float = 10.0       # clamp on 1/(1-theta+eps)
+    implicit: bool = False
+    use_kernels: bool = False
+    factor_dtype: str = "float32"
+    seed: int = 0
+    refresh_every: int = 1                 # full S-RSI every T steps
+    warm_start: bool = False
+    bucketed: bool = False
+    fused_update: bool = False             # two-pass fused elementwise tail
+    telemetry: bool = False
+    dynamic_refresh: bool = False
+    guards: Optional[object] = None
+    sketch: Optional[S.SketchSource] = None  # None: seeded torch normals
+
+
+_NOT_PORTED = ("implicit", "use_kernels", "bucketed", "warm_start",
+               "telemetry", "dynamic_refresh")
+
+
+def _check_ported(cfg: AdapproxConfig) -> None:
+    for name in _NOT_PORTED:
+        if getattr(cfg, name):
+            raise NotImplementedError(
+                f"AdapproxConfig.{name} is not ported to PyTorch yet; "
+                f"see ROADMAP.md Queue A")
+    if cfg.factor_dtype != "float32":
+        raise NotImplementedError("int8 factors are not ported to PyTorch "
+                                  "yet; see ROADMAP.md Queue A")
+    if cfg.guards is not None:
+        raise NotImplementedError("Adapprox guards are not ported to "
+                                  "PyTorch yet; see ROADMAP.md Queue A")
+    if cfg.guidance not in ("off", "update", "stored"):
+        raise ValueError(f"unknown guidance {cfg.guidance!r}")
+
+
+@dataclasses.dataclass
+class AdapproxState:
+    step: int                         # counts from 0
+    leaves: tuple                     # FactoredLeaf | DenseLeaf per param,
+                                      # in flatten order
+
+
+def _refresh_pred(step: int, refresh_t: int) -> bool:
+    """Full S-RSI at t = 1, 1+T, 1+2T, ..."""
+    return (step % refresh_t) == (1 % refresh_t)
+
+
+def _sketch_generator(seed: int, step: int, leaf: int,
+                      device: torch.device) -> torch.Generator:
+    state = np.random.SeedSequence([seed, step, leaf]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) << 32 | int(state[1]))
+
+
+def _bc(s: torch.Tensor) -> torch.Tensor:
+    """(*batch,) -> (*batch, 1, 1) for per-matrix scalars."""
+    return s.reshape(s.shape + (1, 1))
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    """Per-matrix RMS over the trailing two axes, as sum / size (the same
+    rounding as the fused path's usq / size)."""
+    size = x.shape[-2] * x.shape[-1]
+    return torch.sqrt(torch.sum(torch.square(x), dim=(-2, -1)) / size
+                      + 1e-30)
+
+
+def _fused_scalars(usq, m1dot, m1sq, size: int, cfg: AdapproxConfig,
+                   guidance: bool):
+    """Combine the pass-1 reductions into ``(denom, out_scale,
+    store_scale)`` for pass 2.  The guidance scalars are recovered
+    algebraically from the unclipped partials (c = 1/denom):
+
+        sum(u_c^2) = usq / denom^2,   dot(u_c, m1) = m1dot / denom
+        num        = b1 dot(u_c, m1) + (1-b1) sum(u_c^2)
+        sum(acc^2) = b1^2 m1sq + 2 b1 (1-b1) dot(u_c, m1)
+                     + (1-b1)^2 sum(u_c^2)
+    """
+    rms = torch.sqrt(usq / size + 1e-30)
+    denom = torch.clamp_min(rms / cfg.clip_d, 1.0)
+    one = torch.ones_like(denom)
+    if not guidance:
+        return denom, one, one
+    su = usq / (denom * denom)
+    du = m1dot / denom
+    b1 = cfg.b1
+    num = b1 * du + (1.0 - b1) * su
+    accsq = (b1 * b1) * m1sq + 2.0 * b1 * (1.0 - b1) * du \
+        + (1.0 - b1) ** 2 * su
+    den = torch.sqrt(su) * torch.sqrt(accsq)
+    theta = num / (den + 1e-30)
+    gscale = torch.clamp(1.0 / (1.0 - theta + cfg.eps), 0.0,
+                         cfg.guidance_max_scale)
+    if cfg.guidance == "stored":
+        return denom, gscale, gscale
+    return denom, gscale, one
+
+
+def _leaf_r_store(shape: tuple, cfg: AdapproxConfig) -> int:
+    m, n = shape[-2], shape[-1]
+    if cfg.rank.mode == "static":
+        r = min(cfg.rank.k_init, min(m, n))
+    else:
+        r = R.resolve_k_max(shape, cfg.rank, cfg.k_max_frac)
+    return max(1, r)
+
+
+def _leaf_meta(shape: tuple, r_store: int, cfg: AdapproxConfig):
+    """(oversample p, k_max) for one leaf; paper constraint k + p <= min."""
+    m, n = shape[-2], shape[-1]
+    p_eff = max(0, min(cfg.oversample, min(m, n) - r_store))
+    k_max_leaf = (r_store if cfg.rank.mode == "static"
+                  else R.resolve_k_max(shape, cfg.rank, cfg.k_max_frac))
+    return p_eff, k_max_leaf
+
+
+def _init_leaf(p: torch.Tensor, cfg: AdapproxConfig):
+    zeros = lambda shape: torch.zeros(shape, dtype=torch.float32,
+                                      device=p.device)
+    m1 = zeros(p.shape) if cfg.b1 > 0 else None
+    if F.should_factor(tuple(p.shape), cfg.min_dim_factor):
+        bd = F.batch_dims(tuple(p.shape))
+        m, n = p.shape[-2], p.shape[-1]
+        r = _leaf_r_store(tuple(p.shape), cfg)
+        k0 = cfg.rank.k_init if cfg.rank.mode != "static" else r
+        return F.FactoredLeaf(
+            q=zeros(bd + (m, r)), u=zeros(bd + (n, r)),
+            k=torch.full(bd, min(k0, r), dtype=torch.int32, device=p.device),
+            xi=zeros(bd), m1=m1)
+    return F.DenseLeaf(v=zeros(p.shape), m1=m1)
+
+
+# ---------------------------------------------------------------------------
+# Factored update, batched over leading dims
+# ---------------------------------------------------------------------------
+
+def _factored_update(g, leaf: F.FactoredLeaf, step: int, generator,
+                     cfg: AdapproxConfig, r_store: int, p_eff: int,
+                     k_max_leaf: int):
+    q, u, k, xi_prev, m1 = leaf.q, leaf.u, leaf.k, leaf.xi, leaf.m1
+    g32 = g.float()
+    v_op = S.make_implicit_v(q, u, g32, cfg.b2)
+    # Paper-faithful: V_t is formed every step for the elementwise update.
+    # The fused pipeline reconstructs it tile-wise instead, and the refresh
+    # branch forms it only when it runs.
+    vmat = None if cfg.fused_update else v_op.materialize()
+
+    yfold = None
+    if cfg.fused_update:
+        need_guid = cfg.b1 > 0 and cfg.guidance != "off"
+        # Pass 1 also emits the fold projection (G^2)^T Q from the G tiles
+        # it already holds; it is computed every step and discarded on
+        # refresh steps, as in the JAX package.
+        (u_hat_raw, _, usq, m1dot, m1sq, yfold) = ops.fused_precond(
+            q, u, g32, cfg.b2, cfg.eps, m1=m1 if need_guid else None,
+            with_vfro=False, with_fold=cfg.refresh_every > 1)
+
+    if cfg.refresh_every <= 1 or _refresh_pred(step, cfg.refresh_every):
+        vm = vmat if vmat is not None else v_op.materialize()
+        sketch = cfg.sketch or S.torch_normal(g.device)
+        res = S.srsi_dense(vm, r_store, p_eff, cfg.n_iter, sketch, generator)
+        k_new = R.select_rank(res.cum_energy, res.frob_sq, cfg.rank,
+                              k_max_leaf, step,
+                              torch.clamp_max(k, k_max_leaf),
+                              refresh_every=cfg.refresh_every)
+        xi = R.xi_of_k(res.cum_energy, res.frob_sq, k_new)
+        mask = S.col_mask(r_store, k_new).unsqueeze(-2)
+        q_new, u_new = res.q * mask, res.u * mask
+    else:
+        mask = S.col_mask(r_store, torch.clamp_max(k, k_max_leaf)
+                          ).unsqueeze(-2)
+        y = yfold if yfold is not None else ref.sq_matmul_t(g32, q)
+        q_new, k_new, xi = q, k, xi_prev
+        u_new = (cfg.b2 * u + (1.0 - cfg.b2) * y) * mask
+
+    size = g32.shape[-2] * g32.shape[-1]
+    if cfg.fused_update:
+        denom, out_scale, store_scale = _fused_scalars(
+            usq, m1dot, m1sq, size, cfg, need_guid)
+        # guidance "off" / "stored": out_scale == store_scale, so the step
+        # direction IS the new first moment and pass 2 writes it once.
+        m_out, m1_new = ops.fused_apply(
+            u_hat_raw, m1, denom, cfg.b1, out_scale, store_scale,
+            shared_out=cfg.b1 > 0 and cfg.guidance != "update")
+        return m_out, F.FactoredLeaf(q=q_new, u=u_new, k=k_new, xi=xi,
+                                     m1=m1_new)
+
+    u_hat = g32 / (torch.sqrt(vmat) + cfg.eps)
+    u_hat = u_hat / _bc(torch.clamp_min(_rms(u_hat) / cfg.clip_d, 1.0))
+    if cfg.b1 > 0:
+        m1_acc = cfg.b1 * m1 + (1.0 - cfg.b1) * u_hat
+        m_out = m1_acc
+        if cfg.guidance != "off":
+            dims = (-2, -1)
+            num = torch.sum(u_hat * m1_acc, dim=dims)
+            den = (torch.sqrt(torch.sum(u_hat ** 2, dim=dims))
+                   * torch.sqrt(torch.sum(m1_acc ** 2, dim=dims)))
+            theta = num / (den + 1e-30)
+            gscale = _bc(torch.clamp(1.0 / (1.0 - theta + cfg.eps), 0.0,
+                                     cfg.guidance_max_scale))
+            if cfg.guidance == "stored":
+                m1_acc = m1_acc * gscale          # Eq. (18) literally
+                m_out = m1_acc
+            else:                                 # "update": step only
+                m_out = m1_acc * gscale
+        m1_new = m1_acc
+    else:
+        m_out, m1_new = u_hat, None
+    return m_out, F.FactoredLeaf(q=q_new, u=u_new, k=k_new, xi=xi, m1=m1_new)
+
+
+def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
+    g32 = g.float()
+    v = cfg.b2 * leaf.v + (1.0 - cfg.b2) * torch.square(g32)
+    u_hat = g32 / (torch.sqrt(v) + cfg.eps)
+    if cfg.fused_update:
+        # Same pass 2 as the factored leaves (no guidance): the leaf is
+        # viewed as one (1, size) row.
+        denom, out_scale, store_scale = _fused_scalars(
+            torch.sum(torch.square(u_hat)), None, None, u_hat.numel(), cfg,
+            guidance=False)
+        m1 = None if leaf.m1 is None else leaf.m1.reshape(1, -1)
+        m_out, m1_new = ops.fused_apply(
+            u_hat.reshape(1, -1), m1, denom, cfg.b1, out_scale, store_scale,
+            shared_out=True)
+        return (m_out.reshape(u_hat.shape),
+                F.DenseLeaf(v=v, m1=None if m1_new is None
+                            else m1_new.reshape(u_hat.shape)))
+    u_hat = u_hat / torch.clamp_min(
+        torch.sqrt(torch.sum(torch.square(u_hat)) / u_hat.numel() + 1e-30)
+        / cfg.clip_d, 1.0)
+    if leaf.m1 is not None:
+        m1 = cfg.b1 * leaf.m1 + (1.0 - cfg.b1) * u_hat
+        return m1, F.DenseLeaf(v=v, m1=m1)
+    return u_hat, F.DenseLeaf(v=v, m1=None)
+
+
+# ---------------------------------------------------------------------------
+# Public factories
+# ---------------------------------------------------------------------------
+
+def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
+    """The Adapprox preconditioner: gradients -> update direction.  Owns
+    the factored / dense second moment, the update-EMA first moment,
+    per-matrix RMS clipping and cosine guidance; learning rate, weight
+    decay and the descent sign are later stages (see :func:`adapprox`)."""
+    _check_ported(cfg)
+
+    def init(params):
+        return AdapproxState(step=0, leaves=tuple(
+            _init_leaf(p, cfg) for p in params.values()))
+
+    def update(grads, state: AdapproxState, params):
+        step = state.step + 1              # paper counts from t = 1
+        outs, new_leaves = {}, []
+        for i, ((name, w), leaf) in enumerate(zip(params.items(),
+                                                  state.leaves)):
+            g = grads[name]
+            if isinstance(leaf, F.FactoredLeaf):
+                r_store = leaf.q.shape[-1]
+                p_eff, k_max_leaf = _leaf_meta(tuple(w.shape), r_store, cfg)
+                gen = _sketch_generator(cfg.seed, step, i, g.device)
+                outs[name], nl = _factored_update(
+                    g, leaf, step, gen, cfg, r_store, p_eff, k_max_leaf)
+            else:
+                outs[name], nl = _update_dense(g, leaf, cfg)
+            new_leaves.append(nl)
+        return outs, AdapproxState(step=step, leaves=tuple(new_leaves))
+
+    return GradientTransformation(init, update)
+
+
+def adapprox(cfg: AdapproxConfig,
+             decay_mask: Optional[Callable] = None) -> GradientTransformation:
+    """Algorithm 3 as a chain: preconditioner -> + wd*W -> * lr_t -> * (-1)."""
+    return chain(
+        scale_by_adapprox(cfg),
+        add_decayed_weights(cfg.weight_decay, decay_mask),
+        scale_by_schedule(cfg.lr),
+        scale(-1.0),
+    )
+
+
+def adapprox_state(state) -> AdapproxState:
+    """The ``AdapproxState`` inside a chain state."""
+    for sub in (state if isinstance(state, tuple) else (state,)):
+        if isinstance(sub, AdapproxState):
+            return sub
+    raise ValueError("no AdapproxState found in optimizer state")

@@ -1,0 +1,46 @@
+"""Per-leaf state layout and factorisation policy for Adapprox.
+
+A parameter with >= 2 trailing dims whose smaller trailing dim is at least
+``min_dim`` gets a factored second moment (Q, U, k); everything else
+(biases, norms, scalars) keeps a dense second moment.  Leading dims
+(scan-stacked layers ``(L, m, n)``) are batch dims: one batched call covers
+the whole stack.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class FactoredLeaf:
+    """q: (*batch, m, r_store) f32 left factor (columns past k zeroed);
+    u: (*batch, n, r_store) f32 right factor; k: (*batch,) int32 effective
+    rank; xi: (*batch,) f32 last approximation error rate; m1: (*batch, m,
+    n) f32 running average of updates, or None (b1 = 0)."""
+
+    q: torch.Tensor
+    u: torch.Tensor
+    k: torch.Tensor
+    xi: torch.Tensor
+    m1: Optional[torch.Tensor]
+
+
+@dataclasses.dataclass
+class DenseLeaf:
+    """Dense second moment ``v`` and first moment ``m1`` (or None)."""
+
+    v: torch.Tensor
+    m1: Optional[torch.Tensor]
+
+
+def should_factor(shape: tuple[int, ...], min_dim: int) -> bool:
+    if len(shape) < 2:
+        return False
+    return min(shape[-2], shape[-1]) >= min_dim
+
+
+def batch_dims(shape: tuple[int, ...]) -> tuple[int, ...]:
+    return tuple(shape[:-2])

@@ -1,0 +1,85 @@
+"""Optimizer protocol: optax-style gradient transformations on tensors.
+
+Parameters, gradients and updates are flat ``{name: tensor}`` dicts in the
+order of :func:`repro_torch.tree.flatten` (JAX's flatten order), so the
+state of every stage lines up leaf by leaf with the JAX package's.  A
+``GradientTransformation`` is a pair of functions, ``init(params) ->
+state`` and ``update(grads, state, params) -> (updates, state)``; updates
+are additive (the caller applies ``params + updates``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+Params = dict  # {name: tensor}
+
+
+class GradientTransformation(NamedTuple):
+    init: Callable[[Params], Any]
+    update: Callable[[Params, Any, Params], tuple[Params, Any]]
+
+
+@dataclasses.dataclass
+class EmptyState:
+    """State of a stateless transformation."""
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """Compose transformations left to right (like ``optax.chain``)."""
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(grads, state, params):
+        new_states = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, params)
+            new_states.append(s)
+        return grads, tuple(new_states)
+
+    return GradientTransformation(init, update)
+
+
+@torch.no_grad()
+def apply_updates(params: Params, updates: Params) -> None:
+    """``params += updates`` in place (the master copies are fp32)."""
+    for k, p in params.items():
+        p.add_(updates[k].to(p.dtype))
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    sq = [torch.sum(torch.square(x.float())) for x in tree.values()]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """Linear warmup followed by cosine decay to ``min_lr`` (Megatron-style),
+    evaluated in float32 like the JAX package's."""
+
+    peak_lr: float
+    warmup_steps: int = 1000
+    total_steps: int = 100_000
+    min_lr: float = 0.0
+
+    def __call__(self, step: int) -> torch.Tensor:
+        f = lambda x: torch.tensor(x, dtype=torch.float32)
+        step = f(step)
+        warm = self.peak_lr * step / max(1.0, self.warmup_steps)
+        denom = max(1.0, self.total_steps - self.warmup_steps)
+        frac = torch.clamp((step - self.warmup_steps) / denom, 0.0, 1.0)
+        cos = self.min_lr + 0.5 * (self.peak_lr - self.min_lr) * (
+            1 + torch.cos(math.pi * frac))
+        return warm if step < self.warmup_steps else cos
+
+
+def constant_schedule(lr: float) -> Callable[[int], torch.Tensor]:
+    return lambda step: torch.tensor(lr, dtype=torch.float32)
+
+
+def resolve_schedule(lr: "float | Callable") -> Callable:
+    return lr if callable(lr) else constant_schedule(float(lr))

@@ -1,0 +1,86 @@
+"""Plain-PyTorch versions of the fused-update kernels.
+
+They are the semantic ground truth for ``kernels/fused_update.py``: the
+dispatch in ``kernels/ops.py`` runs them for tensors that lie on the CPU,
+and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+Every function takes arbitrary leading batch dims; reductions are per
+matrix (over the trailing two axes).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def f32_one_minus(b: float) -> float:
+    """``1 - b`` rounded in float32, returned as an exactly representable
+    Python float: ImplicitV.materialize subtracts a float32 ``b2``, and the
+    fused pass 1 must produce the same coefficient."""
+    return float(np.float32(1.0) - np.float32(b))
+
+
+def f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def sq_matmul_t(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Z = (G * G)^T @ Y.   g: (..., m, n), y: (..., m, s) -> (..., n, s)."""
+    g32 = g.float()
+    return (g32 * g32).transpose(-1, -2) @ y.float()
+
+
+def fused_precond(q: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
+                  b2: float, eps: float, m1: torch.Tensor | None = None,
+                  with_vfro: bool = True, with_fold: bool = False):
+    """Pass 1 of the fused two-pass update:
+
+        V     = b2 * max(Q @ U^T, 0) + (1 - b2) * G^2      (never stored)
+        u_hat = G / (sqrt(V) + eps)                        (unclipped)
+        vfro  = ||V||_F^2              [with_vfro]
+        usq   = sum(u_hat^2)
+        m1dot = sum(m1 * u_hat), m1sq = sum(m1^2)          [m1 given]
+        yfold = (G^2)^T @ Q            [with_fold]
+
+    q: (..., m, r), u: (..., n, r), g / m1: (..., m, n).  Returns
+    ``(u_hat, vfro, usq, m1dot, m1sq, yfold)`` with the sums of shape
+    (...,); absent outputs are None.
+    """
+    g32 = g.float()
+    q32 = q.float()
+    b2f = f32(b2)
+    low = q32 @ u.float().transpose(-1, -2)
+    v = b2f * torch.clamp_min(low, 0.0) + f32_one_minus(b2) * g32 * g32
+    out = g32 / (torch.sqrt(v) + eps)
+    dims = (-2, -1)
+    vfro = torch.sum(v * v, dim=dims) if with_vfro else None
+    usq = torch.sum(torch.square(out), dim=dims)
+    yfold = sq_matmul_t(g32, q32) if with_fold else None
+    if m1 is None:
+        return out, vfro, usq, None, None, yfold
+    m1f = m1.float()
+    return (out, vfro, usq, torch.sum(m1f * out, dim=dims),
+            torch.sum(torch.square(m1f), dim=dims), yfold)
+
+
+def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor | None,
+                denom: torch.Tensor, b1: float,
+                out_scale: torch.Tensor, store_scale: torch.Tensor):
+    """Pass 2: clip by division (not reciprocal-multiply, for parity with
+    the unfused path), update-EMA first moment, guidance scales:
+
+        u_c    = u_hat / denom
+        acc    = b1 * m1 + (1 - b1) * u_c
+        m_out  = acc * out_scale
+        m1_new = acc * store_scale
+
+    ``denom`` / ``out_scale`` / ``store_scale`` have the batch shape of
+    ``u_hat`` without its trailing two axes.  With ``m1`` None (b1 = 0)
+    the EMA collapses to ``m_out = u_c * out_scale``.  Returns
+    ``(m_out, m1_new)``.
+    """
+    bc = lambda s: s.reshape(s.shape + (1, 1))
+    u_c = u_hat / bc(denom)
+    if m1 is None:
+        return u_c * bc(out_scale), None
+    acc = b1 * m1 + (1.0 - b1) * u_c
+    return acc * bc(out_scale), acc * bc(store_scale)

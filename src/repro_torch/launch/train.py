@@ -1,0 +1,148 @@
+"""Training CLI of the PyTorch port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-117m \
+        --steps 200 --no-mixed-groups --fused-update --refresh-every 5
+
+Flags and defaults are those of ``python -m repro.launch.train``, plus
+``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
+the kernels, for parity tests).  Without a GPU and without ``--device cpu``
+it raises.  Flags for parts that are not ported yet raise when set:
+``--mixed-groups`` (the adapprox default, whose embedding group needs the
+count-min sketch), ``--warm-start``, ``--bucketed``,
+``--quantize-factors``, ``--mesh``, telemetry, tracing, guards and
+checkpointing (see ROADMAP.md Queue A).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+from typing import Optional
+
+from repro_torch.config import OptimizerConfig
+from repro_torch.configs.archs import get_config, get_smoke_config
+from repro_torch.core.build import build_optimizer
+from repro_torch.core.srsi import SketchSource
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model_zoo import build_model
+from repro_torch.train.train_loop import LoopConfig, train
+
+# flag -> the default it must keep until its part is ported
+_NOT_PORTED = {"warm_start": False, "bucketed": False,
+               "quantize_factors": False, "mesh": None,
+               "telemetry_dir": None, "auto_refresh": False,
+               "guards": False, "trace_dir": None, "metrics_every": 0,
+               "ckpt_dir": None}
+
+
+def optimizer_config(name: str, steps: int, lr: float,
+                     refresh_every: int = 1,
+                     fused_update: bool = False) -> OptimizerConfig:
+    """The launcher's OptimizerConfig: cosine schedule derived from the run
+    length and the paper's adaptive-rank settings, as in the JAX
+    launcher."""
+    common = dict(name=name, lr=lr, schedule="cosine",
+                  warmup_steps=max(steps // 20, 5), total_steps=steps,
+                  min_lr=lr / 6, weight_decay=0.1)
+    if name == "adapprox":
+        return OptimizerConfig(**common, rank_mode="paper", k=1, k_max=128,
+                               xi_thresh=0.01, delta_s=10,
+                               min_dim_factor=64, implicit=False,
+                               refresh_every=refresh_every,
+                               fused_update=fused_update)
+    return OptimizerConfig(**common)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gpt2-117m")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; never falls back")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--optimizer", default="adapprox")
+    ap.add_argument("--refresh-every", type=int, default=1,
+                    help="adapprox: full S-RSI every T steps (fold between)")
+    ap.add_argument("--warm-start", action="store_true")
+    ap.add_argument("--bucketed", action="store_true")
+    ap.add_argument("--fused-update", action="store_true",
+                    help="adapprox: two-pass fused elementwise tail (CUDA "
+                         "kernels in kernels/csrc/fused_update.cu)")
+    ap.add_argument("--quantize-factors", action="store_true")
+    ap.add_argument("--mesh", default=None)
+    fsdp = ap.add_mutually_exclusive_group()
+    fsdp.add_argument("--fsdp", dest="fsdp", action="store_true",
+                      default=True)
+    fsdp.add_argument("--no-fsdp", dest="fsdp", action="store_false")
+    mg = ap.add_mutually_exclusive_group()
+    mg.add_argument("--mixed-groups", dest="mixed_groups",
+                    action="store_true", default=None,
+                    help="partition chain with the count-min sketch on "
+                         "embeddings (default for adapprox; not ported)")
+    mg.add_argument("--no-mixed-groups", dest="mixed_groups",
+                    action="store_false")
+    ap.add_argument("--sketch-width", type=int, default=2048)
+    ap.add_argument("--sketch-depth", type=int, default=4)
+    ap.add_argument("--embedding-min-rows", type=int, default=1024)
+    ap.add_argument("--telemetry-dir", default=None)
+    ap.add_argument("--telemetry-every", type=int, default=1)
+    ap.add_argument("--auto-refresh", action="store_true")
+    ap.add_argument("--guards", action="store_true")
+    ap.add_argument("--guard-skip-threshold", type=float, default=0.75)
+    ap.add_argument("--max-demotions", type=int, default=0)
+    ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--metrics-every", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--log-every", type=int, default=20)
+    return ap.parse_args(argv)
+
+
+def main(argv=None, *, params: Optional[dict] = None,
+         sketch: Optional[SketchSource] = None):
+    """Run the CLI.  ``params`` (a nested dict of fp32 tensors) replaces the
+    random init and ``sketch`` the S-RSI sketch source, so a caller can
+    start the port from the JAX package's init and draws.  Returns
+    ``(final_state, history)``."""
+    args = parse_args(argv)
+    for flag, default in _NOT_PORTED.items():
+        if getattr(args, flag) != default:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to PyTorch yet; "
+                f"see ROADMAP.md Queue A")
+    mixed = (args.optimizer == "adapprox" if args.mixed_groups is None
+             else args.mixed_groups)
+    if mixed:
+        raise NotImplementedError(
+            "--mixed-groups (the default for adapprox) routes embedding "
+            "tables to the count-min sketch, which is not ported to PyTorch "
+            "yet; pass --no-mixed-groups for Adapprox on every matrix (the "
+            "paper's setup)")
+    device = resolve_device(args.device)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    cfg = (get_smoke_config(args.arch, max_seq_len=args.seq)
+           if args.smoke else get_config(args.arch))
+    model = build_model(cfg)
+    opt = build_optimizer(optimizer_config(
+        args.optimizer, args.steps, args.lr,
+        refresh_every=args.refresh_every, fused_update=args.fused_update),
+        sketch=sketch)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                          global_batch=args.batch)
+    state, history = train(model, opt, data_cfg,
+                           LoopConfig(total_steps=args.steps,
+                                      log_every=args.log_every),
+                           device=device, params=params)
+    if history:
+        print(f"final loss: {history[-1]['loss']:.4f} "
+              f"({history[-1]['step_time_s'] * 1e3:.0f} ms/step)")
+    return state, history
+
+
+if __name__ == "__main__":
+    main()

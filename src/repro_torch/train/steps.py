@@ -1,0 +1,72 @@
+"""Train step: loss -> autograd -> optimizer, with microbatch gradient
+accumulation in fp32 and an optional global-norm clip.  Master parameters
+are fp32; the model casts them to its compute dtype."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch import tree
+from repro_torch.core.types import (GradientTransformation, apply_updates,
+                                    global_norm)
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: dict          # flat {path: fp32 tensor}, JAX flatten order
+    opt_state: Any
+    step: int
+
+    @staticmethod
+    def create(params: dict, opt: GradientTransformation) -> "TrainState":
+        flat = tree.flatten(params)
+        for p in flat.values():
+            p.requires_grad_(True)
+        return TrainState(params=flat, opt_state=opt.init(flat), step=0)
+
+
+def build_train_step(model, opt: GradientTransformation,
+                     microbatches: int = 1,
+                     grad_clip_norm: Optional[float] = None) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
+    is ``{"tokens": (B, S) tensor}`` on the parameters' device."""
+
+    def grads_of(params: dict, tokens: torch.Tensor):
+        loss, _ = model.loss(tree.unflatten(params), {"tokens": tokens})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return dict(zip(params, grads)), loss.detach()
+
+    def compute_grads(params: dict, tokens: torch.Tensor):
+        if microbatches == 1:
+            return grads_of(params, tokens)
+        if tokens.shape[0] % microbatches:
+            raise ValueError(f"batch {tokens.shape[0]} does not split into "
+                             f"{microbatches} microbatches")
+        acc = {k: torch.zeros_like(p, dtype=torch.float32)
+               for k, p in params.items()}
+        loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for mb in tokens.chunk(microbatches):
+            grads, loss = grads_of(params, mb)
+            acc = {k: a + grads[k].float() for k, a in acc.items()}
+            loss_sum = loss_sum + loss
+        inv = 1.0 / microbatches
+        return {k: g * inv for k, g in acc.items()}, loss_sum * inv
+
+    def train_step(state: TrainState, batch: dict):
+        grads, loss = compute_grads(state.params, batch["tokens"])
+        metrics = {"loss": loss}
+        if grad_clip_norm is not None:
+            norm = global_norm(grads)
+            scale = torch.clamp_max(grad_clip_norm / (norm + 1e-12), 1.0)
+            grads = {k: g * scale for k, g in grads.items()}
+            metrics["grad_norm"] = norm
+        with torch.no_grad():
+            updates, opt_state = opt.update(grads, state.opt_state,
+                                            state.params)
+            apply_updates(state.params, updates)
+        return (TrainState(params=state.params, opt_state=opt_state,
+                           step=state.step + 1), metrics)
+
+    return train_step

@@ -1,0 +1,101 @@
+"""Guards of the PyTorch port: it never falls back to the CPU, never
+silently swaps the optimizer the user asked for, refuses the parts that
+are not ported yet, and never imports JAX or the JAX package."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.config import OptimizerConfig
+from repro_torch.core import adapprox as TA
+from repro_torch.core.build import build_optimizer
+from repro_torch.device import resolve_device
+from repro_torch.launch import train as launcher
+
+ROOT = Path(__file__).resolve().parents[1]
+SMOKE = ["--smoke", "--steps", "1", "--batch", "2", "--seq", "16"]
+
+
+def test_launcher_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launcher.main(SMOKE + ["--no-mixed-groups"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("flags", [[], ["--mixed-groups"]])
+def test_mixed_groups_raise_instead_of_switching(flags):
+    """--mixed-groups is the adapprox default; the sketch group it needs
+    is not ported, and silently dropping it would change the optimizer."""
+    with pytest.raises(NotImplementedError, match="--no-mixed-groups"):
+        launcher.main(SMOKE + ["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flag", [["--warm-start"], ["--bucketed"],
+                                  ["--quantize-factors"], ["--guards"],
+                                  ["--ckpt-dir", "x"], ["--mesh", "2"]])
+def test_unported_launcher_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        launcher.main(SMOKE + ["--device", "cpu", "--no-mixed-groups"]
+                      + flag)
+
+
+@pytest.mark.parametrize("knob", [dict(implicit=True), dict(bucketed=True),
+                                  dict(warm_start=True),
+                                  dict(use_kernels=True),
+                                  dict(factor_dtype="int8"),
+                                  dict(telemetry=True),
+                                  dict(dynamic_refresh=True),
+                                  dict(guards=object())])
+def test_unported_adapprox_knobs_raise(knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TA.scale_by_adapprox(TA.AdapproxConfig(**knob))
+
+
+@pytest.mark.parametrize("change", [dict(name="adamw"),
+                                    dict(groups=(("all", None),)),
+                                    dict(implicit=True)])
+def test_build_optimizer_refuses_what_is_not_ported(change):
+    cfg = dataclasses.replace(OptimizerConfig(implicit=False), **change)
+    with pytest.raises(NotImplementedError):
+        build_optimizer(cfg)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Import every module of repro_torch, and chip_smoke.py, in a fresh
+    interpreter and inspect sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
+    """Without CUDA the smoke script exits non-zero and prints no result;
+    alone in a directory (no repro_torch beside it) it fails too."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -7,22 +7,31 @@ Run from the root of a checkout on a machine with one CUDA card (H100,
 sm_90a) and the CUDA toolkit.  In order, it
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the fused-update kernels from ``src/repro_torch/kernels/csrc``
-     with nvcc and prints the build time and the ptxas report;
+  2. builds every kernel source in ``src/repro_torch/kernels/csrc`` with
+     nvcc, one process per source, all started together, and prints the
+     build time and the ptxas report;
   3. holds every kernel variant against its plain PyTorch version on the
-     card at every leaf shape of the GPT-2 117M main path (pass 1 plain,
-     guided, fold; pass 2 shared, two-output, dense) and times each with
-     CUDA events beside its bound and the plain version's time;
+     card at every leaf shape of the GPT-2 117M main paths (pass 1 plain,
+     guided, fold; pass 2 shared, two-output, dense; the sketch scatter +
+     query at the embedding shapes of the mixed groups and one ragged
+     shape, bitwise repeatable) and times each beside its bound and the
+     plain version's time;
   4. checks the kernel path end to end against the plain path on a small
      input: the GPT-2 smoke model in fp32 trains a few steps on the card
      and on the CPU from the same init and sketches, and the losses, ranks
-     and parameters must agree;
+     and parameters must agree -- without and with the mixed groups;
   5. trains GPT-2 117M at full width through ``repro_torch.launch.train``
      (12 steps, batch 8 x 1024, --no-mixed-groups --fused-update
      --refresh-every 5) with the launch counters set to 0 just before, and
      checks a finite, falling loss and one pass-1 launch per factored leaf
-     and one pass-2 launch per leaf per step;
-  6. prints one JSON line with each kernel's launches, error and times,
+     and one pass-2 launch per leaf per step; then the same run on the
+     launcher's default mixed groups (count-min sketch on embed and
+     pos_embed, Adapprox on the six block matrices, dense Adam on the
+     rest), with two sketch launches per sketched leaf per step;
+  6. breaks a step of each run down into model and optimizer time;
+  7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
+     and AdamW and holds them against ``BENCH_memory.json``;
+  8. prints one JSON line with each kernel's launches, error and times,
      then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, so the script exits non-zero without the last
@@ -49,7 +58,11 @@ PEAK_BYTES_PER_S = 3.35e12
 TRAIN_ARGV = ["--arch", "gpt2-117m", "--steps", "12", "--batch", "8",
               "--seq", "1024", "--no-mixed-groups", "--fused-update",
               "--refresh-every", "5", "--log-every", "1", "--device", "cuda"]
+# the launcher's default: mixed groups for adapprox
+TRAIN_MIXED_ARGV = [a for a in TRAIN_ARGV if a != "--no-mixed-groups"]
 B2, EPS, B1 = 0.999, 1e-8, 0.9
+# the smoke model's mixed groups: embed (512 rows) is sketched
+SMALL_MIXED = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)
 
 # Tolerances, relative to the largest magnitude of the plain output.
 # Pass 1 sums Q U^T over r (and the fold over m) in another order than the
@@ -59,6 +72,10 @@ B2, EPS, B1 = 0.999, 1e-8, 0.9
 TOL_PRECOND = 1e-5
 TOL_SUMS = 1e-4
 TOL_APPLY = 1e-6
+# The sketch scatter sums ~25 squares per bucket (embed: 50257 rows over
+# 2048 buckets) in ascending row order; the plain version's index_add_ on
+# the card sums them with atomics in another order.
+TOL_SKETCH = 1e-5
 
 
 def fail(msg: str):
@@ -132,7 +149,8 @@ def time_pair(kern, plain, kernel_name: str, rec: dict, bound: float,
 
 def main_path_leaves(device):
     """(factored [(shape, r)], dense [size]) of GPT-2 117M under the
-    launcher's optimizer, read from the optimizer state itself."""
+    launcher's optimizer with --no-mixed-groups (Adapprox on every leaf),
+    read from the optimizer state itself."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_config
@@ -271,6 +289,81 @@ def check_apply(fact, dense, device):
     return rec
 
 
+def sketch_cases(device):
+    """(name, rows, d, width, depth, seeds) for the sketch kernel checks:
+    the sketched leaves of GPT-2 117M under the launcher's mixed groups,
+    read from the optimizer state itself (embed and pos_embed, hash seeds
+    of leaves 0 and 1 of the sketch group, seed 0, depth 4, width 2048),
+    and one ragged shape."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.core.sketch import _leaf_seeds, sketch_state
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+
+    flat = tree.flatten(build_model(get_config("gpt2-117m")).init(
+        torch.Generator(device=device).manual_seed(0)))
+    state = build_optimizer(optimizer_config(
+        "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
+        mixed_groups=True)).init(flat)
+    names = [k for k, lab in zip(flat, state.labels) if lab == "embeddings"]
+    cases = [(name, leaf.shape[0], leaf.table.shape[2], leaf.table.shape[1],
+              leaf.table.shape[0], leaf.seeds)
+             for name, leaf in zip(names, sketch_state(state).leaves)]
+    if [c[0] for c in cases] != ["embed", "pos_embed"] or any(
+            c[5] != _leaf_seeds(0, i, 4) for i, c in enumerate(cases)):
+        fail(f"mixed groups sketch {[c[:5] for c in cases]}, expected embed "
+             f"and pos_embed at leaves 0 and 1 of the sketch group")
+    del flat, state
+    torch.cuda.empty_cache()
+    return cases + [("ragged", 1000, 100, 256, 3, _leaf_seeds(0, 0, 3))]
+
+
+def check_sketch(cases, device):
+    """Scatter + query against the plain version, two launches bitwise
+    equal, at every case; the main path's leaves are timed."""
+    import torch
+    from repro_torch.core.sketch import bucket_indices
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(3)
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, rows, d, width, depth, seeds in cases:
+        idx = torch.from_numpy(bucket_indices(rows, width, seeds)).to(device)
+        order, offsets = ops.bucket_order(idx, width)
+        # (1 - b2) * (~25 squares of unit normals) ~ b2 * table
+        table = torch.rand((depth, width, d), generator=gen,
+                           device=device) * 0.025
+        g = torch.randn((rows, d), generator=gen, device=device)
+        kern = lambda: ops.sketch_update(table, g, idx, B2, order=order,
+                                         offsets=offsets)
+        plain = lambda: ref.sketch_update(table, g, idx, B2)
+        first, second, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        errs = []
+        for label, a, a2, b in zip(("table", "vhat"), first, second, want):
+            if not torch.equal(a, a2):
+                fail(f"sketch_update {name}: two launches differ in {label}")
+            if not bool(torch.isfinite(a).all()):
+                fail(f"sketch_update {name}: {label} not finite")
+            ab, rel = rel_err(a, b)
+            errs.append(f"{label} {ab:.3e} ({rel:.2e})")
+            if rel > TOL_SKETCH:
+                fail(f"sketch_update {name} rows={rows} d={d} width={width} "
+                     f"depth={depth}: {label} rel err {rel:.3e} > "
+                     f"{TOL_SKETCH}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], ab)
+        print(f"  sketch_update {name} rows={rows} d={d} width={width} "
+              f"depth={depth}: " + ", ".join(errs) + "; bitwise repeatable")
+        if name != "ragged":
+            nbytes = 4 * (2 * rows * d + 2 * depth * width * d + depth * rows)
+            time_pair(kern, plain, "sketch_", rec,
+                      1e3 * nbytes / PEAK_BYTES_PER_S, name)
+        del table, g, idx, order, offsets, first, second, want
+    return rec
+
+
 class _CallOrderSketch:
     """Sketch source drawing from one CPU generator in call order, so two
     runs that call it alike get the same Gaussian sketches on any device."""
@@ -284,16 +377,19 @@ class _CallOrderSketch:
         return torch.randn(shape, generator=self.gen)
 
 
-def check_small_parity(device):
+def check_small_parity(device, mixed: bool = False):
     """Kernel path (card) against plain path (CPU), end to end: GPT-2
     smoke in fp32, 4 steps with refresh_every=3 (refresh, fold, fold,
-    refresh), same init and sketches."""
+    refresh), same init and sketches.  With ``mixed`` on the launcher's
+    mixed groups, with the token embedding sketched."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_smoke_config
     from repro_torch.core.adapprox import adapprox_state
     from repro_torch.core.build import build_optimizer
+    from repro_torch.core.sketch import SketchLeaf, sketch_state
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import sketch_update as SK
     from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.train_loop import LoopConfig, train
@@ -302,10 +398,12 @@ def check_small_parity(device):
                               dtype="float32")
     model = build_model(cfg)
     init = model.init(torch.Generator().manual_seed(0))
+    kw = dict(mixed_groups=True, **SMALL_MIXED) if mixed else {}
     runs = {}
+    SK.reset_launches()
     for dev in (torch.device("cpu"), device):
         opt = build_optimizer(optimizer_config(
-            "adapprox", 4, 3e-3, refresh_every=3, fused_update=True),
+            "adapprox", 4, 3e-3, refresh_every=3, fused_update=True, **kw),
             sketch=_CallOrderSketch(5))
         params = {k: v.detach().clone().to(dev)
                   for k, v in tree.flatten(init).items()}
@@ -332,17 +430,35 @@ def check_small_parity(device):
     print(f"  ranks {k_cpu}; max param rel err {worst:.2e}")
     if worst > 1e-4:
         fail(f"small-input parity: params differ by {worst:.2e}")
+    if mixed:
+        n_sk = sum(isinstance(leaf, SketchLeaf)
+                   for leaf in sketch_state(s_gpu.opt_state).leaves)
+        want = {"sketch_scatter": 4 * n_sk, "sketch_query": 4 * n_sk}
+        print(f"  sketched leaves {n_sk}; sketch launches on the card "
+              f"{SK.LAUNCHES}")
+        if n_sk < 1 or SK.LAUNCHES != want:
+            fail(f"small-input parity: sketch launches {SK.LAUNCHES}, "
+                 f"expected {want}")
 
 
-def train_main_path():
+def train_main_path(argv, expect: dict):
+    """One main-path run of the launcher; returns its launch counts, which
+    must be one per leaf and step as the optimizer state implies, and
+    ``expect``."""
     import torch
+    from repro_torch.core.adapprox import adapprox_state
+    from repro_torch.core.sketch import SketchLeaf, SketchState
+    from repro_torch.core.types import find_states
     from repro_torch.kernels import fused_update as K
+    from repro_torch.kernels import sketch_update as SK
     from repro_torch.launch import train as launcher
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    state, hist = launcher.main(TRAIN_ARGV)
+    SK.reset_launches()
+    state, hist = launcher.main(argv)
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = {**K.LAUNCHES, **SK.LAUNCHES}
     losses = [h["loss"] for h in hist]
     times = [h["step_time_s"] for h in hist]
     for h in hist:
@@ -352,13 +468,17 @@ def train_main_path():
         fail(f"main path: losses {losses}")
     if not losses[-1] < losses[0]:
         fail(f"main path: loss did not fall ({losses[0]} -> {losses[-1]})")
-    n_fact = sum(1 for leaf in state.opt_state[0].leaves if hasattr(leaf, "q"))
-    n_all = len(state.opt_state[0].leaves)
-    want = {"fused_precond": 12 * n_fact, "fused_apply": 12 * n_all}
+    adapprox = adapprox_state(state.opt_state).leaves
+    n_fact = sum(1 for leaf in adapprox if hasattr(leaf, "q"))
+    n_sk = sum(isinstance(leaf, SketchLeaf)
+               for sub in find_states(state.opt_state, SketchState)
+               for leaf in sub.leaves)
+    want = {"fused_precond": 12 * n_fact, "fused_apply": 12 * len(adapprox),
+            "sketch_scatter": 12 * n_sk, "sketch_query": 12 * n_sk}
     print(f"  launches {launches} (expected {want}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if launches != want:
-        fail(f"main path launches {launches}, expected {want}")
+    if launches != want or launches != expect:
+        fail(f"main path launches {launches}, expected {want} and {expect}")
     refresh = [t for i, t in enumerate(times, 1) if i % 5 == 1 and i > 1]
     fold = [t for i, t in enumerate(times, 1) if i % 5 != 1]
     tokens = 8 * 1024
@@ -368,11 +488,12 @@ def train_main_path():
     return launches
 
 
-def step_breakdown(device):
+def step_breakdown(device, mixed: bool = False):
     """Where a main-path step goes: model forward+backward and optimizer
     timed apart (host clock around synchronised work) over steps 1-7 of
-    the main path's config, and a profile of step 6 (refresh) and step 7
-    (fold) for the device's busy share and its largest kernels."""
+    the main path's config (``mixed``: on the mixed groups), and a profile
+    of step 6 (refresh) and step 7 (fold) for the device's busy share and
+    its largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree
@@ -388,7 +509,8 @@ def step_breakdown(device):
     model = build_model(cfg)
     opt = build_optimizer(optimizer_config("adapprox", 12, 3e-3,
                                            refresh_every=5,
-                                           fused_update=True))
+                                           fused_update=True,
+                                           mixed_groups=mixed))
     state = TrainState.create(
         model.init(torch.Generator(device=device).manual_seed(0)), opt)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=1024,
@@ -438,12 +560,50 @@ def step_breakdown(device):
                   f"x{e.count:<5d} {e.key[:90]}")
 
 
+def check_memory(device):
+    """Optimizer-state bytes of GPT-2 117M under bench_memory.py's
+    ``mixed_groups`` and ``adamw`` configs at b1 = 0.9 (implicit=False,
+    the port's only Adapprox form; the bytes do not depend on it), against
+    BENCH_memory.json.  Counts the tensors that mirror the JAX state's
+    array leaves; the sketch's bucket buffers are not state."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.config import OptimizerConfig, default_mixed_groups
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.core.types import tree_nbytes
+    from repro_torch.models.model_zoo import build_model
+
+    rows = json.loads((ROOT / "BENCH_memory.json").read_text())
+    want = {r["method"]: r["state_mb"] for r in rows["results"]["table2"]
+            if r["arch"] == "gpt2-117m" and r["b1"] == 0.9}
+    flat = tree.flatten(build_model(get_config("gpt2-117m")).init(
+        torch.Generator(device=device).manual_seed(0)))
+    base = dict(b1=0.9, schedule="constant", lr=1e-3, weight_decay=0.0)
+    cfgs = {"mixed_groups": OptimizerConfig(
+                name="adapprox", k=1, k_max=10**9, rank_mode="paper",
+                groups=default_mixed_groups(), implicit=False, **base),
+            "adamw": OptimizerConfig(name="adamw", **base)}
+    for name, cfg in cfgs.items():
+        state = build_optimizer(cfg).init(flat)
+        mb = tree_nbytes(state) / 1e6
+        del state
+        print(f"  {name}: {mb:.6f} MB (BENCH_memory.json {want[name]} MB)")
+        if abs(mb - want[name]) > 0.05:
+            fail(f"optimizer state of {name}: {mb:.3f} MB, "
+                 f"BENCH_memory.json says {want[name]}")
+    del flat
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a GPU")
     from repro_torch.device import resolve_device
+    from repro_torch.kernels import cuda
     from repro_torch.kernels import fused_update as K
+    from repro_torch.kernels import sketch_update as SK
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = resolve_device("cuda")
@@ -454,34 +614,67 @@ def main():
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     t0 = time.monotonic()
-    K.build()
-    print(f"[build] {time.monotonic() - t0:.1f} s")
-    for line in K.BUILD_LOG["output"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    cuda.build(K.SOURCE, SK.SOURCE)
+    print(f"[build] {time.monotonic() - t0:.1f} s (one nvcc per source, "
+          f"in parallel)")
+    for src in (K.SOURCE, SK.SOURCE):
+        log = cuda.BUILD_LOG[src.stem]
+        print(f"  {src.name}: {log['seconds']:.1f} s")
+        for line in log["output"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
 
     fact, dense = main_path_leaves(device)
     print("[kernels] fused_precond vs plain, every factored leaf")
     pre = check_precond(fact, device)
     print("[kernels] fused_apply vs plain, every leaf")
     app = check_apply(fact, dense, device)
+    print("[kernels] sketch_update (scatter + query) vs plain, every "
+          "sketched leaf of the mixed groups and a ragged shape")
+    sk = check_sketch(sketch_cases(device), device)
     print("[parity] kernel path on the card vs plain path on the CPU")
     check_small_parity(device)
+    print("[parity] mixed groups, kernel path on the card vs plain path on "
+          "the CPU")
+    check_small_parity(device, mixed=True)
     print("[train] GPT-2 117M, " + " ".join(TRAIN_ARGV))
-    launches = train_main_path()
+    # 12 steps: 8 factored + 8 dense leaves; 6 factored, 2 sketched
+    runs = {"no_mixed": train_main_path(TRAIN_ARGV, dict(
+        fused_precond=96, fused_apply=192, sketch_scatter=0,
+        sketch_query=0))}
+    print("[train-mixed] GPT-2 117M on the launcher's default mixed groups, "
+          + " ".join(TRAIN_MIXED_ARGV))
+    runs["mixed"] = train_main_path(TRAIN_MIXED_ARGV, dict(
+        fused_precond=72, fused_apply=72, sketch_scatter=24,
+        sketch_query=24))
     print("[breakdown] model vs optimizer, refresh vs fold step")
     step_breakdown(device)
+    print("[breakdown-mixed] the same on the mixed groups")
+    step_breakdown(device, mixed=True)
+    print("[memory] optimizer state of GPT-2 117M vs BENCH_memory.json")
+    check_memory(device)
+
+    def launches(*names):
+        return dict(
+            launches=sum(r[n] for r in runs.values() for n in names),
+            launches_by_path={p: sum(r[n] for n in names)
+                              for p, r in runs.items()})
 
     src = "src/repro_torch/kernels/csrc/fused_update.cu"
     kernels = [
         dict(name="fused_precond", route="cuda", source=src,
              replaces="src/repro/kernels/fused_update.py:130",
-             launches=launches["fused_precond"], bound_by="operations",
+             **launches("fused_precond"), bound_by="operations",
              library_ms=None, **pre),
         dict(name="fused_apply", route="cuda", source=src,
              replaces="src/repro/kernels/fused_update.py:233",
-             launches=launches["fused_apply"], bound_by="bytes",
+             **launches("fused_apply"), bound_by="bytes",
              library_ms=None, **app),
+        dict(name="sketch_update", route="cuda",
+             source="src/repro_torch/kernels/csrc/sketch_update.cu",
+             replaces="src/repro/kernels/sketch_update.py:80",
+             **launches("sketch_scatter", "sketch_query"), bound_by="bytes",
+             library_ms=None, **sk),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

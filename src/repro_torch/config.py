@@ -1,5 +1,5 @@
 """Model and optimizer configs (frozen dataclasses), copied from the JAX
-package's ``config.py`` for the fields the port's slice reads."""
+package's ``config.py`` for the fields the port reads."""
 from __future__ import annotations
 
 import dataclasses
@@ -35,10 +35,48 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    """One parameter group inside :attr:`OptimizerConfig.groups`.
+
+    ``select`` picks the leaves this group owns (first matching group in
+    declaration order wins):
+
+      * ``"embeddings"`` -- >= 2-D leaves whose LEADING dim is at least
+        ``OptimizerConfig.embedding_min_rows`` (vocab / embedding tables);
+      * ``"factored"`` -- >= 2-D leaves whose smaller trailing dim is at
+        least ``OptimizerConfig.min_dim_factor``;
+      * ``"matrices"`` -- every >= 2-D leaf;
+      * ``"vectors"``  -- < 2-D leaves (biases, norm scales, scalars);
+      * ``"rest"``     -- catch-all (every groups tuple must end in one).
+
+    ``name`` is the optimizer family for the group; ``None`` inherits the
+    parent config's ``name``.  ``lr_scale`` multiplies the group's learning
+    rate (shared warmup/decay shape, scaled peak).
+    """
+
+    select: str = "rest"
+    name: Optional[str] = None
+    lr_scale: float = 1.0
+
+
+def default_mixed_groups() -> tuple:
+    """The launcher's mixed partition, three state families: the count-min
+    sketch on embedding tables, the parent family (Adapprox) on factorable
+    matrices, and bias-corrected dense Adam on the rest.  ``"embeddings"``
+    comes first so wide tables reach the sketch before ``"factored"`` can
+    claim them."""
+    return (("embeddings", GroupSpec(select="embeddings", name="sketch")),
+            ("factored", GroupSpec(select="factored")),
+            ("dense", GroupSpec(select="rest", name="adamw")))
+
+
+@dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """Declarative optimizer spec, the input to ``core.build_optimizer``.
     Field names and defaults follow the JAX package's ``OptimizerConfig``;
-    the port builds the ``adapprox`` family without parameter groups."""
+    the port builds the ``adapprox``, ``adamw`` and ``sketch`` families and
+    their parameter groups (``groups``, a tuple of ``(label, GroupSpec)``
+    pairs ending in a ``"rest"`` catch-all)."""
 
     name: str = "adapprox"
     lr: float = 3e-4
@@ -73,4 +111,10 @@ class OptimizerConfig:
     factor_dtype: str = "float32"
     quantize_factors: bool = False
     seed: int = 0
+    # count-min sketch family (core/sketch.py): depth x width buckets per
+    # leaf, hashed over the row axis; embedding_min_rows is also the
+    # "embeddings" GroupSpec threshold
+    sketch_width: int = 2048
+    sketch_depth: int = 4
+    embedding_min_rows: int = 1024
     groups: tuple = ()

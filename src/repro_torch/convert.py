@@ -2,9 +2,10 @@
 
 ``params_from_numpy`` takes the JAX parameter pytree (nested dicts of
 numpy arrays, e.g. from ``jax.device_get``) and returns the port's
-parameters; ``adapprox_state_from_numpy`` does the same for the leaves of
-an ``AdapproxState``.  With both, a test can start the two packages from
-the same mid-run state.  Nothing here imports JAX.
+parameters; ``adapprox_state_from_numpy``, ``sketch_state_from_numpy`` and
+``adam_state_from_numpy`` do the same for an ``AdapproxState``, a
+``SketchState`` and an ``AdamWState``.  With them, a test can start the two
+packages from the same mid-run state.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -13,8 +14,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import tree
+from repro_torch.core.adamw import AdamWState
 from repro_torch.core.adapprox import AdapproxState
 from repro_torch.core.factored import DenseLeaf, FactoredLeaf
+from repro_torch.core.sketch import SketchDense, SketchLeaf, SketchState
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -43,3 +47,32 @@ def adapprox_state_from_numpy(step: int, leaves: Sequence,
         else:
             out.append(DenseLeaf(v=f32(leaf.v), m1=f32(leaf.m1)))
     return AdapproxState(step=int(step), leaves=tuple(out))
+
+
+def sketch_state_from_numpy(step: int, leaves: Sequence,
+                            device: str | torch.device = "cpu"
+                            ) -> SketchState:
+    """``leaves``: per-parameter objects in flatten order carrying ``table,
+    m, seeds, shape`` (sketched) or ``m, v`` (dense), as the JAX package's
+    ``SketchLeaf`` / ``SketchDense`` do after ``device_get``."""
+    f32 = lambda x: None if x is None else _t(x, device, torch.float32)
+    out = []
+    for leaf in leaves:
+        if hasattr(leaf, "table"):
+            out.append(SketchLeaf(table=f32(leaf.table), m=f32(leaf.m),
+                                  seeds=tuple(tuple(int(v) for v in ab)
+                                              for ab in leaf.seeds),
+                                  shape=tuple(int(d) for d in leaf.shape)))
+        else:
+            out.append(SketchDense(m=f32(leaf.m), v=f32(leaf.v)))
+    return SketchState(step=int(step), leaves=tuple(out))
+
+
+def adam_state_from_numpy(step: int, m: dict, v: dict,
+                          device: str | torch.device = "cpu") -> AdamWState:
+    """``m`` / ``v``: the JAX ``AdamWState``'s moment pytrees as (nested)
+    dicts of arrays; the port keys them by flattened path.  ``None``
+    entries (leaves of other groups inside a partition) are dropped."""
+    f32 = lambda d: {k: _t(x, device, torch.float32)
+                     for k, x in tree.flatten(d).items() if x is not None}
+    return AdamWState(step=int(step), m=f32(m), v=f32(v))

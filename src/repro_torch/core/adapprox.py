@@ -40,7 +40,7 @@ from repro_torch.core import rank as R
 from repro_torch.core import srsi as S
 from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
-from repro_torch.core.types import GradientTransformation, chain
+from repro_torch.core.types import GradientTransformation, chain, find_states
 from repro_torch.kernels import ops, ref
 
 
@@ -342,8 +342,7 @@ def adapprox(cfg: AdapproxConfig,
 
 
 def adapprox_state(state) -> AdapproxState:
-    """The ``AdapproxState`` inside a chain state."""
-    for sub in (state if isinstance(state, tuple) else (state,)):
-        if isinstance(sub, AdapproxState):
-            return sub
+    """The ``AdapproxState`` inside a chain or partition state."""
+    for sub in find_states(state, AdapproxState):
+        return sub
     raise ValueError("no AdapproxState found in optimizer state")

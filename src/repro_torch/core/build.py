@@ -1,21 +1,37 @@
 """``build_optimizer(OptimizerConfig)``: the one optimizer-construction path
-of the port.  Lowers the config to the documented chain
+of the port.  Lowers the config to the documented chains
 
     adapprox : scale_by_adapprox -> +wd*W -> *lr_t -> *(-1)
+    adamw    : scale_by_adam     -> +wd*W -> *lr_t -> *(-1)
+    sketch   : scale_by_sketch   -> +wd*W -> *lr_t -> *(-1)
 
-Other families and parameter groups (the launcher's mixed-groups
-partition) are not ported yet and raise.
+``cfg.groups`` lowers to :func:`repro_torch.core.transform.partition`:
+each ``(label, GroupSpec)`` pair becomes its own chain (the group's family,
+the shared decay mask, the shared schedule scaled by ``lr_scale``, the
+descent sign), and a shape-based labeler routes every leaf to the first
+group whose ``select`` matches.  The launcher's default,
+``default_mixed_groups()``, runs the count-min sketch on embedding tables,
+Adapprox on factorable matrices and dense Adam on the rest.
+
+The ``adafactor`` and ``came`` families and guards are not ported yet and
+raise.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
-from repro_torch.config import OptimizerConfig
-from repro_torch.core.adapprox import AdapproxConfig, adapprox
+from repro_torch.config import GroupSpec, OptimizerConfig
+from repro_torch.core.adamw import scale_by_adam
+from repro_torch.core.adapprox import AdapproxConfig, scale_by_adapprox
+from repro_torch.core.factored import should_factor
 from repro_torch.core.rank import RankConfig
+from repro_torch.core.sketch import (SketchConfig, scale_by_sketch,
+                                     should_sketch)
 from repro_torch.core.srsi import SketchSource
-from repro_torch.core.transform import resolve_decay_mask
-from repro_torch.core.types import (GradientTransformation, Schedule,
+from repro_torch.core.transform import (add_decayed_weights, partition,
+                                        resolve_decay_mask, scale,
+                                        scale_by_schedule)
+from repro_torch.core.types import (GradientTransformation, Schedule, chain,
                                     constant_schedule)
 
 
@@ -29,37 +45,123 @@ def _schedule_of(cfg: OptimizerConfig) -> Callable:
                      f"(expected 'cosine' or 'constant')")
 
 
+def _preconditioner(cfg: OptimizerConfig, name: str, sched: Callable,
+                    sketch: Optional[SketchSource]) -> GradientTransformation:
+    """The ``scale_by_*`` stage of one optimizer family."""
+    if name == "adapprox":
+        return scale_by_adapprox(AdapproxConfig(
+            lr=sched, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, clip_d=cfg.clip_d,
+            weight_decay=cfg.weight_decay,
+            rank=RankConfig(k_init=cfg.k, k_max=cfg.k_max,
+                            xi_thresh=cfg.xi_thresh, delta_s=cfg.delta_s,
+                            mode=cfg.rank_mode),
+            oversample=cfg.oversample, n_iter=cfg.n_iter,
+            min_dim_factor=cfg.min_dim_factor, guidance=cfg.guidance,
+            implicit=cfg.implicit, use_kernels=cfg.use_kernels,
+            factor_dtype=("int8" if cfg.quantize_factors
+                          else cfg.factor_dtype),
+            seed=cfg.seed, refresh_every=cfg.refresh_every,
+            warm_start=cfg.warm_start, bucketed=cfg.bucketed,
+            fused_update=cfg.fused_update, telemetry=cfg.telemetry,
+            dynamic_refresh=cfg.dynamic_refresh, sketch=sketch))
+    if name == "adamw":
+        return scale_by_adam(cfg.b1, cfg.b2, cfg.eps)
+    if name == "sketch":
+        return scale_by_sketch(SketchConfig(
+            lr=sched, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+            weight_decay=cfg.weight_decay, depth=cfg.sketch_depth,
+            width=cfg.sketch_width, min_rows=cfg.embedding_min_rows,
+            seed=cfg.seed, telemetry=cfg.telemetry))
+    if name in ("adafactor", "came"):
+        raise NotImplementedError(
+            f"optimizer family {name!r} is not ported to PyTorch yet; the "
+            f"port builds 'adapprox', 'adamw' and 'sketch' (see ROADMAP.md "
+            f"Queue A)")
+    raise ValueError(f"unknown optimizer {name!r}; "
+                     f"available: adapprox, adamw, adafactor, came, sketch")
+
+
+def _chain_for(cfg: OptimizerConfig, name: str, sched: Callable, mask,
+               sketch: Optional[SketchSource],
+               lr_scale: float = 1.0) -> GradientTransformation:
+    """preconditioner -> +wd*W -> *lr_t -> *(-1)."""
+    return chain(
+        _preconditioner(cfg, name, sched, sketch),
+        add_decayed_weights(cfg.weight_decay, mask),
+        scale_by_schedule(sched, lr_scale=lr_scale),
+        scale(-1.0),
+    )
+
+
+def _select_matches(select: str, shape: tuple, min_dim_factor: int,
+                    embedding_min_rows: int) -> bool:
+    if select == "embeddings":
+        return should_sketch(tuple(shape), embedding_min_rows)
+    if select == "factored":
+        return should_factor(tuple(shape), min_dim_factor)
+    if select == "matrices":
+        return len(shape) >= 2
+    if select == "vectors":
+        return len(shape) < 2
+    if select == "rest":
+        return True
+    raise ValueError(f"unknown GroupSpec.select {select!r} (expected "
+                     f"'embeddings', 'factored', 'matrices', 'vectors' "
+                     f"or 'rest')")
+
+
+def group_labeler(groups: tuple, min_dim_factor: int,
+                  embedding_min_rows: int = 1024) -> Callable:
+    """params -> {name: label}, the first matching group (declaration
+    order) wins.  Looks at leaf shapes only."""
+
+    def label_of(p):
+        for label, g in groups:
+            if _select_matches(g.select, tuple(p.shape), min_dim_factor,
+                               embedding_min_rows):
+                return label
+        raise ValueError(
+            f"no group matches leaf of shape {tuple(p.shape)}; add a "
+            f"catch-all (label, GroupSpec(select='rest')) group")
+
+    return lambda params: {k: label_of(p) for k, p in params.items()}
+
+
+def _build_partitioned(cfg: OptimizerConfig, sched: Callable, mask,
+                       sketch: Optional[SketchSource]
+                       ) -> GradientTransformation:
+    groups = tuple(cfg.groups)
+    seen = set()
+    for label, g in groups:
+        if not isinstance(g, GroupSpec):
+            raise TypeError(f"group {label!r}: expected GroupSpec, got "
+                            f"{type(g).__name__}")
+        if label in seen:
+            raise ValueError(f"duplicate group label {label!r}")
+        seen.add(label)
+    if groups[-1][1].select != "rest":
+        raise ValueError("the last group must be a catch-all "
+                         "GroupSpec(select='rest') so every leaf is owned")
+    transforms = {
+        label: _chain_for(cfg, g.name or cfg.name, sched, mask, sketch,
+                          g.lr_scale)
+        for label, g in groups}
+    return partition(group_labeler(groups, cfg.min_dim_factor,
+                                   cfg.embedding_min_rows), transforms)
+
+
 def build_optimizer(cfg: OptimizerConfig,
                     sketch: Optional[SketchSource] = None
                     ) -> GradientTransformation:
-    """Build the configured chain.  ``sketch`` replaces the Gaussian sketch
-    source of S-RSI (see ``core/srsi.py``); None draws seeded torch
-    normals."""
-    if cfg.groups:
-        raise NotImplementedError(
-            "parameter groups (the mixed-groups partition with the sketch "
-            "family) are not ported to PyTorch yet; see ROADMAP.md Queue A "
-            "item 9")
-    if cfg.name != "adapprox":
-        raise NotImplementedError(
-            f"optimizer family {cfg.name!r} is not ported to PyTorch yet; "
-            f"the port builds 'adapprox' (see ROADMAP.md Queue A)")
+    """Build the configured chain, or with ``cfg.groups`` the partitioned
+    per-group chains.  ``sketch`` replaces the Gaussian sketch source of
+    S-RSI in every Adapprox stage (see ``core/srsi.py``); None draws
+    seeded torch normals."""
     if cfg.guards:
         raise NotImplementedError("guards are not ported to PyTorch yet; "
                                   "see ROADMAP.md Queue A")
     sched = _schedule_of(cfg)
-    acfg = AdapproxConfig(
-        lr=sched, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, clip_d=cfg.clip_d,
-        weight_decay=cfg.weight_decay,
-        rank=RankConfig(k_init=cfg.k, k_max=cfg.k_max,
-                        xi_thresh=cfg.xi_thresh, delta_s=cfg.delta_s,
-                        mode=cfg.rank_mode),
-        oversample=cfg.oversample, n_iter=cfg.n_iter,
-        min_dim_factor=cfg.min_dim_factor, guidance=cfg.guidance,
-        implicit=cfg.implicit, use_kernels=cfg.use_kernels,
-        factor_dtype="int8" if cfg.quantize_factors else cfg.factor_dtype,
-        seed=cfg.seed, refresh_every=cfg.refresh_every,
-        warm_start=cfg.warm_start, bucketed=cfg.bucketed,
-        fused_update=cfg.fused_update, telemetry=cfg.telemetry,
-        dynamic_refresh=cfg.dynamic_refresh, sketch=sketch)
-    return adapprox(acfg, resolve_decay_mask(cfg.decay_mask))
+    mask = resolve_decay_mask(cfg.decay_mask)
+    if cfg.groups:
+        return _build_partitioned(cfg, sched, mask, sketch)
+    return _chain_for(cfg, cfg.name, sched, mask, sketch)

@@ -80,8 +80,12 @@ def add_decayed_weights(weight_decay: float,
     return GradientTransformation(_empty_init, update)
 
 
-def scale_by_schedule(schedule: "float | Callable") -> GradientTransformation:
-    """Multiply updates by ``schedule(t)`` with ``t`` counting from 1."""
+def scale_by_schedule(schedule: "float | Callable",
+                      lr_scale: float = 1.0) -> GradientTransformation:
+    """Multiply updates by ``schedule(t)`` with ``t`` counting from 1.
+    ``lr_scale`` is a per-group multiplier on top of the shared schedule
+    (inside :func:`partition` chains), applied in float32 as in the JAX
+    package; 1.0 leaves the arithmetic unchanged."""
     sched = resolve_schedule(schedule)
 
     def init(params):
@@ -91,8 +95,70 @@ def scale_by_schedule(schedule: "float | Callable") -> GradientTransformation:
     def update(updates, state, params):
         del params
         count = state.count + 1
-        lr = float(sched(count))     # a float32 value, exact as a double
+        lr = sched(count)            # a float32 scalar
+        if lr_scale != 1.0:
+            lr = lr * lr_scale
+        lr = float(lr)               # exact as a double
         return ({k: u * lr for k, u in updates.items()},
                 CountState(count=count))
+
+    return GradientTransformation(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Parameter-group partitioning
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PartitionState:
+    """State of :func:`partition`: ``inner`` maps each label to its
+    transform's state; ``labels`` holds one label per parameter leaf, in
+    flatten order, fixed at init."""
+
+    inner: dict
+    labels: tuple
+
+
+def partition(labeler: "Callable | dict",
+              transforms: "dict[str, GradientTransformation]"
+              ) -> GradientTransformation:
+    """Route parameter groups through per-label transforms.
+
+    ``labeler``: ``{name: label}`` for the params, or a callable ``params
+    -> {name: label}``.  Every label must be a key of ``transforms``.
+    Each transform sees a dict of only the leaves it owns, in flatten
+    order, so a leaf's position inside its group (which keys the S-RSI
+    sketch and the count-min hash seeds) is its position among that
+    group's leaves, as in the JAX package, where the other leaves are
+    ``None`` and drop out of the flatten.  Updates are merged back by
+    name.  A group that owns no leaf gets an empty dict."""
+    items = tuple(sorted(transforms.items()))
+    known = {label for label, _ in items}
+
+    def own(tree: dict, params: dict, labels: tuple, label: str) -> dict:
+        return {k: tree[k] for k, l in zip(params, labels) if l == label}
+
+    def init(params):
+        labels = labeler(params) if callable(labeler) else labeler
+        labels = tuple(labels[k] for k in params)
+        if not set(labels) <= known:
+            raise ValueError(f"labeler produced labels "
+                             f"{sorted(set(labels) - known)} with no "
+                             f"transform; known: {sorted(known)}")
+        return PartitionState(
+            inner={label: t.init(own(params, params, labels, label))
+                   for label, t in items},
+            labels=labels)
+
+    def update(grads, state: PartitionState, params):
+        labels = state.labels       # ownership fixed at init
+        merged, inner = {}, {}
+        for label, t in items:
+            upd, inner[label] = t.update(
+                own(grads, params, labels, label), state.inner[label],
+                own(params, params, labels, label))
+            merged.update(upd)
+        return ({k: merged[k] for k in params},
+                PartitionState(inner=inner, labels=labels))
 
     return GradientTransformation(init, update)

@@ -51,6 +51,36 @@ def apply_updates(params: Params, updates: Params) -> None:
         p.add_(updates[k].to(p.dtype))
 
 
+def find_states(state, cls):
+    """Yield every ``cls`` instance inside an optimizer state: chains are
+    tuples, partitions carry a dict of group states in ``inner``."""
+    if isinstance(state, cls):
+        yield state
+    elif isinstance(state, (tuple, list)):
+        for s in state:
+            yield from find_states(s, cls)
+    elif isinstance(state, dict):
+        for s in state.values():
+            yield from find_states(s, cls)
+    elif hasattr(state, "inner"):
+        yield from find_states(state.inner, cls)
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor in an optimizer state (dataclasses, tuples,
+    dicts), the counterpart of the JAX package's ``tree_nbytes`` over the
+    state's array leaves; Python-int step counters are not counted."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_nbytes(x) for x in tree)
+    return 0
+
+
 def global_norm(tree: Params) -> torch.Tensor:
     sq = [torch.sum(torch.square(x.float())) for x in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(sq)))

@@ -1,10 +1,11 @@
-"""Dispatch for the fused-update kernels, by the device of the tensors.
+"""Dispatch for the port's CUDA kernels, by the device of the tensors.
 
 A tensor on the CPU takes the plain version in ``kernels/ref.py``; a CUDA
-tensor launches the hand-written kernel in ``kernels/fused_update.py`` (or
-the launch raises); any other device raises.  There is no mode switch and
-no fallback.  The dispatch owns what the kernels do not: the leading batch
-axes of stacked ``(..., m, n)`` leaves are flattened into one grid axis (one
+tensor launches the hand-written kernel in ``kernels/fused_update.py`` or
+``kernels/sketch_update.py`` (or the launch raises); any other device
+raises.  There is no mode switch and no fallback.  For the fused update,
+the dispatch owns what the kernels do not: the leading batch axes of
+stacked ``(..., m, n)`` leaves are flattened into one grid axis (one
 launch per leaf), ``r`` is zero-padded to the kernel's 16-deep slices
 (zero columns add nothing to Q U^T or to the fold), and the ragged edges of
 ``m`` and ``n`` are masked inside the kernel instead of padded here, so G
@@ -91,3 +92,37 @@ def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor | None,
         u_hat.float().reshape(bsz, -1).contiguous(), m1.view(bsz, -1),
         scalars, shared_out)
     return (m1 if shared_out else m_out.view(shape)), m1
+
+
+def bucket_order(idx: torch.Tensor, width: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sketch scatter's index buffers for ``idx`` (depth, rows): the
+    rows of each depth sorted by bucket, ascending within a bucket, and the
+    bucket offsets (depth, width + 1), bucket b of depth j holding
+    ``order[j, offsets[j, b]:offsets[j, b + 1]]``.  int32, on idx's
+    device."""
+    idx = idx.long()
+    order = torch.sort(idx, dim=1, stable=True).indices
+    counts = torch.zeros((idx.shape[0], width + 1), dtype=torch.long,
+                         device=idx.device)
+    counts[:, 1:].scatter_add_(1, idx, torch.ones_like(idx))
+    offsets = torch.cumsum(counts, dim=1)
+    return order.int().contiguous(), offsets.int().contiguous()
+
+
+def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
+                  b2: float, order: torch.Tensor | None = None,
+                  offsets: torch.Tensor | None = None):
+    """Count-min EMA scatter + min-over-depth query (see
+    ``ref.sketch_update``).  table (depth, width, d) f32, g (rows, d), idx
+    (depth, rows) int32.  On the card, ``order`` / ``offsets`` (from
+    :func:`bucket_order`, built once per leaf) feed the scatter; they are
+    built here when not given.  Returns ``(table_new, vhat)``."""
+    if not _on_cuda(g):
+        return ref.sketch_update(table, g, idx, b2)
+    from repro_torch.kernels import sketch_update as SK
+    if order is None or offsets is None:
+        order, offsets = bucket_order(idx, table.shape[1])
+    return SK.sketch_update(table.float().contiguous(),
+                            g.float().contiguous(), idx.int().contiguous(),
+                            order, offsets, b2)

@@ -1,10 +1,11 @@
-"""Plain-PyTorch versions of the fused-update kernels.
+"""Plain-PyTorch versions of the port's CUDA kernels.
 
-They are the semantic ground truth for ``kernels/fused_update.py``: the
-dispatch in ``kernels/ops.py`` runs them for tensors that lie on the CPU,
-and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
-Every function takes arbitrary leading batch dims; reductions are per
-matrix (over the trailing two axes).
+They are the semantic ground truth for ``kernels/fused_update.py`` and
+``kernels/sketch_update.py``: the dispatch in ``kernels/ops.py`` runs them
+for tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.  The fused-update functions take
+arbitrary leading batch dims; their reductions are per matrix (over the
+trailing two axes).
 """
 from __future__ import annotations
 
@@ -84,3 +85,30 @@ def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor | None,
         return u_c * bc(out_scale), None
     acc = b1 * m1 + (1.0 - b1) * u_c
     return acc * bc(out_scale), acc * bc(store_scale)
+
+
+def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
+                  b2: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Count-min second-moment EMA update + per-row query:
+
+        S_t[j, b, :] = b2 * S_{t-1}[j, b, :]
+                       + (1 - b2) * sum_{i : idx[j, i] = b} G[i, :]^2
+        vhat[i, :]   = min_j S_t[j, idx[j, i], :]
+
+    table: (depth, width, d) f32, g: (rows, d) any float, idx: (depth,
+    rows) integer bucket per row per depth.  Returns ``(S_t (depth, width,
+    d) f32, vhat (rows, d) f32)``.  ``b2`` and ``1 - b2`` are float32, as
+    in the JAX package's ``ref.sketch_update``.
+    """
+    g32 = g.float()
+    gsq = g32 * g32
+    tab = table.float()
+    width = tab.shape[1]
+    idx = idx.long()
+    new = torch.stack([
+        f32(b2) * tab[j] + f32_one_minus(b2) * torch.zeros(
+            (width, gsq.shape[1]), dtype=torch.float32,
+            device=gsq.device).index_add_(0, idx[j], gsq)
+        for j in range(tab.shape[0])])
+    gathered = torch.stack([new[j][idx[j]] for j in range(new.shape[0])])
+    return new, torch.amin(gathered, dim=0)

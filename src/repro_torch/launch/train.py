@@ -1,16 +1,17 @@
 """Training CLI of the PyTorch port.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-117m \
-        --steps 200 --no-mixed-groups --fused-update --refresh-every 5
+        --seq 1024 --steps 200 --fused-update --refresh-every 5
 
 Flags and defaults are those of ``python -m repro.launch.train``, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
 the kernels, for parity tests).  Without a GPU and without ``--device cpu``
-it raises.  Flags for parts that are not ported yet raise when set:
-``--mixed-groups`` (the adapprox default, whose embedding group needs the
-count-min sketch), ``--warm-start``, ``--bucketed``,
-``--quantize-factors``, ``--mesh``, telemetry, tracing, guards and
-checkpointing (see ROADMAP.md Queue A).
+it raises.  As in the JAX launcher, ``--optimizer adapprox`` runs the mixed
+groups by default (count-min sketch on embedding tables, Adapprox on
+matrices, dense Adam on the rest); ``--no-mixed-groups`` puts Adapprox on
+every matrix.  Flags for parts that are not ported yet raise when set:
+``--warm-start``, ``--bucketed``, ``--quantize-factors``, ``--mesh``,
+telemetry, tracing, guards and checkpointing (see ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import argparse
 import logging
 from typing import Optional
 
-from repro_torch.config import OptimizerConfig
+from repro_torch.config import OptimizerConfig, default_mixed_groups
 from repro_torch.configs.archs import get_config, get_smoke_config
 from repro_torch.core.build import build_optimizer
 from repro_torch.core.srsi import SketchSource
@@ -36,14 +37,20 @@ _NOT_PORTED = {"warm_start": False, "bucketed": False,
 
 
 def optimizer_config(name: str, steps: int, lr: float,
-                     refresh_every: int = 1,
-                     fused_update: bool = False) -> OptimizerConfig:
+                     refresh_every: int = 1, fused_update: bool = False,
+                     mixed_groups: bool = False, sketch_width: int = 2048,
+                     sketch_depth: int = 4,
+                     embedding_min_rows: int = 1024) -> OptimizerConfig:
     """The launcher's OptimizerConfig: cosine schedule derived from the run
     length and the paper's adaptive-rank settings, as in the JAX
-    launcher."""
+    launcher.  With ``mixed_groups`` it is the partition of
+    ``default_mixed_groups()``."""
     common = dict(name=name, lr=lr, schedule="cosine",
                   warmup_steps=max(steps // 20, 5), total_steps=steps,
-                  min_lr=lr / 6, weight_decay=0.1)
+                  min_lr=lr / 6, weight_decay=0.1,
+                  groups=default_mixed_groups() if mixed_groups else (),
+                  sketch_width=sketch_width, sketch_depth=sketch_depth,
+                  embedding_min_rows=embedding_min_rows)
     if name == "adapprox":
         return OptimizerConfig(**common, rank_mode="paper", k=1, k_max=128,
                                xi_thresh=0.01, delta_s=10,
@@ -81,13 +88,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     mg = ap.add_mutually_exclusive_group()
     mg.add_argument("--mixed-groups", dest="mixed_groups",
                     action="store_true", default=None,
-                    help="partition chain with the count-min sketch on "
-                         "embeddings (default for adapprox; not ported)")
+                    help="partition chain: count-min sketch on "
+                         "embedding tables, adapprox on matrices, dense "
+                         "adam on the rest (default for adapprox)")
     mg.add_argument("--no-mixed-groups", dest="mixed_groups",
                     action="store_false")
-    ap.add_argument("--sketch-width", type=int, default=2048)
-    ap.add_argument("--sketch-depth", type=int, default=4)
-    ap.add_argument("--embedding-min-rows", type=int, default=1024)
+    ap.add_argument("--sketch-width", type=int, default=2048,
+                    help="count-min sketch buckets per hash (embeddings "
+                         "group)")
+    ap.add_argument("--sketch-depth", type=int, default=4,
+                    help="count-min sketch hash functions (min over depth)")
+    ap.add_argument("--embedding-min-rows", type=int, default=1024,
+                    help=">= 2-D leaves with at least this many rows take "
+                         "the sketch second moment")
     ap.add_argument("--telemetry-dir", default=None)
     ap.add_argument("--telemetry-every", type=int, default=1)
     ap.add_argument("--auto-refresh", action="store_true")
@@ -116,12 +129,6 @@ def main(argv=None, *, params: Optional[dict] = None,
                 f"see ROADMAP.md Queue A")
     mixed = (args.optimizer == "adapprox" if args.mixed_groups is None
              else args.mixed_groups)
-    if mixed:
-        raise NotImplementedError(
-            "--mixed-groups (the default for adapprox) routes embedding "
-            "tables to the count-min sketch, which is not ported to PyTorch "
-            "yet; pass --no-mixed-groups for Adapprox on every matrix (the "
-            "paper's setup)")
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
@@ -130,8 +137,10 @@ def main(argv=None, *, params: Optional[dict] = None,
     model = build_model(cfg)
     opt = build_optimizer(optimizer_config(
         args.optimizer, args.steps, args.lr,
-        refresh_every=args.refresh_every, fused_update=args.fused_update),
-        sketch=sketch)
+        refresh_every=args.refresh_every, fused_update=args.fused_update,
+        mixed_groups=mixed, sketch_width=args.sketch_width,
+        sketch_depth=args.sketch_depth,
+        embedding_min_rows=args.embedding_min_rows), sketch=sketch)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch)
     state, history = train(model, opt, data_cfg,

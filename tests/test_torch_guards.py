@@ -13,6 +13,8 @@ import torch
 from repro_torch.config import OptimizerConfig
 from repro_torch.core import adapprox as TA
 from repro_torch.core.build import build_optimizer
+from repro_torch.core.sketch import SketchConfig, scale_by_sketch
+from repro_torch.core.transform import PartitionState
 from repro_torch.device import resolve_device
 from repro_torch.launch import train as launcher
 
@@ -31,10 +33,16 @@ def test_launcher_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 @pytest.mark.parametrize("flags", [[], ["--mixed-groups"]])
 def test_mixed_groups_raise_instead_of_switching(flags):
-    """--mixed-groups is the adapprox default; the sketch group it needs
-    is not ported, and silently dropping it would change the optimizer."""
-    with pytest.raises(NotImplementedError, match="--no-mixed-groups"):
-        launcher.main(SMOKE + ["--device", "cpu"] + flags)
+    """--mixed-groups is the adapprox default, as in the JAX launcher:
+    with no flag and with the flag the launcher builds the three-family
+    partition (sketch on embeddings, Adapprox on matrices, dense Adam on
+    the rest) and never silently swaps it for another optimizer."""
+    state, _ = launcher.main(SMOKE + ["--device", "cpu",
+                                      "--embedding-min-rows", "256",
+                                      "--sketch-width", "64"] + flags)
+    assert isinstance(state.opt_state, PartitionState)
+    assert set(state.opt_state.labels) == {"embeddings", "factored",
+                                           "dense"}
 
 
 @pytest.mark.parametrize("flag", [["--warm-start"], ["--bucketed"],
@@ -58,13 +66,18 @@ def test_unported_adapprox_knobs_raise(knob):
         TA.scale_by_adapprox(TA.AdapproxConfig(**knob))
 
 
-@pytest.mark.parametrize("change", [dict(name="adamw"),
-                                    dict(groups=(("all", None),)),
+@pytest.mark.parametrize("change", [dict(name="adafactor"),
+                                    dict(name="came"),
                                     dict(implicit=True)])
 def test_build_optimizer_refuses_what_is_not_ported(change):
     cfg = dataclasses.replace(OptimizerConfig(implicit=False), **change)
     with pytest.raises(NotImplementedError):
         build_optimizer(cfg)
+
+
+def test_sketch_telemetry_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        scale_by_sketch(SketchConfig(telemetry=True))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

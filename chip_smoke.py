@@ -12,25 +12,35 @@ sm_90a) and the CUDA toolkit.  In order, it
      build time and the ptxas report;
   3. holds every kernel variant against its plain PyTorch version on the
      card at every leaf shape of the GPT-2 117M main paths (pass 1 plain,
-     guided, fold; pass 2 shared, two-output, dense; the sketch scatter +
-     query at the embedding shapes of the mixed groups and one ragged
-     shape, bitwise repeatable) and times each beside its bound and the
+     guided, fold, and its int8 variant on quantized factors; pass 2
+     shared, two-output, dense; the single-pass update; the square-and-
+     matmul in both orientations; the sketch scatter + query at the
+     embedding shapes of the mixed groups) and at ragged shapes, each new
+     kernel bitwise repeatable, and times each beside its bound and the
      plain version's time;
   4. checks the kernel path end to end against the plain path on a small
      input: the GPT-2 smoke model in fp32 trains a few steps on the card
      and on the CPU from the same init and sketches, and the losses, ranks
-     and parameters must agree -- without and with the mixed groups;
-  5. trains GPT-2 117M at full width through ``repro_torch.launch.train``
-     (12 steps, batch 8 x 1024, --no-mixed-groups --fused-update
-     --refresh-every 5) with the launch counters set to 0 just before, and
-     checks a finite, falling loss and one pass-1 launch per factored leaf
-     and one pass-2 launch per leaf per step; then the same run on the
-     launcher's default mixed groups (count-min sketch on embed and
-     pos_embed, Adapprox on the six block matrices, dense Adam on the
-     rest), with two sketch launches per sketched leaf per step;
+     and parameters must agree -- without and with the mixed groups, with
+     int8 factors, and on the use_kernels path;
+  5. trains GPT-2 117M at full width (12 steps, batch 8 x 1024,
+     --fused-update --refresh-every 5) with the launch counters set to 0
+     just before each run, and checks a finite, falling loss and the
+     launches that the optimizer state implies: through
+     ``repro_torch.launch.train`` with --no-mixed-groups (pass 1 per
+     factored leaf, pass 2 per leaf, every step), on the launcher's
+     default mixed groups (count-min sketch on embed and pos_embed,
+     Adapprox on the six block matrices, dense Adam on the rest; two
+     sketch launches per sketched leaf per step), and on the mixed groups
+     with --quantize-factors (every pass 1 int8); then, through
+     ``build_optimizer`` and the train loop, the launcher's optimizer
+     with use_kernels and no fused update (the single-pass update per
+     factored leaf every step, the transposed square-and-matmul per
+     factored leaf on fold steps);
   6. breaks a step of each run down into model and optimizer time;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
-     and AdamW and holds them against ``BENCH_memory.json``;
+     and AdamW and holds them against ``BENCH_memory.json``, and those of
+     the int8 factors (117M and 345M) against the JAX package's count;
   8. prints one JSON line with each kernel's launches, error and times,
      then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -60,6 +70,7 @@ TRAIN_ARGV = ["--arch", "gpt2-117m", "--steps", "12", "--batch", "8",
               "--refresh-every", "5", "--log-every", "1", "--device", "cuda"]
 # the launcher's default: mixed groups for adapprox
 TRAIN_MIXED_ARGV = [a for a in TRAIN_ARGV if a != "--no-mixed-groups"]
+TRAIN_INT8_ARGV = TRAIN_MIXED_ARGV + ["--quantize-factors"]
 B2, EPS, B1 = 0.999, 1e-8, 0.9
 # the smoke model's mixed groups: embed (512 rows) is sketched
 SMALL_MIXED = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)
@@ -76,6 +87,21 @@ TOL_APPLY = 1e-6
 # 2048 buckets) in ascending row order; the plain version's index_add_ on
 # the card sums them with atomics in another order.
 TOL_SKETCH = 1e-5
+# The square-and-matmul sums m (or n) products per entry in another order
+# than cuBLAS.
+TOL_MATMUL = 1e-5
+# End to end with int8 factors, card against CPU: the codec turns a 1e-7
+# difference of the factors into a q8 step (1/254 of a block's range) and
+# S-RSI amplifies it; on the CPU, the same 4 steps from an init moved by
+# one ulp move the parameters by 1.1e-3 of the largest.
+TOL_PARAMS_INT8 = 1e-2
+
+# Optimizer-state MB of adapprox_kmax_int8 at b1 = 0.9 as the JAX package's
+# own benchmarks/bench_memory.py::state_mb counts it (tier-1's
+# tests/test_torch_quantized.py recomputes it).  BENCH_memory.json's 540.1 and
+# 1547.0 predate its per-256-row-block (scale, zero) codec: with one
+# absmax scale per column they come out at 540.055 and 1546.991.
+INT8_STATE_MB = {"gpt2-117m": 541.254944, "gpt2-345m": 1550.658976}
 
 
 def fail(msg: str):
@@ -147,13 +173,87 @@ def time_pair(kern, plain, kernel_name: str, rec: dict, bound: float,
     rec["bound_ms"] += bound
 
 
-def main_path_leaves(device):
-    """(factored [(shape, r)], dense [size]) of GPT-2 117M under the
-    launcher's optimizer with --no-mixed-groups (Adapprox on every leaf),
-    read from the optimizer state itself."""
+def new_rec() -> dict:
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+
+
+def bound_ms(flops: float, nbytes: float) -> float:
+    return 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S)
+
+
+def kernel_modules():
+    from repro_torch.kernels import (fused_update, lowrank_update,
+                                     sketch_update, srsi_matmul)
+    return fused_update, sketch_update, lowrank_update, srsi_matmul
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules():
+        mod.reset_launches()
+
+
+def launch_counts() -> dict:
+    return {k: v for mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
+
+
+def expected_launches(kind: str, steps: int, folds: int, n_fact: int,
+                      n_leaves: int, n_sk: int) -> dict:
+    """Launches of ``steps`` optimizer steps (``folds`` of them fold steps)
+    on a path: ``fused`` and ``int8`` launch pass 1 per factored leaf and
+    pass 2 per Adapprox leaf every step (``int8``: every pass 1 is the
+    int8 variant); ``kernels`` (use_kernels) the single-pass update per
+    factored leaf every step and the transposed square-and-matmul per
+    factored leaf on fold steps; the sketch two launches per sketched leaf
+    every step."""
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(sketch_scatter=steps * n_sk, sketch_query=steps * n_sk)
+    if kind == "kernels":
+        want.update(lowrank_update=steps * n_fact, sq_matmul_t=folds * n_fact)
+    else:
+        want.update(fused_precond=steps * n_fact, fused_apply=steps * n_leaves)
+        if kind == "int8":
+            want["fused_precond_int8"] = steps * n_fact
+    return want
+
+
+def hold(what: str, labels, tols, got, want, rec: dict, again=None) -> str:
+    """Fail unless each output of a kernel is finite and within its
+    tolerance (relative to the largest entry of the plain output) of the
+    plain version's and, given ``again`` (a second launch), bitwise equal
+    to it.  The first output's error goes into ``rec``.  Returns the
+    errors as text."""
+    import torch
+    again = again if again is not None else [None] * len(labels)
+    errs = []
+    for label, tol, a, a2, b in zip(labels, tols, got, again, want):
+        if (a is None) != (b is None):
+            fail(f"{what}: {label} missing")
+        if a is None:
+            continue
+        if a2 is not None and not torch.equal(a, a2):
+            fail(f"{what}: two launches differ in {label}")
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{what}: {label} not finite")
+        ab, rel = rel_err(a, b)
+        errs.append(f"{label} {ab:.3e} ({rel:.2e})")
+        if rel > tol:
+            fail(f"{what}: {label} rel err {rel:.3e} > {tol}")
+        if label == labels[0]:
+            rec["max_abs_err"] = max(rec["max_abs_err"], ab)
+    return ", ".join(errs) + ("; bitwise repeatable" if again[0] is not None
+                              else "")
+
+
+def main_path_leaves(device, mixed: bool = False):
+    """(factored [(name, shape, r)], dense [(name, size)]) of the Adapprox
+    leaves of GPT-2 117M under the launcher's optimizer, read from the
+    optimizer state itself: with --no-mixed-groups (Adapprox on every
+    leaf) or, ``mixed``, on its default mixed groups (the six block
+    matrices)."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_config
+    from repro_torch.core.adapprox import adapprox_state
     from repro_torch.core.build import build_optimizer
     from repro_torch.core.factored import FactoredLeaf
     from repro_torch.launch.train import optimizer_config
@@ -163,16 +263,17 @@ def main_path_leaves(device):
     params = build_model(cfg).init(
         torch.Generator(device=device).manual_seed(0))
     flat = tree.flatten(params)
-    opt = build_optimizer(optimizer_config("adapprox", 12, 3e-3,
-                                           refresh_every=5,
-                                           fused_update=True))
-    state = opt.init(flat)[0]
+    state = build_optimizer(optimizer_config(
+        "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
+        mixed_groups=mixed)).init(flat)
+    names = ([k for k, lab in zip(flat, state.labels) if lab == "factored"]
+             if mixed else list(flat))
     fact, dense = [], []
-    for (name, p), leaf in zip(flat.items(), state.leaves):
+    for name, leaf in zip(names, adapprox_state(state).leaves):
         if isinstance(leaf, FactoredLeaf):
-            fact.append((name, tuple(p.shape), leaf.q.shape[-1]))
+            fact.append((name, tuple(flat[name].shape), leaf.q.shape[-1]))
         else:
-            dense.append((name, p.numel()))
+            dense.append((name, flat[name].numel()))
     del params, flat, state
     torch.cuda.empty_cache()
     return fact, dense
@@ -186,12 +287,35 @@ def rel_err(got, want) -> tuple[float, float]:
     return diff, diff / max(scale, 1e-30)
 
 
+PRECOND_OUT = ("u_hat", "vfro", "usq", "m1dot", "m1sq", "yfold")
+PRECOND_TOL = (TOL_PRECOND, TOL_SUMS, TOL_SUMS, TOL_SUMS, TOL_SUMS,
+               TOL_SUMS)
+# (m, n, r) of the ragged checks: m and n no multiple of 64 or 256, r no
+# multiple of 16 (the JAX package's own ragged test shapes)
+RAGGED = [(130, 258, 3), (300, 180, 6), (257, 129, 5)]
+
+
+def precond_bound(shape, r, int8: bool = False) -> float:
+    """Pass 1's fold variant, no guidance, no vfro: 2 m n r operations for
+    Q U^T and as many for the fold, ~10 a G entry; reads G, the factors
+    (int8: one byte an entry, their scales and zeros, and 3 operations a
+    factor entry to dequantize) and writes u_hat and the fold."""
+    *bd, m, n = shape
+    L = math.prod(bd)
+    flops = L * m * n * (4 * r + 10)
+    fbytes = 4 * (m * r + n * r)
+    if int8:
+        flops += L * 3 * (m + n) * r
+        fbytes = (m + n) * r + 8 * r * (-(-m // 256) + -(-n // 256))
+    return bound_ms(flops, L * (8 * m * n + fbytes + 4 * n * r))
+
+
 def check_precond(fact, device):
     """Pass 1 against its plain version at every factored leaf shape."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(1)
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    rec = new_rec()
     for name, shape, r in fact:
         *bd, m, n = shape
         bd = tuple(bd)
@@ -205,38 +329,145 @@ def check_precond(fact, device):
             got = ops.fused_precond(q, u, g, B2, EPS, with_vfro=True, **kw)
             want = ref.fused_precond(q, u, g, B2, EPS, with_vfro=True, **kw)
             torch.cuda.synchronize()
-            errs = []
-            for label, a, b, tol in zip(
-                    ("u_hat", "vfro", "usq", "m1dot", "m1sq", "yfold"),
-                    got, want, (TOL_PRECOND, TOL_SUMS, TOL_SUMS, TOL_SUMS,
-                                TOL_SUMS, TOL_SUMS)):
-                if (a is None) != (b is None):
-                    fail(f"fused_precond[{variant}] {name}: {label} missing")
-                if a is None:
-                    continue
-                if not bool(torch.isfinite(a).all()):
-                    fail(f"fused_precond[{variant}] {name}: {label} not "
-                         f"finite")
-                ab, rel = rel_err(a, b)
-                errs.append(f"{label} {ab:.3e} ({rel:.2e})")
-                if rel > tol:
-                    fail(f"fused_precond[{variant}] {name} {shape}: {label} "
-                         f"rel err {rel:.3e} > {tol}")
-                if label == "u_hat":
-                    rec["max_abs_err"] = max(rec["max_abs_err"], ab)
-            print(f"  fused_precond[{variant}] {name} {shape} r={r}: "
-                  + ", ".join(errs))
+            errs = hold(f"fused_precond[{variant}] {name} {shape}",
+                        PRECOND_OUT, PRECOND_TOL, got, want, rec)
+            print(f"  fused_precond[{variant}] {name} {shape} r={r}: {errs}")
         # the main path's variant: fold rider, no guidance, no vfro
         kern = lambda: ops.fused_precond(q, u, g, B2, EPS, with_vfro=False,
                                          with_fold=True)
         plain = lambda: ref.fused_precond(q, u, g, B2, EPS, with_vfro=False,
                                           with_fold=True)
-        L = math.prod(bd)
-        flops = L * m * n * (4 * r + 10)
-        nbytes = 4 * L * (2 * m * n + m * r + 2 * n * r)
-        time_pair(kern, plain, "precond_kernel", rec, 1e3 * max(
-            flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S), name)
+        time_pair(kern, plain, "precond_kernel", rec,
+                  precond_bound(shape, r), name)
         del q, u, g, m1
+    return rec
+
+
+def check_precond_int8(fact, device):
+    """The int8 pass 1 on quantized factors (the codec of a random Q and U)
+    against the plain pass 1 on the same factors dequantized, at every
+    factored leaf of the mixed path (plain and fold; guided at the first)
+    and at the ragged shapes (all three variants); two launches bitwise
+    equal.  The main path's variant (fold) is timed per leaf."""
+    import torch
+    from repro_torch.core.quantized import dequantize, quantize
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(4)
+    rec = new_rec()
+    cases = fact + [("ragged", (m, n), r) for m, n, r in RAGGED]
+    for i, (name, shape, r) in enumerate(cases):
+        *bd, m, n = shape
+        bd = tuple(bd)
+        q = quantize(torch.rand(bd + (m, r), generator=gen, device=device)
+                     * 1e-5)
+        u = quantize(torch.rand(bd + (n, r), generator=gen, device=device)
+                     * 1e-5)
+        g = torch.randn(bd + (m, n), generator=gen, device=device) * 1e-3
+        m1 = torch.randn(bd + (m, n), generator=gen, device=device) * 0.3
+        variants = [("plain", {}), ("fold", {"with_fold": True})]
+        if i == 0 or name == "ragged":
+            variants.append(("guided", {"m1": m1}))
+        for variant, kw in variants:
+            call = lambda: ops.fused_precond(q, u, g, B2, EPS,
+                                             with_vfro=True, **kw)
+            got, again = call(), call()
+            want = ref.fused_precond(dequantize(q), dequantize(u), g, B2, EPS,
+                                     with_vfro=True, **kw)
+            torch.cuda.synchronize()
+            errs = hold(f"fused_precond_int8[{variant}] {name} {shape}",
+                        PRECOND_OUT, PRECOND_TOL, got, want, rec, again)
+            print(f"  fused_precond_int8[{variant}] {name} {shape} r={r}: "
+                  f"{errs}")
+        if name != "ragged":
+            kern = lambda: ops.fused_precond(q, u, g, B2, EPS,
+                                             with_vfro=False, with_fold=True)
+            plain = lambda: ref.fused_precond(dequantize(q), dequantize(u), g,
+                                              B2, EPS, with_vfro=False,
+                                              with_fold=True)
+            time_pair(kern, plain, "precond_kernel", rec,
+                      precond_bound(shape, r, int8=True), name)
+        del q, u, g, m1
+    return rec
+
+
+def check_lowrank(fact, device):
+    """The single-pass update against its plain version at every factored
+    leaf of the mixed path and at the ragged shapes; two launches bitwise
+    equal.  Timed per leaf of the main path."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(5)
+    rec = new_rec()
+    for name, shape, r in fact + [("ragged", (m, n), r)
+                                  for m, n, r in RAGGED]:
+        *bd, m, n = shape
+        bd = tuple(bd)
+        # as for pass 1: no cancellation in Q U^T
+        q = torch.rand(bd + (m, r), generator=gen, device=device) * 1e-5
+        u = torch.rand(bd + (n, r), generator=gen, device=device) * 1e-5
+        g = torch.randn(bd + (m, n), generator=gen, device=device) * 1e-3
+        kern = lambda: ops.lowrank_update(q, u, g, B2, EPS, with_frob=True)
+        plain = lambda: ref.lowrank_update(q, u, g, B2, EPS)
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        errs = hold(f"lowrank_update {name} {shape}", ("out", "vfro"),
+                    (TOL_PRECOND, TOL_SUMS), got, want, rec, again)
+        print(f"  lowrank_update {name} {shape} r={r}: {errs}")
+        if name != "ragged":
+            L = math.prod(bd)
+            time_pair(kern, plain, "lowrank_update_kernel", rec, bound_ms(
+                L * m * n * (2 * r + 8),
+                4 * L * (2 * m * n + (m + n) * r)), name)
+        del q, u, g
+    return rec
+
+
+def check_sq_matmul(fact, device):
+    """(G * G) X and (G * G)^T Y against their plain versions at every
+    factored leaf of the mixed path (s = r) and at the ragged shapes; two
+    launches bitwise equal.  The main path's orientation (transposed, the
+    fold) is timed per leaf beside its plain version and, as the library
+    yardstick, torch.matmul on a pre-squared G -- two calls where the
+    kernel is one, with only the matmul timed."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(6)
+    rec = new_rec()
+    rec["library_ms"] = 0.0
+    for name, shape, s in fact + [("ragged", (m, n), r)
+                                  for m, n, r in RAGGED]:
+        *bd, m, n = shape
+        bd = tuple(bd)
+        g = torch.randn(bd + (m, n), generator=gen, device=device) * 1e-3
+        x = torch.randn(bd + (n, s), generator=gen, device=device)
+        y = torch.randn(bd + (m, s), generator=gen, device=device)
+        for variant, kern, plain in (
+                ("plain", lambda: ops.sq_matmul(g, x),
+                 lambda: ref.sq_matmul(g, x)),
+                ("transposed", lambda: ops.sq_matmul_t(g, y),
+                 lambda: ref.sq_matmul_t(g, y))):
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            errs = hold(f"sq_matmul[{variant}] {name} {shape}", ("out",),
+                        (TOL_MATMUL,), (got,), (want,), rec, (again,))
+            print(f"  sq_matmul[{variant}] {name} {shape} s={s}: {errs}")
+        if name == "ragged":
+            continue
+        L = math.prod(bd)
+        bound = bound_ms(L * m * n * (2 * s + 1),
+                         4 * L * (m * n + (m + n) * s))
+        sub = new_rec()
+        time_pair(lambda: ops.sq_matmul(g, x), lambda: ref.sq_matmul(g, x),
+                  "sq_matmul_kernel", sub, bound, f"{name} (not transposed)")
+        time_pair(lambda: ops.sq_matmul_t(g, y),
+                  lambda: ref.sq_matmul_t(g, y), "sq_matmul_kernel", rec,
+                  bound, f"{name} (transposed)")
+        g2 = g * g
+        lib = device_ms(lambda: torch.matmul(g2.transpose(-1, -2), y)) \
+            or events_ms(lambda: torch.matmul(g2.transpose(-1, -2), y))
+        print(f"    library: torch.matmul on a pre-squared G {lib:.4f} ms")
+        rec["library_ms"] += lib
+        del g, x, y, g2
     return rec
 
 
@@ -377,19 +608,23 @@ class _CallOrderSketch:
         return torch.randn(shape, generator=self.gen)
 
 
-def check_small_parity(device, mixed: bool = False):
+def small_parity(device, kind: str = "fused", mixed: bool = False):
     """Kernel path (card) against plain path (CPU), end to end: GPT-2
     smoke in fp32, 4 steps with refresh_every=3 (refresh, fold, fold,
-    refresh), same init and sketches.  With ``mixed`` on the launcher's
-    mixed groups, with the token embedding sketched."""
+    refresh), same init and sketches, the launcher's optimizer with
+    ``kind`` "fused" (--fused-update), "int8" (and --quantize-factors) or
+    "kernels" (use_kernels, no fused update).  With ``mixed`` on the
+    launcher's mixed groups, with the token embedding sketched.  The card's
+    launches must be those the optimizer state implies."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_smoke_config
     from repro_torch.core.adapprox import adapprox_state
     from repro_torch.core.build import build_optimizer
-    from repro_torch.core.sketch import SketchLeaf, sketch_state
+    from repro_torch.core.factored import FactoredLeaf
+    from repro_torch.core.sketch import SketchLeaf, SketchState
+    from repro_torch.core.types import find_states
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.kernels import sketch_update as SK
     from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.train_loop import LoopConfig, train
@@ -399,66 +634,70 @@ def check_small_parity(device, mixed: bool = False):
     model = build_model(cfg)
     init = model.init(torch.Generator().manual_seed(0))
     kw = dict(mixed_groups=True, **SMALL_MIXED) if mixed else {}
-    runs = {}
-    SK.reset_launches()
+    runs = []
     for dev in (torch.device("cpu"), device):
-        opt = build_optimizer(optimizer_config(
-            "adapprox", 4, 3e-3, refresh_every=3, fused_update=True, **kw),
-            sketch=_CallOrderSketch(5))
+        ocfg = optimizer_config("adapprox", 4, 3e-3, refresh_every=3,
+                                fused_update=kind != "kernels",
+                                quantize_factors=kind == "int8", **kw)
+        if kind == "kernels":
+            ocfg = dataclasses.replace(ocfg, use_kernels=True)
+        opt = build_optimizer(ocfg, sketch=_CallOrderSketch(5))
         params = {k: v.detach().clone().to(dev)
                   for k, v in tree.flatten(init).items()}
+        reset_launches()
         state, hist = train(model, opt,
                             DataConfig(vocab=cfg.vocab, seq_len=128,
                                        global_batch=4),
                             LoopConfig(total_steps=4, log_every=1),
                             device=dev, params=tree.unflatten(params))
-        runs[dev.type] = (state, [h["loss"] for h in hist])
-    (s_cpu, l_cpu), (s_gpu, l_gpu) = runs["cpu"], runs["cuda"]
+        runs.append((state, [h["loss"] for h in hist]))
+    launches = launch_counts()
+    (s_cpu, l_cpu), (s_gpu, l_gpu) = runs
     print(f"  losses cpu {l_cpu}")
     print(f"  losses gpu {l_gpu}")
     for a, b in zip(l_cpu, l_gpu):
         if not abs(a - b) <= 1e-4 * abs(a):
             fail(f"small-input parity: loss {b} on the card vs {a} on CPU")
-    k_cpu = [leaf.k.tolist() for leaf in adapprox_state(s_cpu.opt_state).leaves
-             if hasattr(leaf, "k")]
-    k_gpu = [leaf.k.tolist() for leaf in adapprox_state(s_gpu.opt_state).leaves
-             if hasattr(leaf, "k")]
+    leaves = {k: adapprox_state(st.opt_state).leaves
+              for k, st in (("cpu", s_cpu), ("gpu", s_gpu))}
+    k_cpu, k_gpu = ([leaf.k.tolist() for leaf in leaves[k]
+                     if isinstance(leaf, FactoredLeaf)]
+                    for k in ("cpu", "gpu"))
     if k_cpu != k_gpu:
         fail(f"small-input parity: ranks {k_gpu} on the card vs {k_cpu}")
     worst = max(rel_err(s_gpu.params[k].cpu(), p)[1]
                 for k, p in s_cpu.params.items())
-    print(f"  ranks {k_cpu}; max param rel err {worst:.2e}")
-    if worst > 1e-4:
+    tol = TOL_PARAMS_INT8 if kind == "int8" else 1e-4
+    print(f"  ranks {k_cpu}; max param rel err {worst:.2e} (tolerance "
+          f"{tol})")
+    if worst > tol:
         fail(f"small-input parity: params differ by {worst:.2e}")
-    if mixed:
-        n_sk = sum(isinstance(leaf, SketchLeaf)
-                   for leaf in sketch_state(s_gpu.opt_state).leaves)
-        want = {"sketch_scatter": 4 * n_sk, "sketch_query": 4 * n_sk}
-        print(f"  sketched leaves {n_sk}; sketch launches on the card "
-              f"{SK.LAUNCHES}")
-        if n_sk < 1 or SK.LAUNCHES != want:
-            fail(f"small-input parity: sketch launches {SK.LAUNCHES}, "
-                 f"expected {want}")
+    n_fact = len(k_cpu)
+    n_sk = sum(isinstance(leaf, SketchLeaf)
+               for sub in find_states(s_gpu.opt_state, SketchState)
+               for leaf in sub.leaves)
+    want = expected_launches(kind, 4, 2, n_fact, len(leaves["gpu"]), n_sk)
+    print(f"  factored leaves {n_fact}, sketched {n_sk}; launches on the card "
+          f"{launches}")
+    if n_fact < 1 or (mixed and n_sk < 1) or launches != want:
+        fail(f"small-input parity: launches {launches}, expected {want}")
 
 
-def train_main_path(argv, expect: dict):
-    """One main-path run of the launcher; returns its launch counts, which
-    must be one per leaf and step as the optimizer state implies, and
-    ``expect``."""
+def train_main_path(run, kind: str, expect: dict):
+    """One main-path run: ``run()`` trains 12 steps and returns ``(state,
+    history)``.  Its launches must be those the optimizer state implies
+    for ``kind`` (see :func:`expected_launches`) and ``expect`` (every
+    other kernel 0).  Returns the launch counts."""
     import torch
     from repro_torch.core.adapprox import adapprox_state
     from repro_torch.core.sketch import SketchLeaf, SketchState
     from repro_torch.core.types import find_states
-    from repro_torch.kernels import fused_update as K
-    from repro_torch.kernels import sketch_update as SK
-    from repro_torch.launch import train as launcher
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launches()
-    SK.reset_launches()
-    state, hist = launcher.main(argv)
+    reset_launches()
+    state, hist = run()
     torch.cuda.synchronize()
-    launches = {**K.LAUNCHES, **SK.LAUNCHES}
+    launches = launch_counts()
     losses = [h["loss"] for h in hist]
     times = [h["step_time_s"] for h in hist]
     for h in hist:
@@ -473,8 +712,9 @@ def train_main_path(argv, expect: dict):
     n_sk = sum(isinstance(leaf, SketchLeaf)
                for sub in find_states(state.opt_state, SketchState)
                for leaf in sub.leaves)
-    want = {"fused_precond": 12 * n_fact, "fused_apply": 12 * len(adapprox),
-            "sketch_scatter": 12 * n_sk, "sketch_query": 12 * n_sk}
+    # refresh at steps 1, 6, 11 of 12: 9 fold steps
+    want = expected_launches(kind, 12, 9, n_fact, len(adapprox), n_sk)
+    expect = {**dict.fromkeys(launches, 0), **expect}
     print(f"  launches {launches} (expected {want}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if launches != want or launches != expect:
@@ -488,12 +728,46 @@ def train_main_path(argv, expect: dict):
     return launches
 
 
-def step_breakdown(device, mixed: bool = False):
+def launcher_run(argv):
+    from repro_torch.launch import train as launcher
+    return lambda: launcher.main(argv)
+
+
+def kernels_config():
+    """The launcher's optimizer (mixed groups, --refresh-every 5, no fused
+    update) with use_kernels: the JAX launcher has no flag for it, and a
+    user reaches it through OptimizerConfig, as the JAX package's
+    benchmarks/bench_step_time.py does."""
+    from repro_torch.launch.train import optimizer_config
+    return dataclasses.replace(
+        optimizer_config("adapprox", 12, 3e-3, refresh_every=5,
+                         mixed_groups=True), use_kernels=True)
+
+
+def kernels_run(device):
+    """GPT-2 117M, 12 steps at batch 8 x 1024, on :func:`kernels_config`
+    through build_optimizer and the train loop (the launcher's defaults:
+    seed 0, lr 3e-3)."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import LoopConfig, train
+    cfg = get_config("gpt2-117m")
+    return lambda: train(build_model(cfg), build_optimizer(kernels_config()),
+                         DataConfig(vocab=cfg.vocab, seq_len=1024,
+                                    global_batch=8),
+                         LoopConfig(total_steps=12, log_every=1),
+                         device=device)
+
+
+def step_breakdown(device, ocfg):
     """Where a main-path step goes: model forward+backward and optimizer
-    timed apart (host clock around synchronised work) over steps 1-7 of
-    the main path's config (``mixed``: on the mixed groups), and a profile
-    of step 6 (refresh) and step 7 (fold) for the device's busy share and
-    its largest kernels."""
+    timed apart (host clock around synchronised work) over steps 1-7 of a
+    main path's optimizer config ``ocfg``, and a profile of step 6
+    (refresh) and step 7 (fold) for the device's busy share and its
+    largest kernels.  With int8 factors, also the cost of their codec
+    (dequantize and requantize both factors of every leaf, once a step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree
@@ -501,16 +775,12 @@ def step_breakdown(device, mixed: bool = False):
     from repro_torch.core.build import build_optimizer
     from repro_torch.core.types import apply_updates
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.steps import TrainState
 
     cfg = get_config("gpt2-117m")
     model = build_model(cfg)
-    opt = build_optimizer(optimizer_config("adapprox", 12, 3e-3,
-                                           refresh_every=5,
-                                           fused_update=True,
-                                           mixed_groups=mixed))
+    opt = build_optimizer(ocfg)
     state = TrainState.create(
         model.init(torch.Generator(device=device).manual_seed(0)), opt)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=1024,
@@ -558,40 +828,89 @@ def step_breakdown(device, mixed: bool = False):
         for e in top:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
                   f"x{e.count:<5d} {e.key[:90]}")
+    if ocfg.quantize_factors:
+        codec_cost(opt_state)
+
+
+def codec_cost(opt_state):
+    """What the int8 codec adds to a step: dequantize both factors of every
+    factored leaf (the refresh or fold takes them so) and requantize the
+    new ones, timed as the stream sees it and as the device does, with its
+    kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import quantized as QZ
+    from repro_torch.core.adapprox import adapprox_state
+    leaves = [leaf for leaf in adapprox_state(opt_state).leaves
+              if isinstance(getattr(leaf, "q", None), QZ.QuantizedMatrix)]
+
+    def codec():
+        for leaf in leaves:
+            QZ.quantize_tree_factors(QZ.dequantize(leaf.q),
+                                     QZ.dequantize(leaf.u))
+
+    stream = events_ms(codec)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        codec()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    print(f"  int8 codec per step ({len(leaves)} leaves, dequantize + "
+          f"requantize Q and U): stream {stream:.4f} ms, device "
+          f"{sum(e.self_device_time_total for e in evs) / 1e3:.4f} ms, "
+          f"{sum(e.count for e in evs)} kernel launches")
 
 
 def check_memory(device):
-    """Optimizer-state bytes of GPT-2 117M under bench_memory.py's
-    ``mixed_groups`` and ``adamw`` configs at b1 = 0.9 (implicit=False,
-    the port's only Adapprox form; the bytes do not depend on it), against
-    BENCH_memory.json.  Counts the tensors that mirror the JAX state's
-    array leaves; the sketch's bucket buffers are not state."""
+    """Optimizer-state bytes under bench_memory.py's configs at b1 = 0.9
+    (implicit=False, the port's only Adapprox form; the bytes do not
+    depend on it): GPT-2 117M ``mixed_groups`` and ``adamw`` against
+    BENCH_memory.json, ``adapprox_kmax_int8`` of 117M and 345M against
+    the JAX package's count (``INT8_STATE_MB``); and, unchecked, the
+    launcher's mixed groups with and without --quantize-factors.  Counts
+    the tensors that mirror the JAX state's array leaves; the sketch's
+    bucket buffers are not state."""
     import torch
     from repro_torch import tree
     from repro_torch.config import OptimizerConfig, default_mixed_groups
     from repro_torch.configs.archs import get_config
     from repro_torch.core.build import build_optimizer
     from repro_torch.core.types import tree_nbytes
+    from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
 
     rows = json.loads((ROOT / "BENCH_memory.json").read_text())
-    want = {r["method"]: r["state_mb"] for r in rows["results"]["table2"]
-            if r["arch"] == "gpt2-117m" and r["b1"] == 0.9}
-    flat = tree.flatten(build_model(get_config("gpt2-117m")).init(
-        torch.Generator(device=device).manual_seed(0)))
+    table = {(r["arch"], r["method"]): r["state_mb"]
+             for r in rows["results"]["table2"] if r["b1"] == 0.9}
     base = dict(b1=0.9, schedule="constant", lr=1e-3, weight_decay=0.0)
-    cfgs = {"mixed_groups": OptimizerConfig(
-                name="adapprox", k=1, k_max=10**9, rank_mode="paper",
-                groups=default_mixed_groups(), implicit=False, **base),
-            "adamw": OptimizerConfig(name="adamw", **base)}
-    for name, cfg in cfgs.items():
-        state = build_optimizer(cfg).init(flat)
+    kmax = dict(name="adapprox", k=1, k_max=10**9, rank_mode="paper",
+                implicit=False, **base)
+    cases = [("gpt2-117m", "mixed_groups", OptimizerConfig(
+                  groups=default_mixed_groups(), **kmax),
+              table["gpt2-117m", "mixed_groups"]),
+             ("gpt2-117m", "adamw", OptimizerConfig(name="adamw", **base),
+              table["gpt2-117m", "adamw"])]
+    cases += [("gpt2-117m", f"launcher mixed groups{flag}", optimizer_config(
+                   "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
+                   mixed_groups=True, quantize_factors=bool(flag)), None)
+              for flag in ("", " --quantize-factors")]
+    cases += [(arch, "adapprox_kmax_int8", OptimizerConfig(
+                   factor_dtype="int8", **kmax), INT8_STATE_MB[arch])
+              for arch in ("gpt2-117m", "gpt2-345m")]
+    flat = {}
+    for arch, name, cfg, want in cases:
+        if arch not in flat:
+            flat = {arch: tree.flatten(build_model(get_config(arch)).init(
+                torch.Generator(device=device).manual_seed(0)))}
+        state = build_optimizer(cfg).init(flat[arch])
         mb = tree_nbytes(state) / 1e6
         del state
-        print(f"  {name}: {mb:.6f} MB (BENCH_memory.json {want[name]} MB)")
-        if abs(mb - want[name]) > 0.05:
-            fail(f"optimizer state of {name}: {mb:.3f} MB, "
-                 f"BENCH_memory.json says {want[name]}")
+        json_mb = table.get((arch, name))
+        note = ("unchecked" if want is None else f"expected {want} MB"
+                + (f", BENCH_memory.json {json_mb} MB" if json_mb else ""))
+        print(f"  {arch} {name}: {mb:.6f} MB ({note})")
+        if want is not None and abs(mb - want) > 0.05:
+            fail(f"optimizer state of {arch} {name}: {mb:.3f} MB, expected "
+                 f"{want}")
     del flat
     torch.cuda.empty_cache()
 
@@ -602,8 +921,7 @@ def main():
         fail("torch.cuda.is_available() is false; this script needs a GPU")
     from repro_torch.device import resolve_device
     from repro_torch.kernels import cuda
-    from repro_torch.kernels import fused_update as K
-    from repro_torch.kernels import sketch_update as SK
+    from repro_torch.launch.train import optimizer_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = resolve_device("cuda")
@@ -614,10 +932,11 @@ def main():
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     t0 = time.monotonic()
-    cuda.build(K.SOURCE, SK.SOURCE)
+    sources = [mod.SOURCE for mod in kernel_modules()]
+    cuda.build(*sources)
     print(f"[build] {time.monotonic() - t0:.1f} s (one nvcc per source, "
           f"in parallel)")
-    for src in (K.SOURCE, SK.SOURCE):
+    for src in sources:
         log = cuda.BUILD_LOG[src.stem]
         print(f"  {src.name}: {log['seconds']:.1f} s")
         for line in log["output"].splitlines():
@@ -625,33 +944,67 @@ def main():
                 print(f"    {line.strip()}")
 
     fact, dense = main_path_leaves(device)
+    fact_mixed, _ = main_path_leaves(device, mixed=True)
     print("[kernels] fused_precond vs plain, every factored leaf")
     pre = check_precond(fact, device)
+    print("[kernels] fused_precond int8 vs dequantize + plain, every factored "
+          "leaf of the mixed groups and ragged shapes")
+    pre8 = check_precond_int8(fact_mixed, device)
     print("[kernels] fused_apply vs plain, every leaf")
     app = check_apply(fact, dense, device)
+    print("[kernels] lowrank_update vs plain, every factored leaf of the "
+          "mixed groups and ragged shapes")
+    low = check_lowrank(fact_mixed, device)
+    print("[kernels] sq_matmul and sq_matmul_t vs plain, every factored leaf "
+          "of the mixed groups and ragged shapes")
+    sqm = check_sq_matmul(fact_mixed, device)
     print("[kernels] sketch_update (scatter + query) vs plain, every "
           "sketched leaf of the mixed groups and a ragged shape")
     sk = check_sketch(sketch_cases(device), device)
     print("[parity] kernel path on the card vs plain path on the CPU")
-    check_small_parity(device)
+    small_parity(device)
     print("[parity] mixed groups, kernel path on the card vs plain path on "
           "the CPU")
-    check_small_parity(device, mixed=True)
-    print("[train] GPT-2 117M, " + " ".join(TRAIN_ARGV))
+    small_parity(device, mixed=True)
+    print("[parity-int8] mixed groups, --quantize-factors, kernel path on "
+          "the card vs plain path on the CPU")
+    small_parity(device, "int8", mixed=True)
+    print("[parity-kernels] mixed groups, use_kernels, kernel path on the "
+          "card vs plain path on the CPU")
+    small_parity(device, "kernels", mixed=True)
     # 12 steps: 8 factored + 8 dense leaves; 6 factored, 2 sketched
-    runs = {"no_mixed": train_main_path(TRAIN_ARGV, dict(
-        fused_precond=96, fused_apply=192, sketch_scatter=0,
-        sketch_query=0))}
+    print("[train] GPT-2 117M, " + " ".join(TRAIN_ARGV))
+    runs = {"no_mixed": train_main_path(launcher_run(TRAIN_ARGV), "fused", dict(
+        fused_precond=96, fused_apply=192))}
     print("[train-mixed] GPT-2 117M on the launcher's default mixed groups, "
           + " ".join(TRAIN_MIXED_ARGV))
-    runs["mixed"] = train_main_path(TRAIN_MIXED_ARGV, dict(
+    runs["mixed"] = train_main_path(launcher_run(TRAIN_MIXED_ARGV), "fused", dict(
         fused_precond=72, fused_apply=72, sketch_scatter=24,
         sketch_query=24))
-    print("[breakdown] model vs optimizer, refresh vs fold step")
-    step_breakdown(device)
-    print("[breakdown-mixed] the same on the mixed groups")
-    step_breakdown(device, mixed=True)
-    print("[memory] optimizer state of GPT-2 117M vs BENCH_memory.json")
+    print("[train-int8] GPT-2 117M, " + " ".join(TRAIN_INT8_ARGV))
+    runs["int8"] = train_main_path(launcher_run(TRAIN_INT8_ARGV), "int8", dict(
+        fused_precond=72, fused_precond_int8=72, fused_apply=72,
+        sketch_scatter=24, sketch_query=24))
+    print("[train-kernels] GPT-2 117M, the launcher's optimizer (mixed "
+          "groups, --refresh-every 5) with use_kernels, no fused update, "
+          "through build_optimizer and the train loop")
+    runs["kernels"] = train_main_path(kernels_run(device), "kernels", dict(
+        lowrank_update=72, sq_matmul_t=54, sketch_scatter=24,
+        sketch_query=24))
+    launcher_cfg = lambda **kw: optimizer_config(
+        "adapprox", 12, 3e-3, refresh_every=5, **kw)
+    for label, ocfg in (
+            ("[breakdown]", launcher_cfg(fused_update=True)),
+            ("[breakdown-mixed]", launcher_cfg(fused_update=True,
+                                               mixed_groups=True)),
+            ("[breakdown-int8]", launcher_cfg(fused_update=True,
+                                              mixed_groups=True,
+                                              quantize_factors=True)),
+            ("[breakdown-kernels]", kernels_config())):
+        print(f"{label} model vs optimizer, refresh vs fold step")
+        step_breakdown(device, ocfg)
+    print("[memory] optimizer state vs BENCH_memory.json and the JAX "
+          "package's count")
     check_memory(device)
 
     def launches(*names):
@@ -660,21 +1013,33 @@ def main():
             launches_by_path={p: sum(r[n] for n in names)
                               for p, r in runs.items()})
 
-    src = "src/repro_torch/kernels/csrc/fused_update.cu"
+    src = "src/repro_torch/kernels/csrc/"
     kernels = [
-        dict(name="fused_precond", route="cuda", source=src,
+        dict(name="fused_precond", route="cuda", source=src + "fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:130",
              **launches("fused_precond"), bound_by="operations",
-             library_ms=None, **pre),
-        dict(name="fused_apply", route="cuda", source=src,
+             library_ms=None, **pre,
+             int8={"launches": launches("fused_precond_int8")["launches"],
+                   **pre8}),
+        dict(name="fused_apply", route="cuda", source=src + "fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:233",
              **launches("fused_apply"), bound_by="bytes",
              library_ms=None, **app),
         dict(name="sketch_update", route="cuda",
-             source="src/repro_torch/kernels/csrc/sketch_update.cu",
+             source=src + "sketch_update.cu",
              replaces="src/repro/kernels/sketch_update.py:80",
              **launches("sketch_scatter", "sketch_query"), bound_by="bytes",
              library_ms=None, **sk),
+        dict(name="lowrank_update", route="cuda",
+             source=src + "lowrank_update.cu",
+             replaces="src/repro/kernels/lowrank_update.py:45",
+             **launches("lowrank_update"), bound_by="operations",
+             library_ms=None, **low),
+        dict(name="sq_matmul", route="cuda", source=src + "srsi_matmul.cu",
+             replaces="src/repro/kernels/srsi_matmul.py:43",
+             **launches("sq_matmul", "sq_matmul_t"), bound_by="operations",
+             library_note="torch.matmul on a pre-squared G: two calls (the "
+                          "square untimed)", **sqm),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,8 +4,9 @@
 numpy arrays, e.g. from ``jax.device_get``) and returns the port's
 parameters; ``adapprox_state_from_numpy``, ``sketch_state_from_numpy`` and
 ``adam_state_from_numpy`` do the same for an ``AdapproxState``, a
-``SketchState`` and an ``AdamWState``.  With them, a test can start the two
-packages from the same mid-run state.  Nothing here imports JAX.
+``SketchState`` and an ``AdamWState``, int8 factors included
+(``quantized_from_numpy``).  With them, a test can start the two packages
+from the same mid-run state.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch import tree
 from repro_torch.core.adamw import AdamWState
 from repro_torch.core.adapprox import AdapproxState
 from repro_torch.core.factored import DenseLeaf, FactoredLeaf
+from repro_torch.core.quantized import QuantizedMatrix
 from repro_torch.core.sketch import SketchDense, SketchLeaf, SketchState
 
 
@@ -31,17 +33,29 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> dict:
             else _t(v, device, torch.float32) for k, v in tree.items()}
 
 
+def quantized_from_numpy(qm, device: str | torch.device = "cpu"
+                         ) -> QuantizedMatrix:
+    """A JAX ``QuantizedMatrix`` of numpy arrays (``q8`` int8, ``scale``,
+    ``zero`` fp32) -> the port's."""
+    return QuantizedMatrix(q8=_t(qm.q8, device, torch.int8),
+                           scale=_t(qm.scale, device, torch.float32),
+                           zero=_t(qm.zero, device, torch.float32))
+
+
 def adapprox_state_from_numpy(step: int, leaves: Sequence,
                               device: str | torch.device = "cpu"
                               ) -> AdapproxState:
     """``leaves``: per-parameter objects in flatten order carrying numpy
     fields ``q, u, k, xi, m1`` (factored) or ``v, m1`` (dense), as the JAX
-    package's ``FactoredLeaf`` / ``DenseLeaf`` do after ``device_get``."""
+    package's ``FactoredLeaf`` / ``DenseLeaf`` do after ``device_get``;
+    int8 factors (``QuantizedMatrix``) stay int8."""
     f32 = lambda x: None if x is None else _t(x, device, torch.float32)
+    fac = lambda x: (quantized_from_numpy(x, device) if hasattr(x, "q8")
+                     else f32(x))
     out = []
     for leaf in leaves:
         if hasattr(leaf, "q"):
-            out.append(FactoredLeaf(q=f32(leaf.q), u=f32(leaf.u),
+            out.append(FactoredLeaf(q=fac(leaf.q), u=fac(leaf.u),
                                     k=_t(leaf.k, device, torch.int32),
                                     xi=f32(leaf.xi), m1=f32(leaf.m1)))
         else:

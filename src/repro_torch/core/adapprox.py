@@ -1,7 +1,7 @@
 """Adapprox (Algorithm 3): Adam with a randomized-low-rank second moment.
 
 Port of the JAX package's ``core/adapprox.py`` for the paper-faithful
-update and its two engineered knobs on the GPT-2 path:
+update and its engineered knobs on the GPT-2 path:
 
   * no bias correction; update clipping ``u <- u / max(1, RMS(u)/d)``; the
     first moment is an EMA of *updates*; decoupled weight decay;
@@ -15,7 +15,16 @@ update and its two engineered knobs on the GPT-2 path:
     u_hat plus every reduction the tail needs, V never stored; pass 2:
     clip + first-moment EMA + guidance in one read-modify-write), through
     ``kernels/ops.py`` -- CUDA kernels on the card, their plain versions on
-    the CPU.  Equal to the unfused tail for ``guidance="off"``.
+    the CPU.  Equal to the unfused tail for ``guidance="off"``;
+  * ``use_kernels`` (without ``fused_update``): the single-pass update
+    ``ops.lowrank_update`` rebuilds V per tile (V is formed only on
+    refresh steps, for S-RSI) and the fold's (G^2)^T Q goes through
+    ``ops.one_sided_fold``;
+  * ``factor_dtype="int8"``: the factors are stored as the int8 codec of
+    ``core/quantized.py`` and requantized after every step.  With
+    ``fused_update`` they go into pass 1 as they are (dequantized in the
+    kernel) and the refresh or fold takes them dequantized once; otherwise
+    they are dequantized before the step.
 
 Stacked ``(L, m, n)`` leaves are batched: each leaf is one batched call,
 not a loop over its matrices.  Leaves are walked in JAX's flatten order;
@@ -24,8 +33,8 @@ leaf ``i``'s sketch at step ``t`` is drawn from a generator seeded by
 JAX package (whose threefry numbers the port does not reproduce).
 
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``implicit``, ``bucketed``, ``warm_start``, ``use_kernels``, int8
-factors, ``telemetry``, ``dynamic_refresh``, ``guards``.
+``implicit``, ``bucketed``, ``warm_start``, ``telemetry``,
+``dynamic_refresh``, ``guards``.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import factored as F
+from repro_torch.core import quantized as QZ
 from repro_torch.core import rank as R
 from repro_torch.core import srsi as S
 from repro_torch.core.transform import (add_decayed_weights, scale,
@@ -73,8 +83,8 @@ class AdapproxConfig:
     sketch: Optional[S.SketchSource] = None  # None: seeded torch normals
 
 
-_NOT_PORTED = ("implicit", "use_kernels", "bucketed", "warm_start",
-               "telemetry", "dynamic_refresh")
+_NOT_PORTED = ("implicit", "bucketed", "warm_start", "telemetry",
+               "dynamic_refresh")
 
 
 def _check_ported(cfg: AdapproxConfig) -> None:
@@ -83,9 +93,9 @@ def _check_ported(cfg: AdapproxConfig) -> None:
             raise NotImplementedError(
                 f"AdapproxConfig.{name} is not ported to PyTorch yet; "
                 f"see ROADMAP.md Queue A")
-    if cfg.factor_dtype != "float32":
-        raise NotImplementedError("int8 factors are not ported to PyTorch "
-                                  "yet; see ROADMAP.md Queue A")
+    if cfg.factor_dtype not in ("float32", "int8"):
+        raise ValueError(f"unknown factor_dtype {cfg.factor_dtype!r} "
+                         f"(expected 'float32' or 'int8')")
     if cfg.guards is not None:
         raise NotImplementedError("Adapprox guards are not ported to "
                                   "PyTorch yet; see ROADMAP.md Queue A")
@@ -183,8 +193,11 @@ def _init_leaf(p: torch.Tensor, cfg: AdapproxConfig):
         m, n = p.shape[-2], p.shape[-1]
         r = _leaf_r_store(tuple(p.shape), cfg)
         k0 = cfg.rank.k_init if cfg.rank.mode != "static" else r
+        q0, u0 = zeros(bd + (m, r)), zeros(bd + (n, r))
+        if cfg.factor_dtype == "int8":
+            q0, u0 = QZ.quantize_tree_factors(q0, u0)
         return F.FactoredLeaf(
-            q=zeros(bd + (m, r)), u=zeros(bd + (n, r)),
+            q=q0, u=u0,
             k=torch.full(bd, min(k0, r), dtype=torch.int32, device=p.device),
             xi=zeros(bd), m1=m1)
     return F.DenseLeaf(v=zeros(p.shape), m1=m1)
@@ -197,13 +210,19 @@ def _init_leaf(p: torch.Tensor, cfg: AdapproxConfig):
 def _factored_update(g, leaf: F.FactoredLeaf, step: int, generator,
                      cfg: AdapproxConfig, r_store: int, p_eff: int,
                      k_max_leaf: int):
+    """One step of a factored leaf.  ``leaf.q`` / ``leaf.u`` are fp32, or
+    int8 :class:`QuantizedMatrix` factors on the fused path (pass 1 takes
+    them as they are; the refresh or fold takes them dequantized once)."""
     q, u, k, xi_prev, m1 = leaf.q, leaf.u, leaf.k, leaf.xi, leaf.m1
     g32 = g.float()
-    v_op = S.make_implicit_v(q, u, g32, cfg.b2)
+    q32, u32 = ((QZ.dequantize(q), QZ.dequantize(u))
+                if isinstance(q, QZ.QuantizedMatrix) else (q, u))
+    v_op = S.make_implicit_v(q32, u32, g32, cfg.b2)
     # Paper-faithful: V_t is formed every step for the elementwise update.
-    # The fused pipeline reconstructs it tile-wise instead, and the refresh
-    # branch forms it only when it runs.
-    vmat = None if cfg.fused_update else v_op.materialize()
+    # The fused pipeline and the use_kernels update reconstruct it
+    # tile-wise instead, and the refresh branch forms it only when it runs.
+    vmat = (None if cfg.fused_update or cfg.use_kernels
+            else v_op.materialize())
 
     yfold = None
     if cfg.fused_update:
@@ -227,11 +246,14 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int, generator,
         mask = S.col_mask(r_store, k_new).unsqueeze(-2)
         q_new, u_new = res.q * mask, res.u * mask
     else:
-        mask = S.col_mask(r_store, torch.clamp_max(k, k_max_leaf)
-                          ).unsqueeze(-2)
-        y = yfold if yfold is not None else ref.sq_matmul_t(g32, q)
-        q_new, k_new, xi = q, k, xi_prev
-        u_new = (cfg.b2 * u + (1.0 - cfg.b2) * y) * mask
+        mask = S.col_mask(r_store, torch.clamp_max(k, k_max_leaf))
+        q_new, k_new, xi = q32, k, xi_prev
+        if yfold is not None:
+            u_new = (cfg.b2 * u32 + (1.0 - cfg.b2) * yfold
+                     ) * mask.unsqueeze(-2)
+        else:
+            u_new = (ops if cfg.use_kernels else ref).one_sided_fold(
+                u32, q32, g32, cfg.b2, mask)
 
     size = g32.shape[-2] * g32.shape[-1]
     if cfg.fused_update:
@@ -245,7 +267,10 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int, generator,
         return m_out, F.FactoredLeaf(q=q_new, u=u_new, k=k_new, xi=xi,
                                      m1=m1_new)
 
-    u_hat = g32 / (torch.sqrt(vmat) + cfg.eps)
+    if cfg.use_kernels:
+        u_hat = ops.lowrank_update(q32, u32, g32, cfg.b2, cfg.eps)
+    else:
+        u_hat = g32 / (torch.sqrt(vmat) + cfg.eps)
     u_hat = u_hat / _bc(torch.clamp_min(_rms(u_hat) / cfg.clip_d, 1.0))
     if cfg.b1 > 0:
         m1_acc = cfg.b1 * m1 + (1.0 - cfg.b1) * u_hat
@@ -267,6 +292,26 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int, generator,
     else:
         m_out, m1_new = u_hat, None
     return m_out, F.FactoredLeaf(q=q_new, u=u_new, k=k_new, xi=xi, m1=m1_new)
+
+
+def _update_factored(g, leaf: F.FactoredLeaf, shape: tuple, step: int,
+                     generator, cfg: AdapproxConfig):
+    """A factored leaf's step around :func:`_factored_update`: int8 factors
+    are dequantized first unless the fused pass 1 takes them as they are,
+    and requantized after the step, on fold steps too."""
+    int8 = cfg.factor_dtype == "int8"
+    if int8 and not cfg.fused_update:
+        leaf = dataclasses.replace(leaf, q=QZ.dequantize(leaf.q),
+                                   u=QZ.dequantize(leaf.u))
+    r_store = (leaf.q.q8 if isinstance(leaf.q, QZ.QuantizedMatrix)
+               else leaf.q).shape[-1]
+    p_eff, k_max_leaf = _leaf_meta(shape, r_store, cfg)
+    m_out, nl = _factored_update(g, leaf, step, generator, cfg, r_store,
+                                 p_eff, k_max_leaf)
+    if int8:
+        q, u = QZ.quantize_tree_factors(nl.q, nl.u)
+        nl = dataclasses.replace(nl, q=q, u=u)
+    return m_out, nl
 
 
 def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
@@ -317,11 +362,9 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
                                                   state.leaves)):
             g = grads[name]
             if isinstance(leaf, F.FactoredLeaf):
-                r_store = leaf.q.shape[-1]
-                p_eff, k_max_leaf = _leaf_meta(tuple(w.shape), r_store, cfg)
-                gen = _sketch_generator(cfg.seed, step, i, g.device)
-                outs[name], nl = _factored_update(
-                    g, leaf, step, gen, cfg, r_store, p_eff, k_max_leaf)
+                outs[name], nl = _update_factored(
+                    g, leaf, tuple(w.shape), step,
+                    _sketch_generator(cfg.seed, step, i, g.device), cfg)
             else:
                 outs[name], nl = _update_dense(g, leaf, cfg)
             new_leaves.append(nl)

@@ -13,16 +13,19 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quantized import QuantizedMatrix
+
 
 @dataclasses.dataclass
 class FactoredLeaf:
     """q: (*batch, m, r_store) f32 left factor (columns past k zeroed);
-    u: (*batch, n, r_store) f32 right factor; k: (*batch,) int32 effective
+    u: (*batch, n, r_store) f32 right factor -- with int8 factors both are
+    ``core.quantized.QuantizedMatrix``; k: (*batch,) int32 effective
     rank; xi: (*batch,) f32 last approximation error rate; m1: (*batch, m,
     n) f32 running average of updates, or None (b1 = 0)."""
 
-    q: torch.Tensor
-    u: torch.Tensor
+    q: torch.Tensor | QuantizedMatrix
+    u: torch.Tensor | QuantizedMatrix
     k: torch.Tensor
     xi: torch.Tensor
     m1: Optional[torch.Tensor]

@@ -67,9 +67,11 @@ def find_states(state, cls):
 
 
 def tree_nbytes(tree) -> int:
-    """Bytes of every tensor in an optimizer state (dataclasses, tuples,
-    dicts), the counterpart of the JAX package's ``tree_nbytes`` over the
-    state's array leaves; Python-int step counters are not counted."""
+    """Bytes of every tensor in an optimizer state (dataclasses, tuples --
+    named tuples such as int8 ``QuantizedMatrix`` factors included -- and
+    dicts) at its element size (int8: 1 byte), the counterpart of the JAX
+    package's ``tree_nbytes`` over the state's array leaves; Python-int
+    step counters are not counted."""
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):

@@ -4,7 +4,8 @@ checks around a launch.
 Each ``csrc/<name>.cu`` becomes ``build/kernels/lib<name>.so`` under the
 checkout (listed in ``.gitignore``), compiled for ``sm_90a`` with a plain C
 interface that the kernel modules load with ``ctypes``.  A library newer
-than its source is reused.  :func:`build` starts one ``nvcc`` per source
+than its source and than every header beside it (``csrc/*.cuh``) is
+reused.  :func:`build` starts one ``nvcc`` per source
 that needs it, all at once, and waits for them together; nothing is built
 when this module is imported.
 """
@@ -49,7 +50,9 @@ def build(*sources: Path) -> list[Path]:
     jobs = []
     for src in sources:
         lib = library(src)
-        if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        newest = max(p.stat().st_mtime
+                     for p in [src, *src.parent.glob("*.cuh")])
+        if lib.exists() and lib.stat().st_mtime >= newest:
             BUILD_LOG[src.stem] = dict(seconds=0.0, output="(cached)")
             continue
         tmp = BUILD_DIR / f"lib{src.stem}.{os.getpid()}.so"
@@ -73,6 +76,21 @@ def build(*sources: Path) -> list[Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return [library(s) for s in sources]
+
+
+def split(work: int, blocks: int, sm_count: int) -> tuple[int, int]:
+    """Split ``work`` units (row tiles, contraction slices) of each of
+    ``blocks`` blocks into groups, each its own block, so that about two
+    blocks per SM are in flight, and no more (every group writes a partial
+    that is summed after the launch).  Returns ``(groups,
+    units_per_group)``; the last group may hold fewer."""
+    groups = min(work, max(1, -(-2 * sm_count // blocks)))
+    per = -(-work // groups)
+    return -(-work // per), per
+
+
+def sm_count(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def check(name: str, t: torch.Tensor, shape: tuple,

@@ -1,9 +1,10 @@
 """CUDA kernels of the fused two-pass Adapprox update, bound with ctypes.
 
-``csrc/fused_update.cu`` holds both kernels and a note on their design;
-they replace ``fused_precond_pallas`` and ``fused_apply_pallas`` /
-``fused_apply_shared_pallas`` of the JAX package's
-``kernels/fused_update.py``.  The shared library is compiled by ``nvcc``
+``csrc/fused_update.cu`` holds both kernels and a note on their design
+(pass 1's tile loop is ``csrc/pass1.cuh``); they replace
+``fused_precond_pallas`` (its fp32 and int8 variants) and
+``fused_apply_pallas`` / ``fused_apply_shared_pallas`` of the JAX
+package's ``kernels/fused_update.py``.  The shared library is compiled by ``nvcc``
 for ``sm_90a`` at first use (``kernels/cuda.py``) and loaded with
 ``ctypes``; nothing is compiled or imported from CUDA when this module is
 imported.
@@ -11,7 +12,8 @@ imported.
 The wrappers take CUDA tensors only: each checks dtype, device, contiguity,
 alignment and shape, allocates the outputs, launches on
 ``torch.cuda.current_stream()``, raises if the launch reports an error,
-and adds one to ``LAUNCHES[<kernel>]``.  The plain versions live in
+and adds one to ``LAUNCHES[<kernel>]`` (the int8 pass 1 adds one to
+``fused_precond`` and one to ``fused_precond_int8``).  The plain versions live in
 ``kernels/ref.py``; ``kernels/ops.py`` picks between them by device.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core.quantized import BLOCK_ROWS
 from repro_torch.kernels import cuda
 from repro_torch.kernels.ref import f32, f32_one_minus
 
@@ -33,7 +36,7 @@ R_MAX = 704             # the fold accumulator must fit in shared memory
 THREADS = 256
 
 # Launch counts per kernel, for showing that a run went through them.
-LAUNCHES = {"fused_precond": 0, "fused_apply": 0}
+LAUNCHES = {"fused_precond": 0, "fused_precond_int8": 0, "fused_apply": 0}
 
 _LIB = None
 
@@ -51,6 +54,9 @@ def _lib():
         lib.fused_precond_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                           i, i, f, f, f, i, p]
         lib.fused_precond_f32.restype = ctypes.c_int
+        lib.fused_precond_int8.argtypes = [p] * 11 + [i] * 6 + [f, f, f, i,
+                                                             p]
+        lib.fused_precond_int8.restype = ctypes.c_int
         lib.fused_apply_f32.argtypes = [p, p, p, p, i, ctypes.c_longlong, i,
                                         p]
         lib.fused_apply_f32.restype = ctypes.c_int
@@ -62,47 +68,65 @@ def row_groups(m: int, n: int, batch: int, sm_count: int) -> tuple[int, int]:
     """(groups, tiles_per_group) for pass 1: enough 64-row groups per
     column strip that about two blocks per SM are in flight, and no more
     (every group writes one fold partial of n * r words)."""
-    tiles_m = -(-m // BM)
-    strips = -(-n // BN) * batch
-    groups = min(tiles_m, max(1, -(-2 * sm_count // strips)))
-    per = -(-tiles_m // groups)
-    return -(-tiles_m // per), per
+    return cuda.split(-(-m // BM), -(-n // BN) * batch, sm_count)
 
 
-def fused_precond(q: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
-                  b2: float, eps: float, m1: torch.Tensor | None = None,
-                  with_fold: bool = False):
-    """Pass 1 on the card.  q (B, m, r), u (B, n, r), g / m1 (B, m, n),
-    fp32 contiguous, r a multiple of 16.  Returns ``(u_hat (B, m, n),
-    sums (B, 4) = [vfro, usq, m1dot, m1sq], yfold (B, n, r) | None)``."""
-    if q.dim() != 3:
-        raise ValueError(f"q: expected (batch, m, r), got {tuple(q.shape)}")
-    bsz, m, r = q.shape
-    n = u.shape[1]
+def _factor_ptrs(name: str, f, rows: int, bsz: int, r: int) -> list:
+    """Check one factor, fp32 (B, rows, r) or an int8 codec triple (q8 (B,
+    rows, r) int8, scale / zero (B, ceil(rows / 256), r) fp32), and return
+    its pointers."""
+    if isinstance(f, torch.Tensor):
+        cuda.check(name, f, (bsz, rows, r))
+        return [f.data_ptr()]
+    q8, scale, zero = f
+    cells = (bsz, -(-rows // BLOCK_ROWS), r)
+    cuda.check(f"{name}.q8", q8, (bsz, rows, r), torch.int8)
+    cuda.check(f"{name}.scale", scale, cells)
+    cuda.check(f"{name}.zero", zero, cells)
+    return [q8.data_ptr(), scale.data_ptr(), zero.data_ptr()]
+
+
+def fused_precond(q, u, g: torch.Tensor, b2: float, eps: float,
+                  m1: torch.Tensor | None = None, with_fold: bool = False):
+    """Pass 1 on the card.  q (B, m, r), u (B, n, r) fp32, or both int8
+    codec triples ``(q8, scale, zero)`` (``core/quantized.py``'s layout,
+    dequantized in the kernel); g / m1 (B, m, n) fp32; all contiguous, r a
+    multiple of 16.  Returns ``(u_hat (B, m, n), sums (B, 4) = [vfro, usq,
+    m1dot, m1sq], yfold (B, n, r) | None)``."""
+    quant = not isinstance(q, torch.Tensor)
+    q0 = q[0] if quant else q
+    if q0.dim() != 3:
+        raise ValueError(f"q: expected (batch, m, r), got {tuple(q0.shape)}")
+    bsz, m, r = q0.shape
+    n = g.shape[-1]
     if r % R_ALIGN or r > R_MAX:
         raise ValueError(f"r = {r}: pass 1 takes a multiple of {R_ALIGN} "
                          f"up to {R_MAX}")
-    cuda.check("q", q, (bsz, m, r))
-    cuda.check("u", u, (bsz, n, r))
+    if quant == isinstance(u, torch.Tensor):
+        raise ValueError("q and u: both fp32 or both int8 codec triples")
+    factors = (_factor_ptrs("q", q, m, bsz, r)
+               + _factor_ptrs("u", u, n, bsz, r))
     cuda.check("g", g, (bsz, m, n))
     if m1 is not None:
         cuda.check("m1", m1, (bsz, m, n))
     dev = g.device
-    groups, per = row_groups(
-        m, n, bsz, torch.cuda.get_device_properties(dev).multi_processor_count)
+    groups, per = row_groups(m, n, bsz, cuda.sm_count(g))
     gn = -(-n // BN)
     out = torch.empty_like(g)
     part = torch.empty((bsz, groups, gn, 4), dtype=torch.float32, device=dev)
     yfold = (torch.empty((bsz, groups, n, r), dtype=torch.float32,
                          device=dev) if with_fold else None)
-    err = _lib().fused_precond_f32(
-        q.data_ptr(), u.data_ptr(), g.data_ptr(),
-        None if m1 is None else m1.data_ptr(), out.data_ptr(),
-        part.data_ptr(), None if yfold is None else yfold.data_ptr(),
+    entry = _lib().fused_precond_int8 if quant else _lib().fused_precond_f32
+    err = entry(
+        *factors, g.data_ptr(), None if m1 is None else m1.data_ptr(),
+        out.data_ptr(), part.data_ptr(),
+        None if yfold is None else yfold.data_ptr(),
         bsz, m, n, r, groups, per, f32(b2), f32_one_minus(b2), f32(eps),
         int(with_fold), cuda.stream(g))
     cuda.raise_on(err, "fused_precond")
     LAUNCHES["fused_precond"] += 1
+    if quant:
+        LAUNCHES["fused_precond_int8"] += 1
     sums = part.sum(dim=(1, 2))
     if yfold is not None:
         yfold = yfold[:, 0] if groups == 1 else yfold.sum(dim=1)

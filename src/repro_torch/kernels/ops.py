@@ -1,21 +1,24 @@
 """Dispatch for the port's CUDA kernels, by the device of the tensors.
 
 A tensor on the CPU takes the plain version in ``kernels/ref.py``; a CUDA
-tensor launches the hand-written kernel in ``kernels/fused_update.py`` or
+tensor launches the hand-written kernel in ``kernels/fused_update.py``,
+``kernels/lowrank_update.py``, ``kernels/srsi_matmul.py`` or
 ``kernels/sketch_update.py`` (or the launch raises); any other device
-raises.  There is no mode switch and no fallback.  For the fused update,
-the dispatch owns what the kernels do not: the leading batch axes of
-stacked ``(..., m, n)`` leaves are flattened into one grid axis (one
-launch per leaf), ``r`` is zero-padded to the kernel's 16-deep slices
-(zero columns add nothing to Q U^T or to the fold), and the ragged edges of
-``m`` and ``n`` are masked inside the kernel instead of padded here, so G
-is never copied.
+raises.  There is no mode switch and no fallback.  For the update and
+matmul kernels the dispatch owns what the kernels do not: the leading
+batch axes of stacked ``(..., m, n)`` leaves are flattened into one grid
+axis (one launch per leaf), ``r`` is zero-padded to the update kernels'
+16-deep slices (zero columns add nothing to Q U^T or to the fold; an int8
+factor pads q8, scale and zero with 0, so a padded column dequantizes to
+0), and the ragged edges of ``m``, ``n`` and ``s`` are masked inside the
+kernels instead of padded here, so G is never copied.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quantized import QuantizedMatrix, dequantize
 from repro_torch.kernels import ref
 
 
@@ -27,34 +30,106 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def fused_precond(q: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
-                  b2: float, eps: float, m1: torch.Tensor | None = None,
-                  with_vfro: bool = True, with_fold: bool = False):
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """(..., a, b) -> (B, a, b) contiguous, one batch axis."""
+    return t.reshape((-1,) + tuple(t.shape[-2:])).contiguous()
+
+
+def _rpad(t: torch.Tensor, r_align: int) -> torch.Tensor:
+    """Zero-pad the last axis to a multiple of ``r_align``."""
+    pad = (-t.shape[-1]) % r_align
+    return F.pad(t, (0, pad)) if pad else t
+
+
+def fused_precond(q, u, g: torch.Tensor, b2: float, eps: float,
+                  m1: torch.Tensor | None = None, with_vfro: bool = True,
+                  with_fold: bool = False):
     """Pass 1 of the fused update (see ``ref.fused_precond``) over any
-    leading batch dims of (q, u, g, m1).  Returns ``(u_hat, vfro, usq,
-    m1dot, m1sq, yfold)``; vfro is None unless ``with_vfro``, m1dot / m1sq
-    are None without ``m1``, yfold is None unless ``with_fold``."""
+    leading batch dims of (q, u, g, m1).  ``q`` / ``u`` are fp32 tensors or
+    :class:`QuantizedMatrix` int8 factors: on the CPU those are
+    dequantized and the plain version runs, on the card the int8 variant
+    of the kernel dequantizes them as it loads them.  Returns ``(u_hat,
+    vfro, usq, m1dot, m1sq, yfold)``; vfro is None unless ``with_vfro``,
+    m1dot / m1sq are None without ``m1``, yfold is None unless
+    ``with_fold``."""
+    quant = isinstance(q, QuantizedMatrix)
     if not _on_cuda(g):
+        if quant:
+            q, u = dequantize(q), dequantize(u)
         return ref.fused_precond(q, u, g, b2, eps, m1=m1,
                                  with_vfro=with_vfro, with_fold=with_fold)
     from repro_torch.kernels import fused_update as K
     bd = tuple(g.shape[:-2])
     m, n = g.shape[-2:]
-    r = q.shape[-1]
-    pad = (-r) % K.R_ALIGN
-    flat = lambda t: t.float().reshape((-1,) + tuple(t.shape[-2:]))
-    rpad = lambda t: (F.pad(flat(t), (0, pad)) if pad else flat(t)
-                      ).contiguous()
-    qp, up = rpad(q), rpad(u)
-    gp = flat(g).contiguous()
-    mp = None if m1 is None else flat(m1).contiguous()
-    out, sums, yfold = K.fused_precond(qp, up, gp, b2, eps, m1=mp,
-                                       with_fold=with_fold)
+    if quant:
+        r = q.q8.shape[-1]
+        qp, up = ([_flat(_rpad(t, K.R_ALIGN)) for t in f] for f in (q, u))
+    else:
+        r = q.shape[-1]
+        qp, up = (_flat(_rpad(f.float(), K.R_ALIGN)) for f in (q, u))
+    out, sums, yfold = K.fused_precond(
+        qp, up, _flat(g.float()), b2, eps,
+        m1=None if m1 is None else _flat(m1.float()), with_fold=with_fold)
     col = lambda i: sums[:, i].reshape(bd)
     return (out.reshape(bd + (m, n)),
             col(0) if with_vfro else None, col(1),
             None if m1 is None else col(2), None if m1 is None else col(3),
             None if yfold is None else yfold[..., :r].reshape(bd + (n, r)))
+
+
+def lowrank_update(q: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
+                   b2: float, eps: float, with_frob: bool = False):
+    """The single-pass update (see ``ref.lowrank_update``) over any leading
+    batch dims of (q, u, g).  Returns ``out``, or ``(out, vfro)`` with
+    ``with_frob``."""
+    if not _on_cuda(g):
+        out, fro = ref.lowrank_update(q, u, g, b2, eps)
+    else:
+        from repro_torch.kernels import fused_update as K
+        from repro_torch.kernels import lowrank_update as LU
+        bd = tuple(g.shape[:-2])
+        out, fro = LU.lowrank_update(
+            _flat(_rpad(q.float(), K.R_ALIGN)),
+            _flat(_rpad(u.float(), K.R_ALIGN)), _flat(g.float()), b2, eps)
+        out, fro = out.reshape(g.shape), fro.reshape(bd)
+    return (out, fro) if with_frob else out
+
+
+def _sq_matmul(g: torch.Tensor, x: torch.Tensor, transposed: bool):
+    from repro_torch.kernels import srsi_matmul as SM
+    bd = tuple(g.shape[:-2])
+    y = SM.sq_matmul(_flat(g.float()), _flat(x.float()), transposed)
+    return y.reshape(bd + tuple(y.shape[-2:]))
+
+
+def sq_matmul(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(G * G) @ X with G^2 never stored (see ``ref.sq_matmul``).  g (...,
+    m, n), x (..., n, s) -> (..., m, s)."""
+    if not _on_cuda(g):
+        return ref.sq_matmul(g, x)
+    return _sq_matmul(g, x, transposed=False)
+
+
+def sq_matmul_t(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(G * G)^T @ Y (see ``ref.sq_matmul_t``); on the card G is read in
+    its own layout, never transposed in memory.  g (..., m, n), y (..., m,
+    s) -> (..., n, s)."""
+    if not _on_cuda(g):
+        return ref.sq_matmul_t(g, y)
+    return _sq_matmul(g, y, transposed=True)
+
+
+def one_sided_fold(u: torch.Tensor, q: torch.Tensor, g: torch.Tensor,
+                   b2: float, col_mask: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """The rank-projected fold ``mask * (b2 U + (1 - b2) (G^2)^T Q)`` (see
+    ``ref.one_sided_fold``): the product goes through :func:`sq_matmul_t`,
+    the rank-r EMA and mask are tensor code on any device.  col_mask
+    (..., r) or None."""
+    folded = b2 * u.float() + (1.0 - b2) * sq_matmul_t(g, q)
+    if col_mask is not None:
+        folded = folded * col_mask.unsqueeze(-2)
+    return folded
 
 
 def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor | None,

@@ -1,11 +1,18 @@
 """Plain-PyTorch versions of the port's CUDA kernels.
 
-They are the semantic ground truth for ``kernels/fused_update.py`` and
+They are the semantic ground truth for ``kernels/fused_update.py``,
+``kernels/lowrank_update.py``, ``kernels/srsi_matmul.py`` and
 ``kernels/sketch_update.py``: the dispatch in ``kernels/ops.py`` runs them
 for tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
-kernel against them on the card.  The fused-update functions take
+kernel against them on the card.  The update and matmul functions take
 arbitrary leading batch dims; their reductions are per matrix (over the
 trailing two axes).
+
+``1 - b2`` is rounded as the JAX function each one copies rounds it:
+``fused_precond`` and ``sketch_update`` subtract in float32
+(:func:`f32_one_minus`); ``lowrank_update`` and ``one_sided_fold`` take the
+Python double ``1.0 - b2``, which PyTorch, like JAX, rounds to float32
+once.
 """
 from __future__ import annotations
 
@@ -24,10 +31,51 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def lowrank_update(q: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
+                   b2: float, eps: float
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The single-pass Adapprox update:
+
+        V    = b2 * max(Q @ U^T, 0) + (1 - b2) * G^2
+        out  = G / (sqrt(V) + eps)
+        vfro = ||V||_F^2
+
+    q: (..., m, r), u: (..., n, r), g: (..., m, n).  Returns ``(out (...,
+    m, n) f32, vfro (...,) f32)``.
+    """
+    g32 = g.float()
+    v = (b2 * torch.clamp_min(q.float() @ u.float().transpose(-1, -2), 0.0)
+         + (1.0 - b2) * g32 * g32)
+    out = g32 / (torch.sqrt(v) + eps)
+    return out, torch.sum(v * v, dim=(-2, -1))
+
+
+def sq_matmul(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Y = (G * G) @ X.   g: (..., m, n), x: (..., n, s) -> (..., m, s)."""
+    g32 = g.float()
+    return (g32 * g32) @ x.float()
+
+
 def sq_matmul_t(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Z = (G * G)^T @ Y.   g: (..., m, n), y: (..., m, s) -> (..., n, s)."""
     g32 = g.float()
     return (g32 * g32).transpose(-1, -2) @ y.float()
+
+
+def one_sided_fold(u: torch.Tensor, q: torch.Tensor, g: torch.Tensor,
+                   b2: float, col_mask: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """The amortized-refresh fold under a frozen basis Q:
+
+        U_t = mask * (b2 * U_{t-1} + (1 - b2) * (G^2)^T @ Q)
+
+    u: (..., n, r), q: (..., m, r), g: (..., m, n), col_mask: (..., r) or
+    None.  Returns (..., n, r) f32.
+    """
+    folded = b2 * u.float() + (1.0 - b2) * sq_matmul_t(g, q)
+    if col_mask is not None:
+        folded = folded * col_mask.unsqueeze(-2)
+    return folded
 
 
 def fused_precond(q: torch.Tensor, u: torch.Tensor, g: torch.Tensor,

@@ -9,9 +9,10 @@ the kernels, for parity tests).  Without a GPU and without ``--device cpu``
 it raises.  As in the JAX launcher, ``--optimizer adapprox`` runs the mixed
 groups by default (count-min sketch on embedding tables, Adapprox on
 matrices, dense Adam on the rest); ``--no-mixed-groups`` puts Adapprox on
-every matrix.  Flags for parts that are not ported yet raise when set:
-``--warm-start``, ``--bucketed``, ``--quantize-factors``, ``--mesh``,
-telemetry, tracing, guards and checkpointing (see ROADMAP.md Queue A).
+every matrix; ``--quantize-factors`` stores the Adapprox factors as int8
+(``core/quantized.py``).  Flags for parts that are not ported yet raise
+when set: ``--warm-start``, ``--bucketed``, ``--mesh``, telemetry,
+tracing, guards and checkpointing (see ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -29,8 +30,7 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.train.train_loop import LoopConfig, train
 
 # flag -> the default it must keep until its part is ported
-_NOT_PORTED = {"warm_start": False, "bucketed": False,
-               "quantize_factors": False, "mesh": None,
+_NOT_PORTED = {"warm_start": False, "bucketed": False, "mesh": None,
                "telemetry_dir": None, "auto_refresh": False,
                "guards": False, "trace_dir": None, "metrics_every": 0,
                "ckpt_dir": None}
@@ -38,6 +38,7 @@ _NOT_PORTED = {"warm_start": False, "bucketed": False,
 
 def optimizer_config(name: str, steps: int, lr: float,
                      refresh_every: int = 1, fused_update: bool = False,
+                     quantize_factors: bool = False,
                      mixed_groups: bool = False, sketch_width: int = 2048,
                      sketch_depth: int = 4,
                      embedding_min_rows: int = 1024) -> OptimizerConfig:
@@ -56,7 +57,8 @@ def optimizer_config(name: str, steps: int, lr: float,
                                xi_thresh=0.01, delta_s=10,
                                min_dim_factor=64, implicit=False,
                                refresh_every=refresh_every,
-                               fused_update=fused_update)
+                               fused_update=fused_update,
+                               quantize_factors=quantize_factors)
     return OptimizerConfig(**common)
 
 
@@ -79,7 +81,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fused-update", action="store_true",
                     help="adapprox: two-pass fused elementwise tail (CUDA "
                          "kernels in kernels/csrc/fused_update.cu)")
-    ap.add_argument("--quantize-factors", action="store_true")
+    ap.add_argument("--quantize-factors", action="store_true",
+                    help="adapprox: int8 factors (core/quantized.py)")
     ap.add_argument("--mesh", default=None)
     fsdp = ap.add_mutually_exclusive_group()
     fsdp.add_argument("--fsdp", dest="fsdp", action="store_true",
@@ -138,7 +141,7 @@ def main(argv=None, *, params: Optional[dict] = None,
     opt = build_optimizer(optimizer_config(
         args.optimizer, args.steps, args.lr,
         refresh_every=args.refresh_every, fused_update=args.fused_update,
-        mixed_groups=mixed, sketch_width=args.sketch_width,
+        quantize_factors=args.quantize_factors, mixed_groups=mixed, sketch_width=args.sketch_width,
         sketch_depth=args.sketch_depth,
         embedding_min_rows=args.embedding_min_rows), sketch=sketch)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,

@@ -13,6 +13,8 @@ import torch
 from repro_torch.config import OptimizerConfig
 from repro_torch.core import adapprox as TA
 from repro_torch.core.build import build_optimizer
+from repro_torch.core.factored import FactoredLeaf
+from repro_torch.core.quantized import QuantizedMatrix
 from repro_torch.core.sketch import SketchConfig, scale_by_sketch
 from repro_torch.core.transform import PartitionState
 from repro_torch.device import resolve_device
@@ -46,8 +48,8 @@ def test_mixed_groups_raise_instead_of_switching(flags):
 
 
 @pytest.mark.parametrize("flag", [["--warm-start"], ["--bucketed"],
-                                  ["--quantize-factors"], ["--guards"],
-                                  ["--ckpt-dir", "x"], ["--mesh", "2"]])
+                                  ["--guards"], ["--ckpt-dir", "x"],
+                                  ["--mesh", "2"]])
 def test_unported_launcher_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         launcher.main(SMOKE + ["--device", "cpu", "--no-mixed-groups"]
@@ -56,14 +58,46 @@ def test_unported_launcher_flags_raise(flag):
 
 @pytest.mark.parametrize("knob", [dict(implicit=True), dict(bucketed=True),
                                   dict(warm_start=True),
-                                  dict(use_kernels=True),
-                                  dict(factor_dtype="int8"),
                                   dict(telemetry=True),
                                   dict(dynamic_refresh=True),
                                   dict(guards=object())])
 def test_unported_adapprox_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TA.scale_by_adapprox(TA.AdapproxConfig(**knob))
+
+
+def _factored_leaves(state):
+    return [leaf for leaf in TA.adapprox_state(state).leaves
+            if isinstance(leaf, FactoredLeaf)]
+
+
+@pytest.mark.parametrize("way", ["--quantize-factors", "factor_dtype",
+                                 "use_kernels"])
+def test_ported_knobs_build_their_state(way):
+    """--quantize-factors (launcher) and factor_dtype="int8" (config) store
+    int8 factors; use_kernels builds and steps with fp32 factors.  Each
+    raised NotImplementedError until it was ported."""
+    if way == "--quantize-factors":
+        state, hist = launcher.main(SMOKE + ["--device", "cpu",
+                                             "--no-mixed-groups", way])
+        leaves = _factored_leaves(state.opt_state)
+        assert hist and all(isinstance(leaf.q, QuantizedMatrix)
+                            and isinstance(leaf.u, QuantizedMatrix)
+                            for leaf in leaves) and leaves
+        return
+    params = {"w": torch.ones((128, 96)), "b": torch.ones(8)}
+    knob = (dict(factor_dtype="int8") if way == "factor_dtype"
+            else dict(use_kernels=True))
+    opt = TA.scale_by_adapprox(TA.AdapproxConfig(min_dim_factor=64, **knob))
+    state = opt.init(params)
+    upd, state = opt.update({k: 1e-2 * v for k, v in params.items()}, state,
+                            params)
+    (leaf,) = _factored_leaves(state)
+    quant = way == "factor_dtype"
+    assert isinstance(leaf.q, QuantizedMatrix) == quant
+    assert (leaf.q.q8 if quant else leaf.q).dtype == (
+        torch.int8 if quant else torch.float32)
+    assert all(bool(torch.isfinite(x).all()) for x in upd.values())
 
 
 @pytest.mark.parametrize("change", [dict(name="adafactor"),

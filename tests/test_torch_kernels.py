@@ -12,13 +12,17 @@ outputs are held to rtol 1e-5 and reductions to rtol 1e-5 relative to
 their size; pass 2 has no reduction and must agree to 1 ulp-level
 (rtol 1e-6).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import quantized as JQ
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.convert import quantized_from_numpy
+from repro_torch.core.quantized import quantize
 from repro_torch.kernels import fused_update as K
 from repro_torch.kernels import ops, ref
 
@@ -86,6 +90,39 @@ def test_fused_precond_matches_pallas_interpret_padded():
                atol=1e-5 * float(np.max(np.abs(np.asarray(b)))))
 
 
+@pytest.mark.parametrize("m,n,r", [(130, 258, 3), (300, 180, 6),
+                                   (257, 129, 5)])
+def test_fused_precond_int8_matches_jax(m, n, r):
+    """Int8 factors (the codec's q8, scale, zero, carried over from JAX)
+    through the port's dispatch, which dequantizes on the CPU, against the
+    JAX dispatch in its ref mode (dequantize up front) and in pallas mode
+    (the quantized fused_precond_pallas with its tile dequant _deq_tile,
+    interpret=True): guided and fold riders together, ragged m, n and r.
+    The dequantized factors are equal bit for bit (test_torch_quantized),
+    so the tolerance is pass 1's.  Against the Pallas kernel the factors
+    are non-negative: int8 factors of the signed inputs put Q U^T within
+    1e-11 of 0 at some entries, where u_hat = G / sqrt(V) takes the
+    rounding of the two sums apart -- the JAX package's own ref and
+    Pallas paths differ by 2.6e-3 there."""
+    q, u, g, m1 = _inputs((), m, n, r, seed=5)
+    for factors, mode in (((q, u), "ref"),
+                          ((np.abs(q), np.abs(u)), "pallas")):
+        jq, ju = (JQ.quantize(jnp.asarray(f)) for f in factors)
+        jops.set_mode(mode)
+        try:
+            want = jops.fused_precond(jq, ju, jnp.asarray(g), B2, EPS,
+                                      m1=jnp.asarray(m1), with_vfro=True,
+                                      with_fold=True)
+        finally:
+            jops.set_mode("auto")
+        tq, tu = (quantized_from_numpy(jax.device_get(x)) for x in (jq, ju))
+        got = ops.fused_precond(tq, tu, _t(g), B2, EPS, m1=_t(m1),
+                                with_vfro=True, with_fold=True)
+        for a, b in zip(got, want):
+            _close(a, b, rtol=1e-5,
+                   atol=1e-5 * float(np.max(np.abs(np.asarray(b)))))
+
+
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("batch", [(), (2,)])
 def test_fused_apply_matches_jax_ref(shared, batch):
@@ -125,9 +162,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.fused_precond(q, u, g, B2, EPS)
     with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fused_precond(tuple(quantize(q)), tuple(quantize(u)), g, B2, EPS)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         K.fused_apply(g.reshape(1, -1), m1.reshape(1, -1),
                       torch.ones((1, 5)), shared_out=True)
-    assert K.LAUNCHES == {"fused_precond": 0, "fused_apply": 0}
+    assert K.LAUNCHES == {"fused_precond": 0, "fused_precond_int8": 0,
+                          "fused_apply": 0}
 
 
 def test_row_groups_cover_every_tile():

@@ -15,14 +15,18 @@ sm_90a) and the CUDA toolkit.  In order, it
      guided, fold, and its int8 variant on quantized factors; pass 2
      shared, two-output, dense; the single-pass update; the square-and-
      matmul in both orientations; the sketch scatter + query at the
-     embedding shapes of the mixed groups) and at ragged shapes, each new
-     kernel bitwise repeatable, and times each beside its bound and the
-     plain version's time;
+     embedding shapes of the mixed groups; flash attention's forward and
+     two backward kernels at GPT-2 117M's attention shape in bf16 and
+     fp32) and at ragged shapes, each new kernel bitwise repeatable, and
+     times each beside its bound and the plain version's time (flash
+     attention also beside scaled_dot_product_attention, a yardstick the
+     port never calls);
   4. checks the kernel path end to end against the plain path on a small
      input: the GPT-2 smoke model in fp32 trains a few steps on the card
      and on the CPU from the same init and sketches, and the losses, ranks
      and parameters must agree -- without and with the mixed groups, with
-     int8 factors, and on the use_kernels path;
+     int8 factors, on the use_kernels path, and with attn_impl "chunked"
+     at 2048 tokens;
   5. trains GPT-2 117M at full width (12 steps, batch 8 x 1024,
      --fused-update --refresh-every 5) with the launch counters set to 0
      just before each run, and checks a finite, falling loss and the
@@ -36,7 +40,9 @@ sm_90a) and the CUDA toolkit.  In order, it
      ``build_optimizer`` and the train loop, the launcher's optimizer
      with use_kernels and no fused update (the single-pass update per
      factored leaf every step, the transposed square-and-matmul per
-     factored leaf on fold steps);
+     factored leaf on fold steps), and the launcher's mixed groups with
+     attn_impl "chunked" (flash attention's three kernels once per layer
+     every step, and none on the other paths);
   6. breaks a step of each run down into model and optimizer time;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW and holds them against ``BENCH_memory.json``, and those of
@@ -61,8 +67,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores and HBM3 bandwidth, at the full 700 W power limit.
+# cores, dense bf16 on the tensor cores (fp32 accumulation) and HBM3
+# bandwidth, at the full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 TRAIN_ARGV = ["--arch", "gpt2-117m", "--steps", "12", "--batch", "8",
@@ -96,12 +104,41 @@ TOL_MATMUL = 1e-5
 # one ulp move the parameters by 1.1e-3 of the largest.
 TOL_PARAMS_INT8 = 1e-2
 
+# Flash attention against its plain version on the same inputs.  fp32:
+# the same fp32 products, summed in 64-wide tiles against 1024-wide chunks
+# and cuBLAS, so out and lse within 1e-5 of the largest entry; the
+# gradients within 1e-4, as D and the recomputed P each sum in another
+# order and dS = P (dP - D) cancels.  bf16 outputs (out, dq, dk, dv of
+# bf16 inputs): each side rounds an fp32 result to bf16 once, so each
+# entry within one bf16 ulp of itself, plus TOL_FLASH of the largest
+# entry for the fp32 summation order, which exceeds the ulp of entries
+# near 0 (fp32 gradients read 2.9e-7 of the largest on the card).
+TOL_FLASH = 1e-5
+TOL_FLASH_GRAD = 1e-4
+# (name, (B, Sq, Sk, H, KV, dh), causal, dtypes): GPT-2 117M's attention
+# at batch 8 x 1024 (timed), then dh 80 (no multiple of 64), S 1000 (no
+# multiple of the 64-row tiles), 8 query heads over 2 KV heads
+FLASH_CASES = [
+    ("gpt2-117m", (8, 1024, 1024, 12, 12, 64), True,
+     ("bfloat16", "float32")),
+    ("ragged gqa causal", (2, 1000, 1000, 8, 2, 80), True,
+     ("float32", "bfloat16")),
+    ("ragged gqa full", (2, 1000, 872, 8, 2, 80), False, ("float32",))]
+
 # Optimizer-state MB of adapprox_kmax_int8 at b1 = 0.9 as the JAX package's
 # own benchmarks/bench_memory.py::state_mb counts it (tier-1's
 # tests/test_torch_quantized.py recomputes it).  BENCH_memory.json's 540.1 and
 # 1547.0 predate its per-256-row-block (scale, zero) codec: with one
 # absmax scale per column they come out at 540.055 and 1546.991.
 INT8_STATE_MB = {"gpt2-117m": 541.254944, "gpt2-345m": 1550.658976}
+
+
+T0 = time.monotonic()
+
+
+def phase(title: str) -> None:
+    """Print a phase's heading with the seconds since the script began."""
+    print(f"{title} (t = {time.monotonic() - T0:.1f} s)", flush=True)
 
 
 def fail(msg: str):
@@ -182,9 +219,11 @@ def bound_ms(flops: float, nbytes: float) -> float:
 
 
 def kernel_modules():
-    from repro_torch.kernels import (fused_update, lowrank_update,
-                                     sketch_update, srsi_matmul)
-    return fused_update, sketch_update, lowrank_update, srsi_matmul
+    from repro_torch.kernels import (flash_attention, fused_update,
+                                     lowrank_update, sketch_update,
+                                     srsi_matmul)
+    return (fused_update, sketch_update, lowrank_update, srsi_matmul,
+            flash_attention)
 
 
 def reset_launches() -> None:
@@ -197,16 +236,21 @@ def launch_counts() -> dict:
 
 
 def expected_launches(kind: str, steps: int, folds: int, n_fact: int,
-                      n_leaves: int, n_sk: int) -> dict:
-    """Launches of ``steps`` optimizer steps (``folds`` of them fold steps)
+                      n_leaves: int, n_sk: int, attn_layers: int = 0) -> dict:
+    """Launches of ``steps`` train steps (``folds`` of them fold steps)
     on a path: ``fused`` and ``int8`` launch pass 1 per factored leaf and
     pass 2 per Adapprox leaf every step (``int8``: every pass 1 is the
     int8 variant); ``kernels`` (use_kernels) the single-pass update per
     factored leaf every step and the transposed square-and-matmul per
     factored leaf on fold steps; the sketch two launches per sketched leaf
-    every step."""
+    every step; flash attention, on ``attn_layers`` layers (all of them
+    under attn_impl "chunked", none on the naive path), its forward and
+    each backward kernel once per layer every step."""
     want = dict.fromkeys(launch_counts(), 0)
     want.update(sketch_scatter=steps * n_sk, sketch_query=steps * n_sk)
+    want.update(flash_fwd=steps * attn_layers,
+                flash_bwd_dq=steps * attn_layers,
+                flash_bwd_dkdv=steps * attn_layers)
     if kind == "kernels":
         want.update(lowrank_update=steps * n_fact, sq_matmul_t=folds * n_fact)
     else:
@@ -216,12 +260,20 @@ def expected_launches(kind: str, steps: int, folds: int, n_fact: int,
     return want
 
 
+def bf16_ulp(x):
+    """The spacing of bf16 at each |x| (8 significant bits)."""
+    import torch
+    mag = torch.clamp_min(x.abs(), torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
 def hold(what: str, labels, tols, got, want, rec: dict, again=None) -> str:
     """Fail unless each output of a kernel is finite and within its
     tolerance (relative to the largest entry of the plain output) of the
     plain version's and, given ``again`` (a second launch), bitwise equal
-    to it.  The first output's error goes into ``rec``.  Returns the
-    errors as text."""
+    to it.  A bf16 output is held entry by entry instead: within one bf16
+    ulp of the entry plus its tolerance of the largest entry.  The first
+    output's error goes into ``rec``.  Returns the errors as text."""
     import torch
     again = again if again is not None else [None] * len(labels)
     errs = []
@@ -236,7 +288,16 @@ def hold(what: str, labels, tols, got, want, rec: dict, again=None) -> str:
             fail(f"{what}: {label} not finite")
         ab, rel = rel_err(a, b)
         errs.append(f"{label} {ab:.3e} ({rel:.2e})")
-        if rel > tol:
+        if a.dtype == torch.bfloat16:
+            a32, b32 = a.float(), b.float()
+            bound = (bf16_ulp(torch.maximum(a32.abs(), b32.abs()))
+                     + tol * float(b32.abs().max()))
+            worst = float(((a32 - b32).abs() / bound).max())
+            errs[-1] += f" {worst:.3f} of its per-entry bf16 bound"
+            if worst > 1.0:
+                fail(f"{what}: {label} exceeds one bf16 ulp + {tol} of the "
+                     f"largest entry by {worst:.3f}x")
+        elif rel > tol:
             fail(f"{what}: {label} rel err {rel:.3e} > {tol}")
         if label == labels[0]:
             rec["max_abs_err"] = max(rec["max_abs_err"], ab)
@@ -595,6 +656,131 @@ def check_sketch(cases, device):
     return rec
 
 
+def attn_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs the attention computes: k_pos <= q_pos, both
+    counted from 0, when causal."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+def flash_bounds(b, sq, sk, h, kv, dh, causal, dtype):
+    """(forward, backward) bounds in ms of one call.  Operations: the
+    forward's two products over the live pairs (q k^T, p v), the
+    backward's five (the recomputed q k^T, dO v^T, P^T dO, dS k,
+    dS^T q), 2 a multiply-add, each at the peak of its operands' type:
+    with bf16 inputs q k^T (when the scale is a power of two, so that q
+    scale is still bf16) and dO v^T are bf16 products with fp32 sums, the
+    same function on the tensor cores; the products with an fp32 P or dS
+    operand, and all of them for fp32 inputs, at the fp32 peak.  Bytes:
+    the forward reads q, k, v and writes o and the fp32 lse, the backward
+    reads q, k, v, o, dO and lse and writes dq, dk, dv."""
+    import torch
+    from repro_torch.kernels.ref import attn_scale
+    flops = 2 * b * h * dh * attn_pairs(sq, sk, causal)
+    bf16 = dtype == torch.bfloat16
+    qk = PEAK_BF16_FLOPS if bf16 and math.frexp(attn_scale(dh))[0] == 0.5 \
+        else PEAK_FP32_FLOPS
+    dov = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+    itemsize = 2 if bf16 else 4
+    nq, nk = b * sq * h * dh * itemsize, b * sk * kv * dh * itemsize
+    lse = 4 * b * h * sq
+    fwd_s = flops / qk + flops / PEAK_FP32_FLOPS
+    bwd_s = flops / qk + flops / dov + 3 * flops / PEAK_FP32_FLOPS
+    return (1e3 * max(fwd_s, (2 * nq + 2 * nk + lse) / PEAK_BYTES_PER_S),
+            1e3 * max(bwd_s, (4 * nq + 4 * nk + lse) / PEAK_BYTES_PER_S))
+
+
+def check_flash(device):
+    """Flash attention's forward and backward kernels against their plain
+    versions on the same inputs, each kernel launched twice and compared
+    bitwise: at GPT-2 117M's shape (8, 1024, 12, 64), causal, in bf16 (as
+    the model feeds them) and in fp32, and at ragged GQA shapes (S 1000,
+    dh 80, 8 query heads over 2 KV heads; causal, and full attention with
+    Sq != Sk).  Then, at the GPT-2 shape, each kernel's device time beside
+    its bound and its plain version's, and the library yardstick that the
+    port never calls: scaled_dot_product_attention forward and
+    forward+backward, fp32 and bf16.  Returns (forward, backward) records,
+    times per call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    fwd_rec, bwd_rec = new_rec(), new_rec()
+    for name, (b, sq, sk, h, kv, dh), causal, dtypes in FLASH_CASES:
+        for dt in (getattr(torch, d) for d in dtypes):
+            rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                             device=device).to(dt)
+            q, k, v = rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)
+            do = rnd(b, sq, h, dh)
+            gtol = TOL_FLASH_GRAD if dt == f32 else TOL_FLASH
+            what = f"flash_attention {name} {tuple(q.shape)} {dt}"
+            fwd = lambda: ops.flash_attention_fwd(q, k, v, causal)
+            got, again = fwd(), fwd()
+            want = ref.flash_attention(q, k, v, causal)
+            torch.cuda.synchronize()
+            errs = hold(f"{what} fwd", ("out", "lse"), (TOL_FLASH,) * 2,
+                        got, want, fwd_rec, again)
+            print(f"  {what} causal={causal} fwd: {errs}")
+            o, lse = got
+            bwd = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            got, again = bwd(), bwd()
+            want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            errs = hold(f"{what} bwd", ("dq", "dk", "dv"), (gtol,) * 3, got,
+                        want, bwd_rec, again)
+            print(f"  {what} causal={causal} bwd: {errs}")
+            del got, again, want
+            if name != "gpt2-117m":
+                continue
+            b_fwd, b_bwd = flash_bounds(b, sq, sk, h, kv, dh, causal,
+                                        q.dtype)
+            plain_fwd = lambda: ref.flash_attention(q, k, v, causal)
+            plain_bwd = lambda: ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                                        causal)
+            if dt == bf16:      # the main path's dtype goes in the records
+                time_pair(fwd, plain_fwd, "flash_fwd_kernel", fwd_rec, b_fwd,
+                          f"{name} bf16 fwd")
+                time_pair(bwd, plain_bwd, "flash_bwd", bwd_rec, b_bwd,
+                          f"{name} bf16 bwd (both kernels)")
+                for kern in ("dq", "dkdv"):
+                    bwd_rec[kern + "_ms"] = device_ms(
+                        bwd, f"flash_bwd_{kern}_kernel")
+                print(f"    timing bwd by kernel: dq {bwd_rec['dq_ms']:.4f}"
+                      f" ms, dkdv {bwd_rec['dkdv_ms']:.4f} ms")
+            else:               # fp32: the function SDPA computes in fp32
+                fwd_rec["fp32_ms"] = device_ms(fwd, "flash_fwd_kernel")
+                bwd_rec["fp32_ms"] = device_ms(bwd, "flash_bwd")
+                print(f"    timing fp32 inputs: fwd {fwd_rec['fp32_ms']:.4f} "
+                      f"ms, bwd {bwd_rec['fp32_ms']:.4f} ms")
+            # the yardstick, (B, H, S, dh) as SDPA takes it
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=causal)
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    return sdpa()
+
+            def sdpa_fwd_bwd():
+                return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+            t_f = device_ms(sdpa_fwd) or events_ms(sdpa_fwd)
+            t_fb = device_ms(sdpa_fwd_bwd) or events_ms(sdpa_fwd_bwd)
+            tag = "fp32" if dt == f32 else "bf16"
+            print(f"    library: scaled_dot_product_attention {tag} fwd "
+                  f"{t_f:.4f} ms, fwd+bwd {t_fb:.4f} ms")
+            key = "library_ms" if dt == f32 else "library_bf16_ms"
+            fwd_rec[key] = t_f
+            bwd_rec[key] = t_fb - t_f
+            del qt, kt, vt, dot
+            torch.cuda.empty_cache()
+    return fwd_rec, bwd_rec
+
+
 class _CallOrderSketch:
     """Sketch source drawing from one CPU generator in call order, so two
     runs that call it alike get the same Gaussian sketches on any device."""
@@ -608,14 +794,18 @@ class _CallOrderSketch:
         return torch.randn(shape, generator=self.gen)
 
 
-def small_parity(device, kind: str = "fused", mixed: bool = False):
+def small_parity(device, kind: str = "fused", mixed: bool = False,
+                 chunked: bool = False):
     """Kernel path (card) against plain path (CPU), end to end: GPT-2
     smoke in fp32, 4 steps with refresh_every=3 (refresh, fold, fold,
     refresh), same init and sketches, the launcher's optimizer with
     ``kind`` "fused" (--fused-update), "int8" (and --quantize-factors) or
     "kernels" (use_kernels, no fused update).  With ``mixed`` on the
-    launcher's mixed groups, with the token embedding sketched.  The card's
-    launches must be those the optimizer state implies."""
+    launcher's mixed groups, with the token embedding sketched.  With
+    ``chunked``, attn_impl "chunked" at batch 2 x 2048 (two 1024-token
+    chunks, so the dispatch takes the flash-attention path on every
+    layer); else batch 4 x 128 on the naive path.  The card's launches
+    must be those the optimizer state and the attention path imply."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_smoke_config
@@ -629,8 +819,10 @@ def small_parity(device, kind: str = "fused", mixed: bool = False):
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.train_loop import LoopConfig, train
 
-    cfg = dataclasses.replace(get_smoke_config("gpt2-117m", max_seq_len=128),
-                              dtype="float32")
+    seq, batch = (2048, 2) if chunked else (128, 4)
+    cfg = dataclasses.replace(get_smoke_config("gpt2-117m", max_seq_len=seq),
+                              dtype="float32",
+                              attn_impl="chunked" if chunked else "auto")
     model = build_model(cfg)
     init = model.init(torch.Generator().manual_seed(0))
     kw = dict(mixed_groups=True, **SMALL_MIXED) if mixed else {}
@@ -646,8 +838,8 @@ def small_parity(device, kind: str = "fused", mixed: bool = False):
                   for k, v in tree.flatten(init).items()}
         reset_launches()
         state, hist = train(model, opt,
-                            DataConfig(vocab=cfg.vocab, seq_len=128,
-                                       global_batch=4),
+                            DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                       global_batch=batch),
                             LoopConfig(total_steps=4, log_every=1),
                             device=dev, params=tree.unflatten(params))
         runs.append((state, [h["loss"] for h in hist]))
@@ -676,18 +868,20 @@ def small_parity(device, kind: str = "fused", mixed: bool = False):
     n_sk = sum(isinstance(leaf, SketchLeaf)
                for sub in find_states(s_gpu.opt_state, SketchState)
                for leaf in sub.leaves)
-    want = expected_launches(kind, 4, 2, n_fact, len(leaves["gpu"]), n_sk)
+    want = expected_launches(kind, 4, 2, n_fact, len(leaves["gpu"]), n_sk,
+                             cfg.n_layers if chunked else 0)
     print(f"  factored leaves {n_fact}, sketched {n_sk}; launches on the card "
           f"{launches}")
     if n_fact < 1 or (mixed and n_sk < 1) or launches != want:
         fail(f"small-input parity: launches {launches}, expected {want}")
 
 
-def train_main_path(run, kind: str, expect: dict):
+def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0):
     """One main-path run: ``run()`` trains 12 steps and returns ``(state,
-    history)``.  Its launches must be those the optimizer state implies
-    for ``kind`` (see :func:`expected_launches`) and ``expect`` (every
-    other kernel 0).  Returns the launch counts."""
+    history)``.  Its launches must be those the optimizer state and the
+    attention path (``attn_layers`` chunked layers) imply for ``kind``
+    (see :func:`expected_launches`) and ``expect`` (every other kernel 0).
+    Returns the launch counts and ``{"loss", "peak_gib", "fold_s"}``."""
     import torch
     from repro_torch.core.adapprox import adapprox_state
     from repro_torch.core.sketch import SketchLeaf, SketchState
@@ -713,19 +907,21 @@ def train_main_path(run, kind: str, expect: dict):
                for sub in find_states(state.opt_state, SketchState)
                for leaf in sub.leaves)
     # refresh at steps 1, 6, 11 of 12: 9 fold steps
-    want = expected_launches(kind, 12, 9, n_fact, len(adapprox), n_sk)
+    want = expected_launches(kind, 12, 9, n_fact, len(adapprox), n_sk,
+                             attn_layers)
     expect = {**dict.fromkeys(launches, 0), **expect}
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  launches {launches} (expected {want}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{peak:.2f} GiB")
     if launches != want or launches != expect:
         fail(f"main path launches {launches}, expected {want} and {expect}")
     refresh = [t for i, t in enumerate(times, 1) if i % 5 == 1 and i > 1]
     fold = [t for i, t in enumerate(times, 1) if i % 5 != 1]
     tokens = 8 * 1024
-    print(f"  fold-step time median {sorted(fold)[len(fold) // 2]:.4f} s "
-          f"({tokens / sorted(fold)[len(fold) // 2]:.0f} tokens/s); "
-          f"refresh-step times {refresh}")
-    return launches
+    fold_s = sorted(fold)[len(fold) // 2]
+    print(f"  fold-step time median {fold_s:.4f} s "
+          f"({tokens / fold_s:.0f} tokens/s); refresh-step times {refresh}")
+    return launches, {"loss": losses[-1], "peak_gib": peak, "fold_s": fold_s}
 
 
 def launcher_run(argv):
@@ -744,27 +940,36 @@ def kernels_config():
                          mixed_groups=True), use_kernels=True)
 
 
-def kernels_run(device):
-    """GPT-2 117M, 12 steps at batch 8 x 1024, on :func:`kernels_config`
-    through build_optimizer and the train loop (the launcher's defaults:
-    seed 0, lr 3e-3)."""
+def chunked_model_config():
+    """GPT-2 117M with attn_impl "chunked": at 1024 tokens every layer's
+    attention takes the flash-attention kernels.  The JAX launcher has no
+    flag for it either; a user sets the ModelConfig field."""
+    from repro_torch.configs.archs import get_config
+    return dataclasses.replace(get_config("gpt2-117m"), attn_impl="chunked")
+
+
+def loop_run(device, ocfg, model_cfg=None):
+    """GPT-2 117M (``model_cfg``, by default the launcher's), 12 steps at
+    batch 8 x 1024, on optimizer config ``ocfg`` through build_optimizer
+    and the train loop (the launcher's defaults: seed 0, lr 3e-3)."""
     from repro_torch.configs.archs import get_config
     from repro_torch.core.build import build_optimizer
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.train_loop import LoopConfig, train
-    cfg = get_config("gpt2-117m")
-    return lambda: train(build_model(cfg), build_optimizer(kernels_config()),
+    cfg = model_cfg or get_config("gpt2-117m")
+    return lambda: train(build_model(cfg), build_optimizer(ocfg),
                          DataConfig(vocab=cfg.vocab, seq_len=1024,
                                     global_batch=8),
                          LoopConfig(total_steps=12, log_every=1),
                          device=device)
 
 
-def step_breakdown(device, ocfg):
+def step_breakdown(device, ocfg, model_cfg=None):
     """Where a main-path step goes: model forward+backward and optimizer
     timed apart (host clock around synchronised work) over steps 1-7 of a
-    main path's optimizer config ``ocfg``, and a profile of step 6
+    main path's optimizer config ``ocfg`` (and GPT-2 117M config
+    ``model_cfg``, by default the launcher's), and a profile of step 6
     (refresh) and step 7 (fold) for the device's busy share and its
     largest kernels.  With int8 factors, also the cost of their codec
     (dequantize and requantize both factors of every leaf, once a step)."""
@@ -778,7 +983,7 @@ def step_breakdown(device, ocfg):
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.steps import TrainState
 
-    cfg = get_config("gpt2-117m")
+    cfg = model_cfg or get_config("gpt2-117m")
     model = build_model(cfg)
     opt = build_optimizer(ocfg)
     state = TrainState.create(
@@ -931,11 +1136,9 @@ def main():
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
-    t0 = time.monotonic()
     sources = [mod.SOURCE for mod in kernel_modules()]
     cuda.build(*sources)
-    print(f"[build] {time.monotonic() - t0:.1f} s (one nvcc per source, "
-          f"in parallel)")
+    phase("[build] one nvcc per source, in parallel, done")
     for src in sources:
         log = cuda.BUILD_LOG[src.stem]
         print(f"  {src.name}: {log['seconds']:.1f} s")
@@ -945,65 +1148,89 @@ def main():
 
     fact, dense = main_path_leaves(device)
     fact_mixed, _ = main_path_leaves(device, mixed=True)
-    print("[kernels] fused_precond vs plain, every factored leaf")
+    phase("[kernels] fused_precond vs plain, every factored leaf")
     pre = check_precond(fact, device)
-    print("[kernels] fused_precond int8 vs dequantize + plain, every factored "
+    phase("[kernels] fused_precond int8 vs dequantize + plain, every factored "
           "leaf of the mixed groups and ragged shapes")
     pre8 = check_precond_int8(fact_mixed, device)
-    print("[kernels] fused_apply vs plain, every leaf")
+    phase("[kernels] fused_apply vs plain, every leaf")
     app = check_apply(fact, dense, device)
-    print("[kernels] lowrank_update vs plain, every factored leaf of the "
+    phase("[kernels] lowrank_update vs plain, every factored leaf of the "
           "mixed groups and ragged shapes")
     low = check_lowrank(fact_mixed, device)
-    print("[kernels] sq_matmul and sq_matmul_t vs plain, every factored leaf "
+    phase("[kernels] sq_matmul and sq_matmul_t vs plain, every factored leaf "
           "of the mixed groups and ragged shapes")
     sqm = check_sq_matmul(fact_mixed, device)
-    print("[kernels] sketch_update (scatter + query) vs plain, every "
+    phase("[kernels] sketch_update (scatter + query) vs plain, every "
           "sketched leaf of the mixed groups and a ragged shape")
     sk = check_sketch(sketch_cases(device), device)
-    print("[parity] kernel path on the card vs plain path on the CPU")
+    phase("[kernels] flash_attention fwd / bwd vs plain, GPT-2 117M's shape "
+          "and ragged GQA shapes")
+    fa_fwd, fa_bwd = check_flash(device)
+    phase("[parity] kernel path on the card vs plain path on the CPU")
     small_parity(device)
-    print("[parity] mixed groups, kernel path on the card vs plain path on "
+    phase("[parity] mixed groups, kernel path on the card vs plain path on "
           "the CPU")
     small_parity(device, mixed=True)
-    print("[parity-int8] mixed groups, --quantize-factors, kernel path on "
+    phase("[parity-int8] mixed groups, --quantize-factors, kernel path on "
           "the card vs plain path on the CPU")
     small_parity(device, "int8", mixed=True)
-    print("[parity-kernels] mixed groups, use_kernels, kernel path on the "
+    phase("[parity-kernels] mixed groups, use_kernels, kernel path on the "
           "card vs plain path on the CPU")
     small_parity(device, "kernels", mixed=True)
+    phase("[parity-chunked] mixed groups, attn_impl \"chunked\" at S 2048, "
+          "kernel path on the card vs plain path on the CPU")
+    small_parity(device, mixed=True, chunked=True)
     # 12 steps: 8 factored + 8 dense leaves; 6 factored, 2 sketched
-    print("[train] GPT-2 117M, " + " ".join(TRAIN_ARGV))
+    phase("[train] GPT-2 117M, " + " ".join(TRAIN_ARGV))
     runs = {"no_mixed": train_main_path(launcher_run(TRAIN_ARGV), "fused", dict(
         fused_precond=96, fused_apply=192))}
-    print("[train-mixed] GPT-2 117M on the launcher's default mixed groups, "
+    phase("[train-mixed] GPT-2 117M on the launcher's default mixed groups, "
           + " ".join(TRAIN_MIXED_ARGV))
     runs["mixed"] = train_main_path(launcher_run(TRAIN_MIXED_ARGV), "fused", dict(
         fused_precond=72, fused_apply=72, sketch_scatter=24,
         sketch_query=24))
-    print("[train-int8] GPT-2 117M, " + " ".join(TRAIN_INT8_ARGV))
+    phase("[train-int8] GPT-2 117M, " + " ".join(TRAIN_INT8_ARGV))
     runs["int8"] = train_main_path(launcher_run(TRAIN_INT8_ARGV), "int8", dict(
         fused_precond=72, fused_precond_int8=72, fused_apply=72,
         sketch_scatter=24, sketch_query=24))
-    print("[train-kernels] GPT-2 117M, the launcher's optimizer (mixed "
+    phase("[train-kernels] GPT-2 117M, the launcher's optimizer (mixed "
           "groups, --refresh-every 5) with use_kernels, no fused update, "
           "through build_optimizer and the train loop")
-    runs["kernels"] = train_main_path(kernels_run(device), "kernels", dict(
+    runs["kernels"] = train_main_path(loop_run(device, kernels_config()),
+                                      "kernels", dict(
         lowrank_update=72, sq_matmul_t=54, sketch_scatter=24,
         sketch_query=24))
     launcher_cfg = lambda **kw: optimizer_config(
         "adapprox", 12, 3e-3, refresh_every=5, **kw)
-    for label, ocfg in (
-            ("[breakdown]", launcher_cfg(fused_update=True)),
-            ("[breakdown-mixed]", launcher_cfg(fused_update=True,
-                                               mixed_groups=True)),
+    mixed_cfg = launcher_cfg(fused_update=True, mixed_groups=True)
+    phase("[train-chunked] GPT-2 117M with attn_impl \"chunked\", the "
+          "launcher's default mixed groups, --fused-update --refresh-every "
+          "5, batch 8 x 1024, through build_optimizer and the train loop")
+    runs["chunked"] = train_main_path(
+        loop_run(device, mixed_cfg, chunked_model_config()), "fused", dict(
+            fused_precond=72, fused_apply=72, sketch_scatter=24,
+            sketch_query=24, flash_fwd=144, flash_bwd_dq=144,
+            flash_bwd_dkdv=144), attn_layers=12)
+    info = {p: r[1] for p, r in runs.items()}
+    runs = {p: r[0] for p, r in runs.items()}
+    print(f"  against [train-mixed]: final loss {info['chunked']['loss']:.4f}"
+          f" vs {info['mixed']['loss']:.4f}; peak memory "
+          f"{info['chunked']['peak_gib']:.2f} vs "
+          f"{info['mixed']['peak_gib']:.2f} GiB; fold step "
+          f"{info['chunked']['fold_s']:.4f} vs {info['mixed']['fold_s']:.4f}"
+          f" s")
+    for label, ocfg, mcfg in (
+            ("[breakdown]", launcher_cfg(fused_update=True), None),
+            ("[breakdown-mixed]", mixed_cfg, None),
             ("[breakdown-int8]", launcher_cfg(fused_update=True,
                                               mixed_groups=True,
-                                              quantize_factors=True)),
-            ("[breakdown-kernels]", kernels_config())):
-        print(f"{label} model vs optimizer, refresh vs fold step")
-        step_breakdown(device, ocfg)
-    print("[memory] optimizer state vs BENCH_memory.json and the JAX "
+                                              quantize_factors=True), None),
+            ("[breakdown-kernels]", kernels_config(), None),
+            ("[breakdown-chunked]", mixed_cfg, chunked_model_config())):
+        phase(f"{label} model vs optimizer, refresh vs fold step")
+        step_breakdown(device, ocfg, mcfg)
+    phase("[memory] optimizer state vs BENCH_memory.json and the JAX "
           "package's count")
     check_memory(device)
 
@@ -1041,6 +1268,28 @@ def main():
              library_note="torch.matmul on a pre-squared G: two calls (the "
                           "square untimed)", **sqm),
     ]
+    # flash attention: times and bounds per train step (12 layers, one
+    # launch of each kernel a layer), measured per call at the main path's
+    # shape and bf16 inputs; library_ms is scaled_dot_product_attention on
+    # fp32 inputs (the same fp32 function), library_bf16_ms on bf16 inputs
+    # (bf16 tensor-core products), the backward's as fwd+bwd minus fwd.
+    per_step = lambda rec: {k: (v * 12 if k.endswith("ms") else v)
+                            for k, v in rec.items()}
+    kernels += [
+        dict(name="flash_attention_fwd", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:78",
+             **launches("flash_fwd"), bound_by="operations",
+             **per_step(fa_fwd)),
+        dict(name="flash_attention_bwd", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="src/repro/models/attention.py:137",
+             replaces_note="B6 has no backward kernel: the JAX model "
+                           "differentiates the remat'd chunked recurrence",
+             **launches("flash_bwd_dq", "flash_bwd_dkdv"),
+             bound_by="operations", **per_step(fa_bwd)),
+    ]
+    phase("[report] every check passed")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

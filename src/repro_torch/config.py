@@ -6,6 +6,12 @@ import dataclasses
 from typing import Optional
 
 
+# models/attention.py::sdpa_auto: "chunked" forces the flash-attention
+# path where the sequence lengths divide into its 1024-row chunks, "naive"
+# the materialised score matrix, "auto" chunked only above 4096 tokens.
+ATTN_IMPLS = ("auto", "chunked", "naive")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
@@ -27,7 +33,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"        # compute dtype
     param_dtype: str = "float32"   # master params
+    attn_impl: str = "auto"        # auto | chunked | naive (perf knob)
     max_seq_len: int = 32_768
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl={self.attn_impl!r}; expected one "
+                             f"of {ATTN_IMPLS}")
 
     @property
     def resolved_head_dim(self) -> int:

@@ -2,9 +2,9 @@
 
 A tensor on the CPU takes the plain version in ``kernels/ref.py``; a CUDA
 tensor launches the hand-written kernel in ``kernels/fused_update.py``,
-``kernels/lowrank_update.py``, ``kernels/srsi_matmul.py`` or
-``kernels/sketch_update.py`` (or the launch raises); any other device
-raises.  There is no mode switch and no fallback.  For the update and
+``kernels/lowrank_update.py``, ``kernels/srsi_matmul.py``,
+``kernels/sketch_update.py`` or ``kernels/flash_attention.py`` (or the
+launch raises); any other device raises.  There is no mode switch and no fallback.  For the update and
 matmul kernels the dispatch owns what the kernels do not: the leading
 batch axes of stacked ``(..., m, n)`` leaves are flattened into one grid
 axis (one launch per leaf), ``r`` is zero-padded to the update kernels'
@@ -201,3 +201,54 @@ def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     return SK.sketch_update(table.float().contiguous(),
                             g.float().contiguous(), idx.int().contiguous(),
                             order, offsets, b2)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True):
+    """Online-softmax attention forward (see ``ref.flash_attention``).  q
+    (B, Sq, H, dh), k / v (B, Sk, KV, dh), H % KV == 0.  Returns ``(out
+    (B, Sq, H, dh) in v's dtype, lse (B, H, Sq) fp32)``."""
+    if not _on_cuda(q):
+        return ref.flash_attention(q, k, v, causal)
+    from repro_torch.kernels import flash_attention as FA
+    return FA.forward(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """The recompute backward (see ``ref.flash_attention_bwd``).  Returns
+    ``(dq, dk, dv)`` in the dtypes of q, k and v."""
+    if not _on_cuda(q):
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    from repro_torch.kernels import flash_attention as FA
+    return FA.backward(q.contiguous(), k.contiguous(), v.contiguous(),
+                       o.contiguous(), lse.contiguous(),
+                       do.to(q.dtype).contiguous(), causal)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Flash attention in the model's layout, q (B, Sq, H, dh), k / v (B,
+    Sk, KV, dh) with H % KV == 0 -> (B, Sq, H, dh): the counterpart of the
+    JAX package's ``ops.flash_attention``, differentiable through
+    :class:`FlashAttention`.  Unlike the TPU wrapper it neither pads dh
+    nor copies k and v per query head."""
+    return FlashAttention.apply(q, k, v, causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward and backward both go through the device
+    dispatch above; it saves q, k, v, the output and the log-sum-exp, never
+    a score matrix."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True):
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal)
+        return dq, dk, dv, None

@@ -1,8 +1,9 @@
 """Plain-PyTorch versions of the port's CUDA kernels.
 
 They are the semantic ground truth for ``kernels/fused_update.py``,
-``kernels/lowrank_update.py``, ``kernels/srsi_matmul.py`` and
-``kernels/sketch_update.py``: the dispatch in ``kernels/ops.py`` runs them
+``kernels/lowrank_update.py``, ``kernels/srsi_matmul.py``,
+``kernels/sketch_update.py`` and ``kernels/flash_attention.py``: the
+dispatch in ``kernels/ops.py`` runs them
 for tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.  The update and matmul functions take
 arbitrary leading batch dims; their reductions are per matrix (over the
@@ -160,3 +161,102 @@ def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
         for j in range(tab.shape[0])])
     gathered = torch.stack([new[j][idx[j]] for j in range(new.shape[0])])
     return new, torch.amin(gathered, dim=0)
+
+
+NEG_INF = -1e30
+# The JAX package's K_CHUNK: keys per step of the plain forward's online
+# softmax, as in its ``_sdpa_chunked`` (it bounds the score block held at
+# once to (Sq, 1024) a head), and the divisor of Sk in the model's
+# dispatch (``models/attention.py``).
+K_CHUNK = 1024
+
+
+def attn_scale(dh: int) -> float:
+    """``1 / sqrt(dh)`` as the JAX package's ``_sdpa_chunked`` rounds it:
+    the float32 square root, then a float32 division."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+
+
+def _gqa(q: torch.Tensor, k: torch.Tensor) -> tuple[int, int, int]:
+    if q.dim() != 4 or k.dim() != 4 or q.shape[-1] != k.shape[-1] \
+            or q.shape[0] != k.shape[0] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"expected q (B, Sq, H, dh) and k / v (B, Sk, KV, "
+                         f"dh) with H % KV == 0, got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    b, _, h, dh = q.shape
+    kv = k.shape[2]
+    return kv, h // kv, dh
+
+
+def _scores(qs, k, causal: bool, k0: int = 0):
+    """Scaled scores of fp32 ``qs`` (B, Sq, KV, G, dh) against keys
+    ``k0 ..`` of ``k`` (B, Sc, KV, dh), (B, KV, G, Sq, Sc) fp32, with
+    ``NEG_INF`` where ``k_pos > q_pos`` (both counted from 0) if causal."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", qs, k.float())
+    if causal:
+        q_pos = torch.arange(qs.shape[1], device=qs.device)
+        k_pos = k0 + torch.arange(k.shape[1], device=qs.device)
+        s = s.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+    return s
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True):
+    """Exact attention by the running (max, sum, acc) online softmax of
+    the JAX package's ``_sdpa_chunked``, over key chunks of ``K_CHUNK``:
+
+        s    = (fp32(q) * scale) k^T, scale = attn_scale(dh);
+               NEG_INF where k_pos > q_pos (causal)
+        m'   = max(m, rowmax s);  p = exp(s - m');  corr = exp(m - m')
+        l'   = l corr + rowsum p;  acc' = acc corr + p v     (p in fp32)
+        out  = acc / max(l, 1e-30)  in v's dtype;  lse = m + log l  (fp32)
+
+    q: (B, Sq, H, dh), k / v: (B, Sk, KV, dh); query head h reads KV head
+    ``h // (H // KV)`` (no copy of k or v).  Returns ``(out (B, Sq, H,
+    dh), lse (B, H, Sq) fp32)``."""
+    kv, groups, dh = _gqa(q, k)
+    b, sq, h, _ = q.shape
+    scale = attn_scale(dh)
+    qs = q.reshape(b, sq, kv, groups, dh).float() * scale
+    m = torch.full((b, kv, groups, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, kv, groups, sq), device=q.device)
+    acc = torch.zeros((b, kv, groups, sq, dh), device=q.device)
+    for k0 in range(0, k.shape[1], K_CHUNK):
+        s = _scores(qs, k[:, k0:k0 + K_CHUNK], causal, k0)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p, v[:, k0:k0 + K_CHUNK].float())
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(v.dtype)
+    return out, (m + torch.log(l)).reshape(b, h, sq)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """The recompute backward of :func:`flash_attention`, in fp32:
+
+        D  = rowsum(dO * O);   P = exp(s - lse)   (s as in the forward)
+        dV = P^T dO;  dP = dO V^T;  dS = P * (dP - D)
+        dQ = dS K * scale;  dK = dS^T (fp32(Q) * scale)
+
+    dK and dV summed over each KV head's group of query heads.  Shapes as
+    :func:`flash_attention`, ``o`` / ``do`` like q, ``lse`` (B, H, Sq).
+    Returns ``(dq, dk, dv)`` in the dtypes of q, k and v."""
+    kv, groups, dh = _gqa(q, k)
+    b, sq, h, _ = q.shape
+    scale = attn_scale(dh)
+    qs = q.reshape(b, sq, kv, groups, dh).float() * scale
+    do32 = do.reshape(b, sq, kv, groups, dh).float()
+    d = (do32 * o.reshape(b, sq, kv, groups, dh).float()).sum(dim=-1)
+    p = torch.exp(_scores(qs, k, causal)
+                  - lse.reshape(b, kv, groups, sq)[..., None])
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, do32)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", do32, v.float())
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qs)
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

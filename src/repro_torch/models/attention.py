@@ -1,15 +1,24 @@
-"""Causal grouped-query attention for training, with the naive score
-matrix upcast to fp32 as in the JAX package's ``_sdpa``.  The chunked,
-decode and paged paths are not ported yet (see ROADMAP.md)."""
+"""Causal grouped-query attention for training, dispatched as the JAX
+package's ``sdpa_auto`` does: the naive score matrix upcast to fp32
+(``_sdpa``) or the chunked online-softmax path (``_sdpa_chunked``), which
+here is the flash-attention kernel (``kernels/ops.py::FlashAttention``).
+The decode and paged paths are not ported yet (see ROADMAP.md)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import K_CHUNK, NEG_INF
 from repro_torch.models.layers import dense_init
 
-NEG_INF = -1e30
+# The JAX package's dispatch constants: the chunked path above this many
+# query tokens under attn_impl "auto", and only for lengths that divide
+# into its chunks.  The kernel tiles as it likes; the dispatch keeps the
+# divisibility so both packages take the same path on the same shapes.
+CHUNK_THRESHOLD = 4096
+Q_CHUNK = 1024
 
 
 def attn_init(gen: torch.Generator, cfg, n_layers: int) -> dict:
@@ -49,10 +58,34 @@ def _sdpa(cfg, q, k, v, mask):
     return out.reshape(b, sq, cfg.n_heads * hd)
 
 
+def _sdpa_chunked(cfg, q, k, v, *, causal: bool):
+    """Exact attention without a score matrix: the flash-attention forward
+    and recompute backward (fp32 scores and ``p v``), q (B, Sq, H, dh),
+    k / v (B, Sk, KV, dh) -> (B, Sq, H * dh)."""
+    b, sq = q.shape[:2]
+    return ops.FlashAttention.apply(q, k, v, causal).reshape(
+        b, sq, cfg.n_heads * q.shape[-1])
+
+
+def sdpa_auto(cfg, q, k, v, *, causal: bool):
+    """Dispatch: chunked for long sequences, naive otherwise; the
+    ``attn_impl`` config knob forces either path."""
+    sq, sk = q.shape[1], k.shape[1]
+    impl = cfg.attn_impl
+    divisible = sq % Q_CHUNK == 0 and sk % K_CHUNK == 0
+    if impl == "chunked" and divisible:
+        return _sdpa_chunked(cfg, q, k, v, causal=causal)
+    if impl != "naive" and sq > CHUNK_THRESHOLD and divisible:
+        return _sdpa_chunked(cfg, q, k, v, causal=causal)
+    if causal:
+        mask = (torch.arange(sk, device=q.device)[None, None, :]
+                <= torch.arange(sq, device=q.device)[None, :, None])
+    else:
+        mask = torch.ones((1, sq, sk), dtype=torch.bool, device=q.device)
+    return _sdpa(cfg, q, k, v, mask)
+
+
 def attn_apply_causal(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence causal self-attention (training)."""
-    s = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
-    pos = torch.arange(s, device=x.device)
-    mask = (pos[None, None, :] <= pos[None, :, None])
-    return _sdpa(cfg, q, k, v, mask) @ p["wo"].to(x.dtype)
+    return sdpa_auto(cfg, q, k, v, causal=True) @ p["wo"].to(x.dtype)

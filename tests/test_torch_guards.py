@@ -115,13 +115,16 @@ def test_sketch_telemetry_raises():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Import every module of repro_torch, and chip_smoke.py, in a fresh
-    interpreter and inspect sys.modules."""
+    """Import every module of repro_torch, the chunked attention path's
+    entry points (``ops.FlashAttention``, ``sdpa_auto``) and chip_smoke.py
+    in a fresh interpreter and inspect sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from repro_torch.kernels.ops import FlashAttention\n"
+        "from repro_torch.models.attention import sdpa_auto\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -146,3 +149,52 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def _qkv(dtype=torch.float32):
+    q = torch.zeros((1, 64, 4, 16), dtype=dtype)
+    k = torch.zeros((1, 64, 2, 16), dtype=dtype)
+    return q, k, k.clone()
+
+
+def test_flash_attention_wrapper_refuses_cpu_tensors():
+    """The CUDA wrappers check before they build or launch anything; the
+    dispatch raises for a device that is neither the CPU nor CUDA."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    q, k, v = _qkv()
+    lse = torch.zeros((1, 4, 64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FA.forward(q, k, v, True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FA.backward(q, k, v, q, lse, q, True)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        FA.forward(*_qkv(torch.float16), True)
+    assert FA.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                           "flash_bwd_dkdv": 0}
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_attention(*(t.to("meta") for t in (q, k, v)))
+
+
+@pytest.mark.parametrize("fault", ["nvcc fails", "no nvcc"])
+def test_flash_attention_build_failure_raises(monkeypatch, tmp_path, fault):
+    """A tensor the dispatch sends to the kernel meets a failed build as
+    an error, never as the plain version's result."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "kernels")
+    if fault == "nvcc fails":
+        monkeypatch.setattr(cuda, "_nvcc", lambda: "false")
+    else:
+        monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(FA, "_LIB", None)
+    # stand in for a CUDA tensor: the dispatch picks the kernel, the
+    # wrapper's checks pass, and the build is what fails
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(cuda, "check", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda, "stream", lambda t: 0)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.flash_attention_fwd(*_qkv(), True)
+    assert FA._LIB is None and FA.LAUNCHES["flash_fwd"] == 0

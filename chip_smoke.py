@@ -17,16 +17,20 @@ sm_90a) and the CUDA toolkit.  In order, it
      matmul in both orientations; the sketch scatter + query at the
      embedding shapes of the mixed groups; flash attention's forward and
      two backward kernels at GPT-2 117M's attention shape in bf16 and
-     fp32) and at ragged shapes, each new kernel bitwise repeatable, and
-     times each beside its bound and the plain version's time (flash
-     attention also beside scaled_dot_product_attention, a yardstick the
-     port never calls);
+     fp32; the SSD block's forward and two backward kernels at
+     Mamba2-370m's block in bf16 and fp32, on inputs whose decay
+     overflows above the diagonal; pass 1, pass 2 and the sketch also at
+     Mamba2-370m's leaves) and at ragged shapes, each new kernel bitwise
+     repeatable, and times each beside its bound and the plain version's
+     time (flash attention also beside scaled_dot_product_attention, a
+     yardstick the port never calls);
   4. checks the kernel path end to end against the plain path on a small
      input: the GPT-2 smoke model in fp32 trains a few steps on the card
      and on the CPU from the same init and sketches, and the losses, ranks
      and parameters must agree -- without and with the mixed groups, with
-     int8 factors, on the use_kernels path, and with attn_impl "chunked"
-     at 2048 tokens;
+     int8 factors, on the use_kernels path, with attn_impl "chunked" at
+     2048 tokens, and on the Mamba2 smoke model (its first step's
+     gradients too);
   5. trains GPT-2 117M at full width (12 steps, batch 8 x 1024,
      --fused-update --refresh-every 5) with the launch counters set to 0
      just before each run, and checks a finite, falling loss and the
@@ -42,11 +46,15 @@ sm_90a) and the CUDA toolkit.  In order, it
      factored leaf every step, the transposed square-and-matmul per
      factored leaf on fold steps), and the launcher's mixed groups with
      attn_impl "chunked" (flash attention's three kernels once per layer
-     every step, and none on the other paths);
+     every step, and none on the other paths); then Mamba2-370m through
+     ``repro_torch.launch.train --arch mamba2-370m`` on the mixed groups
+     (the SSD block's three kernels once per layer every step, none on
+     the GPT-2 paths);
   6. breaks a step of each run down into model and optimizer time;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW and holds them against ``BENCH_memory.json``, and those of
-     the int8 factors (117M and 345M) against the JAX package's count;
+     the int8 factors (117M and 345M) and of Mamba2-370m (mixed groups,
+     AdamW) against the JAX package's count;
   8. prints one JSON line with each kernel's launches, error and times,
      then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -55,6 +63,7 @@ line.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -79,6 +88,8 @@ TRAIN_ARGV = ["--arch", "gpt2-117m", "--steps", "12", "--batch", "8",
 # the launcher's default: mixed groups for adapprox
 TRAIN_MIXED_ARGV = [a for a in TRAIN_ARGV if a != "--no-mixed-groups"]
 TRAIN_INT8_ARGV = TRAIN_MIXED_ARGV + ["--quantize-factors"]
+# slice 5: Mamba2-370m on the launcher's defaults (mixed groups)
+TRAIN_MAMBA_ARGV = ["--arch", "mamba2-370m"] + TRAIN_MIXED_ARGV[2:]
 B2, EPS, B1 = 0.999, 1e-8, 0.9
 # the smoke model's mixed groups: embed (512 rows) is sketched
 SMALL_MIXED = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)
@@ -103,6 +114,14 @@ TOL_MATMUL = 1e-5
 # S-RSI amplifies it; on the CPU, the same 4 steps from an init moved by
 # one ulp move the parameters by 1.1e-3 of the largest.
 TOL_PARAMS_INT8 = 1e-2
+# End to end on the Mamba2 smoke model, card against CPU: a sketched
+# embedding entry whose gradient cancels to ~eps (1.8e-8 against 2e-2 in
+# its row) and fills its (bucket, column) alone takes the update
+# g / (|g| + eps), so a 1e-7 difference of the gradient moves it by ~10%
+# of a step; on the CPU, the same 4 steps with B7's plain version run in
+# fp64 instead of fp32 move the parameters by 4.1e-4 of the largest.  The
+# step-1 gradients, where nothing amplifies, are held to 1e-4.
+TOL_PARAMS_MAMBA = 1e-3
 
 # Flash attention against its plain version on the same inputs.  fp32:
 # the same fp32 products, summed in 64-wide tiles against 1024-wide chunks
@@ -125,12 +144,36 @@ FLASH_CASES = [
      ("float32", "bfloat16")),
     ("ragged gqa full", (2, 1000, 872, 8, 2, 80), False, ("float32",))]
 
+# The SSD intra-chunk block (B7) against its plain version on the same
+# inputs: y sums the same fp32 products as the plain einsums in other
+# orders (64-wide tiles against whole chunks), so within 1e-5 of its
+# largest entry; every gradient within 1e-4, as dcums is a row sum minus a
+# column sum of T = dS * CB that cancel on the diagonal, and dB, dC sum
+# over a group's heads.  bf16 outputs (dx, db, dc of bf16 inputs) each
+# within one bf16 ulp of itself plus the same share of the largest entry.
+TOL_SSD = 1e-5
+TOL_SSD_GRAD = 1e-4
+# (name, (B, S, H, G, P, N, chunk), dtypes): Mamba2-370m's block at batch
+# 8 x 1024 (timed, bf16 as the model feeds it), then G > 1, S < chunk and
+# no multiple of the 64-row tiles, P and N no multiple of 16
+SSD_CASES = [
+    ("mamba2-370m", (8, 1024, 32, 1, 64, 128, 256),
+     ("bfloat16", "float32")),
+    ("ragged", (2, 200, 8, 2, 48, 80, 256), ("float32", "bfloat16"))]
+SSD_LAYERS = 48
+MAMBA = "mamba2-370m"
+
 # Optimizer-state MB of adapprox_kmax_int8 at b1 = 0.9 as the JAX package's
 # own benchmarks/bench_memory.py::state_mb counts it (tier-1's
 # tests/test_torch_quantized.py recomputes it).  BENCH_memory.json's 540.1 and
 # 1547.0 predate its per-256-row-block (scale, zero) codec: with one
 # absmax scale per column they come out at 540.055 and 1546.991.
 INT8_STATE_MB = {"gpt2-117m": 541.254944, "gpt2-345m": 1550.658976}
+# Mamba2-370m's optimizer-state MB at b1 = 0.9, the same count
+# (jax.eval_shape of the state): mixed groups cost more than AdamW, as the
+# untied lm_head (1024, 50280) passes the "embeddings" rule and its
+# count-min table (4 x 2048 x 50280 fp32) is 8x the leaf.
+MAMBA_STATE_MB = {"mixed_groups": 3780.064032, "adamw": 3358.601224}
 
 
 T0 = time.monotonic()
@@ -221,9 +264,9 @@ def bound_ms(flops: float, nbytes: float) -> float:
 def kernel_modules():
     from repro_torch.kernels import (flash_attention, fused_update,
                                      lowrank_update, sketch_update,
-                                     srsi_matmul)
+                                     srsi_matmul, ssd_chunk)
     return (fused_update, sketch_update, lowrank_update, srsi_matmul,
-            flash_attention)
+            flash_attention, ssd_chunk)
 
 
 def reset_launches() -> None:
@@ -236,7 +279,8 @@ def launch_counts() -> dict:
 
 
 def expected_launches(kind: str, steps: int, folds: int, n_fact: int,
-                      n_leaves: int, n_sk: int, attn_layers: int = 0) -> dict:
+                      n_leaves: int, n_sk: int, attn_layers: int = 0,
+                      ssd_layers: int = 0) -> dict:
     """Launches of ``steps`` train steps (``folds`` of them fold steps)
     on a path: ``fused`` and ``int8`` launch pass 1 per factored leaf and
     pass 2 per Adapprox leaf every step (``int8``: every pass 1 is the
@@ -245,12 +289,16 @@ def expected_launches(kind: str, steps: int, folds: int, n_fact: int,
     factored leaf on fold steps; the sketch two launches per sketched leaf
     every step; flash attention, on ``attn_layers`` layers (all of them
     under attn_impl "chunked", none on the naive path), its forward and
-    each backward kernel once per layer every step."""
+    each backward kernel once per layer every step; the SSD block, on the
+    ``ssd_layers`` Mamba2 layers, its forward and each backward kernel
+    once per layer every step."""
     want = dict.fromkeys(launch_counts(), 0)
     want.update(sketch_scatter=steps * n_sk, sketch_query=steps * n_sk)
     want.update(flash_fwd=steps * attn_layers,
                 flash_bwd_dq=steps * attn_layers,
                 flash_bwd_dkdv=steps * attn_layers)
+    want.update(ssd_fwd=steps * ssd_layers, ssd_bwd_rows=steps * ssd_layers,
+                ssd_bwd_cols=steps * ssd_layers)
     if kind == "kernels":
         want.update(lowrank_update=steps * n_fact, sq_matmul_t=folds * n_fact)
     else:
@@ -305,12 +353,13 @@ def hold(what: str, labels, tols, got, want, rec: dict, again=None) -> str:
                               else "")
 
 
-def main_path_leaves(device, mixed: bool = False):
+def main_path_leaves(device, mixed: bool = False, arch: str = "gpt2-117m"):
     """(factored [(name, shape, r)], dense [(name, size)]) of the Adapprox
-    leaves of GPT-2 117M under the launcher's optimizer, read from the
-    optimizer state itself: with --no-mixed-groups (Adapprox on every
-    leaf) or, ``mixed``, on its default mixed groups (the six block
-    matrices)."""
+    leaves of ``arch`` (GPT-2 117M, or Mamba2-370m) under the launcher's
+    optimizer, read from the optimizer state itself: with
+    --no-mixed-groups (Adapprox on every leaf) or, ``mixed``, on its
+    default mixed groups (GPT-2: the six block matrices; Mamba2: in_proj
+    and out_proj)."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_config
@@ -320,7 +369,7 @@ def main_path_leaves(device, mixed: bool = False):
     from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
 
-    cfg = get_config("gpt2-117m")
+    cfg = get_config(arch)
     params = build_model(cfg).init(
         torch.Generator(device=device).manual_seed(0))
     flat = tree.flatten(params)
@@ -581,12 +630,15 @@ def check_apply(fact, dense, device):
     return rec
 
 
-def sketch_cases(device):
+def sketch_cases(device, arch: str = "gpt2-117m",
+                 expect: tuple = ("embed", "pos_embed"), ragged: bool = True):
     """(name, rows, d, width, depth, seeds) for the sketch kernel checks:
-    the sketched leaves of GPT-2 117M under the launcher's mixed groups,
-    read from the optimizer state itself (embed and pos_embed, hash seeds
-    of leaves 0 and 1 of the sketch group, seed 0, depth 4, width 2048),
-    and one ragged shape."""
+    the sketched leaves of ``arch`` under the launcher's mixed groups,
+    read from the optimizer state itself (``expect``: GPT-2 117M's embed
+    and pos_embed, Mamba2-370m's embed and lm_head, whose 1024 rows leave
+    most of the 2048 buckets empty; hash seeds of leaves 0 and 1 of the
+    sketch group, seed 0, depth 4, width 2048) and, with ``ragged``, one
+    ragged shape."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_config
@@ -595,7 +647,7 @@ def sketch_cases(device):
     from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
 
-    flat = tree.flatten(build_model(get_config("gpt2-117m")).init(
+    flat = tree.flatten(build_model(get_config(arch)).init(
         torch.Generator(device=device).manual_seed(0)))
     state = build_optimizer(optimizer_config(
         "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
@@ -604,12 +656,14 @@ def sketch_cases(device):
     cases = [(name, leaf.shape[0], leaf.table.shape[2], leaf.table.shape[1],
               leaf.table.shape[0], leaf.seeds)
              for name, leaf in zip(names, sketch_state(state).leaves)]
-    if [c[0] for c in cases] != ["embed", "pos_embed"] or any(
+    if tuple(c[0] for c in cases) != expect or any(
             c[5] != _leaf_seeds(0, i, 4) for i, c in enumerate(cases)):
-        fail(f"mixed groups sketch {[c[:5] for c in cases]}, expected embed "
-             f"and pos_embed at leaves 0 and 1 of the sketch group")
+        fail(f"mixed groups sketch {[c[:5] for c in cases]}, expected "
+             f"{expect} at leaves 0, 1 of the sketch group")
     del flat, state
     torch.cuda.empty_cache()
+    if not ragged:
+        return cases
     return cases + [("ragged", 1000, 100, 256, 3, _leaf_seeds(0, 0, 3))]
 
 
@@ -781,6 +835,123 @@ def check_flash(device):
     return fwd_rec, bwd_rec
 
 
+def ssd_inputs(gen, shape, dtype, device):
+    """Inputs of the SSD block drawn as the model makes them: dt =
+    softplus(N(0, 1) - 2) (the init's dt_bias puts dt near 0.1), a =
+    -(1..H) (the init's a_log), cums the within-chunk cumsum of dt a, so
+    that exp(cums_i - cums_j) overflows fp32 above the diagonal on every
+    head past the first; h_in and d_skip random."""
+    import torch
+    import torch.nn.functional as F
+    bt, s, h, g, p, n, chunk = shape
+    q = min(chunk, s)
+    nc = s // q
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=device)
+    x = rnd(bt, s, h, p).to(dtype)
+    b = (rnd(bt, s, g, n) * 0.5).to(dtype)
+    c = (rnd(bt, s, g, n) * 0.5).to(dtype)
+    dt = F.softplus(rnd(bt, s, h) - 2.0)
+    a = -torch.arange(1, h + 1, device=device, dtype=torch.float32)
+    cums = torch.cumsum((dt * a).reshape(bt, nc, q, h), 2).reshape(bt, s, h)
+    h_in = rnd(bt, nc, h, n, p) * 0.1
+    d_skip = 1.0 + rnd(h) * 0.1
+    return x, b, c, dt, cums, h_in, d_skip
+
+
+def ssd_pairs(q: int) -> int:
+    """Live (i, j) pairs, j <= i, of one chunk of q rows."""
+    return q * (q + 1) // 2
+
+
+def ssd_bounds(shape, dtype):
+    """(forward, backward) bounds in ms of one call.  Operations: the
+    forward's CB (2 N a live pair), (CB * L) X (2 P a pair) and C h_in (2
+    q N P a chunk), the backward's CB, dM = dY X^T, dX, dC (intra), d(dt
+    B) (2 N or 2 P a pair each) and dC (inter), dh_in (2 q N P each), per
+    chunk and head, counted once; each at the peak of its operands' type.
+    With bf16 x, b, c, CB = dt_j (C_i . B_j) is a bf16 product with fp32
+    sums (dt only scales its column), and so is dM, since dY is the
+    gradient of y.to(bf16) and so bf16-valued (check_ssd draws it so):
+    both at the bf16 peak.  The products with an fp32 L, dM * L, h_in or
+    dY * exp(cums) operand, and all of them for fp32 inputs, at the fp32
+    peak.  Bytes: the forward reads x, b, c, dt, cums, h_in, d_skip and
+    writes y (fp32); the backward reads them and dY and writes dx, db,
+    dc, ddt, dcums, dh_in and dd_skip."""
+    import torch
+    bt, s, h, g, p, n, chunk = shape
+    q = min(chunk, s)
+    nc = s // q
+    prog = bt * nc * h
+    pairs = ssd_pairs(q)
+    cb, mx, ch = 2 * n * pairs, 2 * p * pairs, 2 * q * n * p
+    low = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    fwd_s = prog * (cb / low + (mx + ch) / PEAK_FP32_FLOPS)
+    bwd_s = prog * ((cb + mx) / low + (2 * cb + mx + 2 * ch) / PEAK_FP32_FLOPS)
+    it = torch.finfo(dtype).bits // 8
+    xbc = it * (bt * s * h * p + 2 * bt * s * g * n)
+    small = 4 * (2 * bt * s * h + bt * nc * h * n * p + h)
+    y = 4 * bt * s * h * p
+    fwd_b, bwd_b = xbc + small + y, 2 * (xbc + small) + y
+    return (1e3 * max(fwd_s, fwd_b / PEAK_BYTES_PER_S),
+            1e3 * max(bwd_s, bwd_b / PEAK_BYTES_PER_S))
+
+
+SSD_GRADS = ("dx", "db", "dc", "ddt", "dcums", "dh_in", "dd_skip")
+
+
+def check_ssd(device):
+    """The SSD block's forward and two backward kernels against their plain
+    versions on the same inputs, each launched twice and compared bitwise,
+    every output finite (the inputs make exp(cums_i - cums_j) overflow
+    above the diagonal, where the JAX formula's backward meets inf): at
+    Mamba2-370m's block (8, 1024, 32 heads, P 64, N 128, G 1) in bf16 (as
+    the model feeds it) and fp32, and at a ragged shape (S 200 < chunk,
+    G 2, P 48, N 80).  Then, at the Mamba2 shape in bf16, each kernel's
+    device time beside its bound and its plain version's.  Returns
+    (forward, backward) records, times per call."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(8)
+    fwd_rec, bwd_rec = new_rec(), new_rec()
+    for name, shape, dtypes in SSD_CASES:
+        for dt in (getattr(torch, d) for d in dtypes):
+            ins = ssd_inputs(gen, shape, dt, device)
+            dy = torch.randn(ins[0].shape, generator=gen,
+                             device=device).to(dt).float()
+            what = f"ssd_chunk {name} {shape} {dt}"
+            fwd = lambda: ops.ssd_chunk_fwd(*ins)
+            got, again = fwd(), fwd()
+            want = ref.ssd_chunk(*ins)
+            torch.cuda.synchronize()
+            errs = hold(f"{what} fwd", ("y",), (TOL_SSD,), (got,), (want,),
+                        fwd_rec, (again,))
+            print(f"  {what} fwd: {errs}")
+            bwd = lambda: ops.ssd_chunk_bwd(*ins, dy)
+            got, again = bwd(), bwd()
+            want = ref.ssd_chunk_bwd(*ins, dy)
+            torch.cuda.synchronize()
+            errs = hold(f"{what} bwd", SSD_GRADS,
+                        (TOL_SSD_GRAD,) * len(SSD_GRADS), got, want,
+                        bwd_rec, again)
+            print(f"  {what} bwd: {errs}")
+            del got, again, want
+            if name != "mamba2-370m" or dt != torch.bfloat16:
+                continue
+            b_fwd, b_bwd = ssd_bounds(shape, dt)
+            time_pair(fwd, lambda: ref.ssd_chunk(*ins), "ssd_fwd_kernel",
+                      fwd_rec, b_fwd, f"{name} bf16 fwd")
+            time_pair(bwd, lambda: ref.ssd_chunk_bwd(*ins, dy), "ssd_bwd",
+                      bwd_rec, b_bwd, f"{name} bf16 bwd (both kernels)")
+            for kern in ("rows", "cols"):
+                bwd_rec[kern + "_ms"] = device_ms(
+                    bwd, f"ssd_bwd_{kern}_kernel")
+            print(f"    timing bwd by kernel: rows {bwd_rec['rows_ms']:.4f}"
+                  f" ms, cols {bwd_rec['cols_ms']:.4f} ms")
+            del ins, dy
+            torch.cuda.empty_cache()
+    return fwd_rec, bwd_rec
+
+
 class _CallOrderSketch:
     """Sketch source drawing from one CPU generator in call order, so two
     runs that call it alike get the same Gaussian sketches on any device."""
@@ -794,8 +965,25 @@ class _CallOrderSketch:
         return torch.randn(shape, generator=self.gen)
 
 
+@contextlib.contextmanager
+def plain_ssd_in_fp64():
+    """Within it, B7's plain version computes in fp64 and rounds its
+    results to fp32: run on the CPU against the fp32 plain path, a witness
+    of how far rounding alone moves the Mamba2 smoke run."""
+    from repro_torch.kernels import ref
+    fwd, bwd = ref.ssd_chunk, ref.ssd_chunk_bwd
+    up = lambda ts: [t.double() for t in ts]
+    ref.ssd_chunk = lambda *a: fwd(*up(a)).float()
+    ref.ssd_chunk_bwd = lambda *a: tuple(g.float() for g in bwd(*up(a)))
+    try:
+        yield
+    finally:
+        ref.ssd_chunk, ref.ssd_chunk_bwd = fwd, bwd
+
+
 def small_parity(device, kind: str = "fused", mixed: bool = False,
-                 chunked: bool = False):
+                 chunked: bool = False, mamba: bool = False, seed: int = 0,
+                 sketch_rows: int = SMALL_MIXED["embedding_min_rows"]):
     """Kernel path (card) against plain path (CPU), end to end: GPT-2
     smoke in fp32, 4 steps with refresh_every=3 (refresh, fold, fold,
     refresh), same init and sketches, the launcher's optimizer with
@@ -804,8 +992,14 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     launcher's mixed groups, with the token embedding sketched.  With
     ``chunked``, attn_impl "chunked" at batch 2 x 2048 (two 1024-token
     chunks, so the dispatch takes the flash-attention path on every
-    layer); else batch 4 x 128 on the naive path.  The card's launches
-    must be those the optimizer state and the attention path imply."""
+    layer); else batch 4 x 128 on the naive path.  With ``mamba``, the
+    Mamba2 smoke model (2 layers, chunk 16) at batch 4 x 128 instead,
+    every layer's SSD block through B7, and beside it the fp64 witness
+    (:func:`plain_ssd_in_fp64`), unchecked.  ``seed`` draws the init;
+    ``sketch_rows`` is the mixed groups' embedding_min_rows (64 puts the
+    Mamba2 smoke lm_head, (64, 512), on the sketch too).  The card's
+    launches must be those the optimizer state and the model's path
+    imply."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_smoke_config
@@ -820,14 +1014,23 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     from repro_torch.train.train_loop import LoopConfig, train
 
     seq, batch = (2048, 2) if chunked else (128, 4)
-    cfg = dataclasses.replace(get_smoke_config("gpt2-117m", max_seq_len=seq),
-                              dtype="float32",
-                              attn_impl="chunked" if chunked else "auto")
+    if mamba:
+        cfg = dataclasses.replace(
+            get_smoke_config("mamba2-370m", max_seq_len=seq),
+            dtype="float32")
+    else:
+        cfg = dataclasses.replace(
+            get_smoke_config("gpt2-117m", max_seq_len=seq), dtype="float32",
+            attn_impl="chunked" if chunked else "auto")
     model = build_model(cfg)
-    init = model.init(torch.Generator().manual_seed(0))
-    kw = dict(mixed_groups=True, **SMALL_MIXED) if mixed else {}
-    runs = []
-    for dev in (torch.device("cpu"), device):
+    init = model.init(torch.Generator().manual_seed(seed))
+    kw = (dict(mixed_groups=True, **dict(SMALL_MIXED,
+                                         embedding_min_rows=sketch_rows))
+          if mixed else {})
+    if mamba:
+        step1_grads(model, init, cfg, seq, batch, device)
+
+    def run(dev):
         ocfg = optimizer_config("adapprox", 4, 3e-3, refresh_every=3,
                                 fused_update=kind != "kernels",
                                 quantize_factors=kind == "int8", **kw)
@@ -842,9 +1045,19 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
                                        global_batch=batch),
                             LoopConfig(total_steps=4, log_every=1),
                             device=dev, params=tree.unflatten(params))
-        runs.append((state, [h["loss"] for h in hist]))
+        return state, [h["loss"] for h in hist]
+
+    cpu = torch.device("cpu")
+    if mamba:
+        with plain_ssd_in_fp64():
+            s_64, _ = run(cpu)
+    (s_cpu, l_cpu), (s_gpu, l_gpu) = run(cpu), run(device)
     launches = launch_counts()
-    (s_cpu, l_cpu), (s_gpu, l_gpu) = runs
+    if mamba:
+        wit = max(rel_err(s_64.params[k], p)[1]
+                  for k, p in s_cpu.params.items())
+        print(f"  witness: the plain path with B7's plain version in fp64 "
+              f"moves the params by {wit:.2e} (unchecked)")
     print(f"  losses cpu {l_cpu}")
     print(f"  losses gpu {l_gpu}")
     for a, b in zip(l_cpu, l_gpu):
@@ -859,7 +1072,8 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
         fail(f"small-input parity: ranks {k_gpu} on the card vs {k_cpu}")
     worst = max(rel_err(s_gpu.params[k].cpu(), p)[1]
                 for k, p in s_cpu.params.items())
-    tol = TOL_PARAMS_INT8 if kind == "int8" else 1e-4
+    tol = (TOL_PARAMS_INT8 if kind == "int8"
+           else TOL_PARAMS_MAMBA if mamba else 1e-4)
     print(f"  ranks {k_cpu}; max param rel err {worst:.2e} (tolerance "
           f"{tol})")
     if worst > tol:
@@ -869,17 +1083,48 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
                for sub in find_states(s_gpu.opt_state, SketchState)
                for leaf in sub.leaves)
     want = expected_launches(kind, 4, 2, n_fact, len(leaves["gpu"]), n_sk,
-                             cfg.n_layers if chunked else 0)
+                             cfg.n_layers if chunked else 0,
+                             cfg.n_layers if mamba else 0)
     print(f"  factored leaves {n_fact}, sketched {n_sk}; launches on the card "
           f"{launches}")
     if n_fact < 1 or (mixed and n_sk < 1) or launches != want:
         fail(f"small-input parity: launches {launches}, expected {want}")
 
 
-def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0):
+def step1_grads(model, init, cfg, seq, batch, device):
+    """The first step's loss and every leaf's gradient, from the same init
+    and batch, on the card (B7) and on the CPU (its plain version): the
+    loss within 1e-4 relative, each gradient within 1e-4 of its leaf's
+    largest entry."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    tokens = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch)).batch_at(0)[
+        "tokens"])
+    out = []
+    for dev in (torch.device("cpu"), device):
+        params = {k: v.detach().clone().to(dev).requires_grad_(True)
+                  for k, v in tree.flatten(init).items()}
+        loss, _ = model.loss(tree.unflatten(params),
+                             {"tokens": tokens.to(dev)})
+        out.append((loss.item(), dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+    worst = max((rel_err(g_gpu[k].cpu(), g)[1], k) for k, g in g_cpu.items())
+    print(f"  step-1 loss cpu {l_cpu} gpu {l_gpu}; worst gradient rel err "
+          f"{worst[0]:.2e} ({worst[1]})")
+    if not abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu) or worst[0] > 1e-4:
+        fail(f"small-input parity: step-1 loss {l_gpu} vs {l_cpu}, "
+             f"gradient {worst[1]} rel err {worst[0]:.2e} > 1e-4")
+
+
+def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
+                    ssd_layers: int = 0):
     """One main-path run: ``run()`` trains 12 steps and returns ``(state,
     history)``.  Its launches must be those the optimizer state and the
-    attention path (``attn_layers`` chunked layers) imply for ``kind``
+    attention path (``attn_layers`` chunked layers) or the SSD path
+    (``ssd_layers`` Mamba2 layers) imply for ``kind``
     (see :func:`expected_launches`) and ``expect`` (every other kernel 0).
     Returns the launch counts and ``{"loss", "peak_gib", "fold_s"}``."""
     import torch
@@ -908,7 +1153,7 @@ def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0):
                for leaf in sub.leaves)
     # refresh at steps 1, 6, 11 of 12: 9 fold steps
     want = expected_launches(kind, 12, 9, n_fact, len(adapprox), n_sk,
-                             attn_layers)
+                             attn_layers, ssd_layers)
     expect = {**dict.fromkeys(launches, 0), **expect}
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  launches {launches} (expected {want}); peak memory "
@@ -1070,7 +1315,9 @@ def check_memory(device):
     (implicit=False, the port's only Adapprox form; the bytes do not
     depend on it): GPT-2 117M ``mixed_groups`` and ``adamw`` against
     BENCH_memory.json, ``adapprox_kmax_int8`` of 117M and 345M against
-    the JAX package's count (``INT8_STATE_MB``); and, unchecked, the
+    the JAX package's count (``INT8_STATE_MB``), Mamba2-370m's
+    ``mixed_groups`` and ``adamw`` against it too (``MAMBA_STATE_MB``);
+    and, unchecked, the
     launcher's mixed groups with and without --quantize-factors.  Counts
     the tensors that mirror the JAX state's array leaves; the sketch's
     bucket buffers are not state."""
@@ -1089,11 +1336,11 @@ def check_memory(device):
     base = dict(b1=0.9, schedule="constant", lr=1e-3, weight_decay=0.0)
     kmax = dict(name="adapprox", k=1, k_max=10**9, rank_mode="paper",
                 implicit=False, **base)
-    cases = [("gpt2-117m", "mixed_groups", OptimizerConfig(
-                  groups=default_mixed_groups(), **kmax),
+    mixed = OptimizerConfig(groups=default_mixed_groups(), **kmax)
+    adamw = OptimizerConfig(name="adamw", **base)
+    cases = [("gpt2-117m", "mixed_groups", mixed,
               table["gpt2-117m", "mixed_groups"]),
-             ("gpt2-117m", "adamw", OptimizerConfig(name="adamw", **base),
-              table["gpt2-117m", "adamw"])]
+             ("gpt2-117m", "adamw", adamw, table["gpt2-117m", "adamw"])]
     cases += [("gpt2-117m", f"launcher mixed groups{flag}", optimizer_config(
                    "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
                    mixed_groups=True, quantize_factors=bool(flag)), None)
@@ -1101,6 +1348,9 @@ def check_memory(device):
     cases += [(arch, "adapprox_kmax_int8", OptimizerConfig(
                    factor_dtype="int8", **kmax), INT8_STATE_MB[arch])
               for arch in ("gpt2-117m", "gpt2-345m")]
+    cases += [("mamba2-370m", "mixed_groups", mixed,
+               MAMBA_STATE_MB["mixed_groups"]),
+              ("mamba2-370m", "adamw", adamw, MAMBA_STATE_MB["adamw"])]
     flat = {}
     for arch, name, cfg, want in cases:
         if arch not in flat:
@@ -1124,6 +1374,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a GPU")
+    from repro_torch.configs.archs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import cuda
     from repro_torch.launch.train import optimizer_config
@@ -1167,6 +1418,18 @@ def main():
     phase("[kernels] flash_attention fwd / bwd vs plain, GPT-2 117M's shape "
           "and ragged GQA shapes")
     fa_fwd, fa_bwd = check_flash(device)
+    phase("[kernels] ssd_chunk fwd / bwd vs plain, Mamba2-370m's block and "
+          "a ragged shape")
+    ssd_fwd, ssd_bwd = check_ssd(device)
+    fact_mamba, _ = main_path_leaves(device, mixed=True, arch=MAMBA)
+    phase("[kernels-mamba2] fused_precond and fused_apply vs plain at "
+          "Mamba2-370m's factored leaves (in_proj, out_proj)")
+    pre_m = check_precond(fact_mamba, device)
+    app_m = check_apply(fact_mamba, [], device)
+    phase("[kernels-mamba2] sketch_update vs plain at Mamba2-370m's "
+          "sketched leaves (embed, lm_head)")
+    sk_m = check_sketch(sketch_cases(device, MAMBA, ("embed", "lm_head"),
+                                     ragged=False), device)
     phase("[parity] kernel path on the card vs plain path on the CPU")
     small_parity(device)
     phase("[parity] mixed groups, kernel path on the card vs plain path on "
@@ -1181,6 +1444,12 @@ def main():
     phase("[parity-chunked] mixed groups, attn_impl \"chunked\" at S 2048, "
           "kernel path on the card vs plain path on the CPU")
     small_parity(device, mixed=True, chunked=True)
+    phase("[parity-mamba2] Mamba2 smoke, mixed groups, kernel path on the "
+          "card vs plain path on the CPU")
+    small_parity(device, mixed=True, mamba=True)
+    phase("[parity-mamba2] seed 1, lm_head on the sketch too "
+          "(embedding_min_rows 64)")
+    small_parity(device, mixed=True, mamba=True, seed=1, sketch_rows=64)
     # 12 steps: 8 factored + 8 dense leaves; 6 factored, 2 sketched
     phase("[train] GPT-2 117M, " + " ".join(TRAIN_ARGV))
     runs = {"no_mixed": train_main_path(launcher_run(TRAIN_ARGV), "fused", dict(
@@ -1212,6 +1481,15 @@ def main():
             fused_precond=72, fused_apply=72, sketch_scatter=24,
             sketch_query=24, flash_fwd=144, flash_bwd_dq=144,
             flash_bwd_dkdv=144), attn_layers=12)
+    # 12 steps: in_proj and out_proj factored, embed and lm_head sketched,
+    # 48 SSD blocks a step
+    phase("[train-mamba2] Mamba2-370m, " + " ".join(TRAIN_MAMBA_ARGV))
+    runs["mamba2"] = train_main_path(
+        launcher_run(TRAIN_MAMBA_ARGV), "fused", dict(
+            fused_precond=24, fused_apply=24, sketch_scatter=24,
+            sketch_query=24, ssd_fwd=12 * SSD_LAYERS,
+            ssd_bwd_rows=12 * SSD_LAYERS, ssd_bwd_cols=12 * SSD_LAYERS),
+        ssd_layers=SSD_LAYERS)
     info = {p: r[1] for p, r in runs.items()}
     runs = {p: r[0] for p, r in runs.items()}
     print(f"  against [train-mixed]: final loss {info['chunked']['loss']:.4f}"
@@ -1227,7 +1505,8 @@ def main():
                                               mixed_groups=True,
                                               quantize_factors=True), None),
             ("[breakdown-kernels]", kernels_config(), None),
-            ("[breakdown-chunked]", mixed_cfg, chunked_model_config())):
+            ("[breakdown-chunked]", mixed_cfg, chunked_model_config()),
+            ("[breakdown-mamba2]", mixed_cfg, get_config(MAMBA))):
         phase(f"{label} model vs optimizer, refresh vs fold step")
         step_breakdown(device, ocfg, mcfg)
     phase("[memory] optimizer state vs BENCH_memory.json and the JAX "
@@ -1245,18 +1524,18 @@ def main():
         dict(name="fused_precond", route="cuda", source=src + "fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:130",
              **launches("fused_precond"), bound_by="operations",
-             library_ms=None, **pre,
+             library_ms=None, **pre, mamba2=pre_m,
              int8={"launches": launches("fused_precond_int8")["launches"],
                    **pre8}),
         dict(name="fused_apply", route="cuda", source=src + "fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:233",
              **launches("fused_apply"), bound_by="bytes",
-             library_ms=None, **app),
+             library_ms=None, **app, mamba2=app_m),
         dict(name="sketch_update", route="cuda",
              source=src + "sketch_update.cu",
              replaces="src/repro/kernels/sketch_update.py:80",
              **launches("sketch_scatter", "sketch_query"), bound_by="bytes",
-             library_ms=None, **sk),
+             library_ms=None, **sk, mamba2=sk_m),
         dict(name="lowrank_update", route="cuda",
              source=src + "lowrank_update.cu",
              replaces="src/repro/kernels/lowrank_update.py:45",
@@ -1288,6 +1567,25 @@ def main():
                            "differentiates the remat'd chunked recurrence",
              **launches("flash_bwd_dq", "flash_bwd_dkdv"),
              bound_by="operations", **per_step(fa_bwd)),
+    ]
+    # the SSD block: per train step of Mamba2-370m (48 layers, one launch
+    # of each kernel a layer), measured per call at the main path's shape
+    # and bf16 inputs; no single PyTorch call computes it
+    per_step = lambda rec: {k: (v * SSD_LAYERS if k.endswith("ms") else v)
+                            for k, v in rec.items()}
+    kernels += [
+        dict(name="ssd_chunk_fwd", route="cuda",
+             source=src + "ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd_chunk.py:61",
+             **launches("ssd_fwd"), bound_by="operations", library_ms=None,
+             **per_step(ssd_fwd)),
+        dict(name="ssd_chunk_bwd", route="cuda",
+             source=src + "ssd_chunk.cu",
+             replaces="src/repro/models/mamba2.py:108",
+             replaces_note="B7 has no backward kernel: the JAX model "
+                           "differentiates the jnp ssd_chunked",
+             **launches("ssd_bwd_rows", "ssd_bwd_cols"),
+             bound_by="operations", library_ms=None, **per_step(ssd_bwd)),
     ]
     phase("[report] every check passed")
     print(json.dumps({"kernels": kernels}))

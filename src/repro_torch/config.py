@@ -13,9 +13,20 @@ ATTN_IMPLS = ("auto", "chunked", "naive")
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMSpec:
+    """Mamba2 / SSD block sizes (the JAX package's ``SSMSpec``)."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64            # P
+    n_groups: int = 1
+    chunk: int = 256              # SSD chunk length
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                    # dense (the only family ported)
+    family: str                    # dense | ssm (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,14 +34,15 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None          # default d_model // n_heads
-    act: str = "swiglu"                     # gelu is the one ported
-    norm: str = "rmsnorm"                   # layernorm is the one ported
+    act: str = "swiglu"                     # dense: gelu is the one ported
+    norm: str = "rmsnorm"                   # dense: layernorm; ssm: rmsnorm
     qk_norm: bool = False
     qkv_bias: bool = False
     mlp_bias: bool = False
     pos_embedding: str = "rope"             # learned is the one ported
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    ssm: Optional[SSMSpec] = None
     dtype: str = "bfloat16"        # compute dtype
     param_dtype: str = "float32"   # master params
     attn_impl: str = "auto"        # auto | chunked | naive (perf knob)

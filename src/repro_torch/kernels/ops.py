@@ -3,8 +3,9 @@
 A tensor on the CPU takes the plain version in ``kernels/ref.py``; a CUDA
 tensor launches the hand-written kernel in ``kernels/fused_update.py``,
 ``kernels/lowrank_update.py``, ``kernels/srsi_matmul.py``,
-``kernels/sketch_update.py`` or ``kernels/flash_attention.py`` (or the
-launch raises); any other device raises.  There is no mode switch and no fallback.  For the update and
+``kernels/sketch_update.py``, ``kernels/flash_attention.py`` or
+``kernels/ssd_chunk.py`` (or the launch raises); any other device raises.
+There is no mode switch and no fallback.  For the update and
 matmul kernels the dispatch owns what the kernels do not: the leading
 batch axes of stacked ``(..., m, n)`` leaves are flattened into one grid
 axis (one launch per leaf), ``r`` is zero-padded to the update kernels'
@@ -252,3 +253,49 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal)
         return dq, dk, dv, None
+
+
+def ssd_chunk_fwd(x, b, c, dt, cums, h_in, d_skip) -> torch.Tensor:
+    """The SSD intra-chunk block with its skip term (see
+    ``ref.ssd_chunk``): x (B, S, H, P), b / c (B, S, G, N), dt / cums (B,
+    S, H), h_in (B, nc, H, N, P), d_skip (H,).  Returns y (B, S, H, P)
+    fp32."""
+    if not _on_cuda(x):
+        return ref.ssd_chunk(x, b, c, dt, cums, h_in, d_skip)
+    from repro_torch.kernels import ssd_chunk as SSD
+    return SSD.forward(*_ssd_inputs(x, b, c, dt, cums, h_in, d_skip))
+
+
+def ssd_chunk_bwd(x, b, c, dt, cums, h_in, d_skip, dy):
+    """The recompute backward (see ``ref.ssd_chunk_bwd``).  Returns ``(dx,
+    db, dc, ddt, dcums, dh_in, dd_skip)`` in the dtypes of the inputs."""
+    if not _on_cuda(x):
+        return ref.ssd_chunk_bwd(x, b, c, dt, cums, h_in, d_skip, dy)
+    from repro_torch.kernels import ssd_chunk as SSD
+    return SSD.backward(*_ssd_inputs(x, b, c, dt, cums, h_in, d_skip),
+                        dy.float().contiguous())
+
+
+def _ssd_inputs(x, b, c, dt, cums, h_in, d_skip):
+    """The kernels' operands: x, b, c contiguous in x's dtype, the rest
+    contiguous fp32 (a no-op for what the model passes but the slices of
+    its projection, which are copied)."""
+    dense = lambda t, dtype: t.to(dtype).contiguous()
+    return (dense(x, x.dtype), dense(b, x.dtype), dense(c, x.dtype),
+            *(dense(t, torch.float32) for t in (dt, cums, h_in, d_skip)))
+
+
+class SSDChunk(torch.autograd.Function):
+    """The SSD intra-chunk block, forward and backward through the device
+    dispatch above: the counterpart of the JAX package's
+    ``ssd_chunk_pallas`` plus the skip term, differentiable in all seven
+    inputs.  It saves its inputs only, never a (q, q) tensor."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, dt, cums, h_in, d_skip):
+        ctx.save_for_backward(x, b, c, dt, cums, h_in, d_skip)
+        return ssd_chunk_fwd(x, b, c, dt, cums, h_in, d_skip)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_chunk_bwd(*ctx.saved_tensors, dy)

@@ -2,8 +2,8 @@
 
 They are the semantic ground truth for ``kernels/fused_update.py``,
 ``kernels/lowrank_update.py``, ``kernels/srsi_matmul.py``,
-``kernels/sketch_update.py`` and ``kernels/flash_attention.py``: the
-dispatch in ``kernels/ops.py`` runs them
+``kernels/sketch_update.py``, ``kernels/flash_attention.py`` and
+``kernels/ssd_chunk.py``: the dispatch in ``kernels/ops.py`` runs them
 for tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.  The update and matmul functions take
 arbitrary leading batch dims; their reductions are per matrix (over the
@@ -16,6 +16,8 @@ Python double ``1.0 - b2``, which PyTorch, like JAX, rounds to float32
 once.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -260,3 +262,108 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qs)
     return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the SSD's accumulation type: fp32 for fp32 and bf16, fp64
+    for fp64 (gradient checks)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def expand_groups(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, G, N) -> (B, S, H, N), as the JAX model's ``_expand_groups``
+    (``jnp.repeat`` on the group axis): head h reads group
+    ``h // (H // G)``."""
+    return torch.repeat_interleave(t, n_heads // t.shape[2], dim=2)
+
+
+def _ssd_chunks(x, b, c, dt, cums, h_in):
+    """The inputs of :func:`ssd_chunk` cut into chunks, in the
+    accumulation type, with the decay ``L`` and ``CB = C (dt B)^T``:
+    x (Bt, nc, q, H, P); b, c, bx = dt b (Bt, nc, q, H, N); dt, cums (Bt,
+    nc, q, H); L, cb (Bt, nc, q_i, q_j, H)."""
+    bt, s, h, p = x.shape
+    g, n = b.shape[2:]
+    nc = h_in.shape[1]
+    q = s // nc
+    if (s % nc or h % g or tuple(c.shape) != tuple(b.shape)
+            or b.shape[:2] != x.shape[:2] or tuple(dt.shape) != (bt, s, h)
+            or tuple(cums.shape) != (bt, s, h)
+            or tuple(h_in.shape) != (bt, nc, h, n, p)):
+        raise ValueError(
+            f"ssd_chunk: expected x (B, S, H, P), b / c (B, S, G, N), dt / "
+            f"cums (B, S, H), h_in (B, nc, H, N, P) with nc | S and G | H; "
+            f"got x {tuple(x.shape)}, b {tuple(b.shape)}, c "
+            f"{tuple(c.shape)}, dt {tuple(dt.shape)}, cums "
+            f"{tuple(cums.shape)}, h_in {tuple(h_in.shape)}")
+    chunked = lambda t, *tail: t.reshape((bt, nc, q) + tail)
+    xc = chunked(_acc(x), h, p)
+    bc = chunked(expand_groups(_acc(b), h), h, n)
+    cc = chunked(expand_groups(_acc(c), h), h, n)
+    dtc, cm = chunked(_acc(dt), h), chunked(_acc(cums), h)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    diff = cm[:, :, :, None, :] - cm[:, :, None, :, :]
+    # masked before the exp: above the diagonal diff > 0 grows with the
+    # chunk and overflows, and exp's backward would meet inf there
+    ldec = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                 torch.full((), -math.inf, dtype=diff.dtype,
+                                            device=diff.device)))
+    bx = bc * dtc[..., None]
+    cb = torch.einsum("zcihn,zcjhn->zcijh", cc, bx)
+    return xc, bc, cc, dtc, cm, ldec, bx, cb
+
+
+def ssd_chunk(x, b, c, dt, cums, h_in, d_skip):
+    """The SSD intra-chunk block with the skip term, per chunk and head:
+
+        Y = (C (dt B)^T * L) X + exp(cums) * (C h_in) + d_skip X
+        L[i, j] = exp(cums_i - cums_j) for j <= i, else 0
+
+    x (B, S, H, P); b, c (B, S, G, N), head h reading group h // (H / G);
+    dt, cums (B, S, H) with cums the within-chunk cumsum of dt a; h_in (B,
+    nc, H, N, P) the state entering each chunk; d_skip (H,).  The chunk
+    length is S / nc.  Returns y (B, S, H, P) in the accumulation type
+    (fp32 for fp32 or bf16 inputs)."""
+    xc, _, cc, _, cm, ldec, _, cb = _ssd_chunks(x, b, c, dt, cums, h_in)
+    y = (torch.einsum("zcijh,zcjhp->zcihp", cb * ldec, xc)
+         + torch.exp(cm)[..., None] * torch.einsum(
+             "zcihn,zchnp->zcihp", cc, _acc(h_in))
+         + _acc(d_skip)[:, None] * xc)
+    return y.reshape(x.shape)
+
+
+def ssd_chunk_bwd(x, b, c, dt, cums, h_in, d_skip, dy):
+    """The backward of :func:`ssd_chunk`, from its inputs and dY (B, S, H,
+    P), with M = CB * L, dM = dY X^T, dS = dM * L, T = dS * CB:
+
+        dX     = M^T dY + d_skip dY
+        d(dtB) = dS^T C            -> dB = dt d(dtB), ddt = sum_n d(dtB) B
+        dC     = dS (dt B) + exp(cums) (dY h_in^T)
+        dcums  = rowsum T - colsum T + exp(cums) sum_n C (dY h_in^T)
+        dh_in  = C^T (exp(cums) dY);   dd_skip = sum dY X
+
+    dB and dC summed over each group's heads.  Returns ``(dx, db, dc, ddt,
+    dcums, dh_in, dd_skip)`` in the dtypes of the inputs."""
+    bt, s, h, p = x.shape
+    g, n = b.shape[2:]
+    xc, bc, cc, dtc, cm, ldec, bx, cb = _ssd_chunks(x, b, c, dt, cums, h_in)
+    dyc = _acc(dy).reshape(xc.shape)
+    hin = _acc(h_in)
+    e = torch.exp(cm)
+    dm = torch.einsum("zcihp,zcjhp->zcijh", dyc, xc)
+    ds = dm * ldec
+    t = ds * cb
+    dx = (torch.einsum("zcijh,zcihp->zcjhp", cb * ldec, dyc)
+          + _acc(d_skip)[:, None] * dyc)
+    dbx = torch.einsum("zcijh,zcihn->zcjhn", ds, cc)
+    z = torch.einsum("zcihp,zchnp->zcihn", dyc, hin)
+    dc = torch.einsum("zcijh,zcjhn->zcihn", ds, bx) + e[..., None] * z
+    dcums = t.sum(3) - t.sum(2) + e * (cc * z).sum(-1)
+    dh = torch.einsum("zcih,zcihn,zcihp->zchnp", e, cc, dyc)
+    grouped = lambda t_: t_.reshape(bt, s, g, h // g, n).sum(3)
+    return (dx.reshape(x.shape).to(x.dtype),
+            grouped(dbx * dtc[..., None]).to(b.dtype),
+            grouped(dc).to(c.dtype),
+            (dbx * bc).sum(-1).reshape(bt, s, h).to(dt.dtype),
+            dcums.reshape(bt, s, h).to(cums.dtype), dh.to(h_in.dtype),
+            (dyc * xc).sum((0, 1, 2, 4)).to(d_skip.dtype))

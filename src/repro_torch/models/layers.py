@@ -37,6 +37,25 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (out * w.float() + b.float()).to(x.dtype)
 
 
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm computed in fp32, returned in ``x``'s dtype."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def make_norm_params(cfg, shape: tuple, device) -> dict:
+    """RMSNorm parameters of ``shape`` (leading stack dims, then d): a
+    scale of ones."""
+    return {"w": torch.ones(shape, device=device)}
+
+
+def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm with ``cfg.norm_eps``; the dense decoder calls
+    ``layer_norm`` itself."""
+    return rms_norm(x, p["w"], cfg.norm_eps)
+
+
 def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     """GELU MLP.  ``jax.nn.gelu`` defaults to the tanh approximation, so
     the port uses it too."""

@@ -2,9 +2,10 @@
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
+from repro_torch.models.ssm_lm import SSMLM
 from repro_torch.models.transformer import TransformerLM
 
-_FAMILIES = {"dense": TransformerLM}
+_FAMILIES = {"dense": TransformerLM, "ssm": SSMLM}
 
 
 def build_model(cfg: ModelConfig):

@@ -1,0 +1,77 @@
+"""Pure SSM language model (mamba2-370m), family "ssm": an
+attention-free stack of RMSNorm + Mamba2 blocks, as the JAX package's
+``models/ssm_lm.py``.
+
+Parameters keep the JAX tree (``embed``, ``layers.{norm,mamba}.*`` stacked
+``(L, ...)``, ``final_norm``, ``lm_head``), so ``repro_torch.convert``
+carries the JAX parameters across unchanged; the forward walks the layers
+with a Python loop over slices of the stack, as ``TransformerLM`` does.
+The caches, prefill and decode belong to serving and are not ported yet
+(ROADMAP.md Queue A 14).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
+from repro_torch.models.transformer import _slice
+
+
+def _serving(what: str):
+    raise NotImplementedError(
+        f"SSMLM.{what} (the Mamba2 caches, prefill and decode) is not "
+        f"ported to PyTorch yet; see ROADMAP.md Queue A 14")
+
+
+class SSMLM(nn.Module):
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.family != "ssm" or cfg.ssm is None or cfg.norm != "rmsnorm":
+            raise ValueError(f"SSMLM needs family 'ssm', an SSMSpec and "
+                             f"RMSNorm, got {cfg.family!r} / {cfg.ssm!r} / "
+                             f"{cfg.norm!r}")
+        self.cfg = cfg
+
+    def init(self, gen: torch.Generator) -> dict:
+        """Random fp32 master parameters on ``gen``'s device."""
+        cfg = self.cfg
+        n, d, dev = cfg.n_layers, cfg.d_model, gen.device
+        return {
+            "embed": L.embed_init(gen, cfg.vocab, d),
+            "layers": {"norm": L.make_norm_params(cfg, (n, d), dev),
+                       "mamba": M.mamba_init(gen, cfg, n)},
+            "final_norm": L.make_norm_params(cfg, (d,), dev),
+            "lm_head": L.dense_init(gen, (d, cfg.vocab), d, scale=0.02),
+        }
+
+    def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, S) int -> logits (B, S, V) in the compute dtype."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        x = params["embed"].to(dt)[tokens]
+        for i in range(cfg.n_layers):
+            lp = _slice(params["layers"], i)
+            x = x + M.mamba_apply(cfg, lp["mamba"],
+                                  L.apply_norm(cfg, lp["norm"], x))
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        return x @ params["lm_head"].to(dt)
+
+    def loss(self, params: dict, batch: dict):
+        """Next-token cross entropy; returns ``(loss, {"loss": loss})``."""
+        tokens = batch["tokens"]
+        logits = self.forward(params, tokens)
+        ce = L.softmax_xent(logits[:, :-1, :], tokens[:, 1:])
+        return ce, {"loss": ce}
+
+    def init_cache(self, batch: int, cache_len: int):
+        _serving("init_cache")
+
+    def prefill(self, params: dict, tokens: torch.Tensor, cache):
+        _serving("prefill")
+
+    def decode_step(self, params: dict, cache, tokens: torch.Tensor):
+        _serving("decode_step")

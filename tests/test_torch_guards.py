@@ -116,7 +116,8 @@ def test_sketch_telemetry_raises():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of repro_torch, the chunked attention path's
-    entry points (``ops.FlashAttention``, ``sdpa_auto``) and chip_smoke.py
+    entry points (``ops.FlashAttention``, ``sdpa_auto``), the Mamba2
+    path's (``ops.SSDChunk``, ``ssd_chunked``, ``SSMLM``) and chip_smoke.py
     in a fresh interpreter and inspect sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -125,6 +126,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "from repro_torch.kernels.ops import FlashAttention\n"
         "from repro_torch.models.attention import sdpa_auto\n"
+        "from repro_torch.kernels.ops import SSDChunk\n"
+        "from repro_torch.models.mamba2 import ssd_chunked\n"
+        "from repro_torch.models.ssm_lm import SSMLM\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -198,3 +202,36 @@ def test_flash_attention_build_failure_raises(monkeypatch, tmp_path, fault):
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.flash_attention_fwd(*_qkv(), True)
     assert FA._LIB is None and FA.LAUNCHES["flash_fwd"] == 0
+
+
+def test_mamba2_launcher_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--arch", "mamba2-370m"] + SMOKE
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launcher.main(argv)
+    _, hist = launcher.main(argv + ["--device", "cpu", "--sketch-width",
+                                    "64", "--embedding-min-rows", "256"])
+    assert len(hist) == 1
+
+
+def _ssd_inputs(dtype=torch.float32):
+    bt, s, h, g, p, n = 1, 16, 2, 1, 4, 4
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt)
+    return (z(bt, s, h, p, dt=dtype), z(bt, s, g, n, dt=dtype),
+            z(bt, s, g, n, dt=dtype), z(bt, s, h), z(bt, s, h),
+            z(bt, 1, h, n, p), z(h))
+
+
+def test_ssd_chunk_wrapper_refuses_cpu_tensors():
+    """The SSD kernels' wrappers check before they build or launch
+    anything: CPU tensors and fp16 are refused, nothing is counted."""
+    from repro_torch.kernels import ssd_chunk as SSD
+    ins = _ssd_inputs()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        SSD.forward(*ins)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        SSD.backward(*ins, torch.zeros_like(ins[0]))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        SSD.forward(*_ssd_inputs(torch.float16))
+    assert SSD.LAUNCHES == {"ssd_fwd": 0, "ssd_bwd_rows": 0,
+                            "ssd_bwd_cols": 0}

@@ -9,7 +9,8 @@ sm_90a) and the CUDA toolkit.  In order, it
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel source in ``src/repro_torch/kernels/csrc`` with
      nvcc, one process per source, all started together, and prints the
-     build time and the ptxas report;
+     build time, the ptxas report and the wgmma (HGMMA) instructions in
+     each bf16 flash attention kernel, failing if one has none;
   3. holds every kernel variant against its plain PyTorch version on the
      card at every leaf shape of the GPT-2 117M main paths (pass 1 plain,
      guided, fold, and its int8 variant on quantized factors; pass 2
@@ -136,13 +137,16 @@ TOL_FLASH = 1e-5
 TOL_FLASH_GRAD = 1e-4
 # (name, (B, Sq, Sk, H, KV, dh), causal, dtypes): GPT-2 117M's attention
 # at batch 8 x 1024 (timed), then dh 80 (no multiple of 64), S 1000 (no
-# multiple of the 64-row tiles), 8 query heads over 2 KV heads
+# multiple of the 64-row tiles), 8 query heads over 2 KV heads, and dh 60
+# (no multiple of 8: the bf16 kernels' loads without 16-byte copies)
 FLASH_CASES = [
     ("gpt2-117m", (8, 1024, 1024, 12, 12, 64), True,
      ("bfloat16", "float32")),
     ("ragged gqa causal", (2, 1000, 1000, 8, 2, 80), True,
      ("float32", "bfloat16")),
-    ("ragged gqa full", (2, 1000, 872, 8, 2, 80), False, ("float32",))]
+    ("ragged gqa full", (2, 1000, 872, 8, 2, 80), False,
+     ("float32", "bfloat16")),
+    ("ragged dh 60", (2, 300, 300, 4, 2, 60), True, ("bfloat16",))]
 
 # The SSD intra-chunk block (B7) against its plain version on the same
 # inputs: y sums the same fp32 products as the plain einsums in other
@@ -718,44 +722,82 @@ def attn_pairs(sq: int, sk: int, causal: bool) -> int:
     return sum(min(i + 1, sk) for i in range(sq))
 
 
-def flash_bounds(b, sq, sk, h, kv, dh, causal, dtype):
+def flash_bounds(b, sq, sk, h, kv, dh, causal, dtype, split=True):
     """(forward, backward) bounds in ms of one call.  Operations: the
     forward's two products over the live pairs (q k^T, p v), the
     backward's five (the recomputed q k^T, dO v^T, P^T dO, dS k,
-    dS^T q), 2 a multiply-add, each at the peak of its operands' type:
-    with bf16 inputs q k^T (when the scale is a power of two, so that q
-    scale is still bf16) and dO v^T are bf16 products with fp32 sums, the
-    same function on the tensor cores; the products with an fp32 P or dS
-    operand, and all of them for fp32 inputs, at the fp32 peak.  Bytes:
-    the forward reads q, k, v and writes o and the fp32 lse, the backward
-    reads q, k, v, o, dO and lse and writes dq, dk, dv."""
+    dS^T q), 2 a multiply-add, priced at the arithmetic that holds
+    ``TOL_FLASH``.  With bf16 inputs q k^T and dO v^T are one bf16 product
+    each (the scale multiplies the fp32 product, so for every dh), and P
+    and dS are fp32: a bf16 P or dS misses the tolerance, so the kernels
+    split each into two bf16 terms (hi + lo) and every product with one is
+    two bf16 products, all at the bf16 tensor-core peak: three products'
+    worth forward, eight backward.  fp32 inputs: every product at the
+    fp32 peak.  ``split=False`` gives the earlier pricing of bf16 inputs,
+    for comparison: the products with an fp32 operand at the fp32 peak,
+    q k^T at the bf16 peak only where the scale is a power of two.  The
+    recompute of S and dP in both backward kernels is the design's cost,
+    not the function's, and is not priced.  Bytes: the forward reads q,
+    k, v and writes o and the fp32 lse, the backward reads q, k, v, o, dO
+    and lse and writes dq, dk, dv; at GPT-2 117M's shape they bound
+    neither."""
     import torch
     from repro_torch.kernels.ref import attn_scale
     flops = 2 * b * h * dh * attn_pairs(sq, sk, causal)
     bf16 = dtype == torch.bfloat16
-    qk = PEAK_BF16_FLOPS if bf16 and math.frexp(attn_scale(dh))[0] == 0.5 \
-        else PEAK_FP32_FLOPS
-    dov = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+    if bf16 and split:
+        fwd_s, bwd_s = 3 * flops / PEAK_BF16_FLOPS, 8 * flops / PEAK_BF16_FLOPS
+    else:
+        qk = PEAK_BF16_FLOPS if bf16 and math.frexp(
+            attn_scale(dh))[0] == 0.5 else PEAK_FP32_FLOPS
+        dov = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+        fwd_s = flops / qk + flops / PEAK_FP32_FLOPS
+        bwd_s = flops / qk + flops / dov + 3 * flops / PEAK_FP32_FLOPS
     itemsize = 2 if bf16 else 4
     nq, nk = b * sq * h * dh * itemsize, b * sk * kv * dh * itemsize
     lse = 4 * b * h * sq
-    fwd_s = flops / qk + flops / PEAK_FP32_FLOPS
-    bwd_s = flops / qk + flops / dov + 3 * flops / PEAK_FP32_FLOPS
     return (1e3 * max(fwd_s, (2 * nq + 2 * nk + lse) / PEAK_BYTES_PER_S),
             1e3 * max(bwd_s, (4 * nq + 4 * nk + lse) / PEAK_BYTES_PER_S))
+
+
+FLASH_LAYERS = 12   # GPT-2 117M: one launch of each B6 kernel a layer
+
+
+def hgmma_counts(lib) -> dict:
+    """HGMMA instructions (wgmma in the SASS, ``cuobjdump -sass``) in each
+    bf16 kernel of flash attention, by kernel name and tile width."""
+    from repro_torch.kernels import cuda
+    tool = Path(cuda._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = None
+            for kern in ("flash_fwd_kernel_wgmma", "flash_bwd_dq_kernel_wgmma",
+                         "flash_bwd_dkdv_kernel_wgmma"):
+                for dp in (64, 128):
+                    if kern in line and f"ILi{dp}E" in line:
+                        name = f"{kern}<{dp}>"
+                        counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def check_flash(device):
     """Flash attention's forward and backward kernels against their plain
     versions on the same inputs, each kernel launched twice and compared
     bitwise: at GPT-2 117M's shape (8, 1024, 12, 64), causal, in bf16 (as
-    the model feeds them) and in fp32, and at ragged GQA shapes (S 1000,
-    dh 80, 8 query heads over 2 KV heads; causal, and full attention with
-    Sq != Sk).  Then, at the GPT-2 shape, each kernel's device time beside
-    its bound and its plain version's, and the library yardstick that the
-    port never calls: scaled_dot_product_attention forward and
-    forward+backward, fp32 and bf16.  Returns (forward, backward) records,
-    times per call."""
+    the model feeds them) and in fp32, at ragged GQA shapes (S 1000, dh
+    80, 8 query heads over 2 KV heads; causal, and full attention with Sq
+    != Sk), both dtypes, and at dh 60 in bf16.  Then, at the GPT-2 shape,
+    each kernel's device time beside its bound and its plain version's,
+    and the library yardstick that the port never calls:
+    scaled_dot_product_attention forward and forward+backward, fp32 and
+    bf16; for bf16, the times per call and per step beside the bound, the
+    bound before the hi/lo pricing and SDPA.  Returns (forward, backward)
+    records, times per call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -830,6 +872,17 @@ def check_flash(device):
             key = "library_ms" if dt == f32 else "library_bf16_ms"
             fwd_rec[key] = t_f
             bwd_rec[key] = t_fb - t_f
+            if dt == bf16:
+                old_f, old_b = flash_bounds(b, sq, sk, h, kv, dh, causal,
+                                            q.dtype, split=False)
+                both = lambda x: f"{x:.4f} ({x * FLASH_LAYERS:.4f})"
+                print(f"    bf16 ms per call (per step of {FLASH_LAYERS} "
+                      f"layers): fwd {both(fwd_rec['ms'])}, dQ "
+                      f"{both(bwd_rec['dq_ms'])}, dK/dV "
+                      f"{both(bwd_rec['dkdv_ms'])}; bound fwd "
+                      f"{both(b_fwd)}, bwd {both(b_bwd)}; bound before the "
+                      f"hi/lo pricing fwd {both(old_f)}, bwd {both(old_b)};"
+                      f" SDPA bf16 fwd {both(t_f)}, bwd {both(t_fb - t_f)}")
             del qt, kt, vt, dot
             torch.cuda.empty_cache()
     return fwd_rec, bwd_rec
@@ -1396,6 +1449,12 @@ def main():
         for line in log["output"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
+    from repro_torch.kernels import flash_attention
+    counts = hgmma_counts(cuda.library(flash_attention.SOURCE))
+    print(f"  HGMMA instructions in the bf16 flash attention kernels: "
+          f"{counts}")
+    if len(counts) != 6 or not all(counts.values()):
+        fail(f"a bf16 flash attention kernel runs no wgmma: {counts}")
 
     fact, dense = main_path_leaves(device)
     fact_mixed, _ = main_path_leaves(device, mixed=True)
@@ -1552,7 +1611,8 @@ def main():
     # shape and bf16 inputs; library_ms is scaled_dot_product_attention on
     # fp32 inputs (the same fp32 function), library_bf16_ms on bf16 inputs
     # (bf16 tensor-core products), the backward's as fwd+bwd minus fwd.
-    per_step = lambda rec: {k: (v * 12 if k.endswith("ms") else v)
+    per_step = lambda rec: {k: (v * FLASH_LAYERS if k.endswith("ms")
+                                else v)
                             for k, v in rec.items()}
     kernels += [
         dict(name="flash_attention_fwd", route="cuda",

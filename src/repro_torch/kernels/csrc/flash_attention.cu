@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a): forward and recompute backward,
-// fp32 scores and products on the CUDA cores, fp32 or bf16 q / k / v.
+// bf16 inputs on the tensor cores (wgmma), fp32 inputs on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py), a forward only, and the jnp
@@ -7,51 +7,84 @@
 // (src/repro/models/attention.py::_sdpa_chunked under jax.checkpoint).
 // Layout is the model's: q (B, Sq, H, dh), k / v (B, Sk, KV, dh), all
 // contiguous; query head h reads KV head h / (H / KV), so GQA needs no
-// copy of k or v; dh is not padded in memory (dh <= 128, masked in the
-// kernels).  Three kernels, 64-row tiles, 256 threads a block, each thread
-// owning a 4 x 4 block of every 64 x 64 product:
+// copy of k or v; dh <= 128 is not padded in memory (the kernels zero-fill
+// and mask it).  Three kernels for each input type, 64-row tiles:
 //
-//   * flash_fwd_kernel: one block per (b * H + h, q tile).  It stages its
-//     q tile (times scale) once, then walks the k / v tiles up to the
-//     diagonal (causal) or to Sk, staging each in shared memory; the
-//     running (m, l, acc) stay in registers in fp32:
-//         s = (q scale) k^T, -1e30 where k_pos > q_pos (causal)
+//   * forward: one block per (b * H + h, q tile).  It walks the k / v
+//     tiles up to the diagonal (causal) or to Sk; the running (m, l, acc)
+//     stay in registers in fp32:
+//         s = scale (q k^T), -1e30 where k_pos > q_pos (causal)
 //         m' = max(m, rowmax s); p = exp(s - m'); corr = exp(m - m')
 //         l' = l corr + rowsum p; acc' = acc corr + p v
 //     and it writes o = acc / max(l, 1e-30) in the input type and the
 //     log-sum-exp m + log l in fp32.
-//   * flash_bwd_dq_kernel: one block per (b * H + h, q tile).  Its
-//     prologue computes D = rowsum(dO * O) and writes it; then over the
-//     same k tiles it recomputes P = exp(s - lse), dP = dO v^T,
-//     dS = P (dP - D) and accumulates dQ = dS k scale in registers.
-//   * flash_bwd_dkdv_kernel: one block per (b * KV + kv, k tile), after
-//     the dq launch (it reads D).  It loops over the group's query heads
-//     and the q tiles at or below the diagonal and accumulates
-//     dV = P^T dO and dK = dS^T (q scale) in registers: the group's heads
-//     add into one tile inside the block, so there are no float atomics
-//     and every output repeats bit for bit.
+//   * dQ: one block per (b * H + h, q tile).  Its prologue computes
+//     D = rowsum(dO * O) and writes it; then over the same k tiles it
+//     recomputes P = exp(s - lse), dP = dO v^T, dS = P (dP - D) and
+//     accumulates dQ = scale (dS k) in registers.
+//   * dK / dV: one block per (b * KV + kv, k tile), after the dQ launch
+//     (it reads D).  It loops over the group's query heads and the q tiles
+//     at or below the diagonal and accumulates dV = P^T dO and
+//     dK = scale (dS^T q) in registers: the group's heads add into one
+//     tile inside the block, so there are no float atomics and every
+//     output repeats bit for bit.
 //
-// Each product C[r][c] += sum_x A[r][x] B[x][c] reads A row-major (its
-// rows are the thread's rows: one float4 feeds four x, and the eight
-// threads of a 16-byte load phase share the row, a broadcast) and B with
-// the output column contiguous (tx * 4: 128 contiguous bytes a phase), so
-// operands that are the "B" side of one product and the "A" side of
-// another are staged twice (transposed and row-major); the backward
-// kernels restage the row-major copy into the transposed one's space once
-// the transposed one is read, to stay at two blocks an SM.
+// bf16 inputs (the model's path), *_wgmma kernels: one warpgroup (128
+// threads) per 64-row tile, every product a chain of wgmma
+// m64nNk16.f32.bf16.bf16.  Each tile sits in shared memory once, as
+// DP / 64 column blocks of [64][64] whose 128-byte rows have their
+// 16-byte chunks swizzled (chunk c of row r at c ^ (r % 8)).  A
+// descriptor reads such a tile K-major (q k^T and dO v^T; k q^T and
+// v dO^T in the dK / dV kernel, whose rows are keys) or MN-major (v in
+// p v, k in dS k, dO in P^T dO, q in dS^T q), so nothing is transposed
+// by a store.  The k / v tiles (forward, dQ) and the q / dO tiles
+// (dK / dV) come through a two-stage ring filled by cp.async 16-byte
+// copies that write the swizzle themselves and zero-fill past the edge
+// (dh % 8 != 0: plain stores), the next tile's copies in flight while
+// the current one is used.  The scale multiplies the fp32 accumulator,
+// so q enters wgmma as stored for every dh.  S and dP stay in
+// registers; P and dS feed the next product from registers as its A
+// operand, since the accumulator's layout is the A fragment's.  Only
+// the diagonal tile and the tiles at the ragged edges are masked; exp
+// is exp2 of one fma (ex2.approx, ~2 ulp, results below 2^-126 flushed
+// to 0).  At dh 64 the launch bounds hold the forward and dQ kernels to
+// 128 registers (four blocks an SM) and dK / dV to 168 (three); two
+// warpgroups a block sharing the streamed tiles measured no faster.
+// P and dS are fp32.  Rounded to bf16, as SDPA rounds P, they put bf16
+// outputs outside one bf16 ulp of themselves plus 1e-5 of the largest
+// entry of the plain version (TOL_FLASH; emulated on the CPU at S 1024,
+// dh 64 and S 1000, dh 80 by tests/test_torch_attention.py); so each is
+// split into hi = bf16(x) and lo = bf16(x - hi), which carry 16
+// significant bits, and each product with it is two wgmma into one fp32
+// accumulator.  The other operand (v, k, dO, q) is bf16-exact, so every
+// product is the fp32 product to ~2^-17 of each term; softmax, m, l,
+// lse, D and dS = P (dP - D) stay fp32.  Measured on an H100
+// (chip_smoke.py): every bf16 output within 0.98-1.0 of that per-entry
+// bound (the one-ulp term: both sides round an fp32 value once), the
+// fp32 lse within 1.5e-7 of its largest entry.
+//
+// fp32 inputs (off the model's path; they hold the smoke model's parity
+// runs and stay exact to fp32, which no tensor-core type is): 256
+// threads a block, each thread owning a 4 x 4 block of every 64 x 64
+// product on the CUDA cores.  Each product C[r][c] += sum_x A[r][x]
+// B[x][c] reads A row-major (its rows are the thread's rows: one float4
+// feeds four x, and the eight threads of a 16-byte load phase share the
+// row, a broadcast) and B with the output column contiguous (tx * 4: 128
+// contiguous bytes a phase), so operands that are the "B" side of one
+// product and the "A" side of another are staged twice (transposed and
+// row-major); the backward kernels restage the row-major copy into the
+// transposed one's space once the transposed one is read, to stay at
+// two blocks an SM.
 //
 // What bounds it on an H100: operations.  Causal GPT-2 117M (B 8, H 12,
-// S 1024, dh 64, bf16) does 2 S^2 dh multiply-adds a head forward (two
-// products over half the score matrix).  With bf16 inputs and a
-// power-of-two scale, (q scale) k^T and the backward's dO v^T are bf16
-// products with fp32 sums, which the tensor cores compute at 989
-// TFLOP/s as the same function; p v, P^T dO, dS k and dS^T q have an
-// fp32 operand and run at the fp32 peak, 67 TFLOP/s.  So the 12 layers'
-// forward is bound at 1.23 ms (~0.2 ms of bytes) and the backward's five
-// products at 3.62 ms (this design recomputes S and dP in both backward
-// kernels: seven).  Everything here is fp32 on the CUDA cores; wgmma
-// for the bf16 products, TMA, and a tolerance decision for the fp32
-// ones are the levers for a later version.
+// S 1024, dh 64, 524,800 live pairs a head) costs 6.449 GFLOP a product
+// a layer.  With bf16 inputs q k^T and dO v^T are one bf16 product each
+// and every product with P or dS two, at 989 TFLOP/s: the forward is
+// three products' worth, the backward's five distinct products eight, so
+// the 12 layers are bound at 0.2347 ms forward and 0.6260 ms backward
+// (bytes: 0.18 / 0.36 ms).  This design recomputes S and dP in both
+// backward kernels (ten products' worth).  fp32 inputs run every
+// product at the fp32 peak, 67 TFLOP/s.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (no --use_fast_math: expf and logf stay exact
@@ -60,6 +93,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -69,16 +103,9 @@ constexpr int TS = BT + 4;        // row stride of a transposed tile
 constexpr float NEG_INF = -1e30f; // the reference's mask value
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
@@ -414,6 +441,627 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16 inputs: wgmma on the tensor cores -----------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int WG = 128;           // threads of the bf16 kernels: one warpgroup
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (the
+// swizzle repeats every 1024 bytes of address; launches ask for 1024
+// bytes more than they use).
+__device__ __forceinline__ bf16* smem_tiles() {
+  extern __shared__ __align__(16) float sm[];
+  char* raw = reinterpret_cast<char*>(sm);
+  const uint32_t pad = (1024 - (smem_u32(raw) & 1023)) & 1023;
+  return reinterpret_cast<bf16*>(raw + pad);
+}
+
+// 16 (4) bytes global -> shared without the registers; n < 16 (4) source
+// bytes zero-fill the rest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one group (the prefetch) is in flight, then make
+// the block's shared-memory writes visible to wgmma (the async proxy).
+__device__ __forceinline__ void tile_ready() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Element offset of (r, c) in a [64][DP] tile: column block c / 64, then
+// the row's 128 bytes with 16-byte chunk j = (c / 8) % 8 at j ^ (r % 8).
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * (BT * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+
+// Load rows [0, nrows) x columns [0, dh) of a global tile (row stride rs
+// elements) into a swizzled [64][DP] tile, 0 past either edge.
+template <int DP>
+__device__ __forceinline__ void load_tile(bf16* t, const bf16* g, long rs,
+                                          int nrows, int dh, int vec) {
+  if (vec) {  // dh % 8 == 0: every 16-byte chunk is inside or outside
+#pragma unroll
+    for (int j = 0; j < BT * DP / 8 / WG; ++j) {
+      const int i = threadIdx.x + j * WG;
+      const int r = i / (DP / 8), c = i % (DP / 8) * 8;
+      const bool in = r < nrows && c < dh;
+      cp_async16(t + swz(r, c), in ? g + r * rs + c : g, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BT * DP; i += WG) {
+      const int r = i / DP, c = i % DP;
+      t[swz(r, c)] = r < nrows && c < dh ? g[r * rs + c]
+                                         : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// wgmma shared-memory descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t desc(const bf16* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+// A tile read K-major, the contraction along its columns (A = its 64
+// rows, or B = its rows as the output's columns): k16 step kk is column
+// block kk / 4, 32 bytes a step inside it; 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor(const bf16* t, int kk) {
+  return desc(t + (kk >> 2) * (BT * 64) + (kk & 3) * 16, 16, 1024);
+}
+// A tile read MN-major as B, the contraction along its rows: k16 step kk
+// is rows 16 kk .. 16 kk + 15; the output's columns are the tile's, in
+// column blocks 64 x 128 bytes apart.
+__device__ __forceinline__ uint64_t mnmajor(const bf16* t, int kk) {
+  return desc(t + kk * 16 * 64, BT * 128, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D += A B for one k16 step, D 64 x N fp32 in registers (thread t of the
+// warpgroup holds rows 16 (t / 32) + (t % 32) / 4 + {0, 8} and columns
+// 8 j + 2 (t % 4) + {0, 1}: entry [4 j + 2 row_half + col]).
+// mma_ss: A and B from shared memory, both K-major (N = 64); acc 0
+// overwrites D.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[32],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[64],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// (bf16(x0), bf16(x1)) rounded to nearest, packed x0 in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(x1), "f"(x0));
+  return r;
+}
+
+// The A fragments of a 64 x 64 fp32 accumulator tile x, as x = hi + lo
+// with hi = bf16(x), lo = bf16(x - hi): for k16 step kk, register r holds
+// the entries 8 kk + 2 r and 8 kk + 2 r + 1 (low half first).
+__device__ __forceinline__ void split_frags(const float (&x)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = x[8 * kk + 2 * r], x1 = x[8 * kk + 2 * r + 1];
+      const uint32_t h = pack_bf16(x0, x1);
+      hi[kk][r] = h;
+      lo[kk][r] = pack_bf16(x0 - __uint_as_float(h << 16),
+                            x1 - __uint_as_float(h & 0xffff0000u));
+    }
+}
+
+// D += (hi + lo) B over the 64-deep contraction, B MN-major from t.
+template <int N>
+__device__ __forceinline__ void mma_split(float (&d)[N],
+                                          const uint32_t (&hi)[4][4],
+                                          const uint32_t (&lo)[4][4],
+                                          const bf16* t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    mma_rs(d, hi[kk], mnmajor(t, kk));
+    mma_rs(d, lo[kk], mnmajor(t, kk));
+  }
+}
+
+// D = A B^T over dh, A and B tiles read K-major.
+template <int DP>
+__device__ __forceinline__ void mma_qk(float (&d)[32], const bf16* a,
+                                       const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    mma_ss(d, kmajor(a, kk), kmajor(b, kk), kk > 0);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x, flushing results below 2^-126 to 0 (a p that small adds nothing
+// to a row sum of at least 1); ~2 ulp.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Max and sum over the four threads that share an accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The launch bounds ask for 4 (forward, dQ) and 3 (dK / dV) blocks an SM
+// at the GPT-2 head width (dh 64), where the registers, not shared
+// memory, set how many fit.
+
+template <int DP>
+__global__ void __launch_bounds__(WG, DP == 64 ? 4 : 1)
+flash_fwd_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int H, int KV, int sq,
+                       int sk, int dh, float scale, int causal, int vec) {
+  constexpr int TILE = BT * DP;
+  bf16* qs = smem_tiles();        // [64][DP]
+  bf16* kvs = qs + TILE;          // stage s: k at kvs + 2 s TILE, v after it
+  const int tid = threadIdx.x, ln = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (ln >> 2);  // rows r0, r0 + 8
+  const int c0 = 2 * (ln & 3);                 // columns 8 j + c0 + {0, 1}
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  // the longest causal tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BT;
+  const long qrs = (long)H * dh, krs = (long)KV * dh;
+  const long qoff = ((long)b * sq + q0) * qrs + (long)h * dh;
+  const int last = k_tiles(q0, sq, sk, causal);
+  auto load_kv = [&](int kt) {
+    const int k0 = kt * BT;
+    const long off = ((long)b * sk + k0) * krs + (long)kvh * dh;
+    bf16* st = kvs + (kt & 1) * 2 * TILE;
+    load_tile<DP>(st, k + off, krs, min(BT, sk - k0), dh, vec);
+    load_tile<DP>(st + TILE, v + off, krs, min(BT, sk - k0), dh, vec);
+  };
+  load_tile<DP>(qs, q + qoff, qrs, min(BT, sq - q0), dh, vec);
+  load_kv(0);
+  cp_async_commit();
+  const float sl2 = scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[DP / 2];
+  zero(acc);
+  for (int kt = 0; kt < last; ++kt) {
+    if (kt + 1 < last) load_kv(kt + 1);
+    cp_async_commit();
+    tile_ready();
+    const bf16* ks = kvs + (kt & 1) * 2 * TILE;
+    float s[32];  // q k^T, unscaled
+    keep(s);
+    wg_fence();
+    mma_qk<DP>(s, qs, ks);
+    wg_commit_wait();
+    keep(s);
+    const int k0 = kt * BT;
+    // only the diagonal tile and the tile at Sk have masked entries
+    // (-inf here, -1e30 in the reference: both give p = 0, as key 0 is
+    // live in every row)
+    if (k0 + BT > sk || (causal && k0 + BT - 1 > q0)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int kp = k0 + (e >> 2) * 8 + c0 + (e & 1);
+        if (kp >= sk || (causal && kp > q0 + r0 + 8 * ((e >> 1) & 1)))
+          s[e] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, corr[2], mb[2];
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // scale > 0, so the max of the scaled scores is the scaled max
+      const float m_new = fmaxf(m[i], quad_max(mx[i]) * scale);
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      mb[i] = m_new * LOG2E;
+      l[i] *= corr[i];    // this thread's share of the row sum
+    }
+    // p = exp(scale s - m) as exp2(s (scale log2 e) - m log2 e)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[e] = exp2_ftz(fmaf(s[e], sl2, -mb[(e >> 1) & 1]));
+      l[(e >> 1) & 1] += s[e];
+    }
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
+    uint32_t hi[4][4], lo[4][4];
+    split_frags(s, hi, lo);
+    keep(acc);
+    wg_fence();
+    mma_split(acc, hi, lo, ks + TILE);
+    wg_commit_wait();
+    keep(acc);
+    __syncthreads();  // every thread is done with this stage
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + r0 + 8 * i;
+    const float lsum = quad_sum(l[i]);
+    if (r >= sq) continue;
+    const float den = fmaxf(lsum, 1e-30f);
+    bf16* orow = o + ((long)b * sq + r) * qrs + (long)h * dh;
+#pragma unroll
+    for (int e = 2 * i; e < DP / 2; e += 4)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = (e >> 2) * 8 + c0 + j;
+        if (c < dh) orow[c] = __float2bfloat16_rn(acc[e + j] / den);
+      }
+    if ((ln & 3) == 0) lse[((long)b * H + h) * sq + r] = m[i] + logf(lsum);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(WG, DP == 64 ? 4 : 1)
+flash_bwd_dq_kernel_wgmma(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ o,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          float* __restrict__ dsum, bf16* __restrict__ dq,
+                          int H, int KV, int sq, int sk, int dh, float scale,
+                          int causal, int vec) {
+  constexpr int TILE = BT * DP;
+  bf16* qs = smem_tiles();        // [64][DP]
+  bf16* dos = qs + TILE;          // [64][DP]
+  bf16* kvs = dos + TILE;         // stage s: k at kvs + 2 s TILE, v after it
+  float* d_s = reinterpret_cast<float*>(kvs + 4 * TILE);  // [64]
+  const int tid = threadIdx.x, ln = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (ln >> 2);
+  const int c0 = 2 * (ln & 3);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BT;
+  const long qrs = (long)H * dh, krs = (long)KV * dh;
+  const long qoff = ((long)b * sq + q0) * qrs + (long)h * dh;
+  const int nq = min(BT, sq - q0);
+  const int last = k_tiles(q0, sq, sk, causal);
+  auto load_kv = [&](int kt) {
+    const int k0 = kt * BT;
+    const long off = ((long)b * sk + k0) * krs + (long)kvh * dh;
+    bf16* st = kvs + (kt & 1) * 2 * TILE;
+    load_tile<DP>(st, k + off, krs, min(BT, sk - k0), dh, vec);
+    load_tile<DP>(st + TILE, v + off, krs, min(BT, sk - k0), dh, vec);
+  };
+  load_tile<DP>(qs, q + qoff, qrs, nq, dh, vec);
+  load_tile<DP>(dos, dout + qoff, qrs, nq, dh, vec);
+  load_kv(0);
+  cp_async_commit();
+  {  // D = rowsum(dO * O): two threads a row
+    const int r = tid >> 1, part = tid & 1;
+    const bf16* orow = o + qoff + r * qrs;
+    const bf16* drow = dout + qoff + r * qrs;
+    float d = 0.f;
+    if (r < nq && vec) {  // 16-byte loads, eight columns each
+      for (int c = part * 8; c < dh; c += 16) {
+        const uint4 a = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 g = *reinterpret_cast<const uint4*>(drow + c);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 x = __bfloat1622float2(a2[j]);
+          const float2 y = __bfloat1622float2(g2[j]);
+          d += x.x * y.x;
+          d += x.y * y.y;
+        }
+      }
+    } else if (r < nq) {
+      for (int c = part; c < dh; c += 2)
+        d += __bfloat162float(drow[c]) * __bfloat162float(orow[c]);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (part == 0) {
+      d_s[r] = r < nq ? d : 0.f;
+      if (r < nq) dsum[((long)b * H + h) * sq + q0 + r] = d;
+    }
+  }
+  __syncthreads();
+  const float sl2 = scale * LOG2E;
+  float lse2[2], d_r[2];  // log2 e lse and D of rows r0, r0 + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    d_r[i] = d_s[r];
+    lse2[i] = r < nq ? lse[((long)b * H + h) * sq + q0 + r] * LOG2E : 0.f;
+  }
+  float acc[DP / 2];
+  zero(acc);
+  for (int kt = 0; kt < last; ++kt) {
+    if (kt + 1 < last) load_kv(kt + 1);
+    cp_async_commit();
+    tile_ready();
+    const bf16* ks = kvs + (kt & 1) * 2 * TILE;
+    float s[32], dp[32];  // q k^T (unscaled), dO v^T
+    keep(s);
+    keep(dp);
+    wg_fence();
+    mma_qk<DP>(s, qs, ks);
+    mma_qk<DP>(dp, dos, ks + TILE);
+    wg_commit_wait();
+    keep(s);
+    keep(dp);
+    const int k0 = kt * BT;
+    // P = exp(scale s - lse) as exp2(s (scale log2 e) - lse log2 e)
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      s[e] = exp2_ftz(fmaf(s[e], sl2, -lse2[(e >> 1) & 1]));
+    if (nq < BT || k0 + BT > sk || (causal && k0 + BT - 1 > q0)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int kp = k0 + (e >> 2) * 8 + c0 + (e & 1);
+        const int r = r0 + 8 * ((e >> 1) & 1);
+        if (r >= nq || kp >= sk || (causal && kp > q0 + r)) s[e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] *= dp[e] - d_r[(e >> 1) & 1];  // dS
+    uint32_t hi[4][4], lo[4][4];
+    split_frags(s, hi, lo);
+    keep(acc);
+    wg_fence();
+    mma_split(acc, hi, lo, ks);
+    wg_commit_wait();
+    keep(acc);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= nq) continue;
+    bf16* row = dq + qoff + r * qrs;
+#pragma unroll
+    for (int e = 2 * i; e < DP / 2; e += 4)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = (e >> 2) * 8 + c0 + j;
+        if (c < dh) row[c] = __float2bfloat16_rn(acc[e + j] * scale);
+      }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(WG, DP == 64 ? 3 : 1)
+flash_bwd_dkdv_kernel_wgmma(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ dsum,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int H, int KV, int sq, int sk, int dh,
+                            float scale, int causal, int vec) {
+  constexpr int TILE = BT * DP;
+  bf16* ks = smem_tiles();        // [64][DP]
+  bf16* vs = ks + TILE;           // [64][DP]
+  bf16* qds = vs + TILE;          // stage s: q at qds + 2 s TILE, dO after it
+  // stage s: lse of its 64 queries at rows + 2 s 64, D after them
+  float* rows = reinterpret_cast<float*>(qds + 4 * TILE);
+  const int tid = threadIdx.x, ln = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (ln >> 2);  // keys k0 + r0 + {0, 8}
+  const int c0 = 2 * (ln & 3);  // queries q0 + 8 j + c0 + {0, 1}
+  const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV;
+  const int groups = H / KV;
+  const int k0 = blockIdx.y * BT, nk = min(BT, sk - k0);
+  const long qrs = (long)H * dh, krs = (long)KV * dh;
+  const long koff = ((long)b * sk + k0) * krs + (long)kvh * dh;
+  // (query head, q tile) pairs: the group's heads, each over the q tiles
+  // at or below the diagonal
+  const int nqt = (sq + BT - 1) / BT, qt0 = causal ? k0 / BT : 0;
+  const int per = max(nqt - qt0, 0), n = groups * per;
+  auto load_q = [&](int it) {
+    const int h = kvh * groups + it / per, q0 = (qt0 + it % per) * BT;
+    const int nq = min(BT, sq - q0);
+    const long qoff = ((long)b * sq + q0) * qrs + (long)h * dh;
+    bf16* st = qds + (it & 1) * 2 * TILE;
+    load_tile<DP>(st, q + qoff, qrs, nq, dh, vec);
+    load_tile<DP>(st + TILE, dout + qoff, qrs, nq, dh, vec);
+    float* rs = rows + (it & 1) * 2 * BT;
+    if (tid < BT) {
+      const long at = ((long)b * H + h) * sq + q0 + tid;
+      const bool in = tid < nq;
+      cp_async4(rs + tid, in ? lse + at : lse, in ? 4 : 0);
+      cp_async4(rs + BT + tid, in ? dsum + at : dsum, in ? 4 : 0);
+    }
+  };
+  load_tile<DP>(ks, k + koff, krs, nk, dh, vec);
+  load_tile<DP>(vs, v + koff, krs, nk, dh, vec);
+  if (n > 0) load_q(0);
+  cp_async_commit();
+  const float sl2 = scale * LOG2E;
+  float dka[DP / 2], dva[DP / 2];
+  zero(dka);
+  zero(dva);
+  for (int it = 0; it < n; ++it) {
+    if (it + 1 < n) load_q(it + 1);
+    cp_async_commit();
+    tile_ready();
+    const bf16* qs = qds + (it & 1) * 2 * TILE;
+    const bf16* dos = qs + TILE;
+    const float* lse_s = rows + (it & 1) * 2 * BT;
+    const float* d_s = lse_s + BT;
+    const int q0 = (qt0 + it % per) * BT;
+    // rows: keys; columns: queries
+    float s[32], dp[32];  // k q^T (unscaled), v dO^T
+    keep(s);
+    keep(dp);
+    wg_fence();
+    mma_qk<DP>(s, ks, qs);
+    mma_qk<DP>(dp, vs, dos);
+    wg_commit_wait();
+    keep(s);
+    keep(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int c = (e >> 2) * 8 + c0 + (e & 1);
+      s[e] = exp2_ftz(fmaf(s[e], sl2, -lse_s[c] * LOG2E));
+    }
+    if (q0 + BT > sq || nk < BT || (causal && k0 + BT - 1 > q0)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int kp = k0 + r0 + 8 * ((e >> 1) & 1);
+        const int qp = q0 + (e >> 2) * 8 + c0 + (e & 1);
+        if (qp >= sq || kp >= sk || (causal && kp > qp)) s[e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      dp[e] = s[e] * (dp[e] - d_s[(e >> 2) * 8 + c0 + (e & 1)]);  // dS
+    uint32_t phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
+    split_frags(s, phi, plo);
+    split_frags(dp, dhi, dlo);
+    keep(dva);
+    keep(dka);
+    wg_fence();
+    mma_split(dva, phi, plo, dos);
+    mma_split(dka, dhi, dlo, qs);
+    wg_commit_wait();
+    keep(dva);
+    keep(dka);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= nk) continue;
+    bf16* krow = dk + koff + r * krs;
+    bf16* vrow = dv + koff + r * krs;
+#pragma unroll
+    for (int e = 2 * i; e < DP / 2; e += 4)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = (e >> 2) * 8 + c0 + j;
+        if (c < dh) {
+          krow[c] = __float2bfloat16_rn(dka[e + j] * scale);
+          vrow[c] = __float2bfloat16_rn(dva[e + j]);
+        }
+      }
+  }
+}
+
 constexpr size_t fwd_smem(int dp) {
   return sizeof(float) * (2 * BT * dp + dp * TS + BT * BT);
 }
@@ -476,9 +1124,56 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// Instantiate a launcher for (dtype, dh): dtype 0 fp32, 1 bf16; dh <= 64
-// takes the 64-wide tiles, dh <= 128 the 128-wide.  Anything else is
-// refused with cudaErrorInvalidValue (the wrapper checks first).
+// bf16: five ([64][DP] q, two stages of k and v) or six tiles, the row
+// vectors, and 1024 bytes to align the first tile to the swizzle.
+template <int DP>
+int fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+              float* lse, Dims d, cudaStream_t st) {
+  auto kern = flash_fwd_kernel_wgmma<DP>;
+  const size_t smem = 5 * BT * DP * sizeof(bf16) + 1024;
+  if (int err = allow_smem(kern, smem)) return err;
+  const dim3 grid(d.B * d.H, (d.sq + BT - 1) / BT);
+  kern<<<grid, WG, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, d.H,
+      d.KV, d.sq, d.sk, d.dh, d.scale, d.causal, d.dh % 8 == 0);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* dsum, void* dq,
+                 Dims d, cudaStream_t st) {
+  auto kern = flash_bwd_dq_kernel_wgmma<DP>;
+  const size_t smem = 6 * BT * DP * sizeof(bf16) + BT * sizeof(float) + 1024;
+  if (int err = allow_smem(kern, smem)) return err;
+  const dim3 grid(d.B * d.H, (d.sq + BT - 1) / BT);
+  kern<<<grid, WG, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+      (const bf16*)dout, lse, dsum, (bf16*)dq, d.H, d.KV, d.sq, d.sk, d.dh,
+      d.scale, d.causal, d.dh % 8 == 0);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* dsum,
+                   void* dk, void* dv, Dims d, cudaStream_t st) {
+  auto kern = flash_bwd_dkdv_kernel_wgmma<DP>;
+  const size_t smem =
+      6 * BT * DP * sizeof(bf16) + 4 * BT * sizeof(float) + 1024;
+  if (int err = allow_smem(kern, smem)) return err;
+  const dim3 grid(d.B * d.KV, (d.sk + BT - 1) / BT);
+  kern<<<grid, WG, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+      dsum, (bf16*)dk, (bf16*)dv, d.H, d.KV, d.sq, d.sk, d.dh, d.scale,
+      d.causal, d.dh % 8 == 0);
+  return (int)cudaGetLastError();
+}
+
+// Instantiate a launcher for (dtype, dh): dtype 0 fp32 (the SIMT
+// kernels), 1 bf16 (the wgmma kernels); dh <= 64 takes the 64-wide
+// tiles, dh <= 128 the 128-wide.  Anything else is refused with
+// cudaErrorInvalidValue (the wrapper checks first).
 #define FLASH_DISPATCH(FN, ...)                                     \
   do {                                                              \
     if (d.dh < 1 || d.dh > 128) return (int)cudaErrorInvalidValue;  \
@@ -486,8 +1181,8 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
       return d.dh <= 64 ? FN<float, 64>(__VA_ARGS__)                \
                         : FN<float, 128>(__VA_ARGS__);              \
     if (dtype == 1)                                                 \
-      return d.dh <= 64 ? FN<__nv_bfloat16, 64>(__VA_ARGS__)        \
-                        : FN<__nv_bfloat16, 128>(__VA_ARGS__);      \
+      return d.dh <= 64 ? FN##_wgmma<64>(__VA_ARGS__)               \
+                        : FN##_wgmma<128>(__VA_ARGS__);             \
     return (int)cudaErrorInvalidValue;                              \
   } while (0)
 

@@ -1,9 +1,11 @@
 """CUDA kernels of flash attention (forward and recompute backward), bound
 with ctypes.
 
-``csrc/flash_attention.cu`` holds the three kernels and a note on their
-design; together they replace ``flash_attention_pallas`` of the JAX
-package's ``kernels/flash_attention.py`` (a forward only) and the
+``csrc/flash_attention.cu`` holds the three kernels, each in two designs
+(bf16 inputs on the tensor cores with ``wgmma``, fp32 inputs on the CUDA
+cores), and a note on them; together they replace
+``flash_attention_pallas`` of the JAX package's
+``kernels/flash_attention.py`` (a forward only) and the
 differentiated chunked path of its ``models/attention.py``: the forward
 (output and log-sum-exp), then for the backward the dQ kernel (which also
 writes ``D = rowsum(dO * O)``) and the dK / dV kernel, two launches on the

@@ -10,7 +10,8 @@ sm_90a) and the CUDA toolkit.  In order, it
   2. builds every kernel source in ``src/repro_torch/kernels/csrc`` with
      nvcc, one process per source, all started together, and prints the
      build time, the ptxas report and the wgmma (HGMMA) instructions in
-     each bf16 flash attention kernel, failing if one has none;
+     each bf16 flash attention kernel, each square-and-matmul kernel
+     (3xTF32) and each bf16 SSD kernel, failing if one has none;
   3. holds every kernel variant against its plain PyTorch version on the
      card at every leaf shape of the GPT-2 117M main paths (pass 1 plain,
      guided, fold, and its int8 variant on quantized factors; pass 2
@@ -77,10 +78,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense bf16 on the tensor cores (fp32 accumulation) and HBM3
-# bandwidth, at the full 700 W power limit.
+# cores, dense bf16 and TF32 on the tensor cores (fp32 accumulation) and
+# HBM3 bandwidth, at the full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 TRAIN_ARGV = ["--arch", "gpt2-117m", "--steps", "12", "--batch", "8",
@@ -220,8 +222,10 @@ def events_ms(fn, reps: int = 10) -> float:
 def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
     """Mean device time per call from torch.profiler: the kernels whose
     name contains ``kernel``, or every kernel the call launches.  Returns
-    0.0 when three profiles in a row record no such kernel (CUPTI can
-    drop microsecond kernels); the caller then falls back to events."""
+    0.0 when three profiles in a row record no device time at all (CUPTI
+    can drop microsecond kernels); the caller then falls back to events.
+    Fails when a profile records device time but no kernel named
+    ``kernel``: a name that matches nothing is a stale lookup, not 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -232,10 +236,15 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
+        evs = prof.key_averages()
+        us = sum(e.self_device_time_total for e in evs
                  if kernel is None or kernel in e.key)
         if us > 0:
             return us / reps / 1e3
+        if kernel is not None and sum(e.self_device_time_total
+                                      for e in evs) > 0:
+            fail(f"the profiler recorded device time but no kernel named "
+                 f"{kernel!r}: {sorted({e.key[:60] for e in evs})}")
     return 0.0
 
 
@@ -536,13 +545,30 @@ def check_lowrank(fact, device):
     return rec
 
 
+def sq_matmul_bound(L: int, m: int, n: int, s: int,
+                    split: bool = True) -> float:
+    """Bound in ms of one square-and-matmul call, priced at the arithmetic
+    that holds ``TOL_MATMUL``: G^2 and X are fp32, and one tf32 product
+    misses the tolerance, so the kernel splits each operand into two tf32
+    terms and runs three products (big.big + big.small + small.big), 3 x
+    2 m n s operations at the dense TF32 peak.  Bytes: G, X read and Y
+    written once, 4 L (m n + (m + n) s).  ``split=False`` gives the earlier
+    pricing, one fp32 product (and the square) at the fp32 peak."""
+    nbytes = 4 * L * (m * n + (m + n) * s)
+    if not split:
+        return bound_ms(L * m * n * (2 * s + 1), nbytes)
+    return 1e3 * max(3 * 2 * L * m * n * s / PEAK_TF32_FLOPS,
+                     nbytes / PEAK_BYTES_PER_S)
+
+
 def check_sq_matmul(fact, device):
     """(G * G) X and (G * G)^T Y against their plain versions at every
     factored leaf of the mixed path (s = r) and at the ragged shapes; two
     launches bitwise equal.  The main path's orientation (transposed, the
-    fold) is timed per leaf beside its plain version and, as the library
-    yardstick, torch.matmul on a pre-squared G -- two calls where the
-    kernel is one, with only the matmul timed."""
+    fold) is timed per leaf beside its plain version, its bound (and the
+    earlier fp32 pricing) and, as the library yardstick, torch.matmul on a
+    pre-squared G -- two calls where the kernel is one, with only the
+    matmul timed."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(6)
@@ -568,8 +594,11 @@ def check_sq_matmul(fact, device):
         if name == "ragged":
             continue
         L = math.prod(bd)
-        bound = bound_ms(L * m * n * (2 * s + 1),
-                         4 * L * (m * n + (m + n) * s))
+        bound = sq_matmul_bound(L, m, n, s)
+        old = sq_matmul_bound(L, m, n, s, split=False)
+        rec["bound_fp32_ms"] = rec.get("bound_fp32_ms", 0.0) + old
+        print(f"    bound {bound:.4f} ms (3xTF32 at the TF32 peak; one fp32 "
+              f"product at the fp32 peak: {old:.4f})")
         sub = new_rec()
         time_pair(lambda: ops.sq_matmul(g, x), lambda: ref.sq_matmul(g, x),
                   "sq_matmul_kernel", sub, bound, f"{name} (not transposed)")
@@ -763,9 +792,12 @@ def flash_bounds(b, sq, sk, h, kv, dh, causal, dtype, split=True):
 FLASH_LAYERS = 12   # GPT-2 117M: one launch of each B6 kernel a layer
 
 
-def hgmma_counts(lib) -> dict:
+def hgmma_counts(lib, kernels) -> dict:
     """HGMMA instructions (wgmma in the SASS, ``cuobjdump -sass``) in each
-    bf16 kernel of flash attention, by kernel name and tile width."""
+    instantiation of the kernels named in ``kernels`` in library ``lib``,
+    by kernel name and template arguments (``<64>``, ``<64,128>``,
+    ``<true,2>``)."""
+    import re
     from repro_torch.kernels import cuda
     tool = Path(cuda._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
@@ -774,15 +806,43 @@ def hgmma_counts(lib) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = None
-            for kern in ("flash_fwd_kernel_wgmma", "flash_bwd_dq_kernel_wgmma",
-                         "flash_bwd_dkdv_kernel_wgmma"):
-                for dp in (64, 128):
-                    if kern in line and f"ILi{dp}E" in line:
-                        name = f"{kern}<{dp}>"
-                        counts[name] = 0
+            for kern in kernels:
+                mangled = f"{len(kern)}{kern}I"
+                if mangled in line:
+                    args = line.split(mangled, 1)[1].split("EEv")[0]
+                    vals = re.findall(r"Li(\d+)E|Lb(\d)E", args)
+                    name = f"{kern}<" + ",".join(
+                        a or ("true" if b == "1" else "false")
+                        for a, b in vals) + ">"
+                    counts[name] = 0
         elif name and "HGMMA" in line:
             counts[name] += 1
     return counts
+
+
+FLASH_WGMMA = ("flash_fwd_kernel_wgmma", "flash_bwd_dq_kernel_wgmma",
+               "flash_bwd_dkdv_kernel_wgmma")
+SSD_WGMMA = ("ssd_fwd_kernel_wgmma", "ssd_bwd_rows_kernel_wgmma",
+             "ssd_bwd_cols_kernel_wgmma")
+
+
+def check_hgmma() -> None:
+    """Fail unless every bf16 flash attention kernel (dh 64 and 128), every
+    square-and-matmul kernel (both orientations, 64 and 128 columns a
+    pass) and every bf16 SSD kernel (P and N of 64 and 128) holds HGMMA
+    instructions: their products run on the tensor cores."""
+    from repro_torch.kernels import cuda, flash_attention, srsi_matmul
+    from repro_torch.kernels import ssd_chunk
+    for what, src, kernels, want in (
+            ("bf16 flash attention", flash_attention.SOURCE, FLASH_WGMMA, 6),
+            ("square-and-matmul (3xTF32)", srsi_matmul.SOURCE,
+             ("sq_matmul_kernel",), 4),
+            ("bf16 SSD", ssd_chunk.SOURCE, SSD_WGMMA, 12)):
+        counts = hgmma_counts(cuda.library(src), kernels)
+        print(f"  HGMMA instructions in the {what} kernels: {counts}")
+        if len(counts) != want or not all(counts.values()):
+            fail(f"a {what} kernel runs no wgmma (expected {want} kernels, "
+                 f"each with HGMMA): {counts}")
 
 
 def check_flash(device):
@@ -916,20 +976,28 @@ def ssd_pairs(q: int) -> int:
     return q * (q + 1) // 2
 
 
-def ssd_bounds(shape, dtype):
+def ssd_bounds(shape, dtype, split: bool = True, by: bool = False):
     """(forward, backward) bounds in ms of one call.  Operations: the
     forward's CB (2 N a live pair), (CB * L) X (2 P a pair) and C h_in (2
     q N P a chunk), the backward's CB, dM = dY X^T, dX, dC (intra), d(dt
     B) (2 N or 2 P a pair each) and dC (inter), dh_in (2 q N P each), per
-    chunk and head, counted once; each at the peak of its operands' type.
-    With bf16 x, b, c, CB = dt_j (C_i . B_j) is a bf16 product with fp32
-    sums (dt only scales its column), and so is dM, since dY is the
-    gradient of y.to(bf16) and so bf16-valued (check_ssd draws it so):
-    both at the bf16 peak.  The products with an fp32 L, dM * L, h_in or
-    dY * exp(cums) operand, and all of them for fp32 inputs, at the fp32
-    peak.  Bytes: the forward reads x, b, c, dt, cums, h_in, d_skip and
-    writes y (fp32); the backward reads them and dY and writes dx, db,
-    dc, ddt, dcums, dh_in and dd_skip."""
+    chunk and head, counted once, priced at the arithmetic that holds
+    ``TOL_SSD`` / ``TOL_SSD_GRAD``.  With bf16 x, b, c, CB = dt_j (C_i .
+    B_j) is one bf16 product with fp32 sums (dt only scales its column),
+    and so is dM, since dY is the gradient of y.to(bf16) and so
+    bf16-valued (check_ssd draws it so for the timed case); every product
+    with an fp32 operand (M = CB * L, h_in, dS * dt, dS, exp(cums) dY) is
+    two bf16 products, the operand split into bf16 hi + lo (a bf16 M or
+    dS misses the tolerance, as a bf16 P does in flash attention): all at
+    the bf16 tensor-core peak, 1 + 2 + 2 products' worth forward, 1 + 1 +
+    2 + 2 + 2 + 2 + 2 backward.  fp32 inputs: every product at the fp32
+    peak.  ``split=False`` gives the earlier pricing of bf16 inputs, CB
+    and dM at the bf16 peak and the rest at the fp32 peak.  Bytes: the
+    forward reads x, b, c, dt, cums, h_in, d_skip and writes y (fp32); the
+    backward reads them and dY and writes dx, db, dc, ddt, dcums, dh_in
+    and dd_skip.  At Mamba2-370m's block with bf16 inputs the bytes bound
+    the forward and the operations the backward.  With ``by``, also
+    return which ("bytes" or "operations") bounds each."""
     import torch
     bt, s, h, g, p, n, chunk = shape
     q = min(chunk, s)
@@ -937,16 +1005,27 @@ def ssd_bounds(shape, dtype):
     prog = bt * nc * h
     pairs = ssd_pairs(q)
     cb, mx, ch = 2 * n * pairs, 2 * p * pairs, 2 * q * n * p
-    low = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    fwd_s = prog * (cb / low + (mx + ch) / PEAK_FP32_FLOPS)
-    bwd_s = prog * ((cb + mx) / low + (2 * cb + mx + 2 * ch) / PEAK_FP32_FLOPS)
+    if dtype != torch.bfloat16:
+        fwd_s = prog * (cb + mx + ch) / PEAK_FP32_FLOPS
+        bwd_s = prog * (3 * cb + 2 * mx + 2 * ch) / PEAK_FP32_FLOPS
+    elif split:
+        fwd_s = prog * (cb + 2 * mx + 2 * ch) / PEAK_BF16_FLOPS
+        bwd_s = prog * (5 * cb + 3 * mx + 4 * ch) / PEAK_BF16_FLOPS
+    else:
+        fwd_s = prog * (cb / PEAK_BF16_FLOPS + (mx + ch) / PEAK_FP32_FLOPS)
+        bwd_s = prog * ((cb + mx) / PEAK_BF16_FLOPS
+                        + (2 * cb + mx + 2 * ch) / PEAK_FP32_FLOPS)
     it = torch.finfo(dtype).bits // 8
     xbc = it * (bt * s * h * p + 2 * bt * s * g * n)
     small = 4 * (2 * bt * s * h + bt * nc * h * n * p + h)
     y = 4 * bt * s * h * p
-    fwd_b, bwd_b = xbc + small + y, 2 * (xbc + small) + y
-    return (1e3 * max(fwd_s, fwd_b / PEAK_BYTES_PER_S),
-            1e3 * max(bwd_s, bwd_b / PEAK_BYTES_PER_S))
+    fwd_b = (xbc + small + y) / PEAK_BYTES_PER_S
+    bwd_b = (2 * (xbc + small) + y) / PEAK_BYTES_PER_S
+    bounds = (1e3 * max(fwd_s, fwd_b), 1e3 * max(bwd_s, bwd_b))
+    if not by:
+        return bounds
+    kind = lambda ops, nbytes: "operations" if ops >= nbytes else "bytes"
+    return bounds, (kind(fwd_s, fwd_b), kind(bwd_s, bwd_b))
 
 
 SSD_GRADS = ("dx", "db", "dc", "ddt", "dcums", "dh_in", "dd_skip")
@@ -959,49 +1038,66 @@ def check_ssd(device):
     above the diagonal, where the JAX formula's backward meets inf): at
     Mamba2-370m's block (8, 1024, 32 heads, P 64, N 128, G 1) in bf16 (as
     the model feeds it) and fp32, and at a ragged shape (S 200 < chunk,
-    G 2, P 48, N 80).  Then, at the Mamba2 shape in bf16, each kernel's
-    device time beside its bound and its plain version's.  Returns
-    (forward, backward) records, times per call."""
+    G 2, P 48, N 80), dY bf16-valued as the model feeds it; then bf16 at
+    the ragged shape with an fp32 dY.  Then, at the Mamba2 shape in bf16,
+    each kernel's device time beside its bound (and the earlier pricing)
+    and its plain version's.  Returns (forward, backward) records, times
+    per call."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(8)
     fwd_rec, bwd_rec = new_rec(), new_rec()
-    for name, shape, dtypes in SSD_CASES:
-        for dt in (getattr(torch, d) for d in dtypes):
-            ins = ssd_inputs(gen, shape, dt, device)
-            dy = torch.randn(ins[0].shape, generator=gen,
-                             device=device).to(dt).float()
-            what = f"ssd_chunk {name} {shape} {dt}"
-            fwd = lambda: ops.ssd_chunk_fwd(*ins)
-            got, again = fwd(), fwd()
-            want = ref.ssd_chunk(*ins)
-            torch.cuda.synchronize()
-            errs = hold(f"{what} fwd", ("y",), (TOL_SSD,), (got,), (want,),
-                        fwd_rec, (again,))
-            print(f"  {what} fwd: {errs}")
-            bwd = lambda: ops.ssd_chunk_bwd(*ins, dy)
-            got, again = bwd(), bwd()
-            want = ref.ssd_chunk_bwd(*ins, dy)
-            torch.cuda.synchronize()
-            errs = hold(f"{what} bwd", SSD_GRADS,
-                        (TOL_SSD_GRAD,) * len(SSD_GRADS), got, want,
-                        bwd_rec, again)
-            print(f"  {what} bwd: {errs}")
-            del got, again, want
-            if name != "mamba2-370m" or dt != torch.bfloat16:
-                continue
-            b_fwd, b_bwd = ssd_bounds(shape, dt)
-            time_pair(fwd, lambda: ref.ssd_chunk(*ins), "ssd_fwd_kernel",
-                      fwd_rec, b_fwd, f"{name} bf16 fwd")
-            time_pair(bwd, lambda: ref.ssd_chunk_bwd(*ins, dy), "ssd_bwd",
-                      bwd_rec, b_bwd, f"{name} bf16 bwd (both kernels)")
-            for kern in ("rows", "cols"):
-                bwd_rec[kern + "_ms"] = device_ms(
-                    bwd, f"ssd_bwd_{kern}_kernel")
-            print(f"    timing bwd by kernel: rows {bwd_rec['rows_ms']:.4f}"
-                  f" ms, cols {bwd_rec['cols_ms']:.4f} ms")
-            del ins, dy
-            torch.cuda.empty_cache()
+    cases = [(name, shape, dt, True) for name, shape, dtypes in SSD_CASES
+             for dt in dtypes]
+    # the bf16 kernels split dY into hi + lo and skip the lo products only
+    # where a tile's lo half is all zero: an fp32 dY holds the split branch
+    # as the cases above hold the model's
+    cases.append(("ragged, dY not bf16-valued", SSD_CASES[1][1], "bfloat16",
+                  False))
+    for name, shape, dt, dy_bf16 in cases:
+        dt = getattr(torch, dt)
+        ins = ssd_inputs(gen, shape, dt, device)
+        dy = torch.randn(ins[0].shape, generator=gen, device=device)
+        if dy_bf16:
+            dy = dy.to(dt).float()
+        what = f"ssd_chunk {name} {shape} {dt}"
+        fwd = lambda: ops.ssd_chunk_fwd(*ins)
+        got, again = fwd(), fwd()
+        want = ref.ssd_chunk(*ins)
+        torch.cuda.synchronize()
+        errs = hold(f"{what} fwd", ("y",), (TOL_SSD,), (got,), (want,),
+                    fwd_rec, (again,))
+        print(f"  {what} fwd: {errs}")
+        bwd = lambda: ops.ssd_chunk_bwd(*ins, dy)
+        got, again = bwd(), bwd()
+        want = ref.ssd_chunk_bwd(*ins, dy)
+        torch.cuda.synchronize()
+        errs = hold(f"{what} bwd", SSD_GRADS,
+                    (TOL_SSD_GRAD,) * len(SSD_GRADS), got, want,
+                    bwd_rec, again)
+        print(f"  {what} bwd: {errs}")
+        del got, again, want
+        if name != "mamba2-370m" or dt != torch.bfloat16:
+            continue
+        (b_fwd, b_bwd), by = ssd_bounds(shape, dt, by=True)
+        fwd_rec["bound_by"], bwd_rec["bound_by"] = by
+        old_f, old_b = ssd_bounds(shape, dt, split=False)
+        fwd_rec["bound_before_split_ms"] = old_f
+        bwd_rec["bound_before_split_ms"] = old_b
+        print(f"    bound fwd {b_fwd:.4f} ms ({by[0]}), bwd {b_bwd:.4f} "
+              f"ms ({by[1]}); priced before the hi/lo split: fwd "
+              f"{old_f:.4f}, bwd {old_b:.4f}")
+        time_pair(fwd, lambda: ref.ssd_chunk(*ins), "ssd_fwd_kernel",
+                  fwd_rec, b_fwd, f"{name} bf16 fwd")
+        time_pair(bwd, lambda: ref.ssd_chunk_bwd(*ins, dy), "ssd_bwd",
+                  bwd_rec, b_bwd, f"{name} bf16 bwd (both kernels)")
+        for kern in ("rows", "cols"):
+            bwd_rec[kern + "_ms"] = device_ms(
+                bwd, f"ssd_bwd_{kern}_kernel")
+        print(f"    timing bwd by kernel: rows {bwd_rec['rows_ms']:.4f}"
+              f" ms, cols {bwd_rec['cols_ms']:.4f} ms")
+        del ins, dy
+        torch.cuda.empty_cache()
     return fwd_rec, bwd_rec
 
 
@@ -1449,12 +1545,7 @@ def main():
         for line in log["output"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
-    from repro_torch.kernels import flash_attention
-    counts = hgmma_counts(cuda.library(flash_attention.SOURCE))
-    print(f"  HGMMA instructions in the bf16 flash attention kernels: "
-          f"{counts}")
-    if len(counts) != 6 or not all(counts.values()):
-        fail(f"a bf16 flash attention kernel runs no wgmma: {counts}")
+    check_hgmma()
 
     fact, dense = main_path_leaves(device)
     fact_mixed, _ = main_path_leaves(device, mixed=True)
@@ -1637,15 +1728,14 @@ def main():
         dict(name="ssd_chunk_fwd", route="cuda",
              source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:61",
-             **launches("ssd_fwd"), bound_by="operations", library_ms=None,
-             **per_step(ssd_fwd)),
+             **launches("ssd_fwd"), library_ms=None, **per_step(ssd_fwd)),
         dict(name="ssd_chunk_bwd", route="cuda",
              source=src + "ssd_chunk.cu",
              replaces="src/repro/models/mamba2.py:108",
              replaces_note="B7 has no backward kernel: the JAX model "
                            "differentiates the jnp ssd_chunked",
              **launches("ssd_bwd_rows", "ssd_bwd_cols"),
-             bound_by="operations", library_ms=None, **per_step(ssd_bwd)),
+             library_ms=None, **per_step(ssd_bwd)),
     ]
     phase("[report] every check passed")
     print(json.dumps({"kernels": kernels}))

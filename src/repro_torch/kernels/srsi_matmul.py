@@ -1,7 +1,8 @@
 """CUDA kernel of the square-and-matmul ``(G * G) @ X`` and its transposed
 form ``(G * G)^T @ Y``, bound with ctypes.
 
-``csrc/srsi_matmul.cu`` holds the kernel and a note on its design; it
+``csrc/srsi_matmul.cu`` holds the kernel (3xTF32 on the tensor cores) and
+a note on its design; it
 replaces ``sq_matmul_pallas`` of the JAX package's
 ``kernels/srsi_matmul.py`` and, in its transposed variant, the transpose
 copy that the JAX package's ``ops.sq_matmul_t`` makes in front of it.  The
@@ -26,7 +27,7 @@ from repro_torch.kernels import cuda
 SOURCE = Path(__file__).resolve().parent / "csrc" / "srsi_matmul.cu"
 
 BO = 64                 # output rows per block (csrc BO)
-KC = 16                 # contraction slice (csrc KC)
+KC = 32                 # contraction slice (csrc KC)
 
 # Launch counts per orientation, for showing that a run went through them.
 LAUNCHES = {"sq_matmul": 0, "sq_matmul_t": 0}

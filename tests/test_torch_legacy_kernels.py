@@ -188,3 +188,54 @@ def test_use_kernels_chain_matches_jax():
             _close_rel(tl.q @ tl.u.transpose(-1, -2),
                        np.einsum("...mr,...nr->...mn", jl.q, jl.u), 1e-4,
                        f"Q U^T {k}")
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to tf32 (10 mantissa bits) to nearest, ties away
+    from zero, by bit arithmetic on its pattern: ``cvt.rna.tf32.f32``."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _split3(a: torch.Tensor, b: torch.Tensor, rnd) -> torch.Tensor:
+    """a @ b with each fp32 operand split into big = rnd(x) and small =
+    rnd(x - big), as big.big + big.small + small.big: three products whose
+    terms are exact in fp32, each summed in fp32, into one sum."""
+    a_big, b_big = rnd(a), rnd(b)
+    a_small, b_small = rnd(a - a_big), rnd(b - b_big)
+    return a_big @ b_big + a_big @ b_small + a_small @ b_big
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m,n,s", [(768, 3072, 128), (257, 129, 5)])
+def test_sq_matmul_kernel_arithmetic_holds_the_tolerance(m, n, s,
+                                                         transposed):
+    """The arithmetic decision of the square-and-matmul kernel
+    (``csrc/srsi_matmul.cu``): G^2 (squared in fp32) and X split into
+    tf32 big + small, three tf32 products into one fp32 sum (3xTF32), at a
+    GPT-2 117M fold shape (an MLP leaf, s = r = 128) and a ragged one.  It
+    holds ``chip_smoke.py``'s TOL_MATMUL (1e-5 of the largest entry)
+    against the fp32 plain version; against an fp64 sum of the same fp32
+    operands it reads at the plain fp32 product's own level (its fp32
+    sums, ~3-7e-7 of the largest entry, outweigh the split's ~1e-7), and
+    the same split done in bf16 (hi + lo, three bf16 products) reads
+    ~5e-6, over 5x more."""
+    from chip_smoke import TOL_MATMUL
+    rng = np.random.default_rng(17)
+    g = _t((rng.standard_normal((m, n)) * 1e-3).astype(np.float32))
+    x = _t(rng.standard_normal((m if transposed else n, s)).astype(
+        np.float32))
+    g2 = g * g
+    a = g2.transpose(0, 1) if transposed else g2
+    want = (ref.sq_matmul_t(g, x) if transposed else ref.sq_matmul(g, x))
+    exact = a.double() @ x.double()
+    scale = float(exact.abs().max())
+    err = lambda got: float((got.double() - exact).abs().max()) / scale
+    tf32x3, bf16x3 = _split3(a, x, _tf32), _split3(a, x, _bf16)
+    _close(tf32x3, want, TOL_MATMUL)
+    assert err(tf32x3) < 2 * err(want), (err(tf32x3), err(want))
+    assert err(bf16x3) > 5 * err(tf32x3), (err(bf16x3), err(tf32x3))

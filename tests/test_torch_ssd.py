@@ -22,6 +22,7 @@ from repro.kernels.ssd_chunk import ssd_chunk_pallas
 from repro.models import mamba2 as JM
 from repro_torch.kernels import ops, ref
 from repro_torch.models import mamba2 as TM
+from test_torch_attention import _share_of_bound
 
 BT, S, H, P, N = 2, 32, 4, 8, 16
 
@@ -172,3 +173,121 @@ def test_ssd_chunk_refuses_bad_shapes_and_devices():
         ref.ssd_chunk(ins[0][:, :7], *ins[1:])
     with pytest.raises(ValueError, match="device"):
         ops.ssd_chunk_fwd(*(t.to("meta") for t in ins))
+
+
+def _hl(t: torch.Tensor):
+    """fp32 ``t`` as hi = bf16(t) and lo = bf16(t - hi), both fp32."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
+def _prod(eq, a, b, split_a, split_b):
+    """einsum(eq, a, b) as the bf16 kernels run it: each operand split into
+    hi + lo where ``split_*`` (else it enters as bf16, which the caller
+    makes exact), the products hi.hi + hi.lo + lo.hi (lo.lo dropped), each
+    summed in fp32.  A lo that is all zero adds nothing, as the kernels
+    skip it."""
+    ah, al = _hl(a) if split_a else (a, None)
+    bh, bl = _hl(b) if split_b else (b, None)
+    out = torch.einsum(eq, ah, bh)
+    if bl is not None:
+        out = out + torch.einsum(eq, ah, bl)
+    if al is not None:
+        out = out + torch.einsum(eq, al, bh)
+    return out
+
+
+def _emulated_bf16_ssd(x, b, c, dt, cums, h_in, d_skip, dy, split=True):
+    """The arithmetic of ``csrc/ssd_chunk.cu``'s bf16 (wgmma) kernels, in
+    torch on the CPU: C B^T as fp32 sums of exact bf16 products with dt
+    applied after, and every product with an fp32 operand (M, h_in,
+    dS dt, dS, exp(cums) dY, and dY itself) taken on its hi + lo split
+    (``split``), or with that operand rounded to bf16.  Returns ``y,
+    (dx, db, dc, ddt, dcums, dh_in, dd_skip)`` in the plain versions'
+    dtypes."""
+    bt, s, h, p = x.shape
+    g, n = b.shape[2:]
+    xc, bc, cc, dtc, cm, ldec, _, _ = ref._ssd_chunks(x, b, c, dt, cums,
+                                                      h_in)
+    e = torch.exp(cm)
+    dj = dtc[:, :, None, :, :]                       # dt_j, (z, c, 1, j, h)
+    cb = torch.einsum("zcihn,zcjhn->zcijh", cc, bc) * dj
+    m = cb * ldec
+    sp = lambda t: t if split else t.bfloat16().float()
+    hin = h_in.float()
+    y = (e[..., None] * _prod("zcihn,zchnp->zcihp", cc, sp(hin), False,
+                              split)
+         + _prod("zcijh,zcjhp->zcihp", sp(m), xc, split, False)
+         + d_skip[:, None] * xc)
+    dyc = dy.float().reshape(xc.shape)
+    dm = _prod("zcihp,zcjhp->zcijh", dyc, xc, split, False)
+    ds = dm * ldec
+    t = ds * cb
+    z = _prod("zcihp,zchnp->zcihn", dyc, sp(hin), split, split)
+    dc = e[..., None] * z + _prod("zcijh,zcjhn->zcihn", sp(ds * dj), bc,
+                                  split, False)
+    dx = (_prod("zcijh,zcihp->zcjhp", sp(m), dyc, split, split)
+          + d_skip[:, None] * dyc)
+    dbx = _prod("zcijh,zcihn->zcjhn", sp(ds), cc, split, False)
+    dh = _prod("zcihp,zcihn->zchpn", sp(e[..., None] * dyc), cc, split,
+               False).transpose(-1, -2)
+    dcums = t.sum(3) - t.sum(2) + e * (cc * z).sum(-1)
+    grouped = lambda t_: t_.reshape(bt, s, g, h // g, n).sum(3)
+    return y.reshape(x.shape), (
+        dx.reshape(x.shape).to(x.dtype),
+        grouped(dbx * dtc[..., None]).to(b.dtype), grouped(dc).to(c.dtype),
+        (dbx * bc).sum(-1).reshape(bt, s, h), dcums.reshape(bt, s, h),
+        dh, (dyc * xc).sum((0, 1, 2, 4)))
+
+
+def _bf16_block_inputs(shape, dy_bf16, seed=19):
+    """The SSD block's inputs as ``chip_smoke.ssd_inputs`` draws them (dt =
+    softplus(N(0, 1) - 2), a = -(1..H), cums the within-chunk cumsum of dt
+    a, so the decay overflows above the diagonal), from a numpy seed; x,
+    b, c in bf16; dY bf16-valued (the gradient of y.to(bf16), as the model
+    feeds it) or fp32."""
+    bt, s, h, g, p, n, chunk = shape
+    q = min(chunk, s)
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32))
+    x, b, c = f(bt, s, h, p), f(bt, s, g, n) * 0.5, f(bt, s, g, n) * 0.5
+    dt = torch.nn.functional.softplus(f(bt, s, h) - 2.0)
+    a = -torch.arange(1, h + 1, dtype=torch.float32)
+    cums = torch.cumsum((dt * a).reshape(bt, s // q, q, h), 2).reshape(
+        bt, s, h)
+    h_in, d_skip = f(bt, s // q, h, n, p) * 0.1, 1.0 + f(h) * 0.1
+    dy = f(bt, s, h, p)
+    if dy_bf16:
+        dy = dy.bfloat16().float()
+    return (x.bfloat16(), b.bfloat16(), c.bfloat16(), dt, cums, h_in,
+            d_skip), dy
+
+
+@pytest.mark.parametrize("split,dy_bf16", [(True, True), (True, False),
+                                           (False, True)])
+@pytest.mark.parametrize("shape", [(1, 256, 2, 1, 64, 128, 256),
+                                   (1, 200, 4, 2, 48, 80, 256)])
+def test_bf16_kernel_arithmetic_holds_the_ssd_tolerance(shape, split,
+                                                        dy_bf16):
+    """The tolerance decision of the bf16 SSD kernels, at one Mamba2-370m
+    chunk (P 64, N 128) and the ragged shape of ``chip_smoke.py`` (S 200,
+    G 2, P 48, N 80): their arithmetic, emulated, holds ``chip_smoke.py``'s
+    rule (TOL_SSD for y, TOL_SSD_GRAD for the gradients, bf16 outputs
+    within one bf16 ulp of themselves plus that share of the largest
+    entry) against the fp32 plain versions with every fp32 operand split
+    into bf16 hi + lo, for dY bf16-valued and not; with those operands
+    rounded to bf16 instead, some output misses it."""
+    from chip_smoke import TOL_SSD, TOL_SSD_GRAD
+    ins, dy = _bf16_block_inputs(shape, dy_bf16)
+    y, grads = _emulated_bf16_ssd(*ins, dy, split=split)
+    want_y = ref.ssd_chunk(*ins)
+    want = ref.ssd_chunk_bwd(*ins, dy)
+    assert all(bool(torch.isfinite(t).all()) for t in (y, *grads))
+    shares = [_share_of_bound(y, want_y, TOL_SSD)]
+    shares += [_share_of_bound(gt, w, TOL_SSD_GRAD)
+               for gt, w in zip(grads, want)]
+    if split:
+        assert max(shares) <= 1.0, shares
+    else:
+        assert max(shares) > 1.0, shares

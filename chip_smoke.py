@@ -11,10 +11,11 @@ sm_90a) and the CUDA toolkit.  In order, it
      nvcc, one process per source, all started together, and prints the
      build time, the ptxas report and the wgmma (HGMMA) instructions in
      each bf16 flash attention kernel, each square-and-matmul kernel
-     (3xTF32) and each bf16 SSD kernel, failing if one has none;
+     (3xTF32), each bf16 SSD kernel and each pass-1 and single-pass update
+     kernel (3xTF32), failing if one has none;
   3. holds every kernel variant against its plain PyTorch version on the
      card at every leaf shape of the GPT-2 117M main paths (pass 1 plain,
-     guided, fold, and its int8 variant on quantized factors; pass 2
+     guided, fold, both, and its int8 variant on quantized factors; pass 2
      shared, two-output, dense; the single-pass update; the square-and-
      matmul in both orientations; the sketch scatter + query at the
      embedding shapes of the mixed groups; flash attention's forward and
@@ -418,28 +419,76 @@ PRECOND_TOL = (TOL_PRECOND, TOL_SUMS, TOL_SUMS, TOL_SUMS, TOL_SUMS,
 RAGGED = [(130, 258, 3), (300, 180, 6), (257, 129, 5)]
 
 
-def precond_bound(shape, r, int8: bool = False) -> float:
-    """Pass 1's fold variant, no guidance, no vfro: 2 m n r operations for
-    Q U^T and as many for the fold, ~10 a G entry; reads G, the factors
-    (int8: one byte an entry, their scales and zeros, and 3 operations a
-    factor entry to dequantize) and writes u_hat and the fold."""
+def pass1_bound(shape, r, products: int, elementwise: int,
+                int8: bool = False, fold: bool = False,
+                split: bool = True) -> tuple[float, float, float]:
+    """Bound in ms of one pass-1 call (B1, or B4 with ``products=1``), with
+    its operations' and its bytes' times.  Operations: ``products``
+    products of 2 m n r each (Q U^T, and the fold's (G^2)^T Q), priced at
+    the arithmetic that holds
+    ``TOL_PRECOND``: the factors and G^2 are fp32, one tf32 product misses
+    it, so the kernels split each operand into two tf32 terms and run three
+    products (big.big + big.small + small.big) at the dense TF32 peak;
+    plus ``elementwise`` fp32 operations a G entry (V, its root, the
+    division, the sums) and, ``int8``, 3 a factor entry to dequantize, at
+    the fp32 peak.  ``split=False`` gives the earlier pricing, every
+    product at the fp32 peak.  Bytes: G read and u_hat written once, the
+    factors read once (int8: one byte an entry and the codec's scales and
+    zeros) and, ``fold``, the (n, r) fold written."""
     *bd, m, n = shape
     L = math.prod(bd)
-    flops = L * m * n * (4 * r + 10)
-    fbytes = 4 * (m * r + n * r)
+    mmr = products * 2 * L * m * n * r
+    fp32 = L * m * n * elementwise + (3 * L * (m + n) * r if int8 else 0)
+    ops_s = (3 * mmr / PEAK_TF32_FLOPS + fp32 / PEAK_FP32_FLOPS if split
+             else (mmr + fp32) / PEAK_FP32_FLOPS)
+    fbytes = 4 * (m + n) * r
     if int8:
-        flops += L * 3 * (m + n) * r
         fbytes = (m + n) * r + 8 * r * (-(-m // 256) + -(-n // 256))
-    return bound_ms(flops, L * (8 * m * n + fbytes + 4 * n * r))
+    bytes_s = L * (8 * m * n + fbytes + (4 * n * r if fold else 0)) \
+        / PEAK_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), 1e3 * ops_s, 1e3 * bytes_s
 
 
-def check_precond(fact, device):
-    """Pass 1 against its plain version at every factored leaf shape."""
+def precond_bound(shape, r, int8: bool = False,
+                  split: bool = True) -> tuple[float, float, float]:
+    """Pass 1's main-path variant: the fold rider, no guidance, no vfro --
+    two products, ~10 fp32 operations a G entry."""
+    return pass1_bound(shape, r, 2, 10, int8=int8, fold=True, split=split)
+
+
+def lowrank_bound(shape, r,
+                  split: bool = True) -> tuple[float, float, float]:
+    """The single-pass update: Q U^T, ~8 fp32 operations a G entry."""
+    return pass1_bound(shape, r, 1, 8, split=split)
+
+
+def add_bound(rec: dict, new: tuple, old: tuple, name: str) -> float:
+    """Print a pass-1 bound beside its earlier pricing and add both to
+    ``rec`` (the earlier as ``bound_fp32_ms``), with the operations' and
+    the bytes' shares of the new one and which of the two sums bounds the
+    kernel; return the new bound."""
+    for key, v in (("bound_fp32_ms", old[0]), ("bound_ops_ms", new[1]),
+                   ("bound_bytes_ms", new[2])):
+        rec[key] = rec.get(key, 0.0) + v
+    rec["bound_by"] = ("operations" if rec["bound_ops_ms"]
+                       >= rec["bound_bytes_ms"] else "bytes")
+    by = "operations" if new[1] >= new[2] else "bytes"
+    print(f"    bound {name} {new[0]:.4f} ms ({by}: 3xTF32 at the TF32 peak; "
+          f"every product at the fp32 peak: {old[0]:.4f})")
+    return new[0]
+
+
+def check_precond(fact, device, ragged: bool = True):
+    """Pass 1 against its plain version at every factored leaf shape and,
+    with ``ragged``, at the ragged shapes, each variant's two launches
+    bitwise equal; the main path's variant is timed per leaf."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(1)
     rec = new_rec()
-    for name, shape, r in fact:
+    cases = fact + ([("ragged", (m, n), r) for m, n, r in RAGGED]
+                    if ragged else [])
+    for name, shape, r in cases:
         *bd, m, n = shape
         bd = tuple(bd)
         # Q, U uniform in [0, 1e-5): b2 Q U^T ~ (1 - b2) G^2, no cancellation
@@ -448,20 +497,26 @@ def check_precond(fact, device):
         g = torch.randn(bd + (m, n), generator=gen, device=device) * 1e-3
         m1 = torch.randn(bd + (m, n), generator=gen, device=device) * 0.3
         for variant, kw in (("plain", {}), ("guided", {"m1": m1}),
-                            ("fold", {"with_fold": True})):
-            got = ops.fused_precond(q, u, g, B2, EPS, with_vfro=True, **kw)
+                            ("fold", {"with_fold": True}),
+                            ("guided-fold", {"m1": m1, "with_fold": True})):
+            call = lambda: ops.fused_precond(q, u, g, B2, EPS,
+                                             with_vfro=True, **kw)
+            got, again = call(), call()
             want = ref.fused_precond(q, u, g, B2, EPS, with_vfro=True, **kw)
             torch.cuda.synchronize()
             errs = hold(f"fused_precond[{variant}] {name} {shape}",
-                        PRECOND_OUT, PRECOND_TOL, got, want, rec)
+                        PRECOND_OUT, PRECOND_TOL, got, want, rec, again)
             print(f"  fused_precond[{variant}] {name} {shape} r={r}: {errs}")
+        if name == "ragged":
+            continue
         # the main path's variant: fold rider, no guidance, no vfro
         kern = lambda: ops.fused_precond(q, u, g, B2, EPS, with_vfro=False,
                                          with_fold=True)
         plain = lambda: ref.fused_precond(q, u, g, B2, EPS, with_vfro=False,
                                           with_fold=True)
-        time_pair(kern, plain, "precond_kernel", rec,
-                  precond_bound(shape, r), name)
+        bound = add_bound(rec, precond_bound(shape, r),
+                          precond_bound(shape, r, split=False), name)
+        time_pair(kern, plain, "precond_kernel", rec, bound, name)
         del q, u, g, m1
     return rec
 
@@ -469,9 +524,9 @@ def check_precond(fact, device):
 def check_precond_int8(fact, device):
     """The int8 pass 1 on quantized factors (the codec of a random Q and U)
     against the plain pass 1 on the same factors dequantized, at every
-    factored leaf of the mixed path (plain and fold; guided at the first)
-    and at the ragged shapes (all three variants); two launches bitwise
-    equal.  The main path's variant (fold) is timed per leaf."""
+    factored leaf of the mixed path (plain and fold; guided, and guided
+    with the fold, at the first) and at the ragged shapes (all four
+    variants); two launches bitwise equal.  The main path's variant (fold) is timed per leaf."""
     import torch
     from repro_torch.core.quantized import dequantize, quantize
     from repro_torch.kernels import ops, ref
@@ -489,7 +544,8 @@ def check_precond_int8(fact, device):
         m1 = torch.randn(bd + (m, n), generator=gen, device=device) * 0.3
         variants = [("plain", {}), ("fold", {"with_fold": True})]
         if i == 0 or name == "ragged":
-            variants.append(("guided", {"m1": m1}))
+            variants += [("guided", {"m1": m1}),
+                         ("guided-fold", {"m1": m1, "with_fold": True})]
         for variant, kw in variants:
             call = lambda: ops.fused_precond(q, u, g, B2, EPS,
                                              with_vfro=True, **kw)
@@ -507,8 +563,10 @@ def check_precond_int8(fact, device):
             plain = lambda: ref.fused_precond(dequantize(q), dequantize(u), g,
                                               B2, EPS, with_vfro=False,
                                               with_fold=True)
-            time_pair(kern, plain, "precond_kernel", rec,
-                      precond_bound(shape, r, int8=True), name)
+            bound = add_bound(rec, precond_bound(shape, r, int8=True),
+                              precond_bound(shape, r, int8=True, split=False),
+                              name)
+            time_pair(kern, plain, "precond_kernel", rec, bound, name)
         del q, u, g, m1
     return rec
 
@@ -537,10 +595,9 @@ def check_lowrank(fact, device):
                     (TOL_PRECOND, TOL_SUMS), got, want, rec, again)
         print(f"  lowrank_update {name} {shape} r={r}: {errs}")
         if name != "ragged":
-            L = math.prod(bd)
-            time_pair(kern, plain, "lowrank_update_kernel", rec, bound_ms(
-                L * m * n * (2 * r + 8),
-                4 * L * (2 * m * n + (m + n) * r)), name)
+            bound = add_bound(rec, lowrank_bound(shape, r),
+                              lowrank_bound(shape, r, split=False), name)
+            time_pair(kern, plain, "lowrank_update_kernel", rec, bound, name)
         del q, u, g
     return rec
 
@@ -670,8 +727,8 @@ def sketch_cases(device, arch: str = "gpt2-117m",
     read from the optimizer state itself (``expect``: GPT-2 117M's embed
     and pos_embed, Mamba2-370m's embed and lm_head, whose 1024 rows leave
     most of the 2048 buckets empty; hash seeds of leaves 0 and 1 of the
-    sketch group, seed 0, depth 4, width 2048) and, with ``ragged``, one
-    ragged shape."""
+    sketch group, seed 0, depth 4, width 2048) and, with ``ragged``, two
+    ragged shapes (d = 101 takes the kernels' unvectorized loads)."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_config
@@ -697,7 +754,8 @@ def sketch_cases(device, arch: str = "gpt2-117m",
     torch.cuda.empty_cache()
     if not ragged:
         return cases
-    return cases + [("ragged", 1000, 100, 256, 3, _leaf_seeds(0, 0, 3))]
+    return cases + [("ragged", 1000, 100, 256, 3, _leaf_seeds(0, 0, 3)),
+                    ("ragged", 1000, 101, 256, 3, _leaf_seeds(0, 0, 3))]
 
 
 def check_sketch(cases, device):
@@ -796,7 +854,7 @@ def hgmma_counts(lib, kernels) -> dict:
     """HGMMA instructions (wgmma in the SASS, ``cuobjdump -sass``) in each
     instantiation of the kernels named in ``kernels`` in library ``lib``,
     by kernel name and template arguments (``<64>``, ``<64,128>``,
-    ``<true,2>``)."""
+    ``<true,2>``; none for a kernel that is no template)."""
     import re
     from repro_torch.kernels import cuda
     tool = Path(cuda._nvcc()).with_name("cuobjdump")
@@ -815,6 +873,9 @@ def hgmma_counts(lib, kernels) -> dict:
                         a or ("true" if b == "1" else "false")
                         for a, b in vals) + ">"
                     counts[name] = 0
+                elif f"{len(kern)}{kern}E" in line:
+                    name = kern
+                    counts[name] = 0
         elif name and "HGMMA" in line:
             counts[name] += 1
     return counts
@@ -829,15 +890,20 @@ SSD_WGMMA = ("ssd_fwd_kernel_wgmma", "ssd_bwd_rows_kernel_wgmma",
 def check_hgmma() -> None:
     """Fail unless every bf16 flash attention kernel (dh 64 and 128), every
     square-and-matmul kernel (both orientations, 64 and 128 columns a
-    pass) and every bf16 SSD kernel (P and N of 64 and 128) holds HGMMA
-    instructions: their products run on the tensor cores."""
-    from repro_torch.kernels import cuda, flash_attention, srsi_matmul
-    from repro_torch.kernels import ssd_chunk
+    pass), every bf16 SSD kernel (P and N of 64 and 128), every pass-1
+    kernel (guided or not, fold or not, fp32 or int8 factors) and the
+    single-pass update kernel holds HGMMA instructions: their products run
+    on the tensor cores."""
+    from repro_torch.kernels import cuda, flash_attention, fused_update
+    from repro_torch.kernels import lowrank_update, srsi_matmul, ssd_chunk
     for what, src, kernels, want in (
             ("bf16 flash attention", flash_attention.SOURCE, FLASH_WGMMA, 6),
             ("square-and-matmul (3xTF32)", srsi_matmul.SOURCE,
              ("sq_matmul_kernel",), 4),
-            ("bf16 SSD", ssd_chunk.SOURCE, SSD_WGMMA, 12)):
+            ("bf16 SSD", ssd_chunk.SOURCE, SSD_WGMMA, 12),
+            ("pass-1 (3xTF32)", fused_update.SOURCE, ("precond_kernel",), 8),
+            ("single-pass update (3xTF32)", lowrank_update.SOURCE,
+             ("lowrank_update_kernel",), 1)):
         counts = hgmma_counts(cuda.library(src), kernels)
         print(f"  HGMMA instructions in the {what} kernels: {counts}")
         if len(counts) != want or not all(counts.values()):
@@ -1574,7 +1640,7 @@ def main():
     fact_mamba, _ = main_path_leaves(device, mixed=True, arch=MAMBA)
     phase("[kernels-mamba2] fused_precond and fused_apply vs plain at "
           "Mamba2-370m's factored leaves (in_proj, out_proj)")
-    pre_m = check_precond(fact_mamba, device)
+    pre_m = check_precond(fact_mamba, device, ragged=False)
     app_m = check_apply(fact_mamba, [], device)
     phase("[kernels-mamba2] sketch_update vs plain at Mamba2-370m's "
           "sketched leaves (embed, lm_head)")
@@ -1673,8 +1739,8 @@ def main():
     kernels = [
         dict(name="fused_precond", route="cuda", source=src + "fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:130",
-             **launches("fused_precond"), bound_by="operations",
-             library_ms=None, **pre, mamba2=pre_m,
+             **launches("fused_precond"), library_ms=None, **pre,
+             mamba2=pre_m,
              int8={"launches": launches("fused_precond_int8")["launches"],
                    **pre8}),
         dict(name="fused_apply", route="cuda", source=src + "fused_update.cu",
@@ -1689,8 +1755,7 @@ def main():
         dict(name="lowrank_update", route="cuda",
              source=src + "lowrank_update.cu",
              replaces="src/repro/kernels/lowrank_update.py:45",
-             **launches("lowrank_update"), bound_by="operations",
-             library_ms=None, **low),
+             **launches("lowrank_update"), library_ms=None, **low),
         dict(name="sq_matmul", route="cuda", source=src + "srsi_matmul.cu",
              replaces="src/repro/kernels/srsi_matmul.py:43",
              **launches("sq_matmul", "sq_matmul_t"), bound_by="operations",

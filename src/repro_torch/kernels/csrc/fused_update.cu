@@ -1,4 +1,5 @@
-// Fused two-pass Adapprox update for Hopper (sm_90a), fp32 throughout.
+// Fused two-pass Adapprox update for Hopper (sm_90a): fp32 in and out,
+// pass 1's products on the tensor cores in 3xTF32.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/fused_update.py:
 //
@@ -17,17 +18,26 @@
 //
 // What bounds them on an H100, and what the design does about it:
 //
-//   * Pass 1 at r = 128 is a small fp32 GEMM (Q U^T, 2 m n r flops) fused
-//     with an elementwise pass over G; with the fold rider it is two such
-//     GEMMs.  At GPT-2 117M shapes that is ~64 GFLOP against ~1.2 GB of
-//     traffic, so it is bound by fp32 operations (no tensor cores: parity
-//     with the fp32 reference comes first, so no TF32).  The tile loop is
-//     in pass1.cuh.  The fold costs one partial per row group instead of
-//     one per tile; the row-group count is chosen by the wrapper to fill
-//     the card and the groups are summed by the wrapper.  The int8 factors
-//     cut the factor reads 4x, which does not move an operation-bound
-//     kernel; the dequant adds two operations per staged factor value,
-//     (m + n) r per tile row and strip, small beside the 2 m n r of Q U^T.
+//   * Pass 1 at r = 128 is two small GEMMs (Q U^T, and with the fold
+//     rider (G^2)^T Q, 2 m n r operations each) fused with an elementwise
+//     pass over G: ~1,540 operations a G entry in the three tf32 products
+//     per product that hold the fp32 tolerance, against 8 bytes (G read,
+//     u_hat written).  That is about the tensor cores' ratio of TF32 rate
+//     to memory rate (495 TFLOP/s / 3.35 TB/s = 148 operations a byte, so
+//     ~1,180 for 8 bytes): the operations bound it, the bytes nearly.
+//     The tile loop (pass1.cuh) runs both products on wgmma in 3xTF32,
+//     stages Q, U and G^2 through registers while the previous slice's
+//     products run, keeps G and u_hat in registers in the accumulator's
+//     layout (each touched once), and reads Q U^T out of the fragments.
+//     The fold costs one partial per row group instead of one per tile;
+//     the row-group count is chosen by the wrapper to fill whole waves of
+//     one block an SM, and the groups are summed by the wrapper.  What
+//     holds it now (PERF.md section 6): about 4x its bound, because a
+//     tile's phases (staging, products, epilogue, fold) run one after
+//     another in the one block an SM; a producer warp and a deeper ring
+//     are next.  The int8 factors cut the factor reads 4x; the dequant
+//     adds two operations per staged factor value, small beside the
+//     products.
 //   * Pass 2 is a streaming read-modify-write, bound by bytes: float4
 //     grid-stride loop, one read of u_hat and m1, one or two writes.
 //
@@ -36,8 +46,9 @@
 // stream; every entry point returns cudaGetLastError().
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC  (no --use_fast_math: parity needs IEEE sqrt and
-//        division).
+//        -Xcompiler -fPIC  (no --use_fast_math: pass 2 needs IEEE
+//        division; pass 1's approximate root and reciprocal are explicit;
+//        wgmma needs the "a" target).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,37 +60,31 @@ namespace {
 using pass1::BM;
 using pass1::BN;
 using pass1::Factor;
-using pass1::LDY;
 using pass1::THREADS;
+constexpr int APPLY_THREADS = 256;
 
 template <bool GUIDED, bool FOLD, bool QUANT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 precond_kernel(Factor q, Factor u, const float* __restrict__ g,
                const float* __restrict__ m1, float* __restrict__ out,
                float* __restrict__ part, float* __restrict__ yfold, int m,
                int n, int r, int tiles_per_group, float b2, float omb2,
                float eps) {
-  extern __shared__ float smem[];
   __shared__ float red[THREADS / 32];
-  float* Ys = pass1::fold_accum(smem);   // (FOLD)
-
+  float* sm = reinterpret_cast<float*>(smem_tiles());
   const int tid = threadIdx.x;
   const int jt = blockIdx.x, grp = blockIdx.y, l = blockIdx.z;
   const int gn = gridDim.x, groups = gridDim.y;
-  const int j0 = jt * BN;
   const size_t mn = (size_t)m * n;
-
-  if (FOLD)
-    for (int i = tid; i < r * LDY; i += THREADS) Ys[i] = 0.f;
-
   const int tiles_m = (m + BM - 1) / BM;
   const int t_begin = grp * tiles_per_group;
   const int t_end = min(t_begin + tiles_per_group, tiles_m);
   const pass1::Partials p = pass1::tile_loop<GUIDED, FOLD, QUANT>(
       pass1::batch_slice(q, l, m, r), pass1::batch_slice(u, l, n, r),
       g + (size_t)l * mn, GUIDED ? m1 + (size_t)l * mn : nullptr,
-      out + (size_t)l * mn, smem, m, n, r, j0, t_begin, t_end, b2, omb2,
-      eps);
+      out + (size_t)l * mn,
+      FOLD ? yfold + ((size_t)l * groups + grp) * n * r : nullptr, sm, m, n,
+      r, jt * BN, t_begin, t_end, b2, omb2, eps);
 
   // ---- per-block partials: part[l][grp][jt][0..3]
   float* pb = part + (((size_t)l * groups + grp) * gn + jt) * 4;
@@ -96,21 +101,10 @@ precond_kernel(Factor q, Factor u, const float* __restrict__ g,
     pb[2] = 0.f;
     pb[3] = 0.f;
   }
-
-  // ---- fold partial: yfold[l][grp][j0 + c][k]
-  if (FOLD) {
-    __syncthreads();
-    float* yb = yfold + ((size_t)l * groups + grp) * n * r;
-    const int cols = min(BN, n - j0);
-    for (int idx = tid; idx < cols * r; idx += THREADS) {
-      const int c = idx / r, k = idx - c * r;
-      yb[(size_t)(j0 + c) * r + k] = Ys[k * LDY + c];
-    }
-  }
 }
 
 template <bool SHARED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(APPLY_THREADS)
 apply_kernel(const float* __restrict__ u_hat, float* __restrict__ m1,
              float* __restrict__ out, const float* __restrict__ scalars,
              long long size) {
@@ -120,8 +114,9 @@ apply_kernel(const float* __restrict__ u_hat, float* __restrict__ m1,
   const float* ub = u_hat + (size_t)l * size;
   float* mb = m1 + (size_t)l * size;
   float* obp = SHARED ? nullptr : out + (size_t)l * size;
-  const long long stride = (long long)gridDim.x * THREADS;
-  const long long first = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * APPLY_THREADS;
+  const long long first =
+      (long long)blockIdx.x * APPLY_THREADS + threadIdx.x;
   if ((size & 3) == 0) {
     const long long n4 = size >> 2;
     for (long long i = first; i < n4; i += stride) {
@@ -153,13 +148,11 @@ cudaError_t launch_precond(const Factor& q, const Factor& u, const float* g,
                            float* yfold, int batch, int m, int n, int r,
                            int groups, int tiles_per_group, float b2,
                            float omb2, float eps, cudaStream_t stream) {
-  const size_t smem = pass1::smem_floats(FOLD, r) * sizeof(float);
-  if (FOLD) {
-    cudaError_t err = cudaFuncSetAttribute(
-        precond_kernel<GUIDED, FOLD, QUANT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const size_t smem = pass1::smem_bytes(FOLD);
+  cudaError_t err = cudaFuncSetAttribute(
+      precond_kernel<GUIDED, FOLD, QUANT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((n + BN - 1) / BN, groups, batch);
   precond_kernel<GUIDED, FOLD, QUANT><<<grid, THREADS, smem, stream>>>(
       q, u, g, m1, out, part, yfold, m, n, r, tiles_per_group, b2, omb2, eps);
@@ -171,7 +164,8 @@ int precond(const Factor& q, const Factor& u, const float* g,
             const float* m1, float* out, float* part, float* yfold,
             int batch, int m, int n, int r, int groups, int tiles_per_group,
             float b2, float omb2, float eps, int fold, cudaStream_t s) {
-  if (r % pass1::KC != 0) return (int)cudaErrorInvalidValue;
+  if (r % 16 != 0 || (fold && r > pass1::R_MAX))
+    return (int)cudaErrorInvalidValue;
   if (m1 != nullptr)
     return fold ? launch_precond<true, true, QUANT>(
                       q, u, g, m1, out, part, yfold, batch, m, n, r, groups,
@@ -192,10 +186,10 @@ int precond(const Factor& q, const Factor& u, const float* g,
 extern "C" {
 
 // q (batch, m, r), u (batch, n, r), g (batch, m, n), m1 (batch, m, n) or
-// NULL, all fp32 and contiguous, r a multiple of 16.  Writes out (batch, m,
-// n), part (batch, groups, ceil(n/64), 4) and, with fold != 0, yfold
-// (batch, groups, n, r).  Row tiles [grp * tiles_per_group, ...) of 64 rows
-// belong to row group grp.
+// NULL, all fp32 and contiguous, r a multiple of 16 (with fold != 0 at
+// most 128).  Writes out (batch, m, n), part (batch, groups, ceil(n/128),
+// 4) and, with fold != 0, yfold (batch, groups, n, r).  Row tiles [grp *
+// tiles_per_group, ...) of 64 rows belong to row group grp.
 int fused_precond_f32(const float* q, const float* u, const float* g,
                       const float* m1, float* out, float* part, float* yfold,
                       int batch, int m, int n, int r, int groups,
@@ -234,9 +228,11 @@ int fused_apply_f32(const float* u_hat, float* m1, float* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks, batch);
   if (out == nullptr)
-    apply_kernel<true><<<grid, THREADS, 0, s>>>(u_hat, m1, out, scalars, size);
+    apply_kernel<true><<<grid, APPLY_THREADS, 0, s>>>(u_hat, m1, out,
+                                                      scalars, size);
   else
-    apply_kernel<false><<<grid, THREADS, 0, s>>>(u_hat, m1, out, scalars, size);
+    apply_kernel<false><<<grid, APPLY_THREADS, 0, s>>>(u_hat, m1, out,
+                                                       scalars, size);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,8 @@
 // warpgroup matrix multiplies (wgmma) on tiles in shared memory in the
 // 128-byte swizzle, the cp.async copies that fill them, and the bf16
 // hi + lo split that lets an fp32 operand through bf16 products.
-// Included by flash_attention.cu (B6), ssd_chunk.cu (B7) and
-// srsi_matmul.cu (B3, the tf32 product).
+// Included by flash_attention.cu (B6), ssd_chunk.cu (B7), srsi_matmul.cu
+// (B3) and pass1.cuh (B1, B4), the last two for the tf32 product.
 //
 // Tile layout.  A tile of R rows holds its columns in blocks of 128 bytes
 // (64 bf16 or 32 fp32 values), each block R rows x 128 bytes, and the
@@ -252,6 +252,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[32], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_D32
       ", %32, %33, p, 1, 1;\n}\n"
       : WG_OUT32(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// The same with N = 128 (64 registers).
+__device__ __forceinline__ void mma_tf32(float (&d)[64], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_D64
+      ", %64, %65, p, 1, 1;\n}\n"
+      : WG_OUT64(d)
       : "l"(a), "l"(b), "r"(acc));
 }
 

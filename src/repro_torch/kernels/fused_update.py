@@ -1,7 +1,8 @@
 """CUDA kernels of the fused two-pass Adapprox update, bound with ctypes.
 
 ``csrc/fused_update.cu`` holds both kernels and a note on their design
-(pass 1's tile loop is ``csrc/pass1.cuh``); they replace
+(pass 1's tile loop, on the tensor cores in 3xTF32, is
+``csrc/pass1.cuh``); they replace
 ``fused_precond_pallas`` (its fp32 and int8 variants) and
 ``fused_apply_pallas`` / ``fused_apply_shared_pallas`` of the JAX
 package's ``kernels/fused_update.py``.  The shared library is compiled by ``nvcc``
@@ -19,6 +20,7 @@ and adds one to ``LAUNCHES[<kernel>]`` (the int8 pass 1 adds one to
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -30,10 +32,10 @@ from repro_torch.kernels.ref import f32, f32_one_minus
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_update.cu"
 
 BM = 64                 # rows of one pass-1 tile (csrc BM)
-BN = 64                 # columns owned by one pass-1 block (csrc BN)
-R_ALIGN = 16            # pass 1 takes r in 16-deep slices (csrc KC)
-R_MAX = 704             # the fold accumulator must fit in shared memory
-THREADS = 256
+BN = 128                # columns owned by one pass-1 block (csrc BN)
+R_ALIGN = 16            # pass 1 takes r in multiples of 16
+R_MAX = 128             # with the fold: its N, Q^T staged whole (csrc)
+APPLY_THREADS = 256     # threads of a pass-2 block (csrc APPLY_THREADS)
 
 # Launch counts per kernel, for showing that a run went through them.
 LAUNCHES = {"fused_precond": 0, "fused_precond_int8": 0, "fused_apply": 0}
@@ -64,11 +66,23 @@ def _lib():
     return _LIB
 
 
-def row_groups(m: int, n: int, batch: int, sm_count: int) -> tuple[int, int]:
-    """(groups, tiles_per_group) for pass 1: enough 64-row groups per
-    column strip that about two blocks per SM are in flight, and no more
-    (every group writes one fold partial of n * r words)."""
-    return cuda.split(-(-m // BM), -(-n // BN) * batch, sm_count)
+@functools.lru_cache(maxsize=None)
+def row_groups(m: int, n: int, batch: int, sm_count: int,
+               fold: bool = False) -> tuple[int, int]:
+    """(groups, tiles_per_group) for pass 1.  A block takes one group of
+    64-row tiles of one 128-column strip of one matrix, and one block fits
+    an SM (255 registers a thread), so the blocks run in waves of
+    ``sm_count``: the split whose waves take the fewest tile times, with
+    a fold partial counted as one more tile of its group; ties go to
+    fewer groups (every group writes one fold partial of n * r words)."""
+    tiles, strips = -(-m // BM), -(-n // BN) * batch
+    best = None
+    for per in range(tiles, 0, -1):
+        groups = -(-tiles // per)
+        cost = -(-strips * groups // sm_count) * (per + int(fold))
+        if best is None or cost < best[0]:
+            best = (cost, groups, per)
+    return best[1], best[2]
 
 
 def _factor_ptrs(name: str, f, rows: int, bsz: int, r: int) -> list:
@@ -91,17 +105,18 @@ def fused_precond(q, u, g: torch.Tensor, b2: float, eps: float,
     """Pass 1 on the card.  q (B, m, r), u (B, n, r) fp32, or both int8
     codec triples ``(q8, scale, zero)`` (``core/quantized.py``'s layout,
     dequantized in the kernel); g / m1 (B, m, n) fp32; all contiguous, r a
-    multiple of 16.  Returns ``(u_hat (B, m, n), sums (B, 4) = [vfro, usq,
-    m1dot, m1sq], yfold (B, n, r) | None)``."""
+    multiple of 16 (with the fold at most ``R_MAX``).  Returns ``(u_hat
+    (B, m, n), sums (B, 4) = [vfro, usq, m1dot, m1sq], yfold (B, n, r) |
+    None)``."""
     quant = not isinstance(q, torch.Tensor)
     q0 = q[0] if quant else q
     if q0.dim() != 3:
         raise ValueError(f"q: expected (batch, m, r), got {tuple(q0.shape)}")
     bsz, m, r = q0.shape
     n = g.shape[-1]
-    if r % R_ALIGN or r > R_MAX:
-        raise ValueError(f"r = {r}: pass 1 takes a multiple of {R_ALIGN} "
-                         f"up to {R_MAX}")
+    if r % R_ALIGN or (with_fold and r > R_MAX):
+        raise ValueError(f"r = {r}: pass 1 takes a multiple of {R_ALIGN}, "
+                         f"with the fold up to {R_MAX}")
     if quant == isinstance(u, torch.Tensor):
         raise ValueError("q and u: both fp32 or both int8 codec triples")
     factors = (_factor_ptrs("q", q, m, bsz, r)
@@ -110,7 +125,7 @@ def fused_precond(q, u, g: torch.Tensor, b2: float, eps: float,
     if m1 is not None:
         cuda.check("m1", m1, (bsz, m, n))
     dev = g.device
-    groups, per = row_groups(m, n, bsz, cuda.sm_count(g))
+    groups, per = row_groups(m, n, bsz, cuda.sm_count(g), with_fold)
     gn = -(-n // BN)
     out = torch.empty_like(g)
     part = torch.empty((bsz, groups, gn, 4), dtype=torch.float32, device=dev)
@@ -147,7 +162,7 @@ def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor,
     cuda.check("m1", m1, (bsz, size))
     cuda.check("scalars", scalars, (bsz, 5))
     out = None if shared_out else torch.empty_like(m1)
-    blocks = max(1, min(-(-size // (4 * THREADS)), 4096))
+    blocks = max(1, min(-(-size // (4 * APPLY_THREADS)), 4096))
     err = _lib().fused_apply_f32(
         u_hat.data_ptr(), m1.data_ptr(),
         None if out is None else out.data_ptr(), scalars.data_ptr(),

@@ -1,8 +1,8 @@
 """CUDA kernel of the single-pass Adapprox update, bound with ctypes.
 
 ``csrc/lowrank_update.cu`` holds the kernel and a note on its design (its
-tile loop is pass 1's, ``csrc/pass1.cuh``); it replaces
-``lowrank_update_pallas`` of the JAX package's
+tile loop is pass 1's, on the tensor cores in 3xTF32, ``csrc/pass1.cuh``);
+it replaces ``lowrank_update_pallas`` of the JAX package's
 ``kernels/lowrank_update.py``, the update of the ``use_kernels`` path
 without ``fused_update``.  The library is built by ``nvcc`` at first use
 (``kernels/cuda.py``); nothing is compiled or imported from CUDA when this

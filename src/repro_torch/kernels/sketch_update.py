@@ -4,9 +4,10 @@
 design; together they replace ``sketch_update_pallas`` of the JAX
 package's ``kernels/sketch_update.py``: the scatter (the sketch's EMA
 update, one owner per bucket, no float atomics) and then the query (the
-min over depth per row), two launches on the current stream.  The library
-is built by ``nvcc`` at first use (``kernels/cuda.py``); nothing is
-compiled or imported from CUDA when this module is imported.
+min over depth per row), two launches on the current stream, each over
+64-column slices of d (:func:`column_slices`) in slice-major order.  The
+library is built by ``nvcc`` at first use (``kernels/cuda.py``); nothing
+is compiled or imported from CUDA when this module is imported.
 
 The wrapper takes CUDA tensors only, checks them, allocates the outputs,
 raises if a launch reports an error, and adds one to
@@ -51,9 +52,15 @@ def _lib():
     return _LIB
 
 
-def threads_for(d: int) -> int:
-    """One thread per column, in whole warps, at most 256 a block."""
-    return min(256, 32 * -(-d // 32))
+SLICE = 64   # columns of d a slice: 16 lanes of 4 (csrc SW)
+
+
+def column_slices(d: int) -> list[tuple[int, int]]:
+    """The column ranges ``[start, stop)`` of d that the kernels' slices
+    cover, in grid order: each at most ``SLICE`` wide, starting at a
+    multiple of ``SLICE`` (of 4, so a lane's four columns are one 16-byte
+    load when d % 4 == 0)."""
+    return [(c, min(c + SLICE, d)) for c in range(0, d, SLICE)]
 
 
 def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
@@ -78,17 +85,17 @@ def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     cuda.check("offsets", offsets, (depth, width + 1), torch.int32)
     new = torch.empty_like(table)
     vhat = torch.empty_like(g)
-    threads, s = threads_for(d), cuda.stream(g)
+    slices, s = len(column_slices(d)), cuda.stream(g)
     lib = _lib()
     err = lib.sketch_scatter_f32(
         table.data_ptr(), g.data_ptr(), order.data_ptr(), offsets.data_ptr(),
         new.data_ptr(), rows, width, depth, d, f32(b2), f32_one_minus(b2),
-        threads, s)
+        slices, s)
     cuda.raise_on(err, "sketch_scatter")
     LAUNCHES["sketch_scatter"] += 1
     err = lib.sketch_query_f32(new.data_ptr(), idx.data_ptr(),
                                vhat.data_ptr(), rows, width, depth, d,
-                               threads, s)
+                               slices, s)
     cuda.raise_on(err, "sketch_query")
     LAUNCHES["sketch_query"] += 1
     return new, vhat

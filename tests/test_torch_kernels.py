@@ -22,7 +22,7 @@ from repro.core import quantized as JQ
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.convert import quantized_from_numpy
-from repro_torch.core.quantized import quantize
+from repro_torch.core.quantized import dequantize, quantize
 from repro_torch.kernels import fused_update as K
 from repro_torch.kernels import ops, ref
 
@@ -176,3 +176,143 @@ def test_row_groups_cover_every_tile():
         groups, per = K.row_groups(m, n, b, sm_count=132)
         tiles = -(-m // K.BM)
         assert groups * per >= tiles > (groups - 1) * per
+
+
+def test_row_groups_fill_whole_waves():
+    """Pass 1 runs one block an SM, so its blocks run in waves of the SM
+    count: the chosen split of each leaf's row tiles costs no more tile
+    times, whole waves counted, than one group or than the
+    two-blocks-an-SM split of ``cuda.split`` (a fold partial counted as a
+    tile); at GPT-2's w_up without the fold, 27 against 36."""
+    from repro_torch.kernels import cuda
+    sm = 132
+
+    def cost(m, n, b, groups, per, fold):
+        return -(-(-(-n // K.BN) * b * groups) // sm) * (per + int(fold))
+
+    for m, n, b in [(768, 3072, 12), (3072, 768, 12), (768, 768, 12),
+                    (50257, 768, 1), (1024, 4384, 48), (2048, 1024, 48)]:
+        tiles = -(-m // K.BM)
+        for fold in (False, True):
+            groups, per = K.row_groups(m, n, b, sm, fold)
+            assert groups * per >= tiles > (groups - 1) * per
+            got = cost(m, n, b, groups, per, fold)
+            assert got <= cost(m, n, b, 1, tiles, fold)
+            assert got <= cost(m, n, b, *cuda.split(tiles, -(-n // K.BN) * b,
+                                                    sm), fold)
+    assert cost(768, 3072, 12, *K.row_groups(768, 3072, 12, sm), False) == 27
+    assert cost(768, 3072, 12, 1, 12, False) == 36
+
+
+def _emulated_pass1(q, u, g, rnd):
+    """Pass 1 as ``csrc/pass1.cuh`` computes it, its products emulated: Q
+    U^T and (G^2)^T Q each with both fp32 operands split into big =
+    rnd(x) and small = rnd(x - big) (rnd: tf32 for the kernel, bf16 for
+    the rejected alternative), three products; V, u_hat and the sums in
+    fp32.  Returns ``(u_hat, vfro, usq, yfold, Q U^T)``."""
+    from test_torch_legacy_kernels import _split3
+    low = _split3(q, u.transpose(0, 1), rnd)
+    g2 = g * g
+    yfold = _split3(g2.transpose(0, 1), q, rnd)
+    v = (ref.f32(B2) * torch.clamp_min(low, 0.0)
+         + ref.f32_one_minus(B2) * g2)
+    out = g / (torch.sqrt(v) + EPS)
+    return out, torch.sum(v * v), torch.sum(out * out), yfold, low
+
+
+@pytest.mark.parametrize("codec", ["fp32", "int8"])
+@pytest.mark.parametrize("m,n,r", [(768, 3072, 128), (1024, 4384, 128),
+                                   (257, 129, 5)])
+def test_pass1_kernel_arithmetic_holds_the_tolerance(m, n, r, codec):
+    """The arithmetic decision of pass 1's kernels (``csrc/pass1.cuh``:
+    B1 fp32 and int8, B4): both products in 3xTF32, at a GPT-2 117M leaf
+    (``w_up``, r = 128), Mamba2-370m's ``in_proj`` slice and a ragged
+    shape, on fp32 factors and on the int8 codec of the same factors
+    (dequantized as the kernel stages them, bit for bit).
+
+    On the non-negative factors that ``chip_smoke.py`` draws (no
+    cancellation in Q U^T) the emulation holds ``TOL_PRECOND`` for u_hat
+    and ``TOL_SUMS`` for the sums and yfold against ``ref.fused_precond``
+    (it reads ~3e-7 and ~1e-6).  On signed factors, where Q U^T cancels
+    around 0 as a real S-RSI state's does, u_hat is ill-conditioned
+    (plain fp32 itself reads ~1e-2 of the largest u_hat off an fp64 pass 1
+    there), so the products are held in the condition-free measure, each
+    entry's error over the sum of its terms' magnitudes (|Q| |U|^T,
+    (G^2)^T |Q|), against fp64.  At r = 128 (and in every fold, which
+    sums m terms) the split reads at plain fp32's own level (0.8-1.3x) and
+    is held within 2x of it.  At r = 5 plain fp32 rounds a 5-term sum a
+    few times and reads ~2 ulp, while the split keeps ~2^-22 of every
+    term (the dropped small.small and the rounding of each small part), so
+    it reads 2-4x plain fp32 there and is held to that analytic bound,
+    4 x 2^-22.  The rejected alternative, the same split in bf16 (hi +
+    lo), reads over 5x the 3xTF32 error in Q U^T (~10x plain fp32 at r =
+    128, ~90x at r = 5)."""
+    from chip_smoke import TOL_PRECOND, TOL_SUMS
+    from test_torch_legacy_kernels import _bf16, _tf32
+    rng = np.random.default_rng(18)
+    g = _t((rng.standard_normal((m, n)) * 1e-3).astype(np.float32))
+
+    def factors(signed):
+        draw = ((lambda s: rng.standard_normal(s) * 3e-3) if signed
+                else (lambda s: rng.random(s) * 1e-5))
+        q, u = (_t(draw(s).astype(np.float32)) for s in ((m, r), (n, r)))
+        if codec == "int8":
+            q, u = (dequantize(quantize(f)) for f in (q, u))
+        return q, u
+
+    q, u = factors(signed=False)
+    got = _emulated_pass1(q, u, g, _tf32)
+    want = ref.fused_precond(q, u, g, B2, EPS, with_vfro=True,
+                             with_fold=True)
+    for a, b, tol in zip(got[:4], (want[0], want[1], want[2], want[5]),
+                         (TOL_PRECOND, TOL_SUMS, TOL_SUMS, TOL_SUMS)):
+        _close(a, b, rtol=0.0, atol=tol * float(b.abs().max()))
+
+    q, u = factors(signed=True)
+    q64, u64, g64 = q.double(), u.double(), g.double()
+    exact = (q64 @ u64.T, (g64 * g64).T @ q64)
+    scale = (q64.abs() @ u64.abs().T, (g64 * g64).T @ q64.abs())
+    err = lambda k, a: float(((a.double() - exact[k]).abs()
+                              / scale[k]).max())
+    plain = (q @ u.T, ref.sq_matmul_t(g, q))
+    tf32 = _emulated_pass1(q, u, g, _tf32)
+    bf16 = _emulated_pass1(q, u, g, _bf16)
+    for k, i in ((0, 4), (1, 3)):   # (Q U^T, its slot), (yfold, its slot)
+        if k == 0 and r < 32:
+            assert err(k, tf32[i]) < 4 * 2.0 ** -22, err(k, tf32[i])
+        else:
+            assert err(k, tf32[i]) < 2 * err(k, plain[k]), (
+                k, err(k, tf32[i]), err(k, plain[k]))
+    assert err(0, bf16[4]) > 5 * err(0, tf32[4]), (err(0, bf16[4]),
+                                                   err(0, tf32[4]))
+
+
+def test_every_factored_leaf_fits_pass1():
+    """Every factored leaf of GPT-2 117M / 345M and Mamba2-370m under the
+    launcher's optimizer (with and without the mixed groups) has a rank
+    that pass 1 takes: padded to ``R_ALIGN``, at most ``R_MAX`` (the fold's
+    sums live in shared memory).  The models are built on the meta device:
+    only shapes are read."""
+    from unittest import mock
+
+    from repro_torch import tree
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.adapprox import adapprox_state
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.core.factored import FactoredLeaf
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    meta = lambda shape, **kw: torch.empty(shape, device="meta")
+    for arch in ("gpt2-117m", "gpt2-345m", "mamba2-370m"):
+        with mock.patch.object(torch, "randn", meta):
+            flat = tree.flatten(build_model(get_config(arch)).init(
+                torch.Generator()))
+        for mixed in (False, True):
+            state = build_optimizer(optimizer_config(
+                "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
+                mixed_groups=mixed)).init(flat)
+            ranks = [leaf.q.shape[-1] for leaf in adapprox_state(state).leaves
+                     if isinstance(leaf, FactoredLeaf)]
+            assert ranks, (arch, mixed)
+            for r in ranks:
+                assert -(-r // K.R_ALIGN) * K.R_ALIGN <= K.R_MAX, (arch, r)

@@ -271,3 +271,18 @@ def test_sketch_kernel_wrapper_refuses_cpu_and_other_devices():
     with pytest.raises(ValueError, match="device"):
         ops.sketch_update(table.to("meta"), g.to("meta"), idx.to("meta"),
                           0.999)
+
+
+@pytest.mark.parametrize("d", [768, 1024, 50280, 100, 1001])
+def test_column_slices_cover_every_column(d):
+    """The sketch kernels' column slices (GPT-2's d, Mamba2's d and its
+    lm_head's vocab, ragged d) cover every column exactly once, in order,
+    each at most ``SLICE`` wide and starting on a 4-column boundary (one
+    16-byte load a lane when d % 4 == 0)."""
+    from repro_torch.kernels import sketch_update as SK
+    slices = SK.column_slices(d)
+    cols = [c for start, stop in slices for c in range(start, stop)]
+    assert cols == list(range(d))
+    assert len(slices) == -(-d // SK.SLICE)
+    assert all(0 < stop - start <= SK.SLICE and start % 4 == 0
+               for start, stop in slices)

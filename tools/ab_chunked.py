@@ -3,8 +3,8 @@
 hand-written kernels at their main-path shape and its training run, each
 checkout in its own process, in the order base, change, change, base.
 
-    python3 tools/ab_chunked.py [--cell chunked|mamba2|kernels] BASE_DIR
-                                [CHANGE_DIR]
+    python3 tools/ab_chunked.py [--cell chunked|mamba2|kernels|mixed]
+                                BASE_DIR [CHANGE_DIR]
 
 BASE_DIR and CHANGE_DIR (default: this checkout) are checkouts of this
 repository, each with its own ``chip_smoke.py``; each builds its kernels
@@ -15,11 +15,17 @@ into its own ``build/``.  Each run prints its card, then, by cell:
     then ``chip_smoke.py``'s [train-chunked] and [breakdown-chunked];
   * mamba2: the device time a call of the SSD block's forward, rows and
     columns kernels (B7, bf16, Mamba2-370m's block (8, 1024, 32 heads, P
-    64, N 128, chunk 256), dY bf16-valued as the model feeds it), then
+    64, N 128, chunk 256), dY bf16-valued as the model feeds it), and a
+    step's of pass 1 (B1, the fold variant, over in_proj and out_proj)
+    and of the sketch (B5, scatter + query, over embed and lm_head), then
     [train-mamba2] and [breakdown-mamba2];
   * kernels: the device time of the transposed square-and-matmul (B3, the
     fold) summed over the mixed groups' factored leaves of GPT-2 117M,
     then [train-kernels] and [breakdown-kernels];
+  * mixed: a step's device time of pass 1 (B1, the fold variant) over
+    the mixed groups' six factored leaves of GPT-2 117M and of the sketch
+    (B5) over embed and pos_embed, then [train-mixed] and
+    [breakdown-mixed];
 
 each training run 12 steps (fold-step median, peak memory, launch
 counts), then one JSON line per run with the cell's keys.  Needs one
@@ -44,6 +50,39 @@ torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 print(C.card_line(), flush=True)
 res = {}
+
+
+def b1_b5_ms(arch, sketched):
+    """A step's device time of pass 1 (fold variant, no guidance) over the
+    mixed groups' factored leaves of arch, and of the sketch over its
+    sketched leaves, on chip_smoke.py's inputs."""
+    from repro_torch.core.sketch import bucket_indices
+    fact, _ = C.main_path_leaves(dev, mixed=True, arch=arch)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b1 = 0.0
+    for name, shape, r in fact:
+        bd = tuple(shape[:-2])
+        q = torch.rand(bd + (shape[-2], r), generator=g, device=dev) * 1e-5
+        u = torch.rand(bd + (shape[-1], r), generator=g, device=dev) * 1e-5
+        gm = torch.randn(shape, generator=g, device=dev) * 1e-3
+        b1 += C.device_ms(lambda: ops.fused_precond(
+            q, u, gm, C.B2, C.EPS, with_vfro=False, with_fold=True),
+            "precond_kernel")
+        del q, u, gm
+    b5 = 0.0
+    for name, rows, d, width, depth, seeds in C.sketch_cases(
+            dev, arch, sketched, ragged=False):
+        idx = torch.from_numpy(bucket_indices(rows, width, seeds)).to(dev)
+        order, offsets = ops.bucket_order(idx, width)
+        table = torch.rand((depth, width, d), generator=g, device=dev) * 0.025
+        gm = torch.randn((rows, d), generator=g, device=dev)
+        b5 += C.device_ms(lambda: ops.sketch_update(
+            table, gm, idx, C.B2, order=order, offsets=offsets), "sketch_")
+        del idx, order, offsets, table, gm
+    torch.cuda.empty_cache()
+    print(f"  B1 ms a step over {len(fact)} leaves: {b1:.4f}; B5 ms a step "
+          f"over {', '.join(sketched)}: {b5:.4f}", flush=True)
+    return dict(b1_ms=b1, b5_ms=b5)
 '''
 
 CELLS = {
@@ -80,9 +119,10 @@ C.step_breakdown(dev, cfg, C.chunked_model_config())
 ''',
     "mamba2": r'''
 from repro_torch.configs.archs import get_config
+from repro_torch.kernels import fused_update, sketch_update
 from repro_torch.kernels import ssd_chunk as SSD
 t0 = time.monotonic()
-cuda.build(SSD.SOURCE)
+cuda.build(SSD.SOURCE, fused_update.SOURCE, sketch_update.SOURCE)
 res.update(build_s=time.monotonic() - t0)
 g = torch.Generator(device=dev).manual_seed(8)
 shape = (8, 1024, 32, 1, 64, 128, 256)
@@ -100,6 +140,7 @@ print(f"  B7 bf16 ms a call: fwd {res['ssd_fwd_ms']:.4f} rows "
       flush=True)
 del ins, dy
 torch.cuda.empty_cache()
+res.update(b1_b5_ms(C.MAMBA, ("embed", "lm_head")))
 C.phase("[train-mamba2]")
 _, info = C.train_main_path(
     C.launcher_run(C.TRAIN_MAMBA_ARGV), "fused", dict(
@@ -139,6 +180,23 @@ C.phase("[breakdown-kernels]")
 C.step_breakdown(dev, C.kernels_config())
 ''',
 }
+
+CELLS["mixed"] = r'''
+from repro_torch.kernels import fused_update, sketch_update
+t0 = time.monotonic()
+cuda.build(fused_update.SOURCE, sketch_update.SOURCE)
+res.update(build_s=time.monotonic() - t0)
+res.update(b1_b5_ms("gpt2-117m", ("embed", "pos_embed")))
+cfg = optimizer_config("adapprox", 12, 3e-3, refresh_every=5,
+                       fused_update=True, mixed_groups=True)
+C.phase("[train-mixed]")
+_, info = C.train_main_path(C.launcher_run(C.TRAIN_MIXED_ARGV), "fused",
+                            dict(fused_precond=72, fused_apply=72,
+                                 sketch_scatter=24, sketch_query=24))
+res.update(info)
+C.phase("[breakdown-mixed]")
+C.step_breakdown(dev, cfg)
+'''
 
 TAIL = r'''
 print("RESULT " + json.dumps(res), flush=True)

@@ -23,17 +23,20 @@ sm_90a) and the CUDA toolkit.  In order, it
      fp32; the SSD block's forward and two backward kernels at
      Mamba2-370m's block in bf16 and fp32, on inputs whose decay
      overflows above the diagonal; pass 1, pass 2 and the sketch also at
-     Mamba2-370m's leaves) and at ragged shapes, each new kernel bitwise
-     repeatable, and times each beside its bound and the plain version's
-     time (flash attention also beside scaled_dot_product_attention, a
-     yardstick the port never calls);
+     Mamba2-370m's leaves; pass 1 with the fold at the paper's k_max, r
+     192 and 256, past what pass 1 folds itself, where the fold goes
+     through the square-and-matmul, fp32 and int8) and at ragged shapes,
+     each new kernel bitwise repeatable, and times each beside its bound
+     and the plain version's time (flash attention also beside
+     scaled_dot_product_attention, a yardstick the port never calls);
   4. checks the kernel path end to end against the plain path on a small
      input: the GPT-2 smoke model in fp32 trains a few steps on the card
      and on the CPU from the same init and sketches, and the losses, ranks
      and parameters must agree -- without and with the mixed groups, with
      int8 factors, on the use_kernels path, with attn_impl "chunked" at
      2048 tokens, and on the Mamba2 smoke model (its first step's
-     gradients too);
+     gradients too); with warm start, implicit S-RSI, bucketing, the
+     paper's k_max, bf16 parameters, and for Adafactor and CAME;
   5. trains GPT-2 117M at full width (12 steps, batch 8 x 1024,
      --fused-update --refresh-every 5) with the launch counters set to 0
      just before each run, and checks a finite, falling loss and the
@@ -52,14 +55,24 @@ sm_90a) and the CUDA toolkit.  In order, it
      every step, and none on the other paths); then Mamba2-370m through
      ``repro_torch.launch.train --arch mamba2-370m`` on the mixed groups
      (the SSD block's three kernels once per layer every step, none on
-     the GPT-2 paths);
+     the GPT-2 paths); then GPT-2 117M on the mixed groups with
+     --warm-start --bucketed, the same with implicit=True, the same at
+     the paper's k_max (the fold through the transposed
+     square-and-matmul on fold steps), and --optimizer adafactor and
+     came (no kernel launched); every model runs under remat "full"
+     (each layer's forward again in the backward: flash attention's and
+     the SSD block's forward twice a layer), and GPT-2 117M (none,
+     full, dots) and Mamba2-370m (none, full) run 4 steps for their peak
+     memory and fold step;
   6. breaks a step of each run down into model and optimizer time;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
-     and AdamW and holds them against ``BENCH_memory.json``, and those of
+     and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
+     them against ``BENCH_memory.json``, and those of
      the int8 factors (117M and 345M) and of Mamba2-370m (mixed groups,
      AdamW) against the JAX package's count;
-  8. prints one JSON line with each kernel's launches, error and times,
-     then ``{"ok": true, "device": {...}}`` as the last line.
+  8. prints one JSON line with each training run's loss, times and peak
+     memory, one with each kernel's launches, error and times, then
+     ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, so the script exits non-zero without the last
 line.  It imports nothing of JAX or of the JAX package.
@@ -94,6 +107,11 @@ TRAIN_MIXED_ARGV = [a for a in TRAIN_ARGV if a != "--no-mixed-groups"]
 TRAIN_INT8_ARGV = TRAIN_MIXED_ARGV + ["--quantize-factors"]
 # slice 5: Mamba2-370m on the launcher's defaults (mixed groups)
 TRAIN_MAMBA_ARGV = ["--arch", "mamba2-370m"] + TRAIN_MIXED_ARGV[2:]
+# slice 9: warm start and bucketing; the baselines (no mixed groups, as in
+# the JAX launcher; --fused-update and --refresh-every are Adapprox's)
+TRAIN_WARM_ARGV = TRAIN_MIXED_ARGV + ["--warm-start", "--bucketed"]
+TRAIN_BASELINE_ARGV = [a for a in TRAIN_MIXED_ARGV
+                       if a not in ("--fused-update", "--refresh-every", "5")]
 B2, EPS, B1 = 0.999, 1e-8, 0.9
 # the smoke model's mixed groups: embed (512 rows) is sketched
 SMALL_MIXED = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)
@@ -249,10 +267,11 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
     return 0.0
 
 
-def time_pair(kern, plain, kernel_name: str, rec: dict, bound: float,
-              label: str) -> None:
-    """Time a kernel (its own device time) and its plain version (all its
-    device time), print both with the stream times, add to ``rec``."""
+def time_pair(kern, plain, kernel_name: str | None, rec: dict,
+              bound: float, label: str) -> None:
+    """Time a kernel (its own device time; with ``kernel_name`` None,
+    every kernel the call launches) and its plain version (all its device
+    time), print both with the stream times, add to ``rec``."""
     t_k, t_p = device_ms(kern, kernel_name), device_ms(plain)
     e_k, e_p = events_ms(kern), events_ms(plain)
     note = ""
@@ -294,32 +313,69 @@ def launch_counts() -> dict:
 
 def expected_launches(kind: str, steps: int, folds: int, n_fact: int,
                       n_leaves: int, n_sk: int, attn_layers: int = 0,
-                      ssd_layers: int = 0) -> dict:
+                      ssd_layers: int = 0, fwd_per_layer: int = 1,
+                      n_wide: int = 0) -> dict:
     """Launches of ``steps`` train steps (``folds`` of them fold steps)
-    on a path: ``fused`` and ``int8`` launch pass 1 per factored leaf and
-    pass 2 per Adapprox leaf every step (``int8``: every pass 1 is the
-    int8 variant); ``kernels`` (use_kernels) the single-pass update per
-    factored leaf every step and the transposed square-and-matmul per
-    factored leaf on fold steps; the sketch two launches per sketched leaf
-    every step; flash attention, on ``attn_layers`` layers (all of them
-    under attn_impl "chunked", none on the naive path), its forward and
-    each backward kernel once per layer every step; the SSD block, on the
-    ``ssd_layers`` Mamba2 layers, its forward and each backward kernel
-    once per layer every step."""
+    on a path: ``fused`` and ``int8`` launch pass 1 per factored call (a
+    leaf, or a bucket of same-shape leaves) and pass 2 per Adapprox call
+    every step (``int8``: every pass 1 is the int8 variant), and on fold
+    steps the transposed square-and-matmul per call of the ``n_wide``
+    whose factors are wider than pass 1's fold takes; ``kernels``
+    (use_kernels) the single-pass update per factored leaf every step and
+    the transposed square-and-matmul per factored leaf on fold steps;
+    ``none`` (Adafactor, CAME, AdamW) no optimizer kernel; the sketch two
+    launches per sketched leaf every step; flash attention, on
+    ``attn_layers`` layers (all of them under attn_impl "chunked", none on
+    the naive path), and the SSD block, on the ``ssd_layers`` Mamba2
+    layers, each backward kernel once per layer every step and the
+    forward ``fwd_per_layer`` times (2 under remat, whose backward runs
+    the layer's forward again)."""
     want = dict.fromkeys(launch_counts(), 0)
     want.update(sketch_scatter=steps * n_sk, sketch_query=steps * n_sk)
-    want.update(flash_fwd=steps * attn_layers,
+    want.update(flash_fwd=steps * attn_layers * fwd_per_layer,
                 flash_bwd_dq=steps * attn_layers,
                 flash_bwd_dkdv=steps * attn_layers)
-    want.update(ssd_fwd=steps * ssd_layers, ssd_bwd_rows=steps * ssd_layers,
+    want.update(ssd_fwd=steps * ssd_layers * fwd_per_layer,
+                ssd_bwd_rows=steps * ssd_layers,
                 ssd_bwd_cols=steps * ssd_layers)
     if kind == "kernels":
         want.update(lowrank_update=steps * n_fact, sq_matmul_t=folds * n_fact)
-    else:
-        want.update(fused_precond=steps * n_fact, fused_apply=steps * n_leaves)
+    elif kind != "none":
+        want.update(fused_precond=steps * n_fact, fused_apply=steps * n_leaves,
+                    sq_matmul_t=folds * n_wide)
         if kind == "int8":
             want["fused_precond_int8"] = steps * n_fact
     return want
+
+
+def factor_width(leaf) -> int:
+    """r of a factored Adapprox leaf, fp32 or int8."""
+    return getattr(leaf.q, "q8", leaf.q).shape[-1]
+
+
+def adapprox_calls(state, bucketed: bool) -> tuple[int, int, int]:
+    """(factored calls, pass-2 calls, factored calls past pass 1's fold
+    width) a step of an optimizer state makes: a factored call is one
+    leaf or, ``bucketed``, one bucket of leaves of one shape; a pass-2
+    call a factored call or a dense Adapprox leaf.  (0, 0, 0) without an
+    Adapprox stage."""
+    from repro_torch.core.adapprox import AdapproxState
+    from repro_torch.core.types import find_states
+    from repro_torch.kernels.ops import fold_in_pass1
+    subs = list(find_states(state, AdapproxState))
+    if not subs:
+        return 0, 0, 0
+    leaves = subs[0].leaves
+    fact = [leaf for leaf in leaves if hasattr(leaf, "q")]
+
+    def shape(leaf):      # the parameter's: (*batch, m) of Q, n of U
+        q, u = getattr(leaf.q, "q8", leaf.q), getattr(leaf.u, "q8", leaf.u)
+        return tuple(q.shape[:-1]) + (u.shape[-2],)
+
+    calls = (list({shape(leaf): leaf for leaf in fact}.values())
+             if bucketed else fact)
+    wide = sum(not fold_in_pass1(factor_width(leaf)) for leaf in calls)
+    return len(calls), len(calls) + len(leaves) - len(fact), wide
 
 
 def bf16_ulp(x):
@@ -367,13 +423,15 @@ def hold(what: str, labels, tols, got, want, rec: dict, again=None) -> str:
                               else "")
 
 
-def main_path_leaves(device, mixed: bool = False, arch: str = "gpt2-117m"):
+def main_path_leaves(device, mixed: bool = False, arch: str = "gpt2-117m",
+                     k_max: int = 128):
     """(factored [(name, shape, r)], dense [(name, size)]) of the Adapprox
     leaves of ``arch`` (GPT-2 117M, or Mamba2-370m) under the launcher's
     optimizer, read from the optimizer state itself: with
     --no-mixed-groups (Adapprox on every leaf) or, ``mixed``, on its
     default mixed groups (GPT-2: the six block matrices; Mamba2: in_proj
-    and out_proj)."""
+    and out_proj); ``k_max=10**9`` gives the paper's k_max, min(m, n) /
+    4."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_config
@@ -387,9 +445,9 @@ def main_path_leaves(device, mixed: bool = False, arch: str = "gpt2-117m"):
     params = build_model(cfg).init(
         torch.Generator(device=device).manual_seed(0))
     flat = tree.flatten(params)
-    state = build_optimizer(optimizer_config(
+    state = build_optimizer(dataclasses.replace(optimizer_config(
         "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
-        mixed_groups=mixed)).init(flat)
+        mixed_groups=mixed), k_max=k_max)).init(flat)
     names = ([k for k, lab in zip(flat, state.labels) if lab == "factored"]
              if mixed else list(flat))
     fact, dense = [], []
@@ -568,6 +626,70 @@ def check_precond_int8(fact, device):
                               name)
             time_pair(kern, plain, "precond_kernel", rec, bound, name)
         del q, u, g, m1
+    return rec
+
+
+def check_precond_kmax(fact, device, int8: bool = False):
+    """Pass 1 with the fold at the paper's k_max (r = 192 at GPT-2 117M's
+    block matrices, 256 at Mamba2-370m's), past ``R_MAX``: the dispatch
+    runs pass 1 without the fold and the fold through sq_matmul_t (on the
+    dequantized Q for ``int8`` factors).  u_hat held to TOL_PRECOND, the
+    sums to TOL_SUMS and the fold to TOL_MATMUL against the plain pass 1
+    (int8: on the dequantized factors), two calls bitwise equal; the
+    guided variant at the first leaf.  Each leaf's route is timed as the
+    device sees both of its kernels, beside the function's bound (the
+    fold as pass 1's rider, ``precond_bound``) and the route's own (pass 1
+    without the fold plus ``sq_matmul_bound``)."""
+    import torch
+    from repro_torch.core.quantized import dequantize, quantize
+    from repro_torch.kernels import fused_update as K
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(7)
+    rec = new_rec()
+    rec["fold_ms"] = 0.0
+    tols = PRECOND_TOL[:-1] + (TOL_MATMUL,)
+    tag = "fused_precond_int8" if int8 else "fused_precond"
+    for i, (name, shape, r) in enumerate(fact):
+        if r <= K.R_MAX or ops.fold_in_pass1(r):
+            fail(f"[kernels-kmax] {name}: r = {r} is within pass 1's fold")
+        *bd, m, n = shape
+        bd = tuple(bd)
+        q = torch.rand(bd + (m, r), generator=gen, device=device) * 1e-5
+        u = torch.rand(bd + (n, r), generator=gen, device=device) * 1e-5
+        g = torch.randn(bd + (m, n), generator=gen, device=device) * 1e-3
+        m1 = torch.randn(bd + (m, n), generator=gen, device=device) * 0.3
+        if int8:
+            q, u = quantize(q), quantize(u)
+        qd, ud = (dequantize(q), dequantize(u)) if int8 else (q, u)
+        variants = [("fold", {})] + ([("guided-fold", {"m1": m1})]
+                                     if i == 0 else [])
+        for variant, kw in variants:
+            call = lambda: ops.fused_precond(q, u, g, B2, EPS, with_vfro=True,
+                                             with_fold=True, **kw)
+            got, again = call(), call()
+            want = ref.fused_precond(qd, ud, g, B2, EPS, with_vfro=True,
+                                     with_fold=True, **kw)
+            torch.cuda.synchronize()
+            errs = hold(f"{tag}[{variant}] kmax {name} {shape}", PRECOND_OUT,
+                        tols, got, want, rec, again)
+            print(f"  {tag}[{variant}] {name} {shape} r={r}: {errs}")
+        kern = lambda: ops.fused_precond(q, u, g, B2, EPS, with_vfro=False,
+                                         with_fold=True)
+        plain = lambda: ref.fused_precond(qd, ud, g, B2, EPS,
+                                          with_vfro=False, with_fold=True)
+        L = math.prod(bd)
+        route = (pass1_bound(shape, r, 1, 10, int8=int8)[0]
+                 + sq_matmul_bound(L, m, n, r))
+        bound = add_bound(rec, precond_bound(shape, r, int8=int8),
+                          precond_bound(shape, r, int8=int8, split=False),
+                          name)
+        rec["route_bound_ms"] = rec.get("route_bound_ms", 0.0) + route
+        fold = device_ms(kern, "sq_matmul_kernel")
+        rec["fold_ms"] += fold
+        print(f"    route: pass 1 without the fold + sq_matmul_t, bound "
+              f"{route:.4f} ms; sq_matmul_t alone {fold:.4f} ms")
+        time_pair(kern, plain, None, rec, bound, f"{name} (both kernels)")
+        del q, u, g, m1, qd, ud
     return rec
 
 
@@ -1198,7 +1320,9 @@ def plain_ssd_in_fp64():
 
 def small_parity(device, kind: str = "fused", mixed: bool = False,
                  chunked: bool = False, mamba: bool = False, seed: int = 0,
-                 sketch_rows: int = SMALL_MIXED["embedding_min_rows"]):
+                 sketch_rows: int = SMALL_MIXED["embedding_min_rows"],
+                 name: str = "adapprox", over: dict | None = None,
+                 param_dtype: str = "float32"):
     """Kernel path (card) against plain path (CPU), end to end: GPT-2
     smoke in fp32, 4 steps with refresh_every=3 (refresh, fold, fold,
     refresh), same init and sketches, the launcher's optimizer with
@@ -1212,7 +1336,12 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     every layer's SSD block through B7, and beside it the fp64 witness
     (:func:`plain_ssd_in_fp64`), unchecked.  ``seed`` draws the init;
     ``sketch_rows`` is the mixed groups' embedding_min_rows (64 puts the
-    Mamba2 smoke lm_head, (64, 512), on the sketch too).  The card's
+    Mamba2 smoke lm_head, (64, 512), on the sketch too).  ``name`` is the
+    launcher's optimizer (``kind`` "none" for the families without a
+    kernel), ``over`` replaces fields of its OptimizerConfig (warm start,
+    bucketing, implicit, k_max), ``param_dtype`` the master parameters'
+    dtype: bf16 parameters are held entry by entry, within one bf16 ulp of
+    the entry plus the tolerance of the leaf's largest.  The card's
     launches must be those the optimizer state and the model's path
     imply."""
     import torch
@@ -1236,7 +1365,8 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     else:
         cfg = dataclasses.replace(
             get_smoke_config("gpt2-117m", max_seq_len=seq), dtype="float32",
-            attn_impl="chunked" if chunked else "auto")
+            attn_impl="chunked" if chunked else "auto",
+            param_dtype=param_dtype)
     model = build_model(cfg)
     init = model.init(torch.Generator().manual_seed(seed))
     kw = (dict(mixed_groups=True, **dict(SMALL_MIXED,
@@ -1246,11 +1376,12 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
         step1_grads(model, init, cfg, seq, batch, device)
 
     def run(dev):
-        ocfg = optimizer_config("adapprox", 4, 3e-3, refresh_every=3,
+        ocfg = optimizer_config(name, 4, 3e-3, refresh_every=3,
                                 fused_update=kind != "kernels",
                                 quantize_factors=kind == "int8", **kw)
         if kind == "kernels":
             ocfg = dataclasses.replace(ocfg, use_kernels=True)
+        ocfg = dataclasses.replace(ocfg, **(over or {}))
         opt = build_optimizer(ocfg, sketch=_CallOrderSketch(5))
         params = {k: v.detach().clone().to(dev)
                   for k, v in tree.flatten(init).items()}
@@ -1278,31 +1409,39 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     for a, b in zip(l_cpu, l_gpu):
         if not abs(a - b) <= 1e-4 * abs(a):
             fail(f"small-input parity: loss {b} on the card vs {a} on CPU")
-    leaves = {k: adapprox_state(st.opt_state).leaves
+    leaves = {k: (adapprox_state(st.opt_state).leaves if name == "adapprox"
+                  else ())
               for k, st in (("cpu", s_cpu), ("gpu", s_gpu))}
     k_cpu, k_gpu = ([leaf.k.tolist() for leaf in leaves[k]
                      if isinstance(leaf, FactoredLeaf)]
                     for k in ("cpu", "gpu"))
     if k_cpu != k_gpu:
         fail(f"small-input parity: ranks {k_gpu} on the card vs {k_cpu}")
-    worst = max(rel_err(s_gpu.params[k].cpu(), p)[1]
-                for k, p in s_cpu.params.items())
     tol = (TOL_PARAMS_INT8 if kind == "int8"
            else TOL_PARAMS_MAMBA if mamba else 1e-4)
+    if param_dtype == "bfloat16":
+        hold("small-input parity, bf16 params", list(s_cpu.params),
+             [tol] * len(s_cpu.params),
+             [p.detach().cpu() for p in s_gpu.params.values()],
+             [p.detach() for p in s_cpu.params.values()], new_rec())
+    worst = max(rel_err(s_gpu.params[k].cpu(), p)[1]
+                for k, p in s_cpu.params.items())
     print(f"  ranks {k_cpu}; max param rel err {worst:.2e} (tolerance "
-          f"{tol})")
-    if worst > tol:
+          f"{tol}{', and the bf16 rule' if param_dtype != 'float32' else ''})")
+    if param_dtype == "float32" and worst > tol:
         fail(f"small-input parity: params differ by {worst:.2e}")
-    n_fact = len(k_cpu)
+    n_fact, n_apply, n_wide = adapprox_calls(
+        s_gpu.opt_state, bool((over or {}).get("bucketed")))
     n_sk = sum(isinstance(leaf, SketchLeaf)
                for sub in find_states(s_gpu.opt_state, SketchState)
                for leaf in sub.leaves)
-    want = expected_launches(kind, 4, 2, n_fact, len(leaves["gpu"]), n_sk,
+    want = expected_launches(kind, 4, 2, n_fact, n_apply, n_sk,
                              cfg.n_layers if chunked else 0,
-                             cfg.n_layers if mamba else 0)
-    print(f"  factored leaves {n_fact}, sketched {n_sk}; launches on the card "
-          f"{launches}")
-    if n_fact < 1 or (mixed and n_sk < 1) or launches != want:
+                             cfg.n_layers if mamba else 0, n_wide=n_wide)
+    print(f"  factored calls {n_fact}, sketched leaves {n_sk}; launches on "
+          f"the card {launches}")
+    if ((n_fact < 1) != (kind == "none") or (mixed and n_sk < 1)
+            or launches != want):
         fail(f"small-input parity: launches {launches}, expected {want}")
 
 
@@ -1335,15 +1474,20 @@ def step1_grads(model, init, cfg, seq, batch, device):
 
 
 def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
-                    ssd_layers: int = 0):
-    """One main-path run: ``run()`` trains 12 steps and returns ``(state,
-    history)``.  Its launches must be those the optimizer state and the
-    attention path (``attn_layers`` chunked layers) or the SSD path
-    (``ssd_layers`` Mamba2 layers) imply for ``kind``
-    (see :func:`expected_launches`) and ``expect`` (every other kernel 0).
-    Returns the launch counts and ``{"loss", "peak_gib", "fold_s"}``."""
+                    ssd_layers: int = 0, bucketed: bool = False,
+                    steps: int = 12, check: bool = True):
+    """One main-path run: ``run()`` trains ``steps`` steps (refresh every
+    5) and returns ``(state, history)``.  Its launches must be those the
+    optimizer state (its factored calls: ``bucketed`` stacks leaves of one
+    shape) and the attention path (``attn_layers`` chunked layers) or the
+    SSD path (``ssd_layers`` Mamba2 layers), their forward twice a layer
+    under the model's default remat, imply for ``kind`` (see
+    :func:`expected_launches`) and ``expect`` (every other kernel 0); the
+    loss finite and falling.  ``check=False`` (the [remat] runs) checks
+    neither.  Returns the launch counts and ``{"loss", "peak_gib",
+    "fold_s", "refresh_s"}`` (median fold-step time, refresh-step times
+    after the first)."""
     import torch
-    from repro_torch.core.adapprox import adapprox_state
     from repro_torch.core.sketch import SketchLeaf, SketchState
     from repro_torch.core.types import find_states
     torch.cuda.empty_cache()
@@ -1357,31 +1501,34 @@ def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
     for h in hist:
         print(f"  step {h['step']:2d} loss {h['loss']:.4f} "
               f"step_time_s {h['step_time_s']:.4f}")
-    if len(losses) != 12 or not all(math.isfinite(x) for x in losses):
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"main path: losses {losses}")
-    if not losses[-1] < losses[0]:
+    if check and not losses[-1] < losses[0]:
         fail(f"main path: loss did not fall ({losses[0]} -> {losses[-1]})")
-    adapprox = adapprox_state(state.opt_state).leaves
-    n_fact = sum(1 for leaf in adapprox if hasattr(leaf, "q"))
+    n_fact, n_apply, n_wide = adapprox_calls(state.opt_state, bucketed)
     n_sk = sum(isinstance(leaf, SketchLeaf)
                for sub in find_states(state.opt_state, SketchState)
                for leaf in sub.leaves)
     # refresh at steps 1, 6, 11 of 12: 9 fold steps
-    want = expected_launches(kind, 12, 9, n_fact, len(adapprox), n_sk,
-                             attn_layers, ssd_layers)
+    refresh_steps = [i for i in range(1, steps + 1) if i % 5 == 1]
+    want = expected_launches(kind, steps, steps - len(refresh_steps),
+                             n_fact, n_apply, n_sk, attn_layers, ssd_layers,
+                             fwd_per_layer=2, n_wide=n_wide)
     expect = {**dict.fromkeys(launches, 0), **expect}
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  launches {launches} (expected {want}); peak memory "
           f"{peak:.2f} GiB")
-    if launches != want or launches != expect:
+    if check and (launches != want or launches != expect):
         fail(f"main path launches {launches}, expected {want} and {expect}")
-    refresh = [t for i, t in enumerate(times, 1) if i % 5 == 1 and i > 1]
-    fold = [t for i, t in enumerate(times, 1) if i % 5 != 1]
+    refresh = [t for i, t in enumerate(times, 1)
+               if i in refresh_steps and i > 1]
+    fold = [t for i, t in enumerate(times, 1) if i not in refresh_steps]
     tokens = 8 * 1024
     fold_s = sorted(fold)[len(fold) // 2]
     print(f"  fold-step time median {fold_s:.4f} s "
           f"({tokens / fold_s:.0f} tokens/s); refresh-step times {refresh}")
-    return launches, {"loss": losses[-1], "peak_gib": peak, "fold_s": fold_s}
+    return launches, {"loss": losses[-1], "peak_gib": peak, "fold_s": fold_s,
+                      "refresh_s": refresh}
 
 
 def launcher_run(argv):
@@ -1408,10 +1555,11 @@ def chunked_model_config():
     return dataclasses.replace(get_config("gpt2-117m"), attn_impl="chunked")
 
 
-def loop_run(device, ocfg, model_cfg=None):
-    """GPT-2 117M (``model_cfg``, by default the launcher's), 12 steps at
-    batch 8 x 1024, on optimizer config ``ocfg`` through build_optimizer
-    and the train loop (the launcher's defaults: seed 0, lr 3e-3)."""
+def loop_run(device, ocfg, model_cfg=None, steps: int = 12):
+    """GPT-2 117M (``model_cfg``, by default the launcher's), ``steps``
+    steps at batch 8 x 1024, on optimizer config ``ocfg`` through
+    build_optimizer and the train loop (the launcher's defaults: seed 0,
+    lr 3e-3)."""
     from repro_torch.configs.archs import get_config
     from repro_torch.core.build import build_optimizer
     from repro_torch.data.pipeline import DataConfig
@@ -1421,7 +1569,7 @@ def loop_run(device, ocfg, model_cfg=None):
     return lambda: train(build_model(cfg), build_optimizer(ocfg),
                          DataConfig(vocab=cfg.vocab, seq_len=1024,
                                     global_batch=8),
-                         LoopConfig(total_steps=12, log_every=1),
+                         LoopConfig(total_steps=steps, log_every=1),
                          device=device)
 
 
@@ -1525,11 +1673,38 @@ def codec_cost(opt_state):
           f"{sum(e.count for e in evs)} kernel launches")
 
 
+def remat_runs(device) -> dict:
+    """GPT-2 117M on the launcher's mixed groups (--fused-update
+    --refresh-every 5) under remat "none", "full" and "dots", and
+    Mamba2-370m under "none" and "full", 4 steps each (a refresh, then
+    three folds) through build_optimizer and the train loop: the peak
+    memory and the median fold step of each, unchecked beside a finite
+    loss.  Returns ``{label: info}``."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch.train import optimizer_config
+    ocfg = optimizer_config("adapprox", 12, 3e-3, refresh_every=5,
+                            fused_update=True, mixed_groups=True)
+    out = {}
+    for arch, modes in (("gpt2-117m", ("none", "full", "dots")),
+                        (MAMBA, ("none", "full"))):
+        for mode in modes:
+            label = f"{arch} remat={mode}"
+            print(f"  {label}")
+            mcfg = dataclasses.replace(get_config(arch), remat=mode)
+            _, info = train_main_path(loop_run(device, ocfg, mcfg, steps=4),
+                                      "fused", {}, steps=4, check=False)
+            out[label] = info
+    for label, info in out.items():
+        print(f"  {label}: peak {info['peak_gib']:.2f} GiB, fold step "
+              f"{info['fold_s']:.4f} s")
+    return out
+
+
 def check_memory(device):
     """Optimizer-state bytes under bench_memory.py's configs at b1 = 0.9
-    (implicit=False, the port's only Adapprox form; the bytes do not
-    depend on it): GPT-2 117M ``mixed_groups`` and ``adamw`` against
-    BENCH_memory.json, ``adapprox_kmax_int8`` of 117M and 345M against
+    (implicit=False; the bytes do not depend on it): GPT-2 117M
+    ``mixed_groups`` and ``adamw``, and ``adafactor`` and ``came`` of
+    117M and 345M, against BENCH_memory.json (0.1 MB rounding), ``adapprox_kmax_int8`` of 117M and 345M against
     the JAX package's count (``INT8_STATE_MB``), Mamba2-370m's
     ``mixed_groups`` and ``adamw`` against it too (``MAMBA_STATE_MB``);
     and, unchecked, the
@@ -1566,6 +1741,11 @@ def check_memory(device):
     cases += [("mamba2-370m", "mixed_groups", mixed,
                MAMBA_STATE_MB["mixed_groups"]),
               ("mamba2-370m", "adamw", adamw, MAMBA_STATE_MB["adamw"])]
+    # the paper's baselines (Table 2), as bench_memory.py builds them
+    cases += [(arch, name, OptimizerConfig(name=name, **base),
+               table[arch, name])
+              for arch in ("gpt2-117m", "gpt2-345m")
+              for name in ("adafactor", "came")]
     flat = {}
     for arch, name, cfg, want in cases:
         if arch not in flat:
@@ -1646,6 +1826,15 @@ def main():
           "sketched leaves (embed, lm_head)")
     sk_m = check_sketch(sketch_cases(device, MAMBA, ("embed", "lm_head"),
                                      ragged=False), device)
+    fact_kmax = (main_path_leaves(device, mixed=True, k_max=10**9)[0]
+                 + main_path_leaves(device, mixed=True, arch=MAMBA,
+                                    k_max=10**9)[0])
+    phase("[kernels-kmax] fused_precond with the fold at the paper's k_max "
+          "(r 192: GPT-2 117M's block matrices; r 256: Mamba2-370m's "
+          "in_proj, out_proj), past R_MAX: pass 1 + sq_matmul_t")
+    pre_k = check_precond_kmax(fact_kmax, device)
+    phase("[kernels-kmax] the same with int8 factors")
+    pre8_k = check_precond_kmax(fact_kmax, device, int8=True)
     phase("[parity] kernel path on the card vs plain path on the CPU")
     small_parity(device)
     phase("[parity] mixed groups, kernel path on the card vs plain path on "
@@ -1666,6 +1855,25 @@ def main():
     phase("[parity-mamba2] seed 1, lm_head on the sketch too "
           "(embedding_min_rows 64)")
     small_parity(device, mixed=True, mamba=True, seed=1, sketch_rows=64)
+    for label, kw in (
+            ("[parity-warm] mixed groups, --warm-start (n_iter_warm 1)",
+             dict(over=dict(warm_start=True))),
+            ("[parity-implicit] mixed groups, implicit=True (S-RSI on the "
+             "implicit operator, ||V||_F^2 from pass 1)",
+             dict(over=dict(implicit=True))),
+            ("[parity-bucketed] mixed groups, --bucketed --warm-start "
+             "(wq and wo stacked)", dict(over=dict(bucketed=True,
+                                                   warm_start=True))),
+            ("[parity-kmax] mixed groups, the paper's k_max (min(m, n) / 4)",
+             dict(over=dict(k_max=10**9))),
+            ("[parity-adafactor] --optimizer adafactor (no kernel)",
+             dict(kind="none", name="adafactor")),
+            ("[parity-came] --optimizer came (no kernel)",
+             dict(kind="none", name="came")),
+            ("[parity-bf16-params] mixed groups, param_dtype bfloat16",
+             dict(param_dtype="bfloat16"))):
+        phase(label + ", kernel path on the card vs plain path on the CPU")
+        small_parity(device, mixed=kw.get("name") is None, **kw)
     # 12 steps: 8 factored + 8 dense leaves; 6 factored, 2 sketched
     phase("[train] GPT-2 117M, " + " ".join(TRAIN_ARGV))
     runs = {"no_mixed": train_main_path(launcher_run(TRAIN_ARGV), "fused", dict(
@@ -1692,10 +1900,12 @@ def main():
     phase("[train-chunked] GPT-2 117M with attn_impl \"chunked\", the "
           "launcher's default mixed groups, --fused-update --refresh-every "
           "5, batch 8 x 1024, through build_optimizer and the train loop")
+    # remat "full" (the config's default): each layer's forward runs
+    # again in the backward, so flash_fwd is launched twice a layer
     runs["chunked"] = train_main_path(
         loop_run(device, mixed_cfg, chunked_model_config()), "fused", dict(
             fused_precond=72, fused_apply=72, sketch_scatter=24,
-            sketch_query=24, flash_fwd=144, flash_bwd_dq=144,
+            sketch_query=24, flash_fwd=288, flash_bwd_dq=144,
             flash_bwd_dkdv=144), attn_layers=12)
     # 12 steps: in_proj and out_proj factored, embed and lm_head sketched,
     # 48 SSD blocks a step
@@ -1703,20 +1913,54 @@ def main():
     runs["mamba2"] = train_main_path(
         launcher_run(TRAIN_MAMBA_ARGV), "fused", dict(
             fused_precond=24, fused_apply=24, sketch_scatter=24,
-            sketch_query=24, ssd_fwd=12 * SSD_LAYERS,
+            sketch_query=24, ssd_fwd=2 * 12 * SSD_LAYERS,
             ssd_bwd_rows=12 * SSD_LAYERS, ssd_bwd_cols=12 * SSD_LAYERS),
         ssd_layers=SSD_LAYERS)
+    # wq, wk, wv and wo share (12, 768, 768): one bucket, so 3 factored
+    # calls a step (w_up, w_down alone)
+    warm_cfg = launcher_cfg(fused_update=True, mixed_groups=True,
+                            warm_start=True, bucketed=True)
+    warm_expect = dict(fused_precond=36, fused_apply=36, sketch_scatter=24,
+                       sketch_query=24)
+    phase("[train-warm] GPT-2 117M, " + " ".join(TRAIN_WARM_ARGV))
+    runs["warm"] = train_main_path(launcher_run(TRAIN_WARM_ARGV), "fused",
+                                   warm_expect, bucketed=True)
+    phase("[train-implicit] the same with implicit=True, through "
+          "build_optimizer and the train loop")
+    runs["implicit"] = train_main_path(
+        loop_run(device, dataclasses.replace(warm_cfg, implicit=True)),
+        "fused", warm_expect, bucketed=True)
+    phase("[train-kmax] the same with the paper's k_max (k_max 10**9, rank "
+          "mode paper: r 192), the fold through sq_matmul_t on fold steps")
+    runs["kmax"] = train_main_path(
+        loop_run(device, dataclasses.replace(warm_cfg, k_max=10**9)),
+        "fused", dict(warm_expect, sq_matmul_t=27), bucketed=True)
+    # CAME at lr 1e-4: at the launcher's 3e-3 its confidence scaling
+    # (rs, cs start at (1 - b3) S, no bias correction) multiplies the first
+    # steps' updates ~100x and the loss climbs, in the JAX package alike
+    for name, lr in (("adafactor", "3e-3"), ("came", "1e-4")):
+        argv = TRAIN_BASELINE_ARGV + ["--optimizer", name, "--lr", lr]
+        phase(f"[train-{name}] GPT-2 117M, " + " ".join(argv))
+        runs[name] = train_main_path(launcher_run(argv), "none", {})
+
     info = {p: r[1] for p, r in runs.items()}
     runs = {p: r[0] for p, r in runs.items()}
-    print(f"  against [train-mixed]: final loss {info['chunked']['loss']:.4f}"
-          f" vs {info['mixed']['loss']:.4f}; peak memory "
-          f"{info['chunked']['peak_gib']:.2f} vs "
-          f"{info['mixed']['peak_gib']:.2f} GiB; fold step "
-          f"{info['chunked']['fold_s']:.4f} vs {info['mixed']['fold_s']:.4f}"
-          f" s")
+    phase("[train-*] against [train-mixed], this run")
+    for p in ("chunked", "warm", "implicit", "kmax", "adafactor", "came"):
+        print(f"  [train-{p}] vs [train-mixed]: final loss "
+              f"{info[p]['loss']:.4f} vs {info['mixed']['loss']:.4f}; peak "
+              f"memory {info[p]['peak_gib']:.2f} vs "
+              f"{info['mixed']['peak_gib']:.2f} GiB; fold step "
+              f"{info[p]['fold_s']:.4f} vs {info['mixed']['fold_s']:.4f} s; "
+              f"refresh steps {info[p]['refresh_s']} vs "
+              f"{info['mixed']['refresh_s']}")
+    phase("[remat] GPT-2 117M (mixed) under none / full / dots and "
+          "Mamba2-370m under none / full, 4 steps each")
+    remat = remat_runs(device)
     for label, ocfg, mcfg in (
             ("[breakdown]", launcher_cfg(fused_update=True), None),
             ("[breakdown-mixed]", mixed_cfg, None),
+            ("[breakdown-warm]", warm_cfg, None),
             ("[breakdown-int8]", launcher_cfg(fused_update=True,
                                               mixed_groups=True,
                                               quantize_factors=True), None),
@@ -1742,7 +1986,9 @@ def main():
              **launches("fused_precond"), library_ms=None, **pre,
              mamba2=pre_m,
              int8={"launches": launches("fused_precond_int8")["launches"],
-                   **pre8}),
+                   **pre8},
+             kmax=dict(pre_k, route="pass 1 without the fold + sq_matmul_t",
+                       launches=runs["kmax"]["sq_matmul_t"], int8=pre8_k)),
         dict(name="fused_apply", route="cuda", source=src + "fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:233",
              **launches("fused_apply"), bound_by="bytes",
@@ -1803,6 +2049,7 @@ def main():
              library_ms=None, **per_step(ssd_bwd)),
     ]
     phase("[report] every check passed")
+    print(json.dumps({"train": info, "remat": remat}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ from typing import Optional
 # path where the sequence lengths divide into its 1024-row chunks, "naive"
 # the materialised score matrix, "auto" chunked only above 4096 tokens.
 ATTN_IMPLS = ("auto", "chunked", "naive")
+# models/transformer.py, ssm_lm.py: "full" recomputes each layer's body in
+# the backward, "dots" saves only its matmul outputs (transformer; the SSM
+# block treats it as "full", as the JAX package does), "none" saves all.
+REMATS = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,14 +48,18 @@ class ModelConfig:
     tie_embeddings: bool = False
     ssm: Optional[SSMSpec] = None
     dtype: str = "bfloat16"        # compute dtype
-    param_dtype: str = "float32"   # master params
+    param_dtype: str = "float32"   # master params (float32 | bfloat16)
     attn_impl: str = "auto"        # auto | chunked | naive (perf knob)
+    remat: str = "full"            # none | full | dots
     max_seq_len: int = 32_768
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={self.attn_impl!r}; expected one "
                              f"of {ATTN_IMPLS}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat={self.remat!r}; expected one of "
+                             f"{REMATS}")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -98,8 +106,8 @@ def default_mixed_groups() -> tuple:
 class OptimizerConfig:
     """Declarative optimizer spec, the input to ``core.build_optimizer``.
     Field names and defaults follow the JAX package's ``OptimizerConfig``;
-    the port builds the ``adapprox``, ``adamw`` and ``sketch`` families and
-    their parameter groups (``groups``, a tuple of ``(label, GroupSpec)``
+    the port builds the ``adapprox``, ``adamw``, ``adafactor``, ``came``
+    and ``sketch`` families and their parameter groups (``groups``, a tuple of ``(label, GroupSpec)``
     pairs ending in a ``"rest"`` catch-all)."""
 
     name: str = "adapprox"
@@ -126,6 +134,8 @@ class OptimizerConfig:
     use_kernels: bool = False
     refresh_every: int = 1
     warm_start: bool = False
+    n_iter_warm: int = 1
+    warm_drift_xi: float = 0.5
     bucketed: bool = False
     fused_update: bool = False
     telemetry: bool = False
@@ -141,4 +151,9 @@ class OptimizerConfig:
     sketch_width: int = 2048
     sketch_depth: int = 4
     embedding_min_rows: int = 1024
+    # adafactor specifics
+    b2_schedule: bool = True        # b2_t = 1 - t^-0.8
+    relative_step: bool = False
+    # came specifics
+    b3: float = 0.9999              # instability-statistic decay
     groups: tuple = ()

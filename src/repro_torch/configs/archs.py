@@ -14,7 +14,7 @@ def _smoke(cfg: ModelConfig, **over) -> ModelConfig:
     vocab, every structural feature kept (GQA ratio and the SSD block
     included)."""
     base = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-                vocab=512, head_dim=16, max_seq_len=256)
+                vocab=512, head_dim=16, max_seq_len=256, remat="none")
     if cfg.ssm is not None:
         base["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16,
                                           chunk=16)

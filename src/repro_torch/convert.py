@@ -2,22 +2,26 @@
 
 ``params_from_numpy`` takes the JAX parameter pytree (nested dicts of
 numpy arrays, e.g. from ``jax.device_get``) and returns the port's
-parameters; ``adapprox_state_from_numpy``, ``sketch_state_from_numpy`` and
-``adam_state_from_numpy`` do the same for an ``AdapproxState``, a
-``SketchState`` and an ``AdamWState``, int8 factors included
+parameters; ``adapprox_state_from_numpy``, ``sketch_state_from_numpy``,
+``adam_state_from_numpy`` and ``baseline_state_from_numpy`` do the same
+for an ``AdapproxState``, a ``SketchState``, an ``AdamWState`` and an
+``AdafactorState`` or ``CAMEState``, int8 factors included
 (``quantized_from_numpy``).  With them, a test can start the two packages
 from the same mid-run state.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.core.adafactor import AdafactorLeaf, AdafactorState
 from repro_torch.core.adamw import AdamWState
 from repro_torch.core.adapprox import AdapproxState
+from repro_torch.core.came import CAMELeaf, CAMEState
 from repro_torch.core.factored import DenseLeaf, FactoredLeaf
 from repro_torch.core.quantized import QuantizedMatrix
 from repro_torch.core.sketch import SketchDense, SketchLeaf, SketchState
@@ -90,3 +94,20 @@ def adam_state_from_numpy(step: int, m: dict, v: dict,
     f32 = lambda d: {k: _t(x, device, torch.float32)
                      for k, x in tree.flatten(d).items() if x is not None}
     return AdamWState(step=int(step), m=f32(m), v=f32(v))
+
+
+def baseline_state_from_numpy(step: int, leaves: Sequence,
+                              device: str | torch.device = "cpu"
+                              ) -> "AdafactorState | CAMEState":
+    """``leaves``: per-parameter objects in flatten order carrying numpy
+    fields ``r, c, v, m1`` (Adafactor) or ``r, c, v, rs, cs, m1`` (CAME),
+    ``None`` where the JAX leaf has none, as the JAX package's
+    ``AdafactorLeaf`` / ``CAMELeaf`` do after ``device_get``.  Returns the
+    family's state, told apart by the instability statistics ``rs``."""
+    f32 = lambda x: None if x is None else _t(x, device, torch.float32)
+    came = bool(leaves) and hasattr(leaves[0], "rs")
+    cls, state = (CAMELeaf, CAMEState) if came else (AdafactorLeaf,
+                                                    AdafactorState)
+    names = [f.name for f in dataclasses.fields(cls)]
+    return state(step=int(step), leaves=tuple(
+        cls(**{n: f32(getattr(leaf, n)) for n in names}) for leaf in leaves))

@@ -1,0 +1,132 @@
+"""Adafactor (Shazeer & Stern, 2018), one of the paper's baselines.
+
+Port of the JAX package's ``core/adafactor.py``: a rank-1 row / column
+factored second moment for matrices, ``V ~ R C / mean(R)`` (dense for the
+rest), the optional schedule ``b2_t = 1 - t^-0.8``, RMS update clipping
+over the whole leaf, an optional first moment, decoupled weight decay and
+optional relative step sizes.  :func:`adafactor` is the chain
+
+    chain(scale_by_factored_rms(cfg),
+          add_decayed_weights(wd),
+          scale_by_schedule(lr) | scale_by_relative_step(eps2),
+          scale(-1.0))
+
+The row and column means are tensor code on every device: the JAX package
+has no kernel for them either.  ``b2_t`` is a float32 power taken as the
+port's Adam takes ``b ** t`` (``adamw.float32_pow``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.adamw import float32_pow
+from repro_torch.core.factored import should_factor
+from repro_torch.core.transform import (add_decayed_weights, rms, scale,
+                                        scale_by_relative_step,
+                                        scale_by_schedule)
+from repro_torch.core.types import GradientTransformation, chain
+from repro_torch.kernels.ref import f32_one_minus
+
+
+@dataclasses.dataclass(frozen=True)
+class AdafactorConfig:
+    lr: "float | Callable" = 1e-3
+    b1: float = 0.0                  # Adafactor default: first moment off
+    b2: float = 0.999
+    b2_schedule: bool = True         # b2_t = 1 - t^decay_exponent
+    decay_exponent: float = -0.8
+    eps1: float = 1e-30              # regulariser inside the factored stats
+    eps2: float = 1e-3               # relative-step floor (only if relative)
+    clip_d: float = 1.0
+    weight_decay: float = 0.0
+    relative_step: bool = False
+    min_dim_factor: int = 128
+
+
+@dataclasses.dataclass
+class AdafactorLeaf:
+    r: Optional[torch.Tensor]     # (*batch, m) row stats  | None if dense
+    c: Optional[torch.Tensor]     # (*batch, n) col stats  | None if dense
+    v: Optional[torch.Tensor]     # dense second moment    | None if factored
+    m1: Optional[torch.Tensor]
+
+
+@dataclasses.dataclass
+class AdafactorState:
+    step: int                     # counts from 0
+    leaves: tuple                 # AdafactorLeaf per param, flatten order
+
+
+def factored_vhat(r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``outer(r, c) / mean(r)`` over the trailing axis of r and c."""
+    denom = torch.mean(r, dim=-1, keepdim=True).unsqueeze(-1)
+    return (r.unsqueeze(-1) * c.unsqueeze(-2)) / (denom + 1e-30)
+
+
+def ema_rowcol(r, c, gsq, b: float, omb: float):
+    """The row and column statistics' EMA of ``gsq`` (*batch, m, n)."""
+    return (b * r + omb * torch.mean(gsq, dim=-1),
+            b * c + omb * torch.mean(gsq, dim=-2))
+
+
+def scale_by_factored_rms(cfg: AdafactorConfig) -> GradientTransformation:
+    """Adafactor's preconditioner: factored (or dense) second moment, RMS
+    clipping and the optional first-moment EMA."""
+
+    def init(params):
+        def mk(p):
+            z = lambda shape: torch.zeros(shape, dtype=torch.float32,
+                                          device=p.device)
+            m1 = z(p.shape) if cfg.b1 > 0 else None
+            if should_factor(tuple(p.shape), cfg.min_dim_factor):
+                bd = tuple(p.shape[:-2])
+                return AdafactorLeaf(r=z(bd + (p.shape[-2],)),
+                                     c=z(bd + (p.shape[-1],)), v=None, m1=m1)
+            return AdafactorLeaf(r=None, c=None, v=z(p.shape), m1=m1)
+        return AdafactorState(step=0, leaves=tuple(
+            mk(p) for p in params.values()))
+
+    def update(grads, state: AdafactorState, params):
+        del params
+        step = state.step + 1
+        b2t = (f32_one_minus(float32_pow(step, cfg.decay_exponent))
+               if cfg.b2_schedule else cfg.b2)
+        omb2 = f32_one_minus(b2t) if cfg.b2_schedule else 1.0 - cfg.b2
+        outs, new_leaves = {}, []
+        for (name, g), leaf in zip(grads.items(), state.leaves):
+            g32 = g.float()
+            gsq = torch.square(g32) + cfg.eps1
+            if leaf.r is not None:
+                r, c = ema_rowcol(leaf.r, leaf.c, gsq, b2t, omb2)
+                u = g32 / (torch.sqrt(factored_vhat(r, c)) + 1e-30)
+                new = AdafactorLeaf(r=r, c=c, v=None, m1=leaf.m1)
+            else:
+                v = b2t * leaf.v + omb2 * gsq
+                u = g32 / (torch.sqrt(v) + 1e-30)
+                new = AdafactorLeaf(r=None, c=None, v=v, m1=leaf.m1)
+            u = u / torch.clamp_min(rms(u) / cfg.clip_d, 1.0)
+            if leaf.m1 is not None:
+                u = cfg.b1 * leaf.m1 + (1.0 - cfg.b1) * u
+                new.m1 = u
+            outs[name] = u
+            new_leaves.append(new)
+        return outs, AdafactorState(step=step, leaves=tuple(new_leaves))
+
+    return GradientTransformation(init, update)
+
+
+def adafactor(cfg: AdafactorConfig,
+              decay_mask: Optional[Callable] = None
+              ) -> GradientTransformation:
+    """Adafactor as a chain (see module docstring)."""
+    step_stage = (scale_by_relative_step(cfg.eps2) if cfg.relative_step
+                  else scale_by_schedule(cfg.lr))
+    return chain(
+        scale_by_factored_rms(cfg),
+        add_decayed_weights(cfg.weight_decay, decay_mask),
+        step_stage,
+        scale(-1.0),
+    )

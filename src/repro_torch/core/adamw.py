@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
 from repro_torch.core.types import GradientTransformation, chain
+from repro_torch.kernels.ref import f32_one_minus
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,14 +44,19 @@ class AdamWState:
     v: dict
 
 
+def float32_pow(base: float, exponent: float) -> float:
+    """``base ** exponent`` of the two rounded to float32, taken in double
+    and rounded once to float32, as an exact Python float: what XLA's
+    float32 ``pow`` gives on the CPU (libm's ``powf`` is off by an ulp for
+    some arguments, and ``1 - b2 ** t`` magnifies that a thousandfold)."""
+    return float(np.float32(float(np.float32(base))
+                            ** float(np.float32(exponent))))
+
+
 def bias_corrections(b1: float, b2: float, step: int) -> tuple[float, float]:
-    """``(1 - b1 ** t, 1 - b2 ** t)`` in float32, as exact Python floats.
-    The float32 power is taken in double and rounded once, which is what
-    XLA's float32 ``pow`` gives on the CPU (libm's ``powf`` is off by an ulp
-    for some t, and ``1 - b2 ** t`` magnifies that a thousandfold)."""
-    one = np.float32(1.0)
-    pw = lambda b: np.float32(float(np.float32(b)) ** float(step))
-    return float(one - pw(b1)), float(one - pw(b2))
+    """``(1 - b1 ** t, 1 - b2 ** t)`` in float32, as exact Python floats."""
+    return (f32_one_minus(float32_pow(b1, step)),
+            f32_one_minus(float32_pow(b2, step)))
 
 
 def adam_leaf(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, b1: float,

@@ -24,17 +24,27 @@ update and its engineered knobs on the GPT-2 path:
     ``core/quantized.py`` and requantized after every step.  With
     ``fused_update`` they go into pass 1 as they are (dequantized in the
     kernel) and the refresh or fold takes them dequantized once; otherwise
-    they are dequantized before the step.
+    they are dequantized before the step;
+  * ``implicit``: S-RSI applies V through ``ImplicitV.mv`` / ``rmv``
+    without forming it; ||V||_F^2 comes from pass 1's ``vfro`` on the
+    fused path, else from the V the step formed, else streamed;
+  * ``warm_start``: a refresh after step 1 seeds S-RSI from the stored U
+    (the one the last fold left) and runs ``n_iter_warm`` power
+    iterations; a matrix whose stored xi exceeds ``warm_drift_xi`` keeps
+    the Gaussian sketch;
+  * ``bucketed``: factored leaves of one shape and gradient dtype run as
+    one stacked call (a singleton runs alone).
 
 Stacked ``(L, m, n)`` leaves are batched: each leaf is one batched call,
 not a loop over its matrices.  Leaves are walked in JAX's flatten order;
 leaf ``i``'s sketch at step ``t`` is drawn from a generator seeded by
 ``(seed, t, i)``, so the draws are a pure function of the step, as in the
-JAX package (whose threefry numbers the port does not reproduce).
+JAX package (whose threefry numbers the port does not reproduce).  On a
+refresh step every factored leaf's sketch is drawn, in flatten order,
+before any leaf or bucket runs.
 
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``implicit``, ``bucketed``, ``warm_start``, ``telemetry``,
-``dynamic_refresh``, ``guards``.
+``telemetry``, ``dynamic_refresh``, ``guards``.
 """
 from __future__ import annotations
 
@@ -74,8 +84,10 @@ class AdapproxConfig:
     factor_dtype: str = "float32"
     seed: int = 0
     refresh_every: int = 1                 # full S-RSI every T steps
-    warm_start: bool = False
-    bucketed: bool = False
+    warm_start: bool = False               # seed S-RSI from the stored U
+    n_iter_warm: int = 1                   # l when warm-started
+    warm_drift_xi: float = 0.5             # cold sketch above this xi
+    bucketed: bool = False                 # same-shape leaves stacked
     fused_update: bool = False             # two-pass fused elementwise tail
     telemetry: bool = False
     dynamic_refresh: bool = False
@@ -83,8 +95,7 @@ class AdapproxConfig:
     sketch: Optional[S.SketchSource] = None  # None: seeded torch normals
 
 
-_NOT_PORTED = ("implicit", "bucketed", "warm_start", "telemetry",
-               "dynamic_refresh")
+_NOT_PORTED = ("telemetry", "dynamic_refresh")
 
 
 def _check_ported(cfg: AdapproxConfig) -> None:
@@ -120,6 +131,11 @@ def _sketch_generator(seed: int, step: int, leaf: int,
     state = np.random.SeedSequence([seed, step, leaf]).generate_state(2)
     return torch.Generator(device=device).manual_seed(
         int(state[0]) << 32 | int(state[1]))
+
+
+def _drawn(draw: torch.Tensor) -> S.SketchSource:
+    """A sketch source that returns a sketch drawn beforehand."""
+    return lambda shape, generator: draw
 
 
 def _bc(s: torch.Tensor) -> torch.Tensor:
@@ -207,12 +223,13 @@ def _init_leaf(p: torch.Tensor, cfg: AdapproxConfig):
 # Factored update, batched over leading dims
 # ---------------------------------------------------------------------------
 
-def _factored_update(g, leaf: F.FactoredLeaf, step: int, generator,
-                     cfg: AdapproxConfig, r_store: int, p_eff: int,
-                     k_max_leaf: int):
+def _factored_update(g, leaf: F.FactoredLeaf, step: int,
+                     sketch: Optional[S.SketchSource], cfg: AdapproxConfig,
+                     r_store: int, p_eff: int, k_max_leaf: int):
     """One step of a factored leaf.  ``leaf.q`` / ``leaf.u`` are fp32, or
     int8 :class:`QuantizedMatrix` factors on the fused path (pass 1 takes
-    them as they are; the refresh or fold takes them dequantized once)."""
+    them as they are; the refresh or fold takes them dequantized once).
+    ``sketch`` returns this step's Gaussian sketch on refresh steps."""
     q, u, k, xi_prev, m1 = leaf.q, leaf.u, leaf.k, leaf.xi, leaf.m1
     g32 = g.float()
     q32, u32 = ((QZ.dequantize(q), QZ.dequantize(u))
@@ -224,20 +241,37 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int, generator,
     vmat = (None if cfg.fused_update or cfg.use_kernels
             else v_op.materialize())
 
-    yfold = None
+    refresh = cfg.refresh_every <= 1 or _refresh_pred(step, cfg.refresh_every)
+    yfold = vfro = None
     if cfg.fused_update:
         need_guid = cfg.b1 > 0 and cfg.guidance != "off"
-        # Pass 1 also emits the fold projection (G^2)^T Q from the G tiles
-        # it already holds; it is computed every step and discarded on
-        # refresh steps, as in the JAX package.
-        (u_hat_raw, _, usq, m1dot, m1sq, yfold) = ops.fused_precond(
+        # On fold steps pass 1 also emits the fold projection (G^2)^T Q
+        # from the G tiles it already holds (past ``R_MAX`` columns the
+        # dispatch takes it from sq_matmul_t).  The JAX package computes it
+        # every step and drops it on refresh steps, where it is not used.
+        (u_hat_raw, vfro, usq, m1dot, m1sq, yfold) = ops.fused_precond(
             q, u, g32, cfg.b2, cfg.eps, m1=m1 if need_guid else None,
-            with_vfro=False, with_fold=cfg.refresh_every > 1)
+            with_vfro=cfg.implicit, with_fold=not refresh)
 
-    if cfg.refresh_every <= 1 or _refresh_pred(step, cfg.refresh_every):
-        vm = vmat if vmat is not None else v_op.materialize()
-        sketch = cfg.sketch or S.torch_normal(g.device)
-        res = S.srsi_dense(vm, r_store, p_eff, cfg.n_iter, sketch, generator)
+    if refresh:
+        # Step 1 has no subspace to inherit and runs cold; the drift guard
+        # is per matrix of a stacked leaf.
+        warm = cfg.warm_start and step != 1
+        n_it = cfg.n_iter_warm if warm else cfg.n_iter
+        u0 = u32 if warm else None
+        use_warm = xi_prev <= cfg.warm_drift_xi if warm else None
+        if cfg.implicit:
+            # ||V||_F^2 from pass 1, or from the V formed above; else the
+            # streaming frob_sq
+            fs = vfro
+            if fs is None and vmat is not None:
+                fs = torch.sum(torch.square(vmat), dim=(-2, -1))
+            res = S.srsi_implicit(v_op, r_store, p_eff, n_it, sketch,
+                                  frob_sq=fs, u0=u0, use_warm=use_warm)
+        else:
+            vm = vmat if vmat is not None else v_op.materialize()
+            res = S.srsi_dense(vm, r_store, p_eff, n_it, sketch, u0=u0,
+                               use_warm=use_warm)
         k_new = R.select_rank(res.cum_energy, res.frob_sq, cfg.rank,
                               k_max_leaf, step,
                               torch.clamp_max(k, k_max_leaf),
@@ -294,24 +328,64 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int, generator,
     return m_out, F.FactoredLeaf(q=q_new, u=u_new, k=k_new, xi=xi, m1=m1_new)
 
 
+def _r_store(leaf: F.FactoredLeaf) -> int:
+    return (leaf.q.q8 if isinstance(leaf.q, QZ.QuantizedMatrix)
+            else leaf.q).shape[-1]
+
+
 def _update_factored(g, leaf: F.FactoredLeaf, shape: tuple, step: int,
-                     generator, cfg: AdapproxConfig):
+                     sketch: Optional[S.SketchSource], cfg: AdapproxConfig):
     """A factored leaf's step around :func:`_factored_update`: int8 factors
-    are dequantized first unless the fused pass 1 takes them as they are,
-    and requantized after the step, on fold steps too."""
+    are dequantized first unless the fused pass 1 takes them as they are;
+    they are requantized after the step, on fold steps too.  ``shape`` is the
+    parameter's, or a bucket's stacked shape.  Returns ``(m_out,
+    new_leaf)``, the new factors fp32: the caller requantizes int8 ones
+    (:func:`_requant`), per leaf of a bucket."""
     int8 = cfg.factor_dtype == "int8"
     if int8 and not cfg.fused_update:
         leaf = dataclasses.replace(leaf, q=QZ.dequantize(leaf.q),
                                    u=QZ.dequantize(leaf.u))
-    r_store = (leaf.q.q8 if isinstance(leaf.q, QZ.QuantizedMatrix)
-               else leaf.q).shape[-1]
+    r_store = _r_store(leaf)
     p_eff, k_max_leaf = _leaf_meta(shape, r_store, cfg)
-    m_out, nl = _factored_update(g, leaf, step, generator, cfg, r_store,
-                                 p_eff, k_max_leaf)
-    if int8:
-        q, u = QZ.quantize_tree_factors(nl.q, nl.u)
-        nl = dataclasses.replace(nl, q=q, u=u)
-    return m_out, nl
+    return _factored_update(g, leaf, step, sketch, cfg, r_store, p_eff,
+                            k_max_leaf)
+
+
+def _requant(nl: F.FactoredLeaf, cfg: AdapproxConfig) -> F.FactoredLeaf:
+    if cfg.factor_dtype != "int8":
+        return nl
+    q, u = QZ.quantize_tree_factors(nl.q, nl.u)
+    return dataclasses.replace(nl, q=q, u=u)
+
+
+def _stack(xs: list):
+    """Stack same-shaped leaf fields along a new leading axis (int8
+    factors field by field); None stays None."""
+    if xs[0] is None:
+        return None
+    if isinstance(xs[0], QZ.QuantizedMatrix):
+        return QZ.QuantizedMatrix(*(torch.stack(f) for f in zip(*xs)))
+    return torch.stack(xs)
+
+
+def _update_bucket(gs: list, leaves: list, shape: tuple, step: int,
+                   draws: Optional[list], cfg: AdapproxConfig) -> list:
+    """One stacked step for a bucket of same-signature factored leaves:
+    their gradients, state and (on refresh steps) their sketches, each
+    drawn from its own leaf's generator, stack along a new leading axis,
+    so every slice sees the per-leaf arithmetic, batched.  Returns
+    ``[(m_out, new_leaf)]`` in the bucket's order."""
+    stacked = F.FactoredLeaf(
+        **{f.name: _stack([getattr(leaf, f.name) for leaf in leaves])
+           for f in dataclasses.fields(F.FactoredLeaf)})
+    sketch = None if draws is None else _drawn(torch.stack(draws))
+    m_out, nl = _update_factored(torch.stack(gs), stacked,
+                                 (len(leaves),) + tuple(shape), step, sketch,
+                                 cfg)
+    return [(m_out[j], _requant(F.FactoredLeaf(
+        q=nl.q[j], u=nl.u[j], k=nl.k[j], xi=nl.xi[j],
+        m1=None if nl.m1 is None else nl.m1[j]), cfg))
+        for j in range(len(leaves))]
 
 
 def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
@@ -357,18 +431,48 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
 
     def update(grads, state: AdapproxState, params):
         step = state.step + 1              # paper counts from t = 1
-        outs, new_leaves = {}, []
-        for i, ((name, w), leaf) in enumerate(zip(params.items(),
-                                                  state.leaves)):
-            g = grads[name]
-            if isinstance(leaf, F.FactoredLeaf):
-                outs[name], nl = _update_factored(
-                    g, leaf, tuple(w.shape), step,
-                    _sketch_generator(cfg.seed, step, i, g.device), cfg)
+        names = list(params)
+        shapes = [tuple(w.shape) for w in params.values()]
+        fact = [i for i, leaf in enumerate(state.leaves)
+                if isinstance(leaf, F.FactoredLeaf)]
+        draws = {}
+        if cfg.refresh_every <= 1 or _refresh_pred(step, cfg.refresh_every):
+            for i in fact:
+                g, leaf = grads[names[i]], state.leaves[i]
+                r = _r_store(leaf)
+                p_eff, _ = _leaf_meta(shapes[i], r, cfg)
+                draw = (cfg.sketch or S.torch_normal(g.device))(
+                    F.batch_dims(shapes[i]) + (shapes[i][-1], r + p_eff),
+                    _sketch_generator(cfg.seed, step, i, g.device))
+                draws[i] = draw.to(device=g.device, dtype=torch.float32)
+        outs, new_leaves = [None] * len(names), [None] * len(names)
+        buckets: dict = {}
+        for i, leaf in enumerate(state.leaves):
+            g = grads[names[i]]
+            if not isinstance(leaf, F.FactoredLeaf):
+                outs[i], new_leaves[i] = _update_dense(g, leaf, cfg)
+            elif cfg.bucketed:
+                buckets.setdefault(F.leaf_signature(shapes[i], g.dtype),
+                                   []).append(i)
             else:
-                outs[name], nl = _update_dense(g, leaf, cfg)
-            new_leaves.append(nl)
-        return outs, AdapproxState(step=step, leaves=tuple(new_leaves))
+                buckets[i] = [i]
+        for idxs in buckets.values():
+            if len(idxs) == 1:
+                i = idxs[0]
+                sketch = _drawn(draws[i]) if i in draws else None
+                m_out, nl = _update_factored(grads[names[i]],
+                                             state.leaves[i], shapes[i],
+                                             step, sketch, cfg)
+                outs[i], new_leaves[i] = m_out, _requant(nl, cfg)
+                continue
+            res = _update_bucket(
+                [grads[names[i]] for i in idxs],
+                [state.leaves[i] for i in idxs], shapes[idxs[0]], step,
+                [draws[i] for i in idxs] if draws else None, cfg)
+            for i, (m_out, nl) in zip(idxs, res):
+                outs[i], new_leaves[i] = m_out, nl
+        return (dict(zip(names, outs)),
+                AdapproxState(step=step, leaves=tuple(new_leaves)))
 
     return GradientTransformation(init, update)
 

@@ -1,9 +1,11 @@
 """``build_optimizer(OptimizerConfig)``: the one optimizer-construction path
 of the port.  Lowers the config to the documented chains
 
-    adapprox : scale_by_adapprox -> +wd*W -> *lr_t -> *(-1)
-    adamw    : scale_by_adam     -> +wd*W -> *lr_t -> *(-1)
-    sketch   : scale_by_sketch   -> +wd*W -> *lr_t -> *(-1)
+    adapprox : scale_by_adapprox     -> +wd*W -> *lr_t -> *(-1)
+    adamw    : scale_by_adam         -> +wd*W -> *lr_t -> *(-1)
+    adafactor: scale_by_factored_rms -> +wd*W -> *lr_t | *alpha_t -> *(-1)
+    came     : scale_by_came         -> +wd*W -> *lr_t -> *(-1)
+    sketch   : scale_by_sketch       -> +wd*W -> *lr_t -> *(-1)
 
 ``cfg.groups`` lowers to :func:`repro_torch.core.transform.partition`:
 each ``(label, GroupSpec)`` pair becomes its own chain (the group's family,
@@ -13,16 +15,17 @@ group whose ``select`` matches.  The launcher's default,
 ``default_mixed_groups()``, runs the count-min sketch on embedding tables,
 Adapprox on factorable matrices and dense Adam on the rest.
 
-The ``adafactor`` and ``came`` families and guards are not ported yet and
-raise.
+Guards are not ported yet and raise.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 from repro_torch.config import GroupSpec, OptimizerConfig
+from repro_torch.core.adafactor import AdafactorConfig, scale_by_factored_rms
 from repro_torch.core.adamw import scale_by_adam
 from repro_torch.core.adapprox import AdapproxConfig, scale_by_adapprox
+from repro_torch.core.came import CAMEConfig, scale_by_came
 from repro_torch.core.factored import should_factor
 from repro_torch.core.rank import RankConfig
 from repro_torch.core.sketch import (SketchConfig, scale_by_sketch,
@@ -30,6 +33,7 @@ from repro_torch.core.sketch import (SketchConfig, scale_by_sketch,
 from repro_torch.core.srsi import SketchSource
 from repro_torch.core.transform import (add_decayed_weights, partition,
                                         resolve_decay_mask, scale,
+                                        scale_by_relative_step,
                                         scale_by_schedule)
 from repro_torch.core.types import (GradientTransformation, Schedule, chain,
                                     constant_schedule)
@@ -61,7 +65,8 @@ def _preconditioner(cfg: OptimizerConfig, name: str, sched: Callable,
             factor_dtype=("int8" if cfg.quantize_factors
                           else cfg.factor_dtype),
             seed=cfg.seed, refresh_every=cfg.refresh_every,
-            warm_start=cfg.warm_start, bucketed=cfg.bucketed,
+            warm_start=cfg.warm_start, n_iter_warm=cfg.n_iter_warm,
+            warm_drift_xi=cfg.warm_drift_xi, bucketed=cfg.bucketed,
             fused_update=cfg.fused_update, telemetry=cfg.telemetry,
             dynamic_refresh=cfg.dynamic_refresh, sketch=sketch))
     if name == "adamw":
@@ -72,11 +77,17 @@ def _preconditioner(cfg: OptimizerConfig, name: str, sched: Callable,
             weight_decay=cfg.weight_decay, depth=cfg.sketch_depth,
             width=cfg.sketch_width, min_rows=cfg.embedding_min_rows,
             seed=cfg.seed, telemetry=cfg.telemetry))
-    if name in ("adafactor", "came"):
-        raise NotImplementedError(
-            f"optimizer family {name!r} is not ported to PyTorch yet; the "
-            f"port builds 'adapprox', 'adamw' and 'sketch' (see ROADMAP.md "
-            f"Queue A)")
+    if name == "adafactor":
+        return scale_by_factored_rms(AdafactorConfig(
+            lr=sched, b1=cfg.b1, b2=cfg.b2, b2_schedule=cfg.b2_schedule,
+            clip_d=cfg.clip_d, weight_decay=cfg.weight_decay,
+            relative_step=cfg.relative_step,
+            min_dim_factor=cfg.min_dim_factor))
+    if name == "came":
+        return scale_by_came(CAMEConfig(
+            lr=sched, b1=cfg.b1, b2=cfg.b2, b3=cfg.b3, clip_d=cfg.clip_d,
+            weight_decay=cfg.weight_decay,
+            min_dim_factor=cfg.min_dim_factor))
     raise ValueError(f"unknown optimizer {name!r}; "
                      f"available: adapprox, adamw, adafactor, came, sketch")
 
@@ -84,11 +95,16 @@ def _preconditioner(cfg: OptimizerConfig, name: str, sched: Callable,
 def _chain_for(cfg: OptimizerConfig, name: str, sched: Callable, mask,
                sketch: Optional[SketchSource],
                lr_scale: float = 1.0) -> GradientTransformation:
-    """preconditioner -> +wd*W -> *lr_t -> *(-1)."""
+    """preconditioner -> +wd*W -> *lr_t -> *(-1); Adafactor with
+    ``relative_step`` scales by its relative step size instead of lr_t."""
+    if name == "adafactor" and cfg.relative_step:
+        step_stage = scale_by_relative_step(lr_scale=lr_scale)
+    else:
+        step_stage = scale_by_schedule(sched, lr_scale=lr_scale)
     return chain(
         _preconditioner(cfg, name, sched, sketch),
         add_decayed_weights(cfg.weight_decay, mask),
-        scale_by_schedule(sched, lr_scale=lr_scale),
+        step_stage,
         scale(-1.0),
     )
 

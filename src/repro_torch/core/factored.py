@@ -47,3 +47,10 @@ def should_factor(shape: tuple[int, ...], min_dim: int) -> bool:
 
 def batch_dims(shape: tuple[int, ...]) -> tuple[int, ...]:
     return tuple(shape[:-2])
+
+
+def leaf_signature(shape: tuple[int, ...], g_dtype: torch.dtype) -> tuple:
+    """Bucketing key of a factored leaf: two leaves can run as one stacked
+    call iff their shapes (batch dims included) and gradient dtypes
+    agree; r_store, the oversample and k_max follow from the shape."""
+    return (tuple(shape), str(g_dtype).removeprefix("torch."))

@@ -17,6 +17,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.rank import xi_of_k
+
 SketchSource = Callable[[tuple, Optional[torch.Generator]], torch.Tensor]
 
 
@@ -84,13 +86,33 @@ def cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
 class ImplicitV(NamedTuple):
     """``V = b2 * (Q U^T) + (1 - b2) * G * G`` over (*batch, ...) factors,
     with ``b2`` a float32 scalar and ``col_mask`` (r,) selecting the active
-    factor columns."""
+    factor columns.  ``mv`` / ``rmv`` apply V without forming it, so the
+    implicit S-RSI runs in O((m + n) r) memory beside G."""
 
     q: torch.Tensor
     u: torch.Tensor
     g: torch.Tensor
     b2: torch.Tensor
     col_mask: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.g.shape)
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        """V @ x for x (*batch, n, s)."""
+        g32 = self.g.float()
+        qm = self.q * self.col_mask
+        low = qm @ (self.u.transpose(-1, -2) @ x)
+        return self.b2 * low + (1.0 - self.b2) * ((g32 * g32) @ x)
+
+    def rmv(self, y: torch.Tensor) -> torch.Tensor:
+        """V^T @ y for y (*batch, m, s); V is not symmetric."""
+        g32 = self.g.float()
+        um = self.u * self.col_mask
+        low = um @ (self.q.transpose(-1, -2) @ y)
+        return self.b2 * low + (1.0 - self.b2) * (
+            (g32 * g32).transpose(-1, -2) @ y)
 
     def materialize(self) -> torch.Tensor:
         """Clamp the low-rank term (not the sum) at zero before adding the
@@ -99,6 +121,23 @@ class ImplicitV(NamedTuple):
         qm = self.q * self.col_mask
         low = torch.clamp_min(qm @ self.u.transpose(-1, -2), 0.0)
         return self.b2 * low + (1.0 - self.b2) * g32 * g32
+
+    def frob_sq(self, row_tile: int = 512) -> torch.Tensor:
+        """||V||_F^2 per matrix, (*batch,), streamed over ``row_tile``-row
+        slabs of Q and G, so no more than (row_tile, n) of V exists at a
+        time; the clamp is applied slab by slab."""
+        g32 = self.g.float()
+        qm = self.q * self.col_mask
+        ut = self.u.transpose(-1, -2)
+        total = None
+        for r0 in range(0, g32.shape[-2], row_tile):
+            gb = g32[..., r0:r0 + row_tile, :]
+            v = (self.b2 * torch.clamp_min(qm[..., r0:r0 + row_tile, :] @ ut,
+                                           0.0)
+                 + (1.0 - self.b2) * gb * gb)
+            part = torch.sum(torch.square(v), dim=(-2, -1))
+            total = part if total is None else total + part
+        return total
 
 
 def make_implicit_v(q, u, g, b2, col_mask=None) -> ImplicitV:
@@ -121,25 +160,47 @@ class SRSIResult(NamedTuple):
     frob_sq: torch.Tensor      # (*batch,) ||A||_F^2
 
 
-def _srsi_core(a: torch.Tensor, frob_sq: torch.Tensor, r_store: int,
-               oversample: int, n_iter: int, sketch: SketchSource,
-               generator: Optional[torch.Generator]) -> SRSIResult:
+def _srsi_core(matmul_a: Callable[[torch.Tensor], torch.Tensor],
+               matmul_at: Callable[[torch.Tensor], torch.Tensor],
+               frob_sq: torch.Tensor, n: int, r_store: int, oversample: int,
+               n_iter: int, sketch: SketchSource,
+               generator: Optional[torch.Generator],
+               u0: Optional[torch.Tensor] = None,
+               use_warm: Optional[torch.Tensor] = None) -> SRSIResult:
     """l rounds of  Q <- orth(A U); U <- A^T Q  on A / ||A||_F, sampling
     ``r_store + oversample`` Gaussian columns and truncating to
-    ``r_store``.  Outputs are rescaled to A's units."""
-    bd = tuple(a.shape[:-2])
-    n = a.shape[-1]
+    ``r_store``; ``matmul_a(x (*batch, n, s)) -> (*batch, m, s)`` and
+    ``matmul_at(y (*batch, m, s)) -> (*batch, n, s)`` apply A.  Outputs
+    are rescaled to A's units.
+
+    Warm start: ``u0`` (*batch, n, r_store) seeds the first ``r_store``
+    sketch columns in place of the Gaussian ones, except its all-zero
+    columns, which keep their Gaussian column; the ``oversample`` columns
+    are always fresh.  ``use_warm`` (*batch,) bool keeps the Gaussian
+    sketch for the matrices where it is false (the caller's drift
+    guard).  The Gaussian sketch is drawn either way, so the draws are
+    the same whether or not the warm seed is taken."""
+    bd = tuple(frob_sq.shape)
+    want = bd + (n, r_store + oversample)
+    u = sketch(want, generator)
+    if tuple(u.shape) != want:
+        raise ValueError(f"sketch source returned shape {tuple(u.shape)}, "
+                         f"expected {want}")
+    u = u.to(device=frob_sq.device, dtype=torch.float32)
+    if u0 is not None:
+        r_warm = u0.shape[-1]
+        u032 = u0.float()
+        col_ok = (torch.sum(torch.square(u032), dim=-2) > 0.0).unsqueeze(-2)
+        warm = torch.cat([torch.where(col_ok, u032, u[..., :r_warm]),
+                          u[..., r_warm:]], dim=-1)
+        if use_warm is not None:
+            warm = torch.where(use_warm.reshape(bd + (1, 1)), warm, u)
+        u = warm
     scale = torch.sqrt(frob_sq) + 1e-30
     inv = (1.0 / scale).reshape(bd + (1, 1))
-    u = sketch(bd + (n, r_store + oversample), generator)
-    if tuple(u.shape) != bd + (n, r_store + oversample):
-        raise ValueError(f"sketch source returned shape {tuple(u.shape)}, "
-                         f"expected {bd + (n, r_store + oversample)}")
-    u = u.to(device=a.device, dtype=torch.float32)
-    at = a.transpose(-1, -2)
     for _ in range(n_iter):
-        q = cholesky_qr2((a @ u) * inv)
-        u = (at @ q) * inv
+        q = cholesky_qr2(matmul_a(u) * inv)
+        u = matmul_at(q) * inv
     q = q[..., :r_store]
     u = u[..., :r_store] * scale.reshape(bd + (1, 1))
     col_energy = torch.sum(torch.square(u * inv), dim=-2)
@@ -149,11 +210,48 @@ def _srsi_core(a: torch.Tensor, frob_sq: torch.Tensor, r_store: int,
 
 def srsi_dense(a: torch.Tensor, r_store: int, oversample: int, n_iter: int,
                sketch: SketchSource,
-               generator: Optional[torch.Generator] = None) -> SRSIResult:
-    """Paper-faithful S-RSI on explicit targets ``a: (*batch, m, n)``."""
+               generator: Optional[torch.Generator] = None,
+               u0: Optional[torch.Tensor] = None,
+               use_warm: Optional[torch.Tensor] = None) -> SRSIResult:
+    """Paper-faithful S-RSI on explicit targets ``a: (*batch, m, n)``;
+    ``u0`` / ``use_warm``: the warm start of :func:`_srsi_core`."""
     a32 = a.float()
-    return _srsi_core(a32, torch.sum(torch.square(a32), dim=(-2, -1)),
-                      r_store, oversample, n_iter, sketch, generator)
+    at = a32.transpose(-1, -2)
+    return _srsi_core(lambda x: a32 @ x, lambda y: at @ y,
+                      torch.sum(torch.square(a32), dim=(-2, -1)),
+                      a.shape[-1], r_store, oversample, n_iter, sketch,
+                      generator, u0=u0, use_warm=use_warm)
+
+
+def srsi_implicit(v: ImplicitV, r_store: int, oversample: int, n_iter: int,
+                  sketch: SketchSource,
+                  generator: Optional[torch.Generator] = None,
+                  frob_sq: Optional[torch.Tensor] = None,
+                  u0: Optional[torch.Tensor] = None,
+                  use_warm: Optional[torch.Tensor] = None) -> SRSIResult:
+    """S-RSI on the implicit operator: V is never formed (the streaming
+    ``frob_sq`` runs unless the caller has ||V||_F^2 already)."""
+    if frob_sq is None:
+        frob_sq = v.frob_sq()
+    return _srsi_core(v.mv, v.rmv, frob_sq, v.shape[-1], r_store,
+                      oversample, n_iter, sketch, generator, u0=u0,
+                      use_warm=use_warm)
+
+
+def reconstruct(q: torch.Tensor, u: torch.Tensor,
+                col_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``Q diag(mask) U^T`` clamped at zero."""
+    q32 = q.float()
+    if col_mask is not None:
+        q32 = q32 * col_mask.unsqueeze(-2)
+    return torch.clamp_min(q32 @ u.float().transpose(-1, -2), 0.0)
+
+
+def approx_error_rate(res: SRSIResult, k: torch.Tensor) -> torch.Tensor:
+    """xi(k) = ||A - Q_k U_k^T||_F / ||A||_F by the projection identity
+    ||A - Q_k Q_k^T A||_F^2 = ||A||_F^2 - ||Q_k^T A||_F^2, per matrix;
+    CholeskyQR3's ~1e-6 orthonormality error puts its floor near 1e-3."""
+    return xi_of_k(res.cum_energy, res.frob_sq, k)
 
 
 def col_mask(r_store: int, k: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import torch
+
 from repro_torch.core.types import (EmptyState, GradientTransformation,
                                     resolve_schedule)
 
@@ -80,6 +82,23 @@ def add_decayed_weights(weight_decay: float,
     return GradientTransformation(_empty_init, update)
 
 
+def rms(x: torch.Tensor) -> torch.Tensor:
+    """RMS over every entry of a leaf, as ``sqrt(mean(x^2) + 1e-30)``."""
+    return torch.sqrt(torch.mean(torch.square(x)) + 1e-30)
+
+
+def clip_update_rms(d: float) -> GradientTransformation:
+    """Per-leaf RMS clipping ``u <- u / max(1, RMS(u) / d)`` (Shazeer &
+    Stern), by division."""
+
+    def update(updates, state, params):
+        del params
+        return {k: u / torch.clamp_min(rms(u) / d, 1.0)
+                for k, u in updates.items()}, state
+
+    return GradientTransformation(_empty_init, update)
+
+
 def scale_by_schedule(schedule: "float | Callable",
                       lr_scale: float = 1.0) -> GradientTransformation:
     """Multiply updates by ``schedule(t)`` with ``t`` counting from 1.
@@ -101,6 +120,33 @@ def scale_by_schedule(schedule: "float | Callable",
         lr = float(lr)               # exact as a double
         return ({k: u * lr for k, u in updates.items()},
                 CountState(count=count))
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_relative_step(eps2: float = 1e-3,
+                           lr_scale: float = 1.0) -> GradientTransformation:
+    """Adafactor's relative step size, per leaf
+    ``alpha_t = max(eps2, RMS(W)) * min(1e-2, 1 / sqrt(t))`` with ``t``
+    counting from 1, in float32; it takes the place of
+    :func:`scale_by_schedule` when ``relative_step`` is set."""
+
+    def init(params):
+        del params
+        return CountState(count=0)
+
+    def update(updates, state, params):
+        count = state.count + 1
+        t = torch.tensor(float(count), dtype=torch.float32)
+        rho = torch.clamp_max(1.0 / torch.sqrt(t), 1e-2)
+        if lr_scale != 1.0:
+            rho = rho * lr_scale
+        out = {}
+        for k, u in updates.items():
+            alpha = torch.clamp_min(rms(params[k].float()), eps2) \
+                * rho.to(u.device)
+            out[k] = u * alpha
+        return out, CountState(count=count)
 
     return GradientTransformation(init, update)
 

@@ -46,7 +46,9 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 
 @torch.no_grad()
 def apply_updates(params: Params, updates: Params) -> None:
-    """``params += updates`` in place (the master copies are fp32)."""
+    """``params += updates`` in place, the update cast to the parameter's
+    dtype first, as the JAX package's ``p + u.astype(p.dtype)``: fp32
+    master copies by default, bf16 under ``param_dtype="bfloat16"``."""
     for k, p in params.items():
         p.add_(updates[k].to(p.dtype))
 
@@ -86,6 +88,23 @@ def tree_nbytes(tree) -> int:
 def global_norm(tree: Params) -> torch.Tensor:
     sq = [torch.sum(torch.square(x.float())) for x in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """Scale every gradient by ``min(1, max_norm / (||g||_2 + 1e-12))``,
+    the norm over all leaves together."""
+
+    def init(params):
+        del params
+        return EmptyState()
+
+    def update(grads, state, params):
+        del params
+        norm = global_norm(grads)
+        s = torch.clamp_max(max_norm / (norm + 1e-12), 1.0)
+        return {k: g * s for k, g in grads.items()}, state
+
+    return GradientTransformation(init, update)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,7 +34,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_update.cu"
 BM = 64                 # rows of one pass-1 tile (csrc BM)
 BN = 128                # columns owned by one pass-1 block (csrc BN)
 R_ALIGN = 16            # pass 1 takes r in multiples of 16
-R_MAX = 128             # with the fold: its N, Q^T staged whole (csrc)
+R_MAX = 128             # with the fold: its N, Q^T staged whole (csrc);
+                        # ops.fused_precond takes wider folds from B3
 APPLY_THREADS = 256     # threads of a pass-2 block (csrc APPLY_THREADS)
 
 # Launch counts per kernel, for showing that a run went through them.
@@ -114,6 +115,8 @@ def fused_precond(q, u, g: torch.Tensor, b2: float, eps: float,
         raise ValueError(f"q: expected (batch, m, r), got {tuple(q0.shape)}")
     bsz, m, r = q0.shape
     n = g.shape[-1]
+    # ops.fused_precond never asks for a fold wider than R_MAX: it runs
+    # pass 1 without it and the fold through sq_matmul_t (ops.fold_in_pass1)
     if r % R_ALIGN or (with_fold and r > R_MAX):
         raise ValueError(f"r = {r}: pass 1 takes a multiple of {R_ALIGN}, "
                          f"with the fold up to {R_MAX}")

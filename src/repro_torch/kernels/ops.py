@@ -42,6 +42,16 @@ def _rpad(t: torch.Tensor, r_align: int) -> torch.Tensor:
     return F.pad(t, (0, pad)) if pad else t
 
 
+def fold_in_pass1(r: int) -> bool:
+    """Whether pass 1 computes the fold (G^2)^T Q itself at factor width
+    ``r``: up to ``fused_update.R_MAX`` once r is padded to 16.  Wider
+    factors (the paper's k_max = min(m, n) / 4 gives r = 192 on GPT-2
+    117M's block matrices and 256 on Mamba2-370m's) take the fold from
+    the square-and-matmul kernel instead, see :func:`fused_precond`."""
+    from repro_torch.kernels import fused_update as K
+    return -(-r // K.R_ALIGN) * K.R_ALIGN <= K.R_MAX
+
+
 def fused_precond(q, u, g: torch.Tensor, b2: float, eps: float,
                   m1: torch.Tensor | None = None, with_vfro: bool = True,
                   with_fold: bool = False):
@@ -52,7 +62,15 @@ def fused_precond(q, u, g: torch.Tensor, b2: float, eps: float,
     of the kernel dequantizes them as it loads them.  Returns ``(u_hat,
     vfro, usq, m1dot, m1sq, yfold)``; vfro is None unless ``with_vfro``,
     m1dot / m1sq are None without ``m1``, yfold is None unless
-    ``with_fold``."""
+    ``with_fold``.
+
+    On the card the fold is pass 1's rider while :func:`fold_in_pass1`
+    holds.  Past it (pass 1 stages Q^T whole in shared memory and would
+    refuse the width), pass 1 runs without the fold and the fold is
+    ``sq_matmul_t(G, Q)``, the square-and-matmul kernel, on Q as pass 1
+    reads it (int8 factors dequantized once): the product the JAX
+    package's unfused and use_kernels branches compute, at the cost of a
+    second read of G."""
     quant = isinstance(q, QuantizedMatrix)
     if not _on_cuda(g):
         if quant:
@@ -68,14 +86,19 @@ def fused_precond(q, u, g: torch.Tensor, b2: float, eps: float,
     else:
         r = q.shape[-1]
         qp, up = (_flat(_rpad(f.float(), K.R_ALIGN)) for f in (q, u))
+    rider = with_fold and fold_in_pass1(r)
     out, sums, yfold = K.fused_precond(
         qp, up, _flat(g.float()), b2, eps,
-        m1=None if m1 is None else _flat(m1.float()), with_fold=with_fold)
+        m1=None if m1 is None else _flat(m1.float()), with_fold=rider)
     col = lambda i: sums[:, i].reshape(bd)
+    if rider:
+        yfold = yfold[..., :r].reshape(bd + (n, r))
+    elif with_fold:
+        yfold = sq_matmul_t(g, dequantize(q) if quant else q)
     return (out.reshape(bd + (m, n)),
             col(0) if with_vfro else None, col(1),
             None if m1 is None else col(2), None if m1 is None else col(3),
-            None if yfold is None else yfold[..., :r].reshape(bd + (n, r)))
+            yfold)
 
 
 def lowrank_update(q: torch.Tensor, u: torch.Tensor, g: torch.Tensor,

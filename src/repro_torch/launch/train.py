@@ -10,9 +10,12 @@ it raises.  As in the JAX launcher, ``--optimizer adapprox`` runs the mixed
 groups by default (count-min sketch on embedding tables, Adapprox on
 matrices, dense Adam on the rest); ``--no-mixed-groups`` puts Adapprox on
 every matrix; ``--quantize-factors`` stores the Adapprox factors as int8
-(``core/quantized.py``).  Flags for parts that are not ported yet raise
-when set: ``--warm-start``, ``--bucketed``, ``--mesh``, telemetry,
-tracing, guards and checkpointing (see ROADMAP.md Queue A).
+(``core/quantized.py``); ``--warm-start`` seeds each refresh's S-RSI from
+the stored factors and ``--bucketed`` runs same-shape factored leaves as
+one stacked call.  ``--optimizer adafactor`` / ``came`` / ``adamw`` run the
+baselines, without the mixed groups unless ``--mixed-groups`` is given.
+Flags for parts that are not ported yet raise when set: ``--mesh``,
+telemetry, tracing, guards and checkpointing (see ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -30,14 +33,15 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.train.train_loop import LoopConfig, train
 
 # flag -> the default it must keep until its part is ported
-_NOT_PORTED = {"warm_start": False, "bucketed": False, "mesh": None,
+_NOT_PORTED = {"mesh": None,
                "telemetry_dir": None, "auto_refresh": False,
                "guards": False, "trace_dir": None, "metrics_every": 0,
                "ckpt_dir": None}
 
 
 def optimizer_config(name: str, steps: int, lr: float,
-                     refresh_every: int = 1, fused_update: bool = False,
+                     refresh_every: int = 1, warm_start: bool = False,
+                     bucketed: bool = False, fused_update: bool = False,
                      quantize_factors: bool = False,
                      mixed_groups: bool = False, sketch_width: int = 2048,
                      sketch_depth: int = 4,
@@ -57,6 +61,7 @@ def optimizer_config(name: str, steps: int, lr: float,
                                xi_thresh=0.01, delta_s=10,
                                min_dim_factor=64, implicit=False,
                                refresh_every=refresh_every,
+                               warm_start=warm_start, bucketed=bucketed,
                                fused_update=fused_update,
                                quantize_factors=quantize_factors)
     return OptimizerConfig(**common)
@@ -140,9 +145,10 @@ def main(argv=None, *, params: Optional[dict] = None,
     model = build_model(cfg)
     opt = build_optimizer(optimizer_config(
         args.optimizer, args.steps, args.lr,
-        refresh_every=args.refresh_every, fused_update=args.fused_update,
-        quantize_factors=args.quantize_factors, mixed_groups=mixed, sketch_width=args.sketch_width,
-        sketch_depth=args.sketch_depth,
+        refresh_every=args.refresh_every, warm_start=args.warm_start,
+        bucketed=args.bucketed, fused_update=args.fused_update,
+        quantize_factors=args.quantize_factors, mixed_groups=mixed,
+        sketch_width=args.sketch_width, sketch_depth=args.sketch_depth,
         embedding_min_rows=args.embedding_min_rows), sketch=sketch)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch)

@@ -8,11 +8,36 @@ models do with ``.astype(dt)``.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
+
+_aten = torch.ops.aten
+# jax.checkpoint_policies.checkpoint_dots: keep the matmul outputs
+_DOTS = (_aten.mm.default, _aten.bmm.default, _aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(mode: str, fn: Callable, *args):
+    """``fn(*args)`` under the JAX package's ``remat`` choice: ``"none"``
+    keeps every activation for the backward, ``"full"`` keeps only the
+    inputs and recomputes the body in the backward, ``"dots"`` keeps the
+    matmul outputs and recomputes the rest."""
+    if mode == "none":
+        return fn(*args)
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def dense_init(gen: torch.Generator, shape: tuple, d_in: int,

@@ -12,7 +12,7 @@ heads: the op's head h reads group ``h // (H / G)``, as the JAX model's
 ``_expand_groups`` (``jnp.repeat``) copies them.
 
 Decode, the ``MambaCache`` and prefill belong to serving and are not
-ported yet (ROADMAP.md Queue A 14).
+ported yet (ROADMAP.md Queue A, serving).
 """
 from __future__ import annotations
 

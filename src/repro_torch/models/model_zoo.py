@@ -1,5 +1,9 @@
-"""Model registry: family -> implementation class (``build_model``)."""
+"""Model registry: family -> implementation class (``build_model``).
+A ``param_dtype`` other than float32 casts the init, so the master
+parameters (and their gradients) are kept in that dtype."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.ssm_lm import SSMLM
@@ -15,6 +19,15 @@ def build_model(cfg: ModelConfig):
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported to PyTorch yet; the "
             f"port has {sorted(_FAMILIES)} (see ROADMAP.md Queue A)") from None
+    model = cls(cfg)
     if cfg.param_dtype != "float32":
-        raise NotImplementedError("the port keeps fp32 master parameters")
-    return cls(cfg)
+        # the init is drawn in fp32 and cast once, as in the JAX package
+        dt = getattr(torch, cfg.param_dtype)
+        inner = model.init
+        model.init = lambda gen: _cast(inner(gen), dt)
+    return model
+
+
+def _cast(tree: dict, dt: torch.dtype) -> dict:
+    return {k: _cast(v, dt) if isinstance(v, dict) else v.to(dt)
+            for k, v in tree.items()}

@@ -7,7 +7,7 @@ Parameters keep the JAX tree (``embed``, ``layers.{norm,mamba}.*`` stacked
 carries the JAX parameters across unchanged; the forward walks the layers
 with a Python loop over slices of the stack, as ``TransformerLM`` does.
 The caches, prefill and decode belong to serving and are not ported yet
-(ROADMAP.md Queue A 14).
+(ROADMAP.md Queue A, serving).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.models.transformer import _slice
 def _serving(what: str):
     raise NotImplementedError(
         f"SSMLM.{what} (the Mamba2 caches, prefill and decode) is not "
-        f"ported to PyTorch yet; see ROADMAP.md Queue A 14")
+        f"ported to PyTorch yet; see ROADMAP.md Queue A, serving")
 
 
 class SSMLM(nn.Module):
@@ -48,15 +48,19 @@ class SSMLM(nn.Module):
             "lm_head": L.dense_init(gen, (d, cfg.vocab), d, scale=0.02),
         }
 
+    def _block(self, x: torch.Tensor, lp: dict) -> torch.Tensor:
+        return x + M.mamba_apply(self.cfg, lp["mamba"],
+                                 L.apply_norm(self.cfg, lp["norm"], x))
+
     def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: (B, S) int -> logits (B, S, V) in the compute dtype."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         x = params["embed"].to(dt)[tokens]
+        # any remat but "none" checkpoints the whole block, as in JAX
+        mode = "none" if cfg.remat == "none" else "full"
         for i in range(cfg.n_layers):
-            lp = _slice(params["layers"], i)
-            x = x + M.mamba_apply(cfg, lp["mamba"],
-                                  L.apply_norm(cfg, lp["norm"], x))
+            x = L.remat(mode, self._block, x, _slice(params["layers"], i))
         x = L.apply_norm(cfg, params["final_norm"], x)
         return x @ params["lm_head"].to(dt)
 

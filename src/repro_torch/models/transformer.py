@@ -2,7 +2,8 @@
 
 Block parameters are stacked ``(L, ...)`` leaves, as in the JAX package,
 so the optimizer sees the same ``(L, m, n)`` matrices; the forward walks
-the layers with a Python loop over slices of the stack.  The model holds
+the layers with a Python loop over slices of the stack, each layer's body
+under ``cfg.remat`` (``layers.remat``), as the JAX package's scan body.  The model holds
 no parameters itself: ``init`` returns a nested dict of fp32 master
 tensors and ``forward`` / ``loss`` take it, mirroring the JAX API
 (``repro_torch.convert`` loads the JAX package's parameters into it).
@@ -68,7 +69,8 @@ class TransformerLM(nn.Module):
         x = params["embed"].to(dt)[tokens]
         x = x + params["pos_embed"].to(dt)[None, :tokens.shape[1], :]
         for i in range(cfg.n_layers):
-            x = self._block(x, _slice(params["blocks"], i))
+            x = L.remat(cfg.remat, self._block, x,
+                        _slice(params["blocks"], i))
         fn = params["final_norm"]
         x = L.layer_norm(x, fn["w"], fn["b"], cfg.norm_eps)
         return x @ params["embed"].to(dt).T

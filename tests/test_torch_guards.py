@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it never falls back to the CPU, never
 silently swaps the optimizer the user asked for, refuses the parts that
-are not ported yet, and never imports JAX or the JAX package."""
+are not ported yet (and builds and steps those that are), and never
+imports JAX or the JAX package."""
 import dataclasses
 import os
 import subprocess
@@ -12,7 +13,9 @@ import torch
 
 from repro_torch.config import OptimizerConfig
 from repro_torch.core import adapprox as TA
+from repro_torch.core.adafactor import AdafactorState
 from repro_torch.core.build import build_optimizer
+from repro_torch.core.came import CAMEState
 from repro_torch.core.factored import FactoredLeaf
 from repro_torch.core.quantized import QuantizedMatrix
 from repro_torch.core.sketch import SketchConfig, scale_by_sketch
@@ -47,8 +50,7 @@ def test_mixed_groups_raise_instead_of_switching(flags):
                                            "dense"}
 
 
-@pytest.mark.parametrize("flag", [["--warm-start"], ["--bucketed"],
-                                  ["--guards"], ["--ckpt-dir", "x"],
+@pytest.mark.parametrize("flag", [["--guards"], ["--ckpt-dir", "x"],
                                   ["--mesh", "2"]])
 def test_unported_launcher_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -56,9 +58,7 @@ def test_unported_launcher_flags_raise(flag):
                       + flag)
 
 
-@pytest.mark.parametrize("knob", [dict(implicit=True), dict(bucketed=True),
-                                  dict(warm_start=True),
-                                  dict(telemetry=True),
+@pytest.mark.parametrize("knob", [dict(telemetry=True),
                                   dict(dynamic_refresh=True),
                                   dict(guards=object())])
 def test_unported_adapprox_knobs_raise(knob):
@@ -71,38 +71,73 @@ def _factored_leaves(state):
             if isinstance(leaf, FactoredLeaf)]
 
 
-@pytest.mark.parametrize("way", ["--quantize-factors", "factor_dtype",
-                                 "use_kernels"])
+def _step_twice(opt, params):
+    """Init ``opt`` on ``params`` and take two steps with fixed grads;
+    every update must be finite."""
+    state = opt.init(params)
+    for _ in range(2):
+        upd, state = opt.update({k: 1e-2 * v for k, v in params.items()},
+                                state, params)
+        assert all(bool(torch.isfinite(x).all()) for x in upd.values())
+    return state
+
+
+@pytest.mark.parametrize("way", [
+    "--quantize-factors", "factor_dtype", "use_kernels", "--warm-start",
+    "--bucketed", "implicit", "bucketed", "warm_start", "adafactor", "came",
+    "OptimizerConfig()"])
 def test_ported_knobs_build_their_state(way):
     """--quantize-factors (launcher) and factor_dtype="int8" (config) store
-    int8 factors; use_kernels builds and steps with fp32 factors.  Each
-    raised NotImplementedError until it was ported."""
-    if way == "--quantize-factors":
-        state, hist = launcher.main(SMOKE + ["--device", "cpu",
-                                             "--no-mixed-groups", way])
+    int8 factors; use_kernels, implicit, warm_start and bucketed build and
+    step with fp32 factors; --warm-start and --bucketed run in the
+    launcher; build_optimizer builds the adafactor and came families and
+    the default OptimizerConfig() (implicit=True).  Each raised
+    NotImplementedError until it was ported."""
+    if way.startswith("--"):
+        argv = SMOKE + ["--device", "cpu", "--no-mixed-groups", way]
+        if way == "--warm-start":      # step 2 is a warm refresh
+            argv[argv.index("--steps") + 1] = "2"
+        state, hist = launcher.main(argv)
         leaves = _factored_leaves(state.opt_state)
-        assert hist and all(isinstance(leaf.q, QuantizedMatrix)
-                            and isinstance(leaf.u, QuantizedMatrix)
-                            for leaf in leaves) and leaves
+        assert hist and leaves
+        if way == "--quantize-factors":
+            assert all(isinstance(leaf.q, QuantizedMatrix)
+                       and isinstance(leaf.u, QuantizedMatrix)
+                       for leaf in leaves)
+        else:
+            assert all(bool(torch.isfinite(leaf.q).all()) for leaf in leaves)
         return
-    params = {"w": torch.ones((128, 96)), "b": torch.ones(8)}
+    params = {"w": torch.ones((128, 160)), "w2": torch.ones((128, 160)),
+              "b": torch.ones(8)}
+    if way in ("adafactor", "came", "OptimizerConfig()"):
+        cfg = (OptimizerConfig() if way == "OptimizerConfig()"
+               else OptimizerConfig(name=way, min_dim_factor=64))
+        state = _step_twice(build_optimizer(cfg), params)
+        if way == "OptimizerConfig()":
+            assert cfg.implicit and len(_factored_leaves(state)) == 2
+            return
+        (sub,) = [s for s in state
+                  if isinstance(s, (AdafactorState, CAMEState))]
+        assert isinstance(sub, AdafactorState if way == "adafactor"
+                          else CAMEState)
+        assert sub.step == 2 and sub.leaves[0].r.shape == (128,)
+        return
     knob = (dict(factor_dtype="int8") if way == "factor_dtype"
-            else dict(use_kernels=True))
-    opt = TA.scale_by_adapprox(TA.AdapproxConfig(min_dim_factor=64, **knob))
-    state = opt.init(params)
-    upd, state = opt.update({k: 1e-2 * v for k, v in params.items()}, state,
-                            params)
-    (leaf,) = _factored_leaves(state)
+            else {way: True})
+    state = _step_twice(TA.scale_by_adapprox(
+        TA.AdapproxConfig(min_dim_factor=64, **knob)), params)
+    leaves = _factored_leaves(state)
     quant = way == "factor_dtype"
-    assert isinstance(leaf.q, QuantizedMatrix) == quant
-    assert (leaf.q.q8 if quant else leaf.q).dtype == (
-        torch.int8 if quant else torch.float32)
-    assert all(bool(torch.isfinite(x).all()) for x in upd.values())
+    assert len(leaves) == 2
+    for leaf in leaves:
+        assert isinstance(leaf.q, QuantizedMatrix) == quant
+        assert (leaf.q.q8 if quant else leaf.q).dtype == (
+            torch.int8 if quant else torch.float32)
 
 
-@pytest.mark.parametrize("change", [dict(name="adafactor"),
-                                    dict(name="came"),
-                                    dict(implicit=True)])
+@pytest.mark.parametrize("change", [dict(guards=True),
+                                    dict(telemetry=True),
+                                    dict(dynamic_refresh=True)])
 def test_build_optimizer_refuses_what_is_not_ported(change):
     cfg = dataclasses.replace(OptimizerConfig(implicit=False), **change)
     with pytest.raises(NotImplementedError):

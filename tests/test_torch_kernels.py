@@ -288,11 +288,15 @@ def test_pass1_kernel_arithmetic_holds_the_tolerance(m, n, r, codec):
 
 
 def test_every_factored_leaf_fits_pass1():
-    """Every factored leaf of GPT-2 117M / 345M and Mamba2-370m under the
-    launcher's optimizer (with and without the mixed groups) has a rank
-    that pass 1 takes: padded to ``R_ALIGN``, at most ``R_MAX`` (the fold's
-    sums live in shared memory).  The models are built on the meta device:
-    only shapes are read."""
+    """Every factored leaf of GPT-2 117M / 345M and Mamba2-370m takes the
+    fold route its width implies (``ops.fold_in_pass1``).  Under the
+    launcher's optimizer (with and without the mixed groups, k_max 128)
+    every rank, padded to ``R_ALIGN``, is at most ``R_MAX``: pass 1 folds.
+    Under the paper's k_max (min(m, n) / 4: ``k_max=10**9``, rank mode
+    "paper") the ranks are 192 (GPT-2 117M) and 256 (345M, Mamba2-370m),
+    past ``R_MAX``: the fold goes through ``sq_matmul_t``.  The models are
+    built on the meta device: only shapes are read."""
+    import dataclasses
     from unittest import mock
 
     from repro_torch import tree
@@ -303,16 +307,75 @@ def test_every_factored_leaf_fits_pass1():
     from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
     meta = lambda shape, **kw: torch.empty(shape, device="meta")
+    paper_r = {"gpt2-117m": 192, "gpt2-345m": 256, "mamba2-370m": 256}
     for arch in ("gpt2-117m", "gpt2-345m", "mamba2-370m"):
         with mock.patch.object(torch, "randn", meta):
             flat = tree.flatten(build_model(get_config(arch)).init(
                 torch.Generator()))
         for mixed in (False, True):
-            state = build_optimizer(optimizer_config(
+            launcher = optimizer_config(
                 "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
-                mixed_groups=mixed)).init(flat)
-            ranks = [leaf.q.shape[-1] for leaf in adapprox_state(state).leaves
-                     if isinstance(leaf, FactoredLeaf)]
-            assert ranks, (arch, mixed)
-            for r in ranks:
-                assert -(-r // K.R_ALIGN) * K.R_ALIGN <= K.R_MAX, (arch, r)
+                mixed_groups=mixed)
+            paper = dataclasses.replace(launcher, k_max=10**9)
+            for cfg in (launcher, paper):
+                state = build_optimizer(cfg).init(flat)
+                ranks = [leaf.q.shape[-1]
+                         for leaf in adapprox_state(state).leaves
+                         if isinstance(leaf, FactoredLeaf)]
+                assert ranks, (arch, mixed)
+                for r in ranks:
+                    padded = -(-r // K.R_ALIGN) * K.R_ALIGN
+                    if cfg is launcher:
+                        assert padded <= K.R_MAX and ops.fold_in_pass1(r)
+                    else:
+                        assert r == paper_r[arch], (arch, mixed, r)
+                        assert not ops.fold_in_pass1(r), (arch, r)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("r", [128, 192, 256])
+def test_wide_fold_takes_sq_matmul_t(monkeypatch, r, int8):
+    """The fold's route is chosen by width alone: with the dispatch made
+    to take the card's route (the kernels stood in for by their plain
+    versions, which record their calls), pass 1 is asked for the fold up
+    to ``R_MAX`` and, past it, runs without the fold while
+    ``sq_matmul_t`` takes G and Q (int8 factors dequantized); the
+    outputs equal the plain pass 1 with the fold."""
+    from repro_torch.kernels import srsi_matmul as SM
+    rng = np.random.default_rng(r)
+    m, n = 72, 40
+    q = torch.tensor(rng.random((2, m, r), dtype=np.float32) * 1e-5)
+    u = torch.tensor(rng.random((2, n, r), dtype=np.float32) * 1e-5)
+    g = torch.tensor(rng.standard_normal((2, m, n)).astype(np.float32)
+                     * 1e-3)
+    if int8:
+        q, u = quantize(q), quantize(u)
+    calls = []
+
+    def pass1(qp, up, g3, b2, eps, m1=None, with_fold=False):
+        calls.append(("pass1", with_fold))
+        deq = (lambda f: f if isinstance(f, torch.Tensor)
+               else dequantize(type(q)(*f)))
+        out, vfro, usq, _, _, yfold = ref.fused_precond(
+            deq(qp), deq(up), g3, b2, eps, with_fold=with_fold)
+        sums = torch.stack([vfro, usq, usq, usq], dim=-1)
+        return out, sums, yfold
+
+    def b3(g3, x3, transposed):
+        calls.append(("sq_matmul_t", transposed))
+        return ref.sq_matmul_t(g3, x3)
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(K, "fused_precond", pass1)
+    monkeypatch.setattr(SM, "sq_matmul", b3)
+    got = ops.fused_precond(q, u, g, B2, EPS, with_fold=True)
+    qd, ud = (dequantize(q), dequantize(u)) if int8 else (q, u)
+    want = ref.fused_precond(qd, ud, g, B2, EPS, with_fold=True)
+    if r <= K.R_MAX:
+        assert calls == [("pass1", True)]
+    else:
+        assert calls == [("pass1", False), ("sq_matmul_t", True)]
+    assert got[-1].shape == (2, n, r)
+    for a, b in ((got[0], want[0]), (got[-1], want[-1])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))

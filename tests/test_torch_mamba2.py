@@ -139,7 +139,7 @@ def test_launcher_mamba2_tracks_jax_launcher():
 
 def test_unported_families_and_serving_raise():
     """build_model refuses the hybrid family (zamba2); SSMLM's serving
-    entry points raise until Queue A 14 ports them."""
+    entry points raise until Queue A's serving item ports them."""
     from repro_torch.config import ModelConfig
     with pytest.raises(NotImplementedError, match="hybrid"):
         build_model(ModelConfig(arch="x", family="hybrid", n_layers=1,

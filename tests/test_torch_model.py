@@ -87,11 +87,17 @@ def test_flatten_order_is_jax_order():
 
 
 def test_unported_model_features_raise():
+    """Features of other model families raise; bf16 master parameters
+    (``param_dtype``), once among them, are ported: the init is cast."""
     cfg = get_smoke_config("gpt2-117m")
     for change in (dict(pos_embedding="rope"), dict(act="swiglu"),
-                   dict(family="moe"), dict(param_dtype="bfloat16")):
+                   dict(family="moe")):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(cfg, **change))
+    params = build_model(dataclasses.replace(cfg, param_dtype="bfloat16")
+                         ).init(torch.Generator().manual_seed(0))
+    assert {p.dtype for p in tree.flatten(params).values()} == {
+        torch.bfloat16}
 
 
 @pytest.mark.parametrize("vocab,seq,seed", [(512, 128, 0), (50_257, 1024, 3)])

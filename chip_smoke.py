@@ -36,7 +36,9 @@ sm_90a) and the CUDA toolkit.  In order, it
      int8 factors, on the use_kernels path, with attn_impl "chunked" at
      2048 tokens, and on the Mamba2 smoke model (its first step's
      gradients too); with warm start, implicit S-RSI, bucketing, the
-     paper's k_max, bf16 parameters, and for Adafactor and CAME;
+     paper's k_max, bf16 parameters, for Adafactor and CAME, and under
+     the guards with every factored leaf demoted at step 2, the guard
+     counters equal;
   5. trains GPT-2 117M at full width (12 steps, batch 8 x 1024,
      --fused-update --refresh-every 5) with the launch counters set to 0
      just before each run, and checks a finite, falling loss and the
@@ -63,7 +65,22 @@ sm_90a) and the CUDA toolkit.  In order, it
      (each layer's forward again in the backward: flash attention's and
      the SSD block's forward twice a layer), and GPT-2 117M (none,
      full, dots) and Mamba2-370m (none, full) run 4 steps for their peak
-     memory and fold step;
+     memory and fold step; then the fault-tolerant path on the mixed
+     groups with --guards: [ckpt] trains 12 steps twice (without and
+     with --ckpt-dir --ckpt-every 4), SIGTERMs a launcher subprocess once
+     step 6 is logged and relaunches it, and holds the relaunched run's
+     step 12, and the unguarded [train-mixed] run, to the straight runs
+     (bitwise if the two are bitwise equal, else within their
+     difference), checks restore(save(state)) bitwise on the card, skips
+     a bit-flipped and a truncated latest checkpoint, and prints the
+     save's and the restore's seconds and bytes; [chaos] injects NaN
+     gradients at steps 5 and 6 and Inf at 9 and holds every state
+     tensor (m1 included) bitwise across them; [guards] drives the xi
+     watchdog to a forced refresh off the cadence and the demotion of
+     every factored leaf, after which B1 and B2 launch no more, its
+     counters those of [parity-guards]' CPU run; [guards-bucketed] runs
+     the guarded launcher with --bucketed --max-demotions 2 --ckpt-dir
+     per leaf (6 calls of B1 / B2 a step, not 3);
   6. breaks a step of each run down into model and optimizer time;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
@@ -83,6 +100,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -113,6 +131,14 @@ TRAIN_WARM_ARGV = TRAIN_MIXED_ARGV + ["--warm-start", "--bucketed"]
 TRAIN_BASELINE_ARGV = [a for a in TRAIN_MIXED_ARGV
                        if a not in ("--fused-update", "--refresh-every", "5")]
 B2, EPS, B1 = 0.999, 1e-8, 0.9
+# slice 10: the launcher's mixed groups under the skip-step guard and the
+# xi watchdog, as a pretraining run is launched
+TRAIN_GUARDED_ARGV = TRAIN_MIXED_ARGV + ["--guards"]
+# the same with the watchdog's threshold above any xi (an error rate in
+# [0, 1]): the skip-step guard alone, a no-op on healthy steps
+TRAIN_GUARDED_CALM_ARGV = TRAIN_GUARDED_ARGV + ["--guard-skip-threshold", "1"]
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+
 # the smoke model's mixed groups: embed (512 rows) is sketched
 SMALL_MIXED = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)
 
@@ -136,6 +162,10 @@ TOL_MATMUL = 1e-5
 # S-RSI amplifies it; on the CPU, the same 4 steps from an init moved by
 # one ulp move the parameters by 1.1e-3 of the largest.
 TOL_PARAMS_INT8 = 1e-2
+# S-RSI on the card against the CPU at a full-width leaf (five power
+# iterations of fp32 GEMMs summed in another order): Q U^T relative to
+# its largest entry.
+TOL_SRSI = 1e-4
 # End to end on the Mamba2 smoke model, card against CPU: a sketched
 # embedding entry whose gradient cancels to ~eps (1.8e-8 against 2e-2 in
 # its row) and fills its (bucket, column) alone takes the update
@@ -314,7 +344,8 @@ def launch_counts() -> dict:
 def expected_launches(kind: str, steps: int, folds: int, n_fact: int,
                       n_leaves: int, n_sk: int, attn_layers: int = 0,
                       ssd_layers: int = 0, fwd_per_layer: int = 1,
-                      n_wide: int = 0) -> dict:
+                      n_wide: int = 0,
+                      factored_steps: int | None = None) -> dict:
     """Launches of ``steps`` train steps (``folds`` of them fold steps)
     on a path: ``fused`` and ``int8`` launch pass 1 per factored call (a
     leaf, or a bucket of same-shape leaves) and pass 2 per Adapprox call
@@ -329,7 +360,10 @@ def expected_launches(kind: str, steps: int, folds: int, n_fact: int,
     the naive path), and the SSD block, on the ``ssd_layers`` Mamba2
     layers, each backward kernel once per layer every step and the
     forward ``fwd_per_layer`` times (2 under remat, whose backward runs
-    the layer's forward again)."""
+    the layer's forward again).  ``factored_steps`` (default ``steps``):
+    the steps before the xi watchdog demoted every factored leaf, after
+    which they run the plain dense second moment and launch neither
+    pass."""
     want = dict.fromkeys(launch_counts(), 0)
     want.update(sketch_scatter=steps * n_sk, sketch_query=steps * n_sk)
     want.update(flash_fwd=steps * attn_layers * fwd_per_layer,
@@ -341,10 +375,12 @@ def expected_launches(kind: str, steps: int, folds: int, n_fact: int,
     if kind == "kernels":
         want.update(lowrank_update=steps * n_fact, sq_matmul_t=folds * n_fact)
     elif kind != "none":
-        want.update(fused_precond=steps * n_fact, fused_apply=steps * n_leaves,
+        fs = steps if factored_steps is None else factored_steps
+        want.update(fused_precond=fs * n_fact,
+                    fused_apply=fs * n_fact + steps * (n_leaves - n_fact),
                     sq_matmul_t=folds * n_wide)
         if kind == "int8":
-            want["fused_precond_int8"] = steps * n_fact
+            want["fused_precond_int8"] = fs * n_fact
     return want
 
 
@@ -833,12 +869,40 @@ def check_apply(fact, dense, device):
                      f"{rel:.3e} > {TOL_APPLY}")
             rec["max_abs_err"] = max(rec["max_abs_err"], ab)
         print(f"  fused_apply[{variant}] {name} {shape}: " + ", ".join(errs))
+        if shared and name not in dict(dense):
+            # the variant a guarded Adapprox runs (in_place=False): the
+            # new m1 into a fresh buffer, the one given left as it was
+            m1_in = m1.clone()
+            fresh = ops.fused_apply(u_hat, m1_in, denom, B1, os_, ss,
+                                    shared_out=True, in_place=False)
+            torch.cuda.synchronize()
+            if not torch.equal(m1_in, m1):
+                fail(f"fused_apply[fresh] {name}: wrote into the m1 it was "
+                     f"given")
+            if (fresh[1].data_ptr() == m1_in.data_ptr()
+                    or not torch.equal(fresh[1], got[1])):
+                fail(f"fused_apply[fresh] {name}: not bitwise the in-place "
+                     f"result in a new buffer")
+            print(f"  fused_apply[fresh] {name} {shape}: m1 untouched, "
+                  f"bitwise the in-place result")
         if shared:      # the main path's variant, timed once per leaf
             kern = lambda: ops.fused_apply(u_hat, m1_k, denom, B1, os_, ss,
                                            shared_out=True)
             plain = lambda: ref.fused_apply(u_hat, m1, denom, B1, os_, ss)
             time_pair(kern, plain, "apply_kernel", rec,
                       1e3 * 12 * math.prod(shape) / PEAK_BYTES_PER_S, name)
+            if name not in dict(dense):
+                def kern_fresh():
+                    ops.fused_apply(u_hat, m1_k, denom, B1, os_, ss,
+                                    shared_out=True, in_place=False)
+                t_in = device_ms(kern, "apply_kernel")
+                t_fr = device_ms(kern_fresh, "apply_kernel")
+                rec["fresh_ms"] = rec.get("fresh_ms", 0.0) + t_fr
+                rec["inplace_ms"] = rec.get("inplace_ms", 0.0) + t_in
+                print(f"    timing {name} under the guard (fresh m1): "
+                      f"kernel_ms {t_fr:.4f} vs in place {t_in:.4f}; stream "
+                      f"{events_ms(kern_fresh):.4f} vs "
+                      f"{events_ms(kern):.4f}")
     return rec
 
 
@@ -1289,6 +1353,186 @@ def check_ssd(device):
     return fwd_rec, bwd_rec
 
 
+@contextlib.contextmanager
+def cholesky_traced(gram_dtype=None):
+    """Within it, CholeskyQR records the ``cholesky_ex`` info of every
+    matrix of each factorization it makes (a list, one entry per call:
+    three per power iteration) and, with ``gram_dtype``, forms and factors
+    its Gram in that dtype on every device instead of the route's own
+    (``core/srsi.py::gram_dtype``)."""
+    import torch
+    from repro_torch.core import srsi as S
+    chol, wide = S._cholesky, S.gram_dtype
+    log = []
+
+    def traced(gram):
+        log.append(torch.linalg.cholesky_ex(gram)[1].reshape(-1).tolist())
+        return chol(gram)
+
+    S._cholesky = traced
+    if gram_dtype is not None:
+        S.gram_dtype = lambda device: gram_dtype
+    try:
+        yield log
+    finally:
+        S._cholesky, S.gram_dtype = chol, wide
+
+
+def failed_factorizations(log: list) -> list:
+    """``[(power iteration, pass, {matrix: info})]`` of a
+    :func:`cholesky_traced` log, for the factorizations that failed."""
+    return [(k // 3, k % 3, {j: i for j, i in enumerate(infos) if i})
+            for k, infos in enumerate(log) if any(infos)]
+
+
+SRSI_ROUTES = {"card": (True, None), "card-fp32-gram": (True, "float32"),
+               "cpu": (False, None), "cpu-fp64-gram": (False, "float64")}
+
+
+def srsi_routes(v, draw, r: int, p: int, n_it: int, routes,
+                seconds: dict | None = None):
+    """S-RSI of the stacked ``v`` with the sketch ``draw`` on each of
+    ``routes`` (names in ``SRSI_ROUTES``): ``card`` and ``cpu`` as the
+    port runs them (the Gram in float64 on the card, in float32, the JAX
+    package's arithmetic, on the CPU), ``cpu-fp64-gram``, the card's route
+    on the CPU, and ``card-fp32-gram``, the CPU's route on the card.
+    Returns ``{route: (Q U^T, xi(r), Q's mass per matrix, failed
+    factorizations)}``; each route's seconds are added into
+    ``seconds``."""
+    import torch
+    from repro_torch.core import rank as R
+    from repro_torch.core import srsi as S
+    out = {}
+    cpu = torch.device("cpu")
+    seconds = {} if seconds is None else seconds
+    for route in routes:
+        on_card, wide = SRSI_ROUTES[route]
+        dev = v.device if on_card else cpu
+        wide = None if wide is None else getattr(torch, wide)
+        t0 = time.monotonic()
+        vv = v.to(dev)
+        with cholesky_traced(wide) as log:
+            res = S.srsi_dense(vv, r, p, n_it,
+                               lambda shape, gen, d=dev: draw.to(d))
+        k = torch.full(vv.shape[:-2], r, dtype=torch.int32, device=dev)
+        out[route] = (res.q @ res.u.transpose(-1, -2),
+                      R.xi_of_k(res.cum_energy, res.frob_sq, k).cpu(),
+                      res.q.abs().sum(dim=(-2, -1)).cpu(),
+                      failed_factorizations(log))
+        seconds[route] = seconds.get(route, 0.0) + time.monotonic() - t0
+    return out
+
+
+def check_srsi(device, fact_mixed: list):
+    """S-RSI as the main path batches it on the card, on the inputs the
+    launcher's mixed groups give it: 11 steps of GPT-2 117M (``--fused-
+    update --refresh-every 5``), each factored leaf's V and sketch
+    captured at the refresh steps 6 and 11, and w_down's at step 1, each
+    run on the routes of :func:`srsi_routes`.  The card's route must
+    factor every Gram (``cholesky_ex`` info 0), leave no matrix's factors
+    zero, keep xi(r) below 1 and Q U^T within ``TOL_SRSI`` of the largest
+    entry of the same route's on the CPU, which must factor every Gram
+    too.  The float32 Gram on the card is printed beside it, and where it
+    fails, the CPU's own route (float32, the JAX package's arithmetic):
+    where their Cholesky fails, the factor is NaN, the finite mask zeroes
+    Q, and a zero Q stays zero through the later passes
+    (``core/srsi.py``)."""
+    import torch
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core import srsi as S
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import LoopConfig, train
+    names = [name for name, _, _ in fact_mixed]
+    wanted = lambda t, name: t in (6, 11) or (
+        t == 1 and name == "blocks/mlp/w_down")
+    seen = {"step": 1, "calls": 0}
+    captured = []
+    plain = S.srsi_dense
+
+    def capture(a, r_store, oversample, n_iter, sketch, generator=None,
+                **kw):
+        draws = []
+
+        def source(shape, gen):
+            draws.append(sketch(shape, gen))
+            return draws[-1]
+
+        res = plain(a, r_store, oversample, n_iter, source, generator, **kw)
+        name = names[seen["calls"] % len(names)]
+        seen["calls"] += 1
+        if wanted(seen["step"], name):
+            captured.append((seen["step"], name, a.detach().cpu(),
+                             draws[0].detach().cpu(), r_store, oversample,
+                             n_iter))
+        return res
+
+    def hook(step, metrics):
+        seen["step"] = step + 1
+
+    cfg = get_config("gpt2-117m")
+    t0 = time.monotonic()
+    S.srsi_dense = capture
+    try:
+        train(build_model(cfg), build_optimizer(optimizer_config(
+            "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
+            mixed_groups=True)),
+            DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8),
+            LoopConfig(total_steps=11, log_every=1), device=device,
+            metric_hook=hook)
+    finally:
+        S.srsi_dense = plain
+    got = [(t, name) for t, name, *_ in captured]
+    want = [(t, name) for t in (1, 6, 11) for name in names
+            if wanted(t, name)]
+    if got != want:
+        fail(f"[srsi] captured S-RSI at {got}, expected {want}")
+    print(f"  11 steps with the S-RSI inputs captured: "
+          f"{time.monotonic() - t0:.1f} s; CPU threads "
+          f"{torch.get_num_threads()}")
+    where = lambda fl: "; ".join(
+        f"iteration {it} pass {ps}: {sorted(bad)}" for it, ps, bad in fl
+    ) or "none"
+    seconds = {}
+    for t, name, v, draw, r, p, n_it in captured:
+        vd = v.to(device)
+        out = srsi_routes(vd, draw, r, p, n_it,
+                          ("card", "card-fp32-gram", "cpu-fp64-gram"),
+                          seconds)
+        if out["card-fp32-gram"][3]:
+            out.update(srsi_routes(vd, draw, r, p, n_it, ("cpu",), seconds))
+        rec, xi, mass, failed = out["card"]
+        rec_cpu, xi_cpu, _, failed_cpu = out["cpu-fp64-gram"]
+        worst = max(rel_err(rec[i].cpu(), rec_cpu[i])[1]
+                    for i in range(v.shape[0]))
+        print(f"  step {t} {name} {tuple(v.shape)} r {r}: xi(r) card "
+              f"{float(xi.min()):.4f}-{float(xi.max()):.4f}, CPU "
+              f"{float(xi_cpu.min()):.4f}-{float(xi_cpu.max()):.4f}; Q U^T "
+              f"rel err {worst:.2e} (tolerance {TOL_SRSI}); failed "
+              f"Choleskys: card {where(failed)}, CPU {where(failed_cpu)}")
+        for route in [w for w in ("card-fp32-gram", "cpu") if w in out]:
+            _, xi_32, mass_32, failed_32 = out[route]
+            infos = sorted({i for _, _, bad in failed_32
+                            for i in bad.values()})
+            print(f"    Gram in fp32, {route.split('-')[0]}: failed "
+                  f"Choleskys {where(failed_32)}, info {infos}; Q zeroed "
+                  f"on matrices {(mass_32 == 0).nonzero().flatten().tolist()}"
+                  f", xi(r) max {float(xi_32.max()):.4f}")
+        if failed or failed_cpu or not bool((mass > 0).all()) \
+                or not bool((xi < 1.0).all()):
+            fail(f"S-RSI, step {t} {name}: failed Choleskys card "
+                 f"{where(failed)}, CPU {where(failed_cpu)}; matrices "
+                 f"zeroed on the card "
+                 f"{(mass == 0).nonzero().flatten().tolist()}")
+        if worst > TOL_SRSI:
+            fail(f"S-RSI on the card vs the CPU, step {t} {name}: Q U^T "
+                 f"rel err {worst:.2e}")
+    print("  seconds by route: " + ", ".join(
+        f"{route} {sec:.1f}" for route, sec in seconds.items()))
+
+
 class _CallOrderSketch:
     """Sketch source drawing from one CPU generator in call order, so two
     runs that call it alike get the same Gaussian sketches on any device."""
@@ -1322,7 +1566,8 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
                  chunked: bool = False, mamba: bool = False, seed: int = 0,
                  sketch_rows: int = SMALL_MIXED["embedding_min_rows"],
                  name: str = "adapprox", over: dict | None = None,
-                 param_dtype: str = "float32"):
+                 param_dtype: str = "float32",
+                 factored_steps: int | None = None):
     """Kernel path (card) against plain path (CPU), end to end: GPT-2
     smoke in fp32, 4 steps with refresh_every=3 (refresh, fold, fold,
     refresh), same init and sketches, the launcher's optimizer with
@@ -1343,7 +1588,10 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     dtype: bf16 parameters are held entry by entry, within one bf16 ulp of
     the entry plus the tolerance of the leaf's largest.  The card's
     launches must be those the optimizer state and the model's path
-    imply."""
+    imply; ``factored_steps`` is the step after which the xi watchdog has
+    demoted every factored leaf (``over`` with guards).  With guards the
+    guard counters must be equal on the card and the CPU; returns the CPU
+    run's (:func:`guard_counters`), else None."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.archs import get_smoke_config
@@ -1437,12 +1685,22 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
                for leaf in sub.leaves)
     want = expected_launches(kind, 4, 2, n_fact, n_apply, n_sk,
                              cfg.n_layers if chunked else 0,
-                             cfg.n_layers if mamba else 0, n_wide=n_wide)
+                             cfg.n_layers if mamba else 0, n_wide=n_wide,
+                             factored_steps=factored_steps)
     print(f"  factored calls {n_fact}, sketched leaves {n_sk}; launches on "
           f"the card {launches}")
     if ((n_fact < 1) != (kind == "none") or (mixed and n_sk < 1)
             or launches != want):
         fail(f"small-input parity: launches {launches}, expected {want}")
+    if not (over or {}).get("guards"):
+        return None
+    c_cpu, c_gpu = (guard_counters(st.opt_state) for st in (s_cpu, s_gpu))
+    print(f"  guard counters cpu {c_cpu}")
+    print(f"  guard counters gpu {c_gpu}")
+    if c_cpu != c_gpu:
+        fail(f"small-input parity: guard counters {c_gpu} on the card vs "
+             f"{c_cpu} on the CPU")
+    return c_cpu
 
 
 def step1_grads(model, init, cfg, seq, batch, device):
@@ -1475,7 +1733,7 @@ def step1_grads(model, init, cfg, seq, batch, device):
 
 def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
                     ssd_layers: int = 0, bucketed: bool = False,
-                    steps: int = 12, check: bool = True):
+                    steps: int = 12, check: bool = True, keep=None):
     """One main-path run: ``run()`` trains ``steps`` steps (refresh every
     5) and returns ``(state, history)``.  Its launches must be those the
     optimizer state (its factored calls: ``bucketed`` stacks leaves of one
@@ -1485,17 +1743,22 @@ def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
     :func:`expected_launches`) and ``expect`` (every other kernel 0); the
     loss finite and falling.  ``check=False`` (the [remat] runs) checks
     neither.  Returns the launch counts and ``{"loss", "peak_gib",
-    "fold_s", "refresh_s"}`` (median fold-step time, refresh-step times
-    after the first)."""
+    "fold_s", "refresh_s", "wall_s"}`` (median fold-step time, refresh-step
+    times after the first, the whole run's wall time); ``keep(state)`` is
+    given the final state."""
     import torch
     from repro_torch.core.sketch import SketchLeaf, SketchState
     from repro_torch.core.types import find_states
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    t0 = time.perf_counter()
     state, hist = run()
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = launch_counts()
+    if keep is not None:
+        keep(state)
     losses = [h["loss"] for h in hist]
     times = [h["step_time_s"] for h in hist]
     for h in hist:
@@ -1528,7 +1791,7 @@ def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
     print(f"  fold-step time median {fold_s:.4f} s "
           f"({tokens / fold_s:.0f} tokens/s); refresh-step times {refresh}")
     return launches, {"loss": losses[-1], "peak_gib": peak, "fold_s": fold_s,
-                      "refresh_s": refresh}
+                      "refresh_s": refresh, "wall_s": wall}
 
 
 def launcher_run(argv):
@@ -1765,6 +2028,449 @@ def check_memory(device):
     torch.cuda.empty_cache()
 
 
+def guard_counters(opt_state) -> dict:
+    """The xi watchdog's counters of the Adapprox stage and the skip-step
+    guard's, as plain lists and ints."""
+    from repro_torch.core.adapprox import adapprox_state
+    from repro_torch.core.types import find_states
+    from repro_torch.resilience import GuardedState
+    g = adapprox_state(opt_state).guards
+    out = {f: getattr(g, f).tolist() for f in
+           ("trips", "force_refresh", "demoted", "trip_total", "demotions")}
+    for sub in find_states(opt_state, GuardedState):
+        out.update(steps=sub.steps, skipped=sub.skipped,
+                   last_skip=sub.last_skip)
+        break
+    return out
+
+
+def per_leaf(counters: dict) -> dict:
+    """Counters of a schedule every factored leaf follows alike, per leaf:
+    each vector's one value, each total over the number of leaves (fails
+    unless the leaves agree)."""
+    n = len(counters["trips"])
+    out = {}
+    for f in ("trips", "force_refresh", "demoted"):
+        if len(set(counters[f])) != 1:
+            fail(f"guard counters: {f} {counters[f]} differ between leaves")
+        out[f] = counters[f][0]
+    for f in ("trip_total", "demotions"):
+        out[f + "_per_leaf"] = counters[f] / n
+    return out
+
+
+def tensor_leaves(state) -> list:
+    """``[(checkpoint path, tensor)]`` of every tensor of a train state:
+    parameters, optimizer state, guard counters."""
+    import torch
+    from repro_torch.checkpoint.serialization import leaves_with_paths
+    return [(p, leaf) for p, leaf in leaves_with_paths(state)
+            if isinstance(leaf, torch.Tensor)]
+
+
+def snapshot(state) -> list:
+    """Copies of every tensor of ``state`` (on its device)."""
+    return [(p, t.detach().clone()) for p, t in tensor_leaves(state)]
+
+
+def unchanged(what: str, snap: list, state) -> None:
+    """Fail unless every tensor of ``state`` equals the snapshot bitwise."""
+    import torch
+    now = tensor_leaves(state)
+    if [p for p, _ in now] != [p for p, _ in snap]:
+        fail(f"{what}: the state's structure changed")
+    bad = [p for (p, a), (_, b) in zip(snap, now) if not torch.equal(a, b)]
+    if bad:
+        fail(f"{what}: {len(bad)} tensors changed, e.g. {bad[:3]}")
+    print(f"  {what}: params and all {len(snap)} state tensors (m1 "
+          f"included) bitwise unchanged")
+
+
+def compare_states(a, b) -> tuple[bool, float]:
+    """(every tensor bitwise equal, worst parameter error relative to the
+    leaf's largest entry) of two train states of one structure."""
+    import torch
+    ta, tb = tensor_leaves(a), tensor_leaves(b)
+    same = len(ta) == len(tb) and all(
+        torch.equal(x.to(y.device), y) for (_, x), (_, y) in zip(ta, tb))
+    worst = max(rel_err(b.params[k].float(), p.float())[1]
+                for k, p in a.params.items())
+    return same, worst
+
+
+def hold_to_straight(what: str, state, ref, straight: tuple) -> str:
+    """``state`` against the straight run ``ref`` by the straight runs' own
+    standard ``straight = (bitwise, worst)``: bitwise if two straight runs
+    are bitwise equal, else within their difference."""
+    same, worst = compare_states(ref, state)
+    if straight[0]:
+        if not same:
+            fail(f"{what}: not bitwise the straight run, whose two runs "
+                 f"are (worst param rel err {worst:.2e})")
+        return "bitwise equal, as the two straight runs are"
+    if worst > straight[1]:
+        fail(f"{what}: param rel err {worst:.2e} exceeds the straight runs' "
+             f"own difference {straight[1]:.2e}")
+    return (f"within the straight runs' difference ({worst:.2e} <= "
+            f"{straight[1]:.2e}; they are not bitwise equal)")
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def ckpt_phase(device, mixed_params: dict, mixed_launches: dict) -> dict:
+    """[ckpt]: the launcher's guarded mixed-groups run at full width, 12
+    steps twice (without and with --ckpt-dir D --ckpt-every 4: the fold
+    step's cost of saving, and whether two straight runs are bitwise
+    equal), with the xi watchdog's trips and each leaf's xi; the run
+    without guards ([train-mixed]) held to the guarded one whose
+    watchdog cannot trip (--guard-skip-threshold 1); a
+    launcher subprocess with --ckpt-dir SIGTERMed once step 6 is logged
+    (its preemption checkpoint, meta.preempted) and the same command
+    relaunched, ending at step 12 held to the straight run; then
+    restore(save(state)) bitwise on the device (and a bf16 / int8 / int
+    tree), the save's and the restore's seconds and bytes, and a
+    bit-flipped, then truncated latest checkpoint skipped for the one
+    before.  Each straight run launches exactly what [train-mixed]
+    (``mixed_launches``) did.  Returns ``{label: (launches, info)}`` of
+    the two in-process straight runs."""
+    import signal
+    import torch
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core.adapprox import adapprox_state
+    from repro_torch.launch import train as launcher
+    from repro_torch.resilience import corrupt_latest_checkpoint
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    expect = mixed_launches
+    ref = {}
+    out = {"guarded": train_main_path(
+        launcher_run(TRAIN_GUARDED_ARGV), "fused", expect,
+        keep=lambda st: ref.update(a=st))}
+    saving_argv = TRAIN_GUARDED_ARGV + [
+        "--ckpt-dir", str(CKPT_ROOT / "straight"), "--ckpt-every", "4"]
+    phase("[ckpt] the same with " + " ".join(saving_argv[-4:]))
+    out["guarded_ckpt"] = train_main_path(
+        launcher_run(saving_argv), "fused", expect,
+        keep=lambda st: ref.update(b=st))
+    straight = compare_states(ref["a"], ref["b"])
+    print(f"  two straight runs (without and with checkpoints): "
+          f"{'bitwise equal' if straight[0] else 'NOT bitwise equal'}, "
+          f"worst param rel err {straight[1]:.2e}; peak memory includes "
+          f"the first run's state, held for the comparison")
+    fold = [out[k][1]["fold_s"] for k in ("guarded", "guarded_ckpt")]
+    wall = [out[k][1]["wall_s"] for k in ("guarded", "guarded_ckpt")]
+    watch = guard_counters(ref["a"].opt_state)
+    xi = [round(float(leaf.xi.max()), 4) for leaf in
+          adapprox_state(ref["a"].opt_state).leaves if hasattr(leaf, "q")]
+    print(f"  xi watchdog (threshold 0.75) over the 12 steps: "
+          f"{watch['trip_total']} trips, trips in a row {watch['trips']}, "
+          f"forced refresh next {watch['force_refresh']}; worst xi per "
+          f"factored leaf at step 12 {xi}")
+    del ref["b"]
+    torch.cuda.empty_cache()
+    phase("[ckpt] guards on, the watchdog above any xi: "
+          + " ".join(TRAIN_GUARDED_CALM_ARGV[-4:]))
+    calm = {}
+    out["guarded_calm"] = train_main_path(
+        launcher_run(TRAIN_GUARDED_CALM_ARGV), "fused", expect,
+        keep=lambda st: calm.update(params={
+            k: p.detach().cpu() for k, p in st.params.items()},
+            counters=guard_counters(st.opt_state)))
+    worst_off = max(rel_err(calm["params"][k], p)[1]
+                    for k, p in mixed_params.items())
+    same_off = all(torch.equal(calm["params"][k], p)
+                   for k, p in mixed_params.items())
+    trips, skips = (calm["counters"][k] for k in ("trip_total", "skipped"))
+    print(f"  guards off ([train-mixed]) vs on ({trips} trips, {skips} "
+          f"skips): "
+          f"{'bitwise equal' if same_off else 'not bitwise'}, worst param "
+          f"rel err {worst_off:.2e}")
+    if trips or skips:
+        fail(f"guards with threshold 1 tripped: {calm['counters']}")
+    if straight[0] and not same_off:
+        fail("guards on without faults is not bitwise the guards-off run")
+    if not straight[0] and worst_off > straight[1]:
+        fail(f"guards on vs off: {worst_off:.2e} beyond the straight runs' "
+             f"difference {straight[1]:.2e}")
+
+    ckdir = CKPT_ROOT / "preempt"
+    argv = TRAIN_GUARDED_ARGV + ["--ckpt-dir", str(ckdir),
+                                 "--ckpt-every", "4"]
+    phase("[ckpt] launcher subprocess, SIGTERM once step 6 is logged: "
+          + " ".join(argv))
+    code = (f"import sys\nsys.path.insert(0, {str(ROOT / 'src')!r})\n"
+            "from repro_torch.launch import train as launcher\n"
+            f"launcher.main({argv!r})\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    sent = False
+    for line in proc.stdout:
+        if " step " in line or "signal" in line or "Error" in line:
+            print("  | " + line.rstrip()[-110:])
+        if not sent and "step 6 loss" in line:
+            proc.send_signal(signal.SIGTERM)
+            sent = True
+    rc = proc.wait(timeout=600)
+    if rc != -signal.SIGTERM:
+        fail(f"the SIGTERMed launcher exited {rc}, not by the signal")
+    mgr = CheckpointManager(CheckpointConfig(directory=str(ckdir)))
+    pre = mgr.latest_step()
+    meta = mgr.read_meta(pre)
+    print(f"  exit by SIGTERM; latest checkpoint step {pre}, meta {meta}")
+    if pre is None or pre < 6 or meta.get("preempted") is not True:
+        fail(f"preemption checkpoint: step {pre}, meta {meta}")
+    phase("[ckpt] the same command relaunched")
+    t0 = time.perf_counter()
+    resumed, hist = launcher.main(argv)
+    torch.cuda.synchronize()
+    relaunch_s = time.perf_counter() - t0
+    steps = [h["step"] for h in hist]
+    if steps[0] != pre + 1 or steps[-1] != 12 or resumed.step != 12:
+        fail(f"relaunch: steps {steps} after the checkpoint at {pre}")
+    verdict = hold_to_straight("resumed run at step 12", resumed, ref["a"],
+                               straight)
+    print(f"  resumed from step {pre}, steps {steps[0]}-{steps[-1]} "
+          f"({relaunch_s:.1f} s with the restore): {verdict}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    phase("[ckpt] restore(save(state)) on the device; corrupt latest "
+          "checkpoints")
+    rt = CheckpointManager(CheckpointConfig(
+        directory=str(CKPT_ROOT / "roundtrip"), async_save=False))
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rt.save(ref["a"], 12, blocking=True)
+    save_dev = torch.cuda.max_memory_allocated() - mem0
+    nbytes = dir_bytes(CKPT_ROOT / "roundtrip" / "step_000000012")
+    back, step = rt.restore(ref["a"])
+    same, _ = compare_states(ref["a"], back)
+    ints_same = (back.step == ref["a"].step == step
+                 and guard_counters(back.opt_state)
+                 == guard_counters(ref["a"].opt_state))
+    if not (same and ints_same):
+        fail("restore(save(state)) is not the state bitwise")
+    del back
+    gen = torch.Generator(device=device).manual_seed(3)
+    small = {"bf16": torch.randn((257, 65), generator=gen, device=device
+                                 ).to(torch.bfloat16),
+             "int8": torch.randint(-128, 128, (300,), generator=gen,
+                                   device=device).to(torch.int8),
+             "int32": torch.randint(0, 9, (5,), generator=gen,
+                                    device=device).int(),
+             "fp32": torch.randn((3, 7), generator=gen, device=device),
+             "count": 9}
+    small_rt = CheckpointManager(CheckpointConfig(
+        directory=str(CKPT_ROOT / "small"), async_save=False))
+    small_rt.save(small, 1)
+    small_back, _ = small_rt.restore(small)
+    for k, t in small.items():
+        ok = (small_back[k] == t if k == "count" else
+              small_back[k].dtype == t.dtype
+              and small_back[k].device == t.device
+              and torch.equal(small_back[k], t))
+        if not ok:
+            fail(f"restore(save(tree)) on the device: {k} differs")
+    print(f"  restore(save(state)): every tensor of the step-12 state "
+          f"({len(tensor_leaves(ref['a']))}: fp32 params and state, int32 "
+          f"ranks, the host's int32 guard counters) and every int bitwise; "
+          f"bf16, int8, int32, fp32 and int leaves of a small tree on the "
+          f"device bitwise")
+    before = mgr.latest_step()
+    second = ckpt_steps(ckdir)[-2]
+    corrupt_latest_checkpoint(str(ckdir), kind="bitflip")
+    _, got = mgr.restore(ref["a"])
+    print(f"  bit-flipped latest (step {before}): restore skips it for "
+          f"step {got}")
+    if got != second:
+        fail(f"restore after a bit flip landed on step {got}, not {second}")
+    corrupt_latest_checkpoint(str(ckdir), kind="truncate")
+    if mgr.latest_step() != second:
+        fail(f"truncated latest still visible: latest_step "
+             f"{mgr.latest_step()}")
+    _, got = mgr.restore(ref["a"])
+    print(f"  truncated latest: latest_step {mgr.latest_step()}, restore "
+          f"step {got}")
+    if got != second:
+        fail(f"restore after a truncation landed on step {got}")
+    card = card_line()
+    costs = dict(gather_s=rt.last_gather_s, write_s=rt.last_write_s,
+                 restore_s=rt.last_restore_s, bytes=nbytes,
+                 fold_s_without=fold[0], fold_s_with=fold[1],
+                 wall_s_without=wall[0], wall_s_with=wall[1],
+                 relaunch_s=relaunch_s, straight_bitwise=straight[0],
+                 straight_worst=straight[1], preempt_step=pre,
+                 save_device_bytes=save_dev, watchdog_trips=watch[
+                     "trip_total"], calm_fold_s=out["guarded_calm"][1][
+                     "fold_s"])
+    print(f"  [ckpt] costs on {card}: device-to-host copy "
+          f"{rt.last_gather_s:.3f} s, write {rt.last_write_s:.3f} s, "
+          f"restore {rt.last_restore_s:.3f} s, {nbytes} bytes on disk "
+          f"({nbytes / 2**30:.3f} GiB), device memory the save allocated "
+          f"{save_dev} bytes; fold step {fold[1]:.4f} s with "
+          f"--ckpt-every 4 vs {fold[0]:.4f} s without; 12-step run "
+          f"{wall[1]:.2f} s vs {wall[0]:.2f} s; the skip-step guard alone "
+          f"(threshold 1) {out['guarded_calm'][1]['fold_s']:.4f} s a fold "
+          f"step")
+    del ref["a"]
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["costs"] = costs
+    return out
+
+
+def ckpt_steps(directory: Path) -> list:
+    from repro_torch.checkpoint import serialization as SER
+    return [SER.checkpoint_step(p) for p in SER.list_checkpoints(directory)]
+
+
+def chaos_phase(device, mixed_launches: dict):
+    """[chaos]: chain(inject_faults(NaN at steps 5 and 6, Inf at 9), the
+    launcher's guarded mixed groups) at full width over 12 steps through
+    the train loop, resumed from its own state between segments: every
+    tensor of the state (params, m1 included) bitwise unchanged across
+    each skipped step, 3 skips, the last at 9, every parameter finite, the
+    loss falling, and B1 / B2 / B5 launched on every step, skipped ones
+    too: as often as in [train-mixed] (``mixed_launches``).  Returns
+    ``(launches, info)``."""
+    import torch
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.core.types import chain
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.resilience import FaultPlan, inject_faults
+    from repro_torch.train.train_loop import LoopConfig, train
+    cfg = get_config("gpt2-117m")
+    model = build_model(cfg)
+    opt = chain(inject_faults(FaultPlan(nan_steps=(5, 6), inf_steps=(9,))),
+                build_optimizer(optimizer_config(
+                    "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
+                    mixed_groups=True, guards=True)))
+    data = DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8)
+    hist = []
+
+    def run_to(total, state):
+        st, h = train(model, opt, data, LoopConfig(total_steps=total,
+                                                   log_every=1),
+                      device=device, state=state)
+        hist.extend(h)
+        return st
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = run_to(4, None)
+    snap = snapshot(state)
+    state = run_to(6, state)
+    unchanged("steps 5 and 6 (NaN gradients)", snap, state)
+    state = run_to(8, state)
+    snap = snapshot(state)
+    state = run_to(9, state)
+    unchanged("step 9 (Inf gradients)", snap, state)
+    del snap
+    state = run_to(12, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for h in hist:
+        print(f"  step {h['step']:2d} loss {h['loss']:.4f} "
+              f"step_time_s {h['step_time_s']:.4f}")
+    g = state.opt_state[1]
+    losses = [h["loss"] for h in hist]
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state.params.values())
+    print(f"  skipped {g.skipped}, last_skip {g.last_skip}, steps "
+          f"{g.steps}; params finite {finite}; launches {launches}")
+    if (g.skipped, g.last_skip, g.steps) != (3, 9, 12):
+        fail(f"chaos: skipped {g.skipped}, last_skip {g.last_skip}")
+    if not finite or not all(math.isfinite(x) for x in losses):
+        fail("chaos: a parameter or loss is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"chaos: loss did not fall ({losses[0]} -> {losses[-1]})")
+    if launches != mixed_launches:
+        fail(f"chaos: launches {launches}, expected {mixed_launches}")
+    del state
+    torch.cuda.empty_cache()
+    return launches, {"loss": losses[-1], "wall_s": wall}
+
+
+def guards_phase(device, cpu_counters: dict):
+    """[guards]: the xi watchdog at full width, the launcher's mixed groups
+    with --guards --guard-skip-threshold 0 --max-demotions 2, 6 steps
+    through the train loop one step at a time: every factored leaf trips at
+    step 1, refreshes at step 2 off the cadence (Q moves; refresh_every 5),
+    trips again and is demoted; from step 3 B1 and B2 launch no more; the
+    loss finite throughout; the final counters, per leaf, those of
+    [parity-guards]' CPU run of the same schedule.  Returns ``(launches,
+    info)``."""
+    import torch
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.adapprox import adapprox_state
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.core.factored import FactoredLeaf
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import LoopConfig, train
+    cfg = get_config("gpt2-117m")
+    model = build_model(cfg)
+    opt = build_optimizer(optimizer_config(
+        "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
+        mixed_groups=True, guards=True, guard_xi_trip=0.0, max_demotions=2))
+    data = DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8)
+    torch.cuda.empty_cache()
+    reset_launches()
+    state, qs, per_step, counters = None, [], [], []
+    prev = launch_counts()
+    for t in range(1, 7):
+        state, hist = train(model, opt, data,
+                            LoopConfig(total_steps=t, log_every=1),
+                            device=device, state=state)
+        now = launch_counts()
+        per_step.append({k: now[k] - prev[k] for k in now if now[k] - prev[k]})
+        prev = now
+        qs.append([leaf.q.clone() for leaf in
+                   adapprox_state(state.opt_state).leaves
+                   if isinstance(leaf, FactoredLeaf)])
+        counters.append(guard_counters(state.opt_state))
+        print(f"  step {t} loss {hist[-1]['loss']:.4f} step_time_s "
+              f"{hist[-1]['step_time_s']:.4f}; launches {per_step[-1]}; "
+              f"trips {counters[-1]['trips']} force "
+              f"{counters[-1]['force_refresh']} demoted "
+              f"{counters[-1]['demoted']}")
+        if not math.isfinite(hist[-1]["loss"]):
+            fail(f"guards: loss not finite at step {t}")
+    n = len(qs[0])
+    if counters[0]["trips"] != [1] * n or counters[0]["force_refresh"] != [
+            1] * n:
+        fail(f"guards: step 1 counters {counters[0]}")
+    moved = [not torch.equal(a, b) for a, b in zip(qs[0], qs[1])]
+    if not all(moved):
+        fail(f"guards: the forced refresh at step 2 left Q of leaves "
+             f"{[i for i, m in enumerate(moved) if not m]} as it was")
+    if counters[1]["demoted"] != [1] * n:
+        fail(f"guards: not every leaf demoted at step 2: {counters[1]}")
+    fact_launch = [s.get("fused_precond", 0) for s in per_step]
+    apply_launch = [s.get("fused_apply", 0) for s in per_step]
+    if fact_launch != [n, n, 0, 0, 0, 0] or apply_launch != fact_launch:
+        fail(f"guards: pass 1 / pass 2 launches a step {fact_launch} / "
+             f"{apply_launch}, expected {n}, {n}, then none")
+    mine, theirs = per_leaf(counters[-1]), per_leaf(cpu_counters)
+    print(f"  forced refresh at step 2 (off the cadence 1, 6, 11): Q moved "
+          f"on all {n} factored leaves; all demoted at step 2; per leaf "
+          f"{mine} vs [parity-guards] CPU {theirs}")
+    if mine != theirs:
+        fail(f"guards: per-leaf counters {mine} vs the CPU run's {theirs}")
+    launches = launch_counts()
+    del state, qs
+    torch.cuda.empty_cache()
+    return launches, {"loss": hist[-1]["loss"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1835,6 +2541,10 @@ def main():
     pre_k = check_precond_kmax(fact_kmax, device)
     phase("[kernels-kmax] the same with int8 factors")
     pre8_k = check_precond_kmax(fact_kmax, device, int8=True)
+    phase("[srsi] S-RSI batched on the card at every factored leaf of the "
+          "mixed groups at refresh steps 6 and 11 (w_down at 1), against "
+          "the CPU")
+    check_srsi(device, fact_mixed)
     phase("[parity] kernel path on the card vs plain path on the CPU")
     small_parity(device)
     phase("[parity] mixed groups, kernel path on the card vs plain path on "
@@ -1874,15 +2584,24 @@ def main():
              dict(param_dtype="bfloat16"))):
         phase(label + ", kernel path on the card vs plain path on the CPU")
         small_parity(device, mixed=kw.get("name") is None, **kw)
+    # every factored leaf trips at step 1, is refreshed off the cadence at
+    # step 2, trips again and is demoted: B1 / B2 on steps 1-2 only
+    phase("[parity-guards] mixed groups, --guards --guard-skip-threshold 0 "
+          "--max-demotions 2, kernel path on the card vs plain path on the "
+          "CPU")
+    guard_cpu = small_parity(device, mixed=True, over=dict(
+        guards=True, guard_xi_trip=0.0, max_demotions=2), factored_steps=2)
     # 12 steps: 8 factored + 8 dense leaves; 6 factored, 2 sketched
     phase("[train] GPT-2 117M, " + " ".join(TRAIN_ARGV))
     runs = {"no_mixed": train_main_path(launcher_run(TRAIN_ARGV), "fused", dict(
         fused_precond=96, fused_apply=192))}
     phase("[train-mixed] GPT-2 117M on the launcher's default mixed groups, "
           + " ".join(TRAIN_MIXED_ARGV))
+    mixed_params = {}
     runs["mixed"] = train_main_path(launcher_run(TRAIN_MIXED_ARGV), "fused", dict(
         fused_precond=72, fused_apply=72, sketch_scatter=24,
-        sketch_query=24))
+        sketch_query=24), keep=lambda st: mixed_params.update(
+            {k: p.detach().cpu() for k, p in st.params.items()}))
     phase("[train-int8] GPT-2 117M, " + " ".join(TRAIN_INT8_ARGV))
     runs["int8"] = train_main_path(launcher_run(TRAIN_INT8_ARGV), "int8", dict(
         fused_precond=72, fused_precond_int8=72, fused_apply=72,
@@ -1942,6 +2661,28 @@ def main():
         argv = TRAIN_BASELINE_ARGV + ["--optimizer", name, "--lr", lr]
         phase(f"[train-{name}] GPT-2 117M, " + " ".join(argv))
         runs[name] = train_main_path(launcher_run(argv), "none", {})
+    phase("[ckpt] GPT-2 117M, " + " ".join(TRAIN_GUARDED_ARGV)
+          + ", 12 straight steps")
+    ckpt = ckpt_phase(device, mixed_params, runs["mixed"][0])
+    ckpt_costs = ckpt.pop("costs")
+    runs.update(ckpt)
+    phase("[chaos] GPT-2 117M, chain(inject_faults(NaN at 5, 6; Inf at 9), "
+          "the launcher's optimizer with --guards), 12 steps")
+    runs["chaos"] = chaos_phase(device, runs["mixed"][0])
+    phase("[guards] GPT-2 117M, the launcher's optimizer with --guards "
+          "--guard-skip-threshold 0 --max-demotions 2, 6 steps")
+    runs["guards"] = guards_phase(device, guard_cpu)
+    # under the guards --bucketed runs per leaf, as in the JAX package:
+    # 6 calls of B1 / B2 a step, not 3
+    bucketed_argv = [a if a != "12" else "3" for a in TRAIN_GUARDED_ARGV] + [
+        "--bucketed", "--max-demotions", "2", "--ckpt-dir",
+        str(CKPT_ROOT / "bucketed"), "--ckpt-every", "2"]
+    phase("[guards-bucketed] GPT-2 117M, " + " ".join(bucketed_argv))
+    runs["guarded_bucketed"] = train_main_path(
+        launcher_run(bucketed_argv), "fused", dict(
+            fused_precond=18, fused_apply=18, sketch_scatter=6,
+            sketch_query=6), steps=3)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
     info = {p: r[1] for p, r in runs.items()}
     runs = {p: r[0] for p, r in runs.items()}
@@ -2049,7 +2790,7 @@ def main():
              library_ms=None, **per_step(ssd_bwd)),
     ]
     phase("[report] every check passed")
-    print(json.dumps({"train": info, "remat": remat}))
+    print(json.dumps({"train": info, "remat": remat, "ckpt": ckpt_costs}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

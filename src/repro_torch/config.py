@@ -140,7 +140,16 @@ class OptimizerConfig:
     fused_update: bool = False
     telemetry: bool = False
     dynamic_refresh: bool = False
+    # resilience guards (repro_torch.resilience; default off: the built
+    # chain and its state are unchanged): guards wraps the whole chain in
+    # the non-finite skip-step guard and arms the per-leaf xi watchdog --
+    # a leaf whose approximation error exceeds guard_xi_trip gets a forced
+    # full S-RSI refresh on the next step, and after max_demotions
+    # consecutive trips it falls back to the exact dense second moment
+    # (max_demotions=0 disables demotion and its dense shadow buffers)
     guards: bool = False
+    guard_xi_trip: float = 0.75
+    max_demotions: int = 0
     min_dim_factor: int = 128
     factor_dtype: str = "float32"
     quantize_factors: bool = False

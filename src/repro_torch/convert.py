@@ -6,8 +6,12 @@ parameters; ``adapprox_state_from_numpy``, ``sketch_state_from_numpy``,
 ``adam_state_from_numpy`` and ``baseline_state_from_numpy`` do the same
 for an ``AdapproxState``, a ``SketchState``, an ``AdamWState`` and an
 ``AdafactorState`` or ``CAMEState``, int8 factors included
-(``quantized_from_numpy``).  With them, a test can start the two packages
-from the same mid-run state.  Nothing here imports JAX.
+(``quantized_from_numpy``), and ``guard_state_from_numpy`` /
+``guarded_state_from_numpy`` for the guards' ``GuardState`` and
+``GuardedState``.  With them, a test can start the two packages from the
+same mid-run state.  ``train_state_from_checkpoint`` turns a checkpoint
+directory the JAX package wrote into the port's ``TrainState``, reading
+its files with numpy alone.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from repro_torch.core.came import CAMELeaf, CAMEState
 from repro_torch.core.factored import DenseLeaf, FactoredLeaf
 from repro_torch.core.quantized import QuantizedMatrix
 from repro_torch.core.sketch import SketchDense, SketchLeaf, SketchState
+from repro_torch.resilience.guards import GuardedState, GuardState
+from repro_torch.train.steps import TrainState
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -47,12 +53,14 @@ def quantized_from_numpy(qm, device: str | torch.device = "cpu"
 
 
 def adapprox_state_from_numpy(step: int, leaves: Sequence,
-                              device: str | torch.device = "cpu"
-                              ) -> AdapproxState:
+                              device: str | torch.device = "cpu",
+                              guards=None, seed: int = 0) -> AdapproxState:
     """``leaves``: per-parameter objects in flatten order carrying numpy
     fields ``q, u, k, xi, m1`` (factored) or ``v, m1`` (dense), as the JAX
     package's ``FactoredLeaf`` / ``DenseLeaf`` do after ``device_get``;
-    int8 factors (``QuantizedMatrix``) stay int8."""
+    int8 factors (``QuantizedMatrix``) stay int8.  ``guards``: the JAX
+    ``GuardState`` after ``device_get`` (see
+    :func:`guard_state_from_numpy`), or None; ``seed``: the config's."""
     f32 = lambda x: None if x is None else _t(x, device, torch.float32)
     fac = lambda x: (quantized_from_numpy(x, device) if hasattr(x, "q8")
                      else f32(x))
@@ -64,7 +72,46 @@ def adapprox_state_from_numpy(step: int, leaves: Sequence,
                                     xi=f32(leaf.xi), m1=f32(leaf.m1)))
         else:
             out.append(DenseLeaf(v=f32(leaf.v), m1=f32(leaf.m1)))
-    return AdapproxState(step=int(step), leaves=tuple(out))
+    if guards is not None:
+        guards = guard_state_from_numpy(
+            guards.trips, guards.force_refresh, guards.demoted,
+            guards.trip_total, guards.demotions, guards.dense_v, device)
+    return AdapproxState(step=int(step), leaves=tuple(out), guards=guards,
+                         seed=seed)
+
+
+def guard_state_from_numpy(trips, force_refresh, demoted, trip_total,
+                           demotions, dense_v: Sequence = (),
+                           device: str | torch.device = "cpu"
+                           ) -> GuardState:
+    """The JAX ``GuardState``'s fields (numpy) -> the port's: the counters
+    as CPU int32 tensors, the dense shadow buffers fp32 on ``device``."""
+    i32 = lambda x: torch.tensor(np.asarray(x, np.int32))
+    return GuardState(trips=i32(trips), force_refresh=i32(force_refresh),
+                      demoted=i32(demoted), trip_total=i32(trip_total),
+                      demotions=i32(demotions),
+                      dense_v=tuple(_t(v, device, torch.float32)
+                                    for v in dense_v))
+
+
+def guarded_state_from_numpy(steps, skipped, last_skip,
+                             inner) -> GuardedState:
+    """The JAX ``GuardedState``'s int32 counters -> the port's, around the
+    already converted ``inner`` state."""
+    return GuardedState(inner=inner, steps=int(steps), skipped=int(skipped),
+                        last_skip=int(last_skip))
+
+
+def train_state_from_checkpoint(ckpt_dir, like: TrainState) -> TrainState:
+    """A checkpoint directory (``step_*``) the JAX package wrote -> the
+    port's ``TrainState``, with the structure, devices and dtypes of
+    ``like`` (the port's state for the same run, e.g. ``TrainState.create``
+    of the same model and optimizer config).  The files are read with
+    numpy alone and checked as the port's own restore checks them: the
+    checksums, every leaf's JAX key path, shape and dtype, and the leaves
+    the port derives (the PRNG key against the config's seed)."""
+    from repro_torch.checkpoint.serialization import restore_pytree
+    return restore_pytree(ckpt_dir, like)
 
 
 def sketch_state_from_numpy(step: int, leaves: Sequence,

@@ -33,23 +33,39 @@ update and its engineered knobs on the GPT-2 path:
     iterations; a matrix whose stored xi exceeds ``warm_drift_xi`` keeps
     the Gaussian sketch;
   * ``bucketed``: factored leaves of one shape and gradient dtype run as
-    one stacked call (a singleton runs alone).
+    one stacked call (a singleton runs alone);
+  * ``guards`` (a ``resilience.guards.GuardConfig``): the xi watchdog.  A
+    factored leaf whose worst xi exceeds ``xi_trip`` refreshes on the next
+    step whatever the cadence; after ``max_demotions`` consecutive trips
+    it runs the exact dense second moment on a shadow buffer seeded from
+    ``max(Q U^T, 0)`` (plain tensor code on every device: a demoted leaf
+    launches no kernel), with the factors, k and guidance frozen and xi
+    pinned to 0.  Guards run every factored leaf alone, even under
+    ``bucketed``.  A guarded stage runs inside
+    ``resilience.guards.guard_updates`` (``build_optimizer`` builds both
+    under ``OptimizerConfig.guards``): it writes each new first moment
+    into a fresh buffer, never over the ``m1`` it was given, so a step the
+    skip-step guard rejects leaves the state intact, and it leaves this
+    step's worst xi per factored leaf on its state (``pending``) for the
+    wrapper, which reads it with its all-finite flag in one transfer and
+    advances the host counters (:func:`settle_guards`).
 
 Stacked ``(L, m, n)`` leaves are batched: each leaf is one batched call,
 not a loop over its matrices.  Leaves are walked in JAX's flatten order;
 leaf ``i``'s sketch at step ``t`` is drawn from a generator seeded by
 ``(seed, t, i)``, so the draws are a pure function of the step, as in the
 JAX package (whose threefry numbers the port does not reproduce).  On a
-refresh step every factored leaf's sketch is drawn, in flatten order,
+refresh step every factored leaf's sketch (on any step, every leaf the
+watchdog forces; never a demoted leaf's) is drawn, in flatten order,
 before any leaf or bucket runs.
 
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``telemetry``, ``dynamic_refresh``, ``guards``.
+``telemetry``, ``dynamic_refresh``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,6 +78,8 @@ from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
 from repro_torch.core.types import GradientTransformation, chain, find_states
 from repro_torch.kernels import ops, ref
+from repro_torch.resilience.guards import (GuardConfig, GuardState,
+                                           advance_counters, init_guard_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +109,7 @@ class AdapproxConfig:
     fused_update: bool = False             # two-pass fused elementwise tail
     telemetry: bool = False
     dynamic_refresh: bool = False
-    guards: Optional[object] = None
+    guards: Optional[GuardConfig] = None     # the xi watchdog
     sketch: Optional[S.SketchSource] = None  # None: seeded torch normals
 
 
@@ -107,11 +125,24 @@ def _check_ported(cfg: AdapproxConfig) -> None:
     if cfg.factor_dtype not in ("float32", "int8"):
         raise ValueError(f"unknown factor_dtype {cfg.factor_dtype!r} "
                          f"(expected 'float32' or 'int8')")
-    if cfg.guards is not None:
-        raise NotImplementedError("Adapprox guards are not ported to "
-                                  "PyTorch yet; see ROADMAP.md Queue A")
+    if cfg.guards is not None and not isinstance(cfg.guards, GuardConfig):
+        raise TypeError(f"AdapproxConfig.guards: expected a GuardConfig, "
+                        f"got {type(cfg.guards).__name__}")
     if cfg.guidance not in ("off", "update", "stored"):
         raise ValueError(f"unknown guidance {cfg.guidance!r}")
+
+
+def prng_key_words(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` as its two uint32 words (32-bit seeds,
+    as the JAX package runs them)."""
+    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+class PendingGuards(NamedTuple):
+    """A guarded step's xi, left on the state until :func:`settle_guards`
+    advances the counters from it."""
+    xi_max: torch.Tensor      # (n_factored,) worst xi per leaf, on device
+    cfg: GuardConfig
 
 
 @dataclasses.dataclass
@@ -119,6 +150,15 @@ class AdapproxState:
     step: int                         # counts from 0
     leaves: tuple                     # FactoredLeaf | DenseLeaf per param,
                                       # in flatten order
+    guards: Optional[GuardState] = None   # cfg.guards: the xi watchdog
+    # cfg.seed, which the JAX state carries as its PRNG key (the leaf
+    # ``key`` after ``step``); the port draws from (seed, t, i) generators
+    # instead, and checkpoints write and check the key derived from it
+    seed: int = dataclasses.field(default=0, metadata=dict(
+        static=True, derived_leaf=("key", "step", prng_key_words)))
+    # set between a guarded update and settle_guards only
+    pending: Optional[PendingGuards] = dataclasses.field(
+        default=None, metadata=dict(static=True))
 
 
 def _refresh_pred(step: int, refresh_t: int) -> bool:
@@ -225,11 +265,13 @@ def _init_leaf(p: torch.Tensor, cfg: AdapproxConfig):
 
 def _factored_update(g, leaf: F.FactoredLeaf, step: int,
                      sketch: Optional[S.SketchSource], cfg: AdapproxConfig,
-                     r_store: int, p_eff: int, k_max_leaf: int):
+                     r_store: int, p_eff: int, k_max_leaf: int,
+                     force_refresh: bool = False):
     """One step of a factored leaf.  ``leaf.q`` / ``leaf.u`` are fp32, or
     int8 :class:`QuantizedMatrix` factors on the fused path (pass 1 takes
     them as they are; the refresh or fold takes them dequantized once).
-    ``sketch`` returns this step's Gaussian sketch on refresh steps."""
+    ``sketch`` returns this step's Gaussian sketch on refresh steps;
+    ``force_refresh`` (the xi watchdog's) makes a fold step a refresh."""
     q, u, k, xi_prev, m1 = leaf.q, leaf.u, leaf.k, leaf.xi, leaf.m1
     g32 = g.float()
     q32, u32 = ((QZ.dequantize(q), QZ.dequantize(u))
@@ -241,7 +283,8 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
     vmat = (None if cfg.fused_update or cfg.use_kernels
             else v_op.materialize())
 
-    refresh = cfg.refresh_every <= 1 or _refresh_pred(step, cfg.refresh_every)
+    refresh = (cfg.refresh_every <= 1 or force_refresh
+               or _refresh_pred(step, cfg.refresh_every))
     yfold = vfro = None
     if cfg.fused_update:
         need_guid = cfg.b1 > 0 and cfg.guidance != "off"
@@ -297,7 +340,8 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
         # direction IS the new first moment and pass 2 writes it once.
         m_out, m1_new = ops.fused_apply(
             u_hat_raw, m1, denom, cfg.b1, out_scale, store_scale,
-            shared_out=cfg.b1 > 0 and cfg.guidance != "update")
+            shared_out=cfg.b1 > 0 and cfg.guidance != "update",
+            in_place=cfg.guards is None)
         return m_out, F.FactoredLeaf(q=q_new, u=u_new, k=k_new, xi=xi,
                                      m1=m1_new)
 
@@ -334,7 +378,8 @@ def _r_store(leaf: F.FactoredLeaf) -> int:
 
 
 def _update_factored(g, leaf: F.FactoredLeaf, shape: tuple, step: int,
-                     sketch: Optional[S.SketchSource], cfg: AdapproxConfig):
+                     sketch: Optional[S.SketchSource], cfg: AdapproxConfig,
+                     force_refresh: bool = False):
     """A factored leaf's step around :func:`_factored_update`: int8 factors
     are dequantized first unless the fused pass 1 takes them as they are;
     they are requantized after the step, on fold steps too.  ``shape`` is the
@@ -348,7 +393,7 @@ def _update_factored(g, leaf: F.FactoredLeaf, shape: tuple, step: int,
     r_store = _r_store(leaf)
     p_eff, k_max_leaf = _leaf_meta(shape, r_store, cfg)
     return _factored_update(g, leaf, step, sketch, cfg, r_store, p_eff,
-                            k_max_leaf)
+                            k_max_leaf, force_refresh)
 
 
 def _requant(nl: F.FactoredLeaf, cfg: AdapproxConfig) -> F.FactoredLeaf:
@@ -388,6 +433,54 @@ def _update_bucket(gs: list, leaves: list, shape: tuple, step: int,
         for j in range(len(leaves))]
 
 
+def _update_demoted(g, leaf: F.FactoredLeaf, dense_v: torch.Tensor,
+                    cfg: AdapproxConfig):
+    """A demoted factored leaf's step: the exact dense second moment on
+    its shadow buffer, with the factored path's per-matrix RMS clip (over
+    the trailing two axes), guidance off, the factors and k frozen and xi
+    pinned to 0, in plain tensor code on every device (the JAX package's
+    dense branch is jnp too).  Returns ``(m_out, new_leaf, dense_v)``."""
+    g32 = g.float()
+    v = cfg.b2 * dense_v + (1.0 - cfg.b2) * torch.square(g32)
+    u_hat = g32 / (torch.sqrt(v) + cfg.eps)
+    rms = torch.sqrt(torch.mean(torch.square(u_hat), dim=(-2, -1)) + 1e-30)
+    u_hat = u_hat / _bc(torch.clamp_min(rms / cfg.clip_d, 1.0))
+    if leaf.m1 is not None:
+        m1 = cfg.b1 * leaf.m1 + (1.0 - cfg.b1) * u_hat
+        m_out = m1
+    else:
+        m1, m_out = None, u_hat
+    return m_out, dataclasses.replace(leaf, xi=torch.zeros_like(leaf.xi),
+                                      m1=m1), v
+
+
+def _seed_dense_v(leaf: F.FactoredLeaf) -> torch.Tensor:
+    """A newly demoted leaf's shadow buffer, ``max(Q U^T, 0)`` of its
+    just-refreshed factors (the reconstruction can go epsilon-negative)."""
+    q, u = leaf.q, leaf.u
+    if isinstance(q, QZ.QuantizedMatrix):
+        q, u = QZ.dequantize(q), QZ.dequantize(u)
+    return torch.clamp_min(q @ u.transpose(-1, -2), 0.0)
+
+
+def settle_guards(state: AdapproxState, xi_max: np.ndarray) -> None:
+    """Advance a guarded step's :class:`GuardState` in place from its
+    worst xi per factored leaf (``state.pending``, read to the host as
+    ``xi_max``) and clear ``pending``: the counters by
+    ``guards.advance_counters``; a leaf demoted now gets its shadow buffer
+    seeded from its new factors, the others keep their step's buffers."""
+    gcfg, gstate = state.pending.cfg, state.guards
+    counters, newly = advance_counters(gstate, gcfg, xi_max)
+    dense_v = gstate.dense_v
+    if gcfg.max_demotions > 0:
+        fact = [leaf for leaf in state.leaves
+                if isinstance(leaf, F.FactoredLeaf)]
+        dense_v = tuple(_seed_dense_v(leaf) if new else dv
+                        for leaf, new, dv in zip(fact, newly, dense_v))
+    state.guards = GuardState(**counters, dense_v=tuple(dense_v))
+    state.pending = None
+
+
 def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
     g32 = g.float()
     v = cfg.b2 * leaf.v + (1.0 - cfg.b2) * torch.square(g32)
@@ -401,7 +494,7 @@ def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
         m1 = None if leaf.m1 is None else leaf.m1.reshape(1, -1)
         m_out, m1_new = ops.fused_apply(
             u_hat.reshape(1, -1), m1, denom, cfg.b1, out_scale, store_scale,
-            shared_out=True)
+            shared_out=True, in_place=cfg.guards is None)
         return (m_out.reshape(u_hat.shape),
                 F.DenseLeaf(v=v, m1=None if m1_new is None
                             else m1_new.reshape(u_hat.shape)))
@@ -422,36 +515,65 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
     """The Adapprox preconditioner: gradients -> update direction.  Owns
     the factored / dense second moment, the update-EMA first moment,
     per-matrix RMS clipping and cosine guidance; learning rate, weight
-    decay and the descent sign are later stages (see :func:`adapprox`)."""
+    decay and the descent sign are later stages (see :func:`adapprox`).
+    With ``cfg.guards`` it runs inside ``resilience.guards.guard_updates``,
+    which settles each step's ``pending`` xi; a pending state given back
+    raises."""
     _check_ported(cfg)
 
     def init(params):
-        return AdapproxState(step=0, leaves=tuple(
-            _init_leaf(p, cfg) for p in params.values()))
+        leaves = tuple(_init_leaf(p, cfg) for p in params.values())
+        gstate = None
+        if cfg.guards is not None:
+            fact = [p for p, leaf in zip(params.values(), leaves)
+                    if isinstance(leaf, F.FactoredLeaf)]
+            gstate = init_guard_state(
+                [tuple(p.shape) for p in fact], cfg.guards.max_demotions,
+                fact[0].device if fact else "cpu")
+        return AdapproxState(step=0, leaves=leaves, guards=gstate,
+                             seed=cfg.seed)
 
     def update(grads, state: AdapproxState, params):
+        if state.pending is not None:
+            raise ValueError(
+                "AdapproxState with unsettled guard counters: an Adapprox "
+                "with AdapproxConfig.guards runs inside guards.guard_updates")
         step = state.step + 1              # paper counts from t = 1
         names = list(params)
         shapes = [tuple(w.shape) for w in params.values()]
         fact = [i for i, leaf in enumerate(state.leaves)
                 if isinstance(leaf, F.FactoredLeaf)]
+        ordinal = {i: j for j, i in enumerate(fact)}
+        gcfg, gstate = cfg.guards, state.guards
+        cadence = cfg.refresh_every <= 1 or _refresh_pred(step,
+                                                          cfg.refresh_every)
+        # the xi watchdog's decisions for this step, from the host counters
+        force = demoted = [0] * len(fact)
+        dense_v = None
+        if gcfg is not None:
+            force = gstate.force_refresh.tolist()
+            if gstate.dense_v:          # demotion needs its shadow buffers
+                demoted = gstate.demoted.tolist()
+                dense_v = list(gstate.dense_v)
         draws = {}
-        if cfg.refresh_every <= 1 or _refresh_pred(step, cfg.refresh_every):
-            for i in fact:
-                g, leaf = grads[names[i]], state.leaves[i]
-                r = _r_store(leaf)
-                p_eff, _ = _leaf_meta(shapes[i], r, cfg)
-                draw = (cfg.sketch or S.torch_normal(g.device))(
-                    F.batch_dims(shapes[i]) + (shapes[i][-1], r + p_eff),
-                    _sketch_generator(cfg.seed, step, i, g.device))
-                draws[i] = draw.to(device=g.device, dtype=torch.float32)
+        for i in fact:
+            j = ordinal[i]
+            if demoted[j] or not (cadence or force[j]):
+                continue
+            g, leaf = grads[names[i]], state.leaves[i]
+            r = _r_store(leaf)
+            p_eff, _ = _leaf_meta(shapes[i], r, cfg)
+            draw = (cfg.sketch or S.torch_normal(g.device))(
+                F.batch_dims(shapes[i]) + (shapes[i][-1], r + p_eff),
+                _sketch_generator(cfg.seed, step, i, g.device))
+            draws[i] = draw.to(device=g.device, dtype=torch.float32)
         outs, new_leaves = [None] * len(names), [None] * len(names)
         buckets: dict = {}
         for i, leaf in enumerate(state.leaves):
             g = grads[names[i]]
             if not isinstance(leaf, F.FactoredLeaf):
                 outs[i], new_leaves[i] = _update_dense(g, leaf, cfg)
-            elif cfg.bucketed:
+            elif cfg.bucketed and gcfg is None:
                 buckets.setdefault(F.leaf_signature(shapes[i], g.dtype),
                                    []).append(i)
             else:
@@ -459,10 +581,16 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
         for idxs in buckets.values():
             if len(idxs) == 1:
                 i = idxs[0]
+                j = ordinal[i]
+                if demoted[j]:
+                    outs[i], new_leaves[i], dense_v[j] = _update_demoted(
+                        grads[names[i]], state.leaves[i], dense_v[j], cfg)
+                    continue
                 sketch = _drawn(draws[i]) if i in draws else None
                 m_out, nl = _update_factored(grads[names[i]],
                                              state.leaves[i], shapes[i],
-                                             step, sketch, cfg)
+                                             step, sketch, cfg,
+                                             force_refresh=force[j] > 0)
                 outs[i], new_leaves[i] = m_out, _requant(nl, cfg)
                 continue
             res = _update_bucket(
@@ -471,8 +599,15 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
                 [draws[i] for i in idxs] if draws else None, cfg)
             for i, (m_out, nl) in zip(idxs, res):
                 outs[i], new_leaves[i] = m_out, nl
-        return (dict(zip(names, outs)),
-                AdapproxState(step=step, leaves=tuple(new_leaves)))
+        new_state = AdapproxState(step=step, leaves=tuple(new_leaves),
+                                  guards=gstate, seed=cfg.seed)
+        if gcfg is not None and fact:
+            if dense_v is not None:       # the demoted leaves' new buffers
+                new_state.guards = dataclasses.replace(
+                    gstate, dense_v=tuple(dense_v))
+            new_state.pending = PendingGuards(torch.stack([
+                new_leaves[i].xi.float().amax() for i in fact]), gcfg)
+        return dict(zip(names, outs)), new_state
 
     return GradientTransformation(init, update)
 

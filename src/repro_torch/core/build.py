@@ -15,7 +15,12 @@ group whose ``select`` matches.  The launcher's default,
 ``default_mixed_groups()``, runs the count-min sketch on embedding tables,
 Adapprox on factorable matrices and dense Adam on the rest.
 
-Guards are not ported yet and raise.
+``cfg.guards`` wraps the outermost transform, chain or partition, in the
+non-finite skip-step guard (``resilience.guards.guard_updates``), so a
+tripped step freezes the parameters through every stage, weight decay
+included, and arms the xi watchdog of every Adapprox stage
+(``GuardConfig(xi_trip=guard_xi_trip, max_demotions=max_demotions)``),
+whose counters the wrapper advances in its one host read a step.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.core.transform import (add_decayed_weights, partition,
                                         scale_by_schedule)
 from repro_torch.core.types import (GradientTransformation, Schedule, chain,
                                     constant_schedule)
+from repro_torch.resilience.guards import GuardConfig, guard_updates
 
 
 def _schedule_of(cfg: OptimizerConfig) -> Callable:
@@ -68,7 +74,10 @@ def _preconditioner(cfg: OptimizerConfig, name: str, sched: Callable,
             warm_start=cfg.warm_start, n_iter_warm=cfg.n_iter_warm,
             warm_drift_xi=cfg.warm_drift_xi, bucketed=cfg.bucketed,
             fused_update=cfg.fused_update, telemetry=cfg.telemetry,
-            dynamic_refresh=cfg.dynamic_refresh, sketch=sketch))
+            dynamic_refresh=cfg.dynamic_refresh,
+            guards=(GuardConfig(xi_trip=cfg.guard_xi_trip,
+                                max_demotions=cfg.max_demotions)
+                    if cfg.guards else None), sketch=sketch))
     if name == "adamw":
         return scale_by_adam(cfg.b1, cfg.b2, cfg.eps)
     if name == "sketch":
@@ -173,11 +182,12 @@ def build_optimizer(cfg: OptimizerConfig,
     per-group chains.  ``sketch`` replaces the Gaussian sketch source of
     S-RSI in every Adapprox stage (see ``core/srsi.py``); None draws
     seeded torch normals."""
-    if cfg.guards:
-        raise NotImplementedError("guards are not ported to PyTorch yet; "
-                                  "see ROADMAP.md Queue A")
     sched = _schedule_of(cfg)
     mask = resolve_decay_mask(cfg.decay_mask)
     if cfg.groups:
-        return _build_partitioned(cfg, sched, mask, sketch)
-    return _chain_for(cfg, cfg.name, sched, mask, sketch)
+        opt = _build_partitioned(cfg, sched, mask, sketch)
+    else:
+        opt = _chain_for(cfg, cfg.name, sched, mask, sketch)
+    if cfg.guards:
+        opt = guard_updates(opt)
+    return opt

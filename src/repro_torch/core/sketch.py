@@ -74,8 +74,8 @@ class SketchLeaf:
     """
     table: torch.Tensor
     m: Optional[torch.Tensor]
-    seeds: tuple = ()
-    shape: tuple = ()
+    seeds: tuple = dataclasses.field(default=(), metadata=dict(static=True))
+    shape: tuple = dataclasses.field(default=(), metadata=dict(static=True))
 
 
 @dataclasses.dataclass

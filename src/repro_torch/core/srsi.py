@@ -56,21 +56,48 @@ def _cholesky(gram: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.full_like(chol, float("nan")), chol)
 
 
+def gram_dtype(device: torch.device) -> torch.dtype:
+    """The dtype CholeskyQR forms and factors its Gram matrix in: float64
+    on the card, float32 (the JAX package's) on the CPU; see
+    :func:`_cholesky_qr`."""
+    return torch.float64 if device.type == "cuda" else torch.float32
+
+
 def _cholesky_qr(y: torch.Tensor, shift_rel: float = 1e-5) -> torch.Tensor:
     """One shifted CholeskyQR pass over (*batch, m, r): column scaling with
     a relative clamp at 1e-6 * max column norm, a trace-relative diagonal
     shift, and non-finite entries of Q zeroed (a collapsed sketch column is
-    dropped)."""
+    dropped).
+
+    On the card the Gram matrix is formed and factored in float64 and the
+    factor rounded to float32; the CPU forms it in float32, the JAX
+    package's arithmetic, which the parity tests hold it to.  The sketch
+    columns can be nearly parallel (always after a power iteration), and
+    then the shift (1e-5 of a unit diagonal) is all that keeps the Gram
+    positive definite.  Formed in float32 (dot products over m or n
+    terms), the Gram's rounding can exceed the shift: its Cholesky then
+    fails whether factored in float32 or float64, the factor is NaN, the
+    finite mask below zeroes Q, and a zero Q stays zero through every
+    later pass (its Gram is the shift alone), so S-RSI returns zero
+    factors (xi 1).  At GPT-2 117M's full width the card's float32 GEMM
+    did so on 8 and 11 of w_down's 12 matrices at refresh steps 1 and 6,
+    and the CPU's on one of wo's at step 11 (``chip_smoke.py`` ``[srsi]``;
+    ROADMAP Queue C).  Formed in float64 from the same float32 columns,
+    the Gram is their inner products to float64 rounding, which the shift
+    keeps positive definite."""
     y32 = y.float()
     col = torch.sqrt(torch.sum(torch.square(y32), dim=-2) + 1e-30)
     col = torch.maximum(col, 1e-6 * torch.amax(col, dim=-1, keepdim=True)
                         + 1e-30)
     ys = y32 / col.unsqueeze(-2)
-    gram = ys.transpose(-1, -2) @ ys
+    wide = gram_dtype(y.device)
+    yw = ys.to(wide)
+    gram = yw.transpose(-1, -2) @ yw
     r = gram.shape[-1]
-    gram = gram + (shift_rel + 1e-30) * torch.eye(
-        r, dtype=torch.float32, device=y.device)
-    q = ys @ _tri_inv_lower(_cholesky(gram)).transpose(-1, -2)
+    gram = gram + (shift_rel + 1e-30) * torch.eye(r, dtype=wide,
+                                                  device=y.device)
+    chol = _cholesky(gram).float()
+    q = ys @ _tri_inv_lower(chol).transpose(-1, -2)
     return torch.where(torch.isfinite(q), q, torch.zeros_like(q))
 
 

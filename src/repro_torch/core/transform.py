@@ -159,10 +159,10 @@ def scale_by_relative_step(eps2: float = 1e-3,
 class PartitionState:
     """State of :func:`partition`: ``inner`` maps each label to its
     transform's state; ``labels`` holds one label per parameter leaf, in
-    flatten order, fixed at init."""
+    flatten order, fixed at init (static: not a checkpoint leaf)."""
 
     inner: dict
-    labels: tuple
+    labels: tuple = dataclasses.field(metadata=dict(static=True))
 
 
 def partition(labeler: "Callable | dict",

@@ -14,7 +14,9 @@
 //     as they are staged (pass1.cuh).
 //   * apply_kernel    <- fused_apply_pallas / fused_apply_shared_pallas,
 //     pass 2: u_c = u_hat / denom, acc = b1 m1 + (1 - b1) u_c,
-//     m_out = acc * out_scale, m1 <- acc * store_scale (in place).
+//     m_out = acc * out_scale, m1_new = acc * store_scale, written over
+//     m1 in place, or into a fresh buffer when the caller must keep the
+//     pre-step m1 (the skip-step guard): the same bytes either way.
 //
 // What bounds them on an H100, and what the design does about it:
 //
@@ -105,13 +107,16 @@ precond_kernel(Factor q, Factor u, const float* __restrict__ g,
 
 template <bool SHARED>
 __global__ void __launch_bounds__(APPLY_THREADS)
-apply_kernel(const float* __restrict__ u_hat, float* __restrict__ m1,
-             float* __restrict__ out, const float* __restrict__ scalars,
-             long long size) {
+apply_kernel(const float* __restrict__ u_hat, const float* m1_in,
+             float* m1, float* __restrict__ out,
+             const float* __restrict__ scalars, long long size) {
+  // m1_in and m1 are the same buffer (in place) or two (fresh output):
+  // each element is read, then written, by one thread, so no restrict.
   const int l = blockIdx.y;
   const float* s = scalars + 5 * l;
   const float denom = s[0], b1 = s[1], omb1 = s[2], os = s[3], ss = s[4];
   const float* ub = u_hat + (size_t)l * size;
+  const float* mi = m1_in + (size_t)l * size;
   float* mb = m1 + (size_t)l * size;
   float* obp = SHARED ? nullptr : out + (size_t)l * size;
   const long long stride = (long long)gridDim.x * APPLY_THREADS;
@@ -121,7 +126,7 @@ apply_kernel(const float* __restrict__ u_hat, float* __restrict__ m1,
     const long long n4 = size >> 2;
     for (long long i = first; i < n4; i += stride) {
       const float4 u4 = reinterpret_cast<const float4*>(ub)[i];
-      const float4 m4 = reinterpret_cast<const float4*>(mb)[i];
+      const float4 m4 = reinterpret_cast<const float4*>(mi)[i];
       float4 a;
       a.x = b1 * m4.x + omb1 * (u4.x / denom);
       a.y = b1 * m4.y + omb1 * (u4.y / denom);
@@ -135,7 +140,7 @@ apply_kernel(const float* __restrict__ u_hat, float* __restrict__ m1,
     }
   } else {
     for (long long i = first; i < size; i += stride) {
-      const float a = b1 * mb[i] + omb1 * (ub[i] / denom);
+      const float a = b1 * mi[i] + omb1 * (ub[i] / denom);
       if (!SHARED) obp[i] = a * os;
       mb[i] = a * ss;
     }
@@ -218,21 +223,22 @@ int fused_precond_int8(const int8_t* q8, const float* q_scale,
                        groups, tiles_per_group, b2, omb2, eps, fold,
                        static_cast<cudaStream_t>(stream));
 }
-// u_hat, m1 (batch, size) fp32 contiguous; scalars (batch, 5) fp32 =
-// [denom, b1, 1 - b1, out_scale, store_scale].  m1 is updated in place to
-// acc * store_scale; out (batch, size) receives acc * out_scale unless
-// out is NULL (shared variant: the caller reads m1 as the step direction).
-int fused_apply_f32(const float* u_hat, float* m1, float* out,
-                    const float* scalars, int batch, long long size,
-                    int blocks, void* stream) {
+// u_hat, m1_in, m1 (batch, size) fp32 contiguous; scalars (batch, 5) fp32
+// = [denom, b1, 1 - b1, out_scale, store_scale].  m1 receives
+// acc * store_scale from m1_in (m1 == m1_in: in place); out (batch, size)
+// receives acc * out_scale unless out is NULL (shared variant: the caller
+// reads m1 as the step direction).
+int fused_apply_f32(const float* u_hat, const float* m1_in, float* m1,
+                    float* out, const float* scalars, int batch,
+                    long long size, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks, batch);
   if (out == nullptr)
-    apply_kernel<true><<<grid, APPLY_THREADS, 0, s>>>(u_hat, m1, out,
+    apply_kernel<true><<<grid, APPLY_THREADS, 0, s>>>(u_hat, m1_in, m1, out,
                                                       scalars, size);
   else
-    apply_kernel<false><<<grid, APPLY_THREADS, 0, s>>>(u_hat, m1, out,
-                                                       scalars, size);
+    apply_kernel<false><<<grid, APPLY_THREADS, 0, s>>>(u_hat, m1_in, m1,
+                                                       out, scalars, size);
   return (int)cudaGetLastError();
 }
 

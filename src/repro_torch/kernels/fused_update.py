@@ -60,8 +60,8 @@ def _lib():
         lib.fused_precond_int8.argtypes = [p] * 11 + [i] * 6 + [f, f, f, i,
                                                              p]
         lib.fused_precond_int8.restype = ctypes.c_int
-        lib.fused_apply_f32.argtypes = [p, p, p, p, i, ctypes.c_longlong, i,
-                                        p]
+        lib.fused_apply_f32.argtypes = [p, p, p, p, p, i, ctypes.c_longlong,
+                                        i, p]
         lib.fused_apply_f32.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -152,11 +152,13 @@ def fused_precond(q, u, g: torch.Tensor, b2: float, eps: float,
 
 
 def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor,
-                scalars: torch.Tensor, shared_out: bool):
+                scalars: torch.Tensor, shared_out: bool,
+                m1_out: torch.Tensor | None = None):
     """Pass 2 on the card.  u_hat / m1 (B, size) fp32 contiguous, scalars
-    (B, 5) = [denom, b1, 1 - b1, out_scale, store_scale].  ``m1`` is
-    updated in place to ``acc * store_scale``.  Returns ``(m_out, m1)``;
-    with ``shared_out`` m_out IS m1 (one write instead of two)."""
+    (B, 5) = [denom, b1, 1 - b1, out_scale, store_scale].  The new first
+    moment ``acc * store_scale`` is written into ``m1_out`` (B, size), or
+    over ``m1`` in place when it is None.  Returns ``(m_out, m1_new)``;
+    with ``shared_out`` m_out IS m1_new (one write instead of two)."""
     if u_hat.dim() != 2:
         raise ValueError(f"u_hat: expected (batch, size), got "
                          f"{tuple(u_hat.shape)}")
@@ -164,12 +166,14 @@ def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor,
     cuda.check("u_hat", u_hat, (bsz, size))
     cuda.check("m1", m1, (bsz, size))
     cuda.check("scalars", scalars, (bsz, 5))
+    m1_new = m1 if m1_out is None else m1_out
+    cuda.check("m1_out", m1_new, (bsz, size))
     out = None if shared_out else torch.empty_like(m1)
     blocks = max(1, min(-(-size // (4 * APPLY_THREADS)), 4096))
     err = _lib().fused_apply_f32(
-        u_hat.data_ptr(), m1.data_ptr(),
+        u_hat.data_ptr(), m1.data_ptr(), m1_new.data_ptr(),
         None if out is None else out.data_ptr(), scalars.data_ptr(),
         bsz, size, blocks, cuda.stream(m1))
     cuda.raise_on(err, "fused_apply")
     LAUNCHES["fused_apply"] += 1
-    return (m1 if out is None else out), m1
+    return (m1_new if out is None else out), m1_new

@@ -22,7 +22,6 @@ import torch.nn.functional as F
 from repro_torch.core.quantized import QuantizedMatrix, dequantize
 from repro_torch.kernels import ref
 
-
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
@@ -159,14 +158,19 @@ def one_sided_fold(u: torch.Tensor, q: torch.Tensor, g: torch.Tensor,
 def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor | None,
                 denom: torch.Tensor, b1: float,
                 out_scale: torch.Tensor, store_scale: torch.Tensor,
-                shared_out: bool = False):
+                shared_out: bool = False, in_place: bool = True):
     """Pass 2 of the fused update (see ``ref.fused_apply``).  ``u_hat`` /
     ``m1``: (*batch, m, n); the three scalars: (*batch,).  On the card
-    ``m1`` is updated in place.  ``shared_out=True`` (valid when
-    out_scale == store_scale, i.e. guidance "off" or "stored") returns the
-    same tensor as m_out and m1_new.  With ``m1`` None (b1 = 0) the pass is
-    one scaled copy, which is plain tensor code on every device as in the
-    JAX package's dispatch.  Returns ``(m_out, m1_new)``."""
+    ``m1`` is updated in place; ``in_place=False`` writes the new first
+    moment into a fresh buffer and leaves ``m1`` as it was (the same bytes
+    move; a guarded Adapprox passes it, so a step the skip-step guard
+    rejects keeps its pre-step state, see ``resilience/guards.py``).  The
+    CPU's plain version always returns new tensors.  ``shared_out=True``
+    (valid when out_scale == store_scale, i.e. guidance "off" or "stored")
+    returns the same tensor as m_out and m1_new.  With ``m1``
+    None (b1 = 0) the pass is one scaled copy, which is plain tensor code
+    on every device as in the JAX package's dispatch.  Returns ``(m_out,
+    m1_new)``."""
     if m1 is None:
         return ref.fused_apply(u_hat, None, denom, b1, out_scale,
                                store_scale)
@@ -187,10 +191,11 @@ def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor | None,
                            torch.full((bsz,), 1.0 - b1, dtype=torch.float32,
                                       device=m1.device),
                            f(out_scale), f(store_scale)], dim=-1)
+    m1_new = m1 if in_place else torch.empty_like(m1)
     m_out, _ = K.fused_apply(
         u_hat.float().reshape(bsz, -1).contiguous(), m1.view(bsz, -1),
-        scalars, shared_out)
-    return (m1 if shared_out else m_out.view(shape)), m1
+        scalars, shared_out, m1_out=m1_new.view(bsz, -1))
+    return (m1_new if shared_out else m_out.view(shape)), m1_new
 
 
 def bucket_order(idx: torch.Tensor, width: int

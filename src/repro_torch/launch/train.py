@@ -14,8 +14,12 @@ every matrix; ``--quantize-factors`` stores the Adapprox factors as int8
 the stored factors and ``--bucketed`` runs same-shape factored leaves as
 one stacked call.  ``--optimizer adafactor`` / ``came`` / ``adamw`` run the
 baselines, without the mixed groups unless ``--mixed-groups`` is given.
+``--guards`` wraps the optimizer in the non-finite skip-step guard and arms
+the xi watchdog (``--guard-skip-threshold``, ``--max-demotions``);
+``--ckpt-dir`` saves a checkpoint every ``--ckpt-every`` steps, resumes
+from the latest good one, and writes a preemption checkpoint on SIGTERM.
 Flags for parts that are not ported yet raise when set: ``--mesh``,
-telemetry, tracing, guards and checkpointing (see ROADMAP.md Queue A).
+telemetry and tracing (see ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import argparse
 import logging
 from typing import Optional
 
+from repro_torch.checkpoint import CheckpointConfig
 from repro_torch.config import OptimizerConfig, default_mixed_groups
 from repro_torch.configs.archs import get_config, get_smoke_config
 from repro_torch.core.build import build_optimizer
@@ -35,8 +40,7 @@ from repro_torch.train.train_loop import LoopConfig, train
 # flag -> the default it must keep until its part is ported
 _NOT_PORTED = {"mesh": None,
                "telemetry_dir": None, "auto_refresh": False,
-               "guards": False, "trace_dir": None, "metrics_every": 0,
-               "ckpt_dir": None}
+               "trace_dir": None, "metrics_every": 0}
 
 
 def optimizer_config(name: str, steps: int, lr: float,
@@ -45,7 +49,9 @@ def optimizer_config(name: str, steps: int, lr: float,
                      quantize_factors: bool = False,
                      mixed_groups: bool = False, sketch_width: int = 2048,
                      sketch_depth: int = 4,
-                     embedding_min_rows: int = 1024) -> OptimizerConfig:
+                     embedding_min_rows: int = 1024, guards: bool = False,
+                     guard_xi_trip: float = 0.75,
+                     max_demotions: int = 0) -> OptimizerConfig:
     """The launcher's OptimizerConfig: cosine schedule derived from the run
     length and the paper's adaptive-rank settings, as in the JAX
     launcher.  With ``mixed_groups`` it is the partition of
@@ -63,7 +69,9 @@ def optimizer_config(name: str, steps: int, lr: float,
                                refresh_every=refresh_every,
                                warm_start=warm_start, bucketed=bucketed,
                                fused_update=fused_update,
-                               quantize_factors=quantize_factors)
+                               quantize_factors=quantize_factors,
+                               guards=guards, guard_xi_trip=guard_xi_trip,
+                               max_demotions=max_demotions)
     return OptimizerConfig(**common)
 
 
@@ -112,9 +120,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--telemetry-dir", default=None)
     ap.add_argument("--telemetry-every", type=int, default=1)
     ap.add_argument("--auto-refresh", action="store_true")
-    ap.add_argument("--guards", action="store_true")
-    ap.add_argument("--guard-skip-threshold", type=float, default=0.75)
-    ap.add_argument("--max-demotions", type=int, default=0)
+    ap.add_argument("--guards", action="store_true",
+                    help="adapprox: wrap the chain in the non-finite "
+                         "skip-step guard and arm the per-leaf xi watchdog")
+    ap.add_argument("--guard-skip-threshold", type=float, default=0.75,
+                    help="xi level that counts as a factorization blow-up "
+                         "(forces a full S-RSI refresh for that leaf)")
+    ap.add_argument("--max-demotions", type=int, default=0,
+                    help="consecutive xi trips before a leaf is demoted to "
+                         "the exact dense second moment (0 = never)")
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--metrics-every", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
@@ -149,13 +163,19 @@ def main(argv=None, *, params: Optional[dict] = None,
         bucketed=args.bucketed, fused_update=args.fused_update,
         quantize_factors=args.quantize_factors, mixed_groups=mixed,
         sketch_width=args.sketch_width, sketch_depth=args.sketch_depth,
-        embedding_min_rows=args.embedding_min_rows), sketch=sketch)
+        embedding_min_rows=args.embedding_min_rows, guards=args.guards,
+        guard_xi_trip=args.guard_skip_threshold,
+        max_demotions=args.max_demotions), sketch=sketch)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch)
+    ckpt = (CheckpointConfig(directory=args.ckpt_dir,
+                             save_every=args.ckpt_every)
+            if args.ckpt_dir else None)
     state, history = train(model, opt, data_cfg,
                            LoopConfig(total_steps=args.steps,
-                                      log_every=args.log_every),
-                           device=device, params=params)
+                                      log_every=args.log_every, ckpt=ckpt),
+                           device=device, params=params,
+                           install_signal_handler=ckpt is not None)
     if history:
         print(f"final loss: {history[-1]['loss']:.4f} "
               f"({history[-1]['step_time_s'] * 1e3:.0f} ms/step)")

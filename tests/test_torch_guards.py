@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
 from repro_torch.config import OptimizerConfig
 from repro_torch.core import adapprox as TA
 from repro_torch.core.adafactor import AdafactorState
@@ -22,6 +23,8 @@ from repro_torch.core.sketch import SketchConfig, scale_by_sketch
 from repro_torch.core.transform import PartitionState
 from repro_torch.device import resolve_device
 from repro_torch.launch import train as launcher
+from repro_torch.resilience import (GuardConfig, GuardedState, GuardState,
+                                    guard_updates)
 
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ["--smoke", "--steps", "1", "--batch", "2", "--seq", "16"]
@@ -50,8 +53,7 @@ def test_mixed_groups_raise_instead_of_switching(flags):
                                            "dense"}
 
 
-@pytest.mark.parametrize("flag", [["--guards"], ["--ckpt-dir", "x"],
-                                  ["--mesh", "2"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"]])
 def test_unported_launcher_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         launcher.main(SMOKE + ["--device", "cpu", "--no-mixed-groups"]
@@ -59,8 +61,7 @@ def test_unported_launcher_flags_raise(flag):
 
 
 @pytest.mark.parametrize("knob", [dict(telemetry=True),
-                                  dict(dynamic_refresh=True),
-                                  dict(guards=object())])
+                                  dict(dynamic_refresh=True)])
 def test_unported_adapprox_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TA.scale_by_adapprox(TA.AdapproxConfig(**knob))
@@ -85,21 +86,34 @@ def _step_twice(opt, params):
 @pytest.mark.parametrize("way", [
     "--quantize-factors", "factor_dtype", "use_kernels", "--warm-start",
     "--bucketed", "implicit", "bucketed", "warm_start", "adafactor", "came",
-    "OptimizerConfig()"])
-def test_ported_knobs_build_their_state(way):
+    "OptimizerConfig()", "--guards", "--ckpt-dir", "guards=",
+    "guards=True"])
+def test_ported_knobs_build_their_state(way, tmp_path):
     """--quantize-factors (launcher) and factor_dtype="int8" (config) store
     int8 factors; use_kernels, implicit, warm_start and bucketed build and
     step with fp32 factors; --warm-start and --bucketed run in the
     launcher; build_optimizer builds the adafactor and came families and
-    the default OptimizerConfig() (implicit=True).  Each raised
+    the default OptimizerConfig() (implicit=True); --guards (launcher),
+    guards=GuardConfig() (AdapproxConfig) and guards=True
+    (OptimizerConfig) build and step the skip-step guard and the xi
+    watchdog; --ckpt-dir writes a checkpoint.  Each raised
     NotImplementedError until it was ported."""
     if way.startswith("--"):
         argv = SMOKE + ["--device", "cpu", "--no-mixed-groups", way]
         if way == "--warm-start":      # step 2 is a warm refresh
             argv[argv.index("--steps") + 1] = "2"
+        if way == "--ckpt-dir":
+            argv.append(str(tmp_path))
         state, hist = launcher.main(argv)
         leaves = _factored_leaves(state.opt_state)
         assert hist and leaves
+        if way == "--guards":
+            assert isinstance(state.opt_state, GuardedState)
+            assert state.opt_state.steps == 1
+            assert TA.adapprox_state(state.opt_state).guards is not None
+        if way == "--ckpt-dir":
+            assert CheckpointManager(CheckpointConfig(
+                directory=str(tmp_path))).latest_step() == 1
         if way == "--quantize-factors":
             assert all(isinstance(leaf.q, QuantizedMatrix)
                        and isinstance(leaf.u, QuantizedMatrix)
@@ -109,6 +123,24 @@ def test_ported_knobs_build_their_state(way):
         return
     params = {"w": torch.ones((128, 160)), "w2": torch.ones((128, 160)),
               "b": torch.ones(8)}
+    if way == "guards=":
+        # a guarded Adapprox runs inside the skip-step guard, which
+        # advances its watchdog's counters
+        state = TA.adapprox_state(_step_twice(guard_updates(
+            TA.scale_by_adapprox(TA.AdapproxConfig(
+                min_dim_factor=64, guards=GuardConfig(max_demotions=1)))),
+            params))
+        assert isinstance(state.guards, GuardState) and state.pending is None
+        assert state.guards.trips.shape == (2,)
+        assert len(state.guards.dense_v) == 2
+        assert len(_factored_leaves(state)) == 2
+        return
+    if way == "guards=True":
+        state = _step_twice(build_optimizer(OptimizerConfig(
+            guards=True, min_dim_factor=64)), params)
+        assert isinstance(state, GuardedState) and state.steps == 2
+        assert state.skipped == 0 and len(_factored_leaves(state)) == 2
+        return
     if way in ("adafactor", "came", "OptimizerConfig()"):
         cfg = (OptimizerConfig() if way == "OptimizerConfig()"
                else OptimizerConfig(name=way, min_dim_factor=64))
@@ -135,8 +167,7 @@ def test_ported_knobs_build_their_state(way):
             torch.int8 if quant else torch.float32)
 
 
-@pytest.mark.parametrize("change", [dict(guards=True),
-                                    dict(telemetry=True),
+@pytest.mark.parametrize("change", [dict(telemetry=True),
                                     dict(dynamic_refresh=True)])
 def test_build_optimizer_refuses_what_is_not_ported(change):
     cfg = dataclasses.replace(OptimizerConfig(implicit=False), **change)

@@ -91,6 +91,30 @@ def test_cholesky_qr2_rank_deficient_no_nan():
     np.testing.assert_array_equal(q.numpy(), want)
 
 
+def test_card_forms_the_gram_in_float64(monkeypatch):
+    """The card's CholeskyQR forms and factors its Gram in float64: its
+    float32 GEMM rounded a power-iterated sketch's Gram by more than the
+    1e-5 shift, the Cholesky failed and S-RSI zeroed the factors of most
+    of GPT-2 117M w_down's matrices (chip_smoke.py ``[srsi]`` holds the
+    card there).  The CPU keeps float32, bitwise the JAX package's route;
+    the card's float64 route, run here on nearly parallel sketch columns,
+    gives the same orthonormal Q within float32 rounding."""
+    assert S.gram_dtype(torch.device("cuda")) == torch.float64
+    assert S.gram_dtype(torch.device("cpu")) == torch.float32
+    rng = np.random.default_rng(7)
+    base = rng.standard_normal((1024, 1))
+    y = torch.from_numpy((base + 1e-3 * rng.standard_normal((1024, 40)))
+                         .astype(np.float32)).unsqueeze(0)
+    narrow = S.cholesky_qr2(y)
+    monkeypatch.setattr(S, "gram_dtype", lambda device: torch.float64)
+    wide = S.cholesky_qr2(y)
+    eye = torch.eye(40)
+    for q in (narrow, wide):
+        assert torch.isfinite(q).all() and float(q.abs().sum()) > 0
+        assert float((q[0].T @ q[0] - eye).abs().max()) < 1e-4
+    _close_rel(wide, narrow, 1e-3)
+
+
 @pytest.mark.parametrize("bd", [(), (3,)])
 def test_srsi_dense_matches_jax_with_injected_sketch(bd):
     m, n, r_store, p, n_iter = 96, 80, 12, 5, 5

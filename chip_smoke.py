@@ -80,7 +80,18 @@ sm_90a) and the CUDA toolkit.  In order, it
      every factored leaf, after which B1 and B2 launch no more, its
      counters those of [parity-guards]' CPU run; [guards-bucketed] runs
      the guarded launcher with --bucketed --max-demotions 2 --ckpt-dir
-     per leaf (6 calls of B1 / B2 a step, not 3);
+     per leaf (6 calls of B1 / B2 a step, not 3); [telemetry] runs the
+     mixed groups with the telemetry subsystem: bitwise [train-mixed]
+     with snapshots on, with a constant dynamic cadence and with
+     everything on, the snapshots against the leaves, the closed loop
+     (interval 2) against a replay of its interval means and across a
+     save at step 7 and a restore, the launcher with --telemetry-dir
+     --trace-dir --metrics-every --auto-refresh --guards, paired fold-step
+     times with everything on and off, and the device-to-host copies a
+     fold step (telemetry adds at most one, none under the guards);
+     [chaos] also checks its runtime's fault events; [srsi] also holds
+     each of w_down's matrices alone against its slice of the batched
+     S-RSI, bitwise;
   6. breaks a step of each run down into model and optimizer time;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
@@ -101,6 +112,7 @@ import dataclasses
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -268,19 +280,23 @@ def events_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
-    """Mean device time per call from torch.profiler: the kernels whose
-    name contains ``kernel``, or every kernel the call launches.  Returns
-    0.0 when three profiles in a row record no device time at all (CUPTI
-    can drop microsecond kernels); the caller then falls back to events.
-    Fails when a profile records device time but no kernel named
-    ``kernel``: a name that matches nothing is a stale lookup, not 0."""
+def device_ms(fn, kernel: str | None = None, reps: int = 20,
+              profiles: int = 3) -> float:
+    """Device time per call from torch.profiler: the kernels whose name
+    contains ``kernel``, or every kernel the call launches, as the median
+    over ``profiles`` profiles of ``reps`` calls each, every kernel and
+    plain version alike.  A profile that records no device time at all
+    (CUPTI can drop microsecond kernels) is left out of the median; with
+    none left it returns 0.0 and the caller falls back to events.  Fails
+    when a profile records device time but no kernel named ``kernel``: a
+    name that matches nothing is a stale lookup, not 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    readings = []
+    for _ in range(profiles):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -289,12 +305,12 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
         us = sum(e.self_device_time_total for e in evs
                  if kernel is None or kernel in e.key)
         if us > 0:
-            return us / reps / 1e3
-        if kernel is not None and sum(e.self_device_time_total
-                                      for e in evs) > 0:
+            readings.append(us / reps / 1e3)
+        elif kernel is not None and sum(e.self_device_time_total
+                                        for e in evs) > 0:
             fail(f"the profiler recorded device time but no kernel named "
                  f"{kernel!r}: {sorted({e.key[:60] for e in evs})}")
-    return 0.0
+    return statistics.median(readings) if readings else 0.0
 
 
 def time_pair(kern, plain, kernel_name: str | None, rec: dict,
@@ -1531,6 +1547,30 @@ def check_srsi(device, fact_mixed: list):
                  f"rel err {worst:.2e}")
     print("  seconds by route: " + ", ".join(
         f"{route} {sec:.1f}" for route, sec in seconds.items()))
+    # batched equals unbatched, the JAX package's contract (core/srsi.py):
+    # each matrix of w_down's stack alone, against its slice of the batch
+    for t, name, v, draw, r, p, n_it in captured:
+        if name != "blocks/mlp/w_down":
+            continue
+        vd, dd = v.to(device), draw.to(device)
+        batched = S.srsi_dense(vd, r, p, n_it, lambda shape, gen: dd)
+        t1 = time.monotonic()
+        bad = []
+        for i in range(v.shape[0]):
+            alone = S.srsi_dense(vd[i], r, p, n_it,
+                                 lambda shape, gen, i=i: dd[i])
+            diff = [f for f in alone._fields
+                    if not torch.equal(getattr(batched, f)[i],
+                                       getattr(alone, f))]
+            if diff:
+                bad.append((i, diff))
+        print(f"  step {t} {name}: each of its {v.shape[0]} matrices alone "
+              f"on the card vs its slice of the batched run: "
+              f"{bad or 'bitwise equal (Q, U, cum_energy, frob_sq)'} "
+              f"({time.monotonic() - t1:.1f} s)")
+        if bad:
+            fail(f"S-RSI at step {t}, {name}: batched differs from alone "
+                 f"on matrices {bad}")
 
 
 class _CallOrderSketch:
@@ -2333,7 +2373,9 @@ def chaos_phase(device, mixed_launches: dict):
     tensor of the state (params, m1 included) bitwise unchanged across
     each skipped step, 3 skips, the last at 9, every parameter finite, the
     loss falling, and B1 / B2 / B5 launched on every step, skipped ones
-    too: as often as in [train-mixed] (``mixed_launches``).  Returns
+    too: as often as in [train-mixed] (``mixed_launches``).  A
+    ``TelemetryRuntime`` with a sink rides the loop and must write exactly
+    three ``kind="fault"`` ``skip`` events, at steps 5, 6 and 9.  Returns
     ``(launches, info)``."""
     import torch
     from repro_torch.configs.archs import get_config
@@ -2342,10 +2384,16 @@ def chaos_phase(device, mixed_launches: dict):
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.config import TelemetryConfig
     from repro_torch.resilience import FaultPlan, inject_faults
+    from repro_torch.telemetry import TelemetryRuntime, load_events
     from repro_torch.train.train_loop import LoopConfig, train
     cfg = get_config("gpt2-117m")
     model = build_model(cfg)
+    events = CKPT_ROOT / "chaos_events"
+    shutil.rmtree(events, ignore_errors=True)
+    runtime = TelemetryRuntime(TelemetryConfig(enabled=True,
+                                               dir=str(events)))
     opt = chain(inject_faults(FaultPlan(nan_steps=(5, 6), inf_steps=(9,))),
                 build_optimizer(optimizer_config(
                     "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
@@ -2356,7 +2404,7 @@ def chaos_phase(device, mixed_launches: dict):
     def run_to(total, state):
         st, h = train(model, opt, data, LoopConfig(total_steps=total,
                                                    log_every=1),
-                      device=device, state=state)
+                      device=device, state=state, telemetry=runtime)
         hist.extend(h)
         return st
 
@@ -2393,9 +2441,293 @@ def chaos_phase(device, mixed_launches: dict):
         fail(f"chaos: loss did not fall ({losses[0]} -> {losses[-1]})")
     if launches != mixed_launches:
         fail(f"chaos: launches {launches}, expected {mixed_launches}")
+    runtime.close()
+    faults = [(e["step"], e["event"], e["skipped"])
+              for e in load_events(events) if e["kind"] == "fault"]
+    print(f"  fault events in the runtime's stream: {faults}")
+    if faults != [(5, "skip", 1), (6, "skip", 2), (9, "skip", 3)]:
+        fail(f"chaos: fault events {faults}, expected skips at 5, 6, 9")
     del state
     torch.cuda.empty_cache()
     return launches, {"loss": losses[-1], "wall_s": wall}
+
+
+def same_as_mixed(what: str, state, mixed_state: list) -> None:
+    """Fail unless every tensor of [train-mixed]'s final state
+    (``mixed_state``: its paths and CPU copies) is in ``state``, bitwise
+    equal; ``state`` may hold more (the telemetry snapshots)."""
+    import torch
+    now = dict(tensor_leaves(state))
+    missing = [p for p, _ in mixed_state if p not in now]
+    bad = [p for p, t in mixed_state
+           if p in now and not torch.equal(now[p].detach().cpu(), t)]
+    if missing or bad:
+        fail(f"{what}: {len(missing)} of [train-mixed]'s tensors missing "
+             f"({missing[:2]}), {len(bad)} differ ({bad[:3]})")
+    print(f"  {what}: all {len(mixed_state)} parameter and state tensors of "
+          f"[train-mixed] bitwise equal")
+
+
+def dtoh_copies(fn) -> int:
+    """Device-to-host copies (torch.profiler's ``Memcpy DtoH`` activity)
+    that ``fn()`` makes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "Memcpy DtoH" in e.key)
+
+
+def telemetry_phase(device, mixed_state: list, mixed_expect: dict) -> dict:
+    """[telemetry]: GPT-2 117M at full width on the launcher's mixed
+    groups, --fused-update --refresh-every 5, 12 steps, seed 0, as
+    [train-mixed], with the telemetry subsystem on:
+
+      1. a ``TelemetryRuntime`` without the controller: the final state
+         bitwise [train-mixed]'s (``mixed_state``), every step's snapshot
+         xi and k those of the leaves, refresh + fold == step, refreshes
+         at 1, 6 and 11 only, B1 / B2 / B5 launched as in [train-mixed];
+      2. the closed loop (``auto_refresh``, interval 2, relax_patience 1,
+         a dynamic cadence from 5): every refresh where ``_refresh_pred``
+         puts it under the cadence then, by the snapshot's counters and by
+         B1's calls with and without the fold; a fresh controller fed the
+         recorded interval means gives the same cadence log; the run
+         saved at step 7 (mid-interval) and restored into a new loop
+         gives the same log and bitwise the same parameters;
+      3. the whole launcher with --telemetry-dir D --trace-dir D
+         --metrics-every 4 --auto-refresh --guards: launches as
+         [train-mixed], its stream valid, a train_step span with a phase
+         each step, metrics.prom parses;
+      4. cost: everything on (telemetry, a dynamic cadence and the
+         controller, a sink, the tracer, metrics every 4) against
+         everything off, resumed from their own states in alternating
+         segments: the fold steps' times, paired, and both final states
+         bitwise [train-mixed]'s (on: a constant dynamic cadence of 5 is
+         the static run); device-to-host copies of one fold step,
+         telemetry on and off, with and without --guards: telemetry adds
+         at most one, and none under the guards.
+
+    Returns ``{path: train_main_path's result}`` for runs 1 and 3."""
+    import numpy as np
+    import torch
+    from repro_torch import telemetry as T
+    from repro_torch.checkpoint import CheckpointConfig
+    from repro_torch.config import TelemetryConfig
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core import adapprox as TA
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.core.factored import FactoredLeaf
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.telemetry.snapshot import fetch_host
+    from repro_torch.train.train_loop import LoopConfig, train
+    cfg = get_config("gpt2-117m")
+    model = build_model(cfg)
+    data = DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8)
+    ocfg = lambda **kw: optimizer_config(
+        "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
+        mixed_groups=True, **{"telemetry": True, **kw})
+    folds = []                      # B1's calls since the last step
+    plain_precond = ops.fused_precond
+
+    def precond(*args, **kw):
+        folds.append(bool(kw.get("with_fold")))
+        return plain_precond(*args, **kw)
+
+    class Checked(T.TelemetryRuntime):
+        """The runtime, and after each of its steps the checks of the
+        phase: the snapshot against the leaves and the counters, B1's
+        calls against the refresh decision."""
+
+        def __init__(self, tcfg):
+            super().__init__(tcfg)
+            self.rows = []
+
+        def on_step(self, step, state):
+            out = super().on_step(step, state)
+            snap = T.named_snapshots(state.opt_state)["factored"]
+            fetch_host([snap])
+            fact = [leaf for leaf in TA.adapprox_state(state.opt_state).leaves
+                    if isinstance(leaf, FactoredLeaf)]
+            own = torch.stack(
+                [torch.mean(leaf.xi.float()) for leaf in fact]
+                + [torch.mean(torch.clamp_max(leaf.k, factor_width(leaf))
+                              .float()) for leaf in fact]).cpu().numpy()
+            if not np.array_equal(own, np.concatenate(
+                    [snap.host("xi"), snap.host("k")])):
+                fail(f"[telemetry] step {step}: snapshot xi / k "
+                     f"{snap.host('xi')} / {snap.host('k')} are not the "
+                     f"leaves' {own}")
+            t = snap.refresh_every
+            want = t <= 1 or TA._refresh_pred(step, t)
+            if (snap.step != step or snap.refresh_steps + snap.fold_steps
+                    != step or bool(snap.did_refresh) != want
+                    or folds != [not want] * len(fact)):
+                fail(f"[telemetry] step {step}: snapshot step {snap.step}, "
+                     f"refresh {snap.refresh_steps} + fold "
+                     f"{snap.fold_steps}, did_refresh {snap.did_refresh} "
+                     f"at cadence {t}; B1 calls with the fold {folds}")
+            self.rows.append((step, bool(snap.did_refresh), t,
+                              float(np.mean(snap.host("xi")))))
+            folds.clear()
+            return out
+
+    def checked_run(rt, steps=12, ckpt=None, **kw):
+        def run():
+            folds.clear()
+            ops.fused_precond = precond
+            try:
+                return train(model, build_optimizer(ocfg(**kw)), data,
+                             LoopConfig(total_steps=steps, log_every=1,
+                                        ckpt=ckpt), device=device,
+                             telemetry=rt)
+            finally:
+                ops.fused_precond = plain_precond
+        return run
+
+    out = {}
+    t_phase = time.monotonic()
+    print("  1. telemetry, no controller:")
+    rt = Checked(TelemetryConfig(enabled=True))
+    out["telemetry"] = train_main_path(
+        checked_run(rt), "fused", mixed_expect,
+        keep=lambda st: same_as_mixed("telemetry on", st, mixed_state))
+    refreshed = [step for step, did, _, _ in rt.rows if did]
+    print(f"  refreshes at steps {refreshed}; snapshot xi and k equal the "
+          f"leaves' at all {len(rt.rows)} steps")
+    if refreshed != [1, 6, 11]:
+        fail(f"[telemetry] refreshes at {refreshed}, expected 1, 6, 11")
+
+    print("  2. the closed loop, interval 2, relax_patience 1:")
+    loop_cfg = TelemetryConfig(enabled=True, auto_refresh=True, interval=2,
+                               relax_patience=1)
+    rt_a = Checked(loop_cfg)
+    state_a, _ = checked_run(rt_a, dynamic_refresh=True)()
+    print(f"  cadence log {rt_a.cadence_log}")
+    print("  steps (step, refreshed, cadence, mean xi): " + ", ".join(
+        f"({s}, {int(d)}, {t}, {x:.4f})" for s, d, t, x in rt_a.rows))
+    ctl, t, replay = T.RefreshController(T.ControllerConfig(
+        interval=2, relax_patience=1)), 5, []
+    for step, _, _, xi in rt_a.rows:
+        c = ctl.observe(step, "factored", xi, t)
+        if c is not None:
+            replay.append((c.step, "factored", c.old, c.new))
+            t = c.new
+    if replay != rt_a.cadence_log or not replay:
+        fail(f"[telemetry] a fresh controller gives {replay}, the run "
+             f"{rt_a.cadence_log}")
+    d = CKPT_ROOT / "telemetry"
+    shutil.rmtree(d, ignore_errors=True)
+    ck = CheckpointConfig(directory=str(d), save_every=7, async_save=False)
+    checked_run(Checked(loop_cfg), steps=7, ckpt=ck,
+                dynamic_refresh=True)()
+    rt_c = Checked(loop_cfg)
+    state_c, _ = checked_run(rt_c, ckpt=ck, dynamic_refresh=True)()
+    same, worst = compare_states(state_a, state_c)
+    print(f"  saved at 7, restored into a new loop: cadence log "
+          f"{rt_c.cadence_log}; state {'bitwise equal' if same else worst}"
+          f" to the straight run's")
+    if rt_c.cadence_log != rt_a.cadence_log or not same:
+        fail("[telemetry] the resumed closed loop differs from the "
+             "straight run")
+    del state_a, state_c
+    shutil.rmtree(d, ignore_errors=True)
+
+    print("  3. the launcher with every telemetry flag:")
+    d = CKPT_ROOT / "telemetry_launcher"
+    shutil.rmtree(d, ignore_errors=True)
+    argv = TRAIN_MIXED_ARGV + [
+        "--telemetry-dir", str(d), "--trace-dir", str(d), "--metrics-every",
+        "4", "--auto-refresh", "--guards"]
+    out["telemetry_launcher"] = train_main_path(launcher_run(argv), "fused",
+                                                mixed_expect)
+    n_events = T.validate_dir(d)
+    events = T.load_events(d)
+    phases = {e["step"]: e.get("attrs", {}).get("phase") for e in events
+              if e["kind"] == "span" and e["name"] == "train_step"}
+    prom = T.parse_prometheus((d / "metrics.prom").read_text())["samples"]
+    kinds = sorted({e["kind"] for e in events})
+    print(f"  {n_events} events valid ({kinds}); train_step phases "
+          f"{[phases.get(i) for i in range(1, 13)]}; check_events "
+          f"{T.check_events(events)}; metrics.prom train_steps_total "
+          f"{prom.get('train_steps_total')}")
+    if [phases.get(i) for i in range(1, 13)] != [
+            "refresh" if i % 5 == 1 else "fold" for i in range(1, 13)]:
+        fail(f"[telemetry] train_step phases {phases}")
+    if T.check_events(events) or prom.get("train_steps_total") != 12.0:
+        fail("[telemetry] the launcher's spans or metrics.prom are wrong")
+    shutil.rmtree(d, ignore_errors=True)
+
+    print("  4. cost, everything on vs everything off, fold steps paired:")
+    d = CKPT_ROOT / "telemetry_cost"
+    shutil.rmtree(d, ignore_errors=True)
+    sink = T.TelemetrySink(T.SinkConfig(directory=str(d)))
+    on = dict(ocfg=ocfg(dynamic_refresh=True), rt=T.TelemetryRuntime(
+        TelemetryConfig(enabled=True, auto_refresh=True), sink=sink),
+        tracer=T.Tracer(sink=sink, registry=T.MetricsRegistry()))
+    off = dict(ocfg=ocfg(telemetry=False), rt=None, tracer=None)
+    for ctx in (on, off):
+        ctx.update(opt=build_optimizer(ctx["ocfg"]), state=None, t={})
+
+    def advance(ctx, total):
+        stamps = {}
+        ctx["state"], _ = train(
+            model, ctx["opt"], data, LoopConfig(total_steps=total,
+                                                log_every=1),
+            device=device, state=ctx["state"], telemetry=ctx["rt"],
+            tracer=ctx["tracer"], metrics_every=4 if ctx["rt"] else 0,
+            metric_hook=lambda step, m: stamps.update(
+                {step: time.perf_counter()}))
+        ctx["t"].update({s: stamps[s] - stamps[s - 1] for s in stamps
+                         if s - 1 in stamps and s % 5 != 1})
+
+    for total in (1, 5, 10, 12):
+        for ctx in ((on, off) if total % 2 else (off, on)):
+            advance(ctx, total)
+    fold_on, fold_off = (sorted(c["t"].values()) for c in (on, off))
+    pairs = [on["t"][s] - off["t"][s] for s in sorted(on["t"])]
+    med = lambda xs: xs[len(xs) // 2]
+    print(f"  fold-step period (step to step, the whole loop body), "
+          f"{len(pairs)} pairs: on median {med(fold_on):.4f} s, off "
+          f"{med(fold_off):.4f} s; on - off per pair (ms) "
+          f"{[round(x * 1e3, 2) for x in pairs]}, median "
+          f"{med(sorted(pairs)) * 1e3:.2f} ms ({card_line()})")
+    same_as_mixed("everything on, a constant dynamic cadence of 5",
+                  on["state"], mixed_state)
+    same_as_mixed("everything off", off["state"], mixed_state)
+    copies = {}
+    for ctx, label in ((on, "on"), (off, "off")):
+        copies[label] = dtoh_copies(lambda: advance(ctx, 13))
+    for ctx in (on, off):
+        ctx["state"] = None
+    for label, tel in (("guards on", True), ("guards off", False)):
+        ctx = dict(opt=build_optimizer(ocfg(guards=True, telemetry=tel)),
+                   rt=(T.TelemetryRuntime(TelemetryConfig(enabled=True),
+                                          sink=sink) if tel else None),
+                   tracer=None, state=None, t={})
+        advance(ctx, 1)
+        copies[("on" if tel else "off") + ", guards"] = dtoh_copies(
+            lambda: advance(ctx, 2))
+        del ctx
+    sink.close()
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"  device-to-host copies in one fold step (the loop's log line "
+          f"included): {copies}; the runtime's own: "
+          f"{on['rt'].transfers} in 13 steps ({card_line()})")
+    if (copies["on"] - copies["off"] > 1
+            or copies["on, guards"] != copies["off, guards"]):
+        fail(f"[telemetry] telemetry adds {copies['on'] - copies['off']} "
+             f"copies, {copies['on, guards'] - copies['off, guards']} "
+             f"under the guards")
+    torch.cuda.empty_cache()
+    print(f"  [telemetry] took {time.monotonic() - t_phase:.1f} s")
+    return out
 
 
 def guards_phase(device, cpu_counters: dict):
@@ -2597,11 +2929,18 @@ def main():
         fused_precond=96, fused_apply=192))}
     phase("[train-mixed] GPT-2 117M on the launcher's default mixed groups, "
           + " ".join(TRAIN_MIXED_ARGV))
-    mixed_params = {}
-    runs["mixed"] = train_main_path(launcher_run(TRAIN_MIXED_ARGV), "fused", dict(
-        fused_precond=72, fused_apply=72, sketch_scatter=24,
-        sketch_query=24), keep=lambda st: mixed_params.update(
-            {k: p.detach().cpu() for k, p in st.params.items()}))
+    mixed_params, mixed_state = {}, []
+    mixed_expect = dict(fused_precond=72, fused_apply=72, sketch_scatter=24,
+                        sketch_query=24)
+
+    def keep_mixed(st):
+        mixed_params.update({k: p.detach().cpu()
+                             for k, p in st.params.items()})
+        mixed_state.extend((p, t.detach().cpu())
+                           for p, t in tensor_leaves(st))
+
+    runs["mixed"] = train_main_path(launcher_run(TRAIN_MIXED_ARGV), "fused",
+                                    mixed_expect, keep=keep_mixed)
     phase("[train-int8] GPT-2 117M, " + " ".join(TRAIN_INT8_ARGV))
     runs["int8"] = train_main_path(launcher_run(TRAIN_INT8_ARGV), "int8", dict(
         fused_precond=72, fused_precond_int8=72, fused_apply=72,
@@ -2682,6 +3021,11 @@ def main():
         launcher_run(bucketed_argv), "fused", dict(
             fused_precond=18, fused_apply=18, sketch_scatter=6,
             sketch_query=6), steps=3)
+    phase("[telemetry] GPT-2 117M, the launcher's mixed groups "
+          "--fused-update --refresh-every 5, 12 steps, with the telemetry "
+          "subsystem: snapshots, the closed loop, the launcher's flags, cost")
+    runs.update(telemetry_phase(device, mixed_state, mixed_expect))
+    del mixed_state
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
     info = {p: r[1] for p, r in runs.items()}

@@ -31,7 +31,10 @@ handlers.
 
 The timings of the last save and restore are kept for measurement:
 ``last_gather_s`` (the host copy), ``last_write_s`` (the files, on the
-writer thread) and ``last_restore_s``.
+writer thread) and ``last_restore_s``.  With a ``tracer`` (the train loop
+sets its own) they are spans too, as in JAX: ``ckpt_gather`` (the
+synchronous host copy), ``ckpt_write`` (the files, on the writer thread,
+which starts a trace of its own) and ``ckpt_restore``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from pathlib import Path
 from typing import Any, Callable, Optional
 
 from repro_torch.checkpoint import serialization as SER
+from repro_torch.telemetry.trace import NULL_TRACER
 
 log = logging.getLogger(__name__)
 
@@ -73,6 +77,7 @@ class CheckpointManager:
         self._get_state: Optional[Callable] = None
         self._signal = None              # (signum, frame) once received
         self.last_gather_s = self.last_write_s = self.last_restore_s = 0.0
+        self.tracer = None               # optional telemetry Tracer
 
     def _with_retries(self, fn, what: str):
         """Run ``fn``, retrying OSErrors with exponential backoff; any
@@ -95,21 +100,27 @@ class CheckpointManager:
 
     def save(self, tree: Any, step: int, blocking: bool = False,
              extra_meta: Optional[dict] = None) -> None:
-        self.wait()                      # one in-flight save at a time
-        t0 = time.perf_counter()
-        host = SER.host_leaves(tree)     # synchronous: a consistent copy
-        treedef = SER.describe(tree)
-        self.last_gather_s = time.perf_counter() - t0
+        tr = self.tracer if self.tracer is not None else NULL_TRACER
+        with tr.span("ckpt_gather", step=step):
+            self.wait()                  # one in-flight save at a time
+            t0 = time.perf_counter()
+            host = SER.host_leaves(tree)  # synchronous: a consistent copy
+            treedef = SER.describe(tree)
+            self.last_gather_s = time.perf_counter() - t0
 
         def work():
             try:
-                t1 = time.perf_counter()
-                self._with_retries(
-                    lambda: SER.write_checkpoint(host, self.directory, step,
-                                                 extra_meta, treedef),
-                    what=f"checkpoint save step {step}")
-                self.last_write_s = time.perf_counter() - t1
-                self._retain()
+                # the writer thread has its own span stack: this span
+                # starts a trace rather than nesting under the caller's
+                with tr.span("ckpt_write", step=step):
+                    t1 = time.perf_counter()
+                    self._with_retries(
+                        lambda: SER.write_checkpoint(
+                            host, self.directory, step, extra_meta,
+                            treedef),
+                        what=f"checkpoint save step {step}")
+                    self.last_write_s = time.perf_counter() - t1
+                    self._retain()
             except BaseException as e:  # noqa: BLE001 -- surfaced on wait()
                 self._error = e
 
@@ -165,9 +176,11 @@ class CheckpointManager:
         verification, and a corrupt one is skipped with a warning; an
         explicit ``step`` is a user decision, and corruption there
         raises :class:`CheckpointCorruptError`."""
-        t0 = time.perf_counter()
-        out = self._restore(like, step)
-        self.last_restore_s = time.perf_counter() - t0
+        tr = self.tracer if self.tracer is not None else NULL_TRACER
+        with tr.span("ckpt_restore"):
+            t0 = time.perf_counter()
+            out = self._restore(like, step)
+            self.last_restore_s = time.perf_counter() - t0
         return out
 
     def _restore(self, like: Any, step: Optional[int]) -> tuple[Any, int]:

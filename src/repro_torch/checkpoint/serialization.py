@@ -24,7 +24,9 @@ checkpoint of either package lists the same leaves under the same names:
     ['wq']``); tuples index (``[0]``), dataclasses and named tuples by
     field (``.leaves``), ``None`` is no leaf, fields marked ``static`` in
     their metadata (partition labels, sketch seeds) are none either;
-  * the port's Python-int step counters are the JAX package's int32
+  * the port's Python-int counters (steps, the telemetry snapshot's
+    counters, a dynamic cadence) are the JAX package's int32 scalars, and
+    its Python floats (the snapshot's ``did_refresh``) its float32
     scalars;
   * a leaf the JAX state stores and the port derives, declared on a
     static field as ``derived_leaf=(name, after, fn)``: the leaf ``name``,
@@ -95,12 +97,12 @@ def _dict_path(key: str) -> str:
 def _map(node, path: str, fn: Callable):
     """Rebuild ``node`` with every leaf replaced by ``fn(path, leaf)``, in
     the JAX package's flatten order (see the module docstring); a leaf is
-    a tensor, a Python int or a :class:`_Derived`, whose result is
-    dropped."""
+    a tensor, a Python int or float, or a :class:`_Derived`, whose result
+    is dropped."""
     if node is None:
         return None
-    if isinstance(node, torch.Tensor) or (isinstance(node, int)
-                                          and not isinstance(node, bool)):
+    if isinstance(node, (torch.Tensor, float)) or (
+            isinstance(node, int) and not isinstance(node, bool)):
         return fn(path, node)
     if isinstance(node, dict):
         out = {}
@@ -134,8 +136,8 @@ def _map(node, path: str, fn: Callable):
 
 def leaves_with_paths(tree) -> list[tuple[str, Any]]:
     """``[(JAX key path, leaf)]`` of ``tree`` in flatten order; a leaf is a
-    tensor, a Python int, or (the PRNG key) a numpy array the port
-    derives."""
+    tensor, a Python int or float, or (the PRNG key) a numpy array the
+    port derives."""
     out = []
 
     def take(path, leaf):
@@ -154,6 +156,8 @@ def _host_array(leaf) -> tuple[np.ndarray, str]:
         return leaf.value, str(leaf.value.dtype)
     if isinstance(leaf, int):
         return np.asarray(leaf, np.int32), "int32"
+    if isinstance(leaf, float):
+        return np.asarray(leaf, np.float32), "float32"
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -180,7 +184,7 @@ def describe(tree) -> str:
     leaf ``*``.  Informational: restore matches leaves by ``paths``."""
     if tree is None:
         return "None"
-    if isinstance(tree, (torch.Tensor, int)):
+    if isinstance(tree, (torch.Tensor, int, float)):
         return "*"
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {describe(v)}"
@@ -360,11 +364,12 @@ def restore_pytree(ckpt_dir: "str | Path", like: Any,
                                  f"but the port derives "
                                  f"{leaf.value.tolist()}")
             return leaf
-        if isinstance(leaf, int):
-            if entry["dtype"] != "int32":
+        if isinstance(leaf, (int, float)):
+            want_dtype = "float32" if isinstance(leaf, float) else "int32"
+            if entry["dtype"] != want_dtype:
                 raise ValueError(f"{path}: dtype {entry['dtype']}, expected "
-                                 f"int32")
-            return int(arr)
+                                 f"{want_dtype}")
+            return type(leaf)(arr)
         if entry["dtype"] != _torch_dtype_name(leaf):
             raise ValueError(f"{path}: dtype {entry['dtype']} in the "
                              f"checkpoint vs {_torch_dtype_name(leaf)}")

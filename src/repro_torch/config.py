@@ -1,5 +1,5 @@
-"""Model and optimizer configs (frozen dataclasses), copied from the JAX
-package's ``config.py`` for the fields the port reads."""
+"""Model, optimizer and telemetry configs (frozen dataclasses), copied from
+the JAX package's ``config.py`` for the fields the port reads."""
 from __future__ import annotations
 
 import dataclasses
@@ -166,3 +166,46 @@ class OptimizerConfig:
     # came specifics
     b3: float = 0.9999              # instability-statistic decay
     groups: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Host-side telemetry and closed-loop refresh control
+    (``repro_torch.telemetry``; that package's docstring has the JSONL
+    event schema), a copy of the JAX package's ``TelemetryConfig``.
+
+    ``enabled`` turns on collection (``OptimizerConfig.telemetry``) and
+    the per-step host read; ``dir`` adds the async JSONL sink (``None`` =
+    collect and control without writing events); ``auto_refresh`` adds the
+    feedback controller, which adapts ``refresh_every`` per parameter
+    group from the observed xi and needs the cadence on the state
+    (``OptimizerConfig.dynamic_refresh``).  Controller policy: at every
+    ``interval``-step boundary, the interval-mean xi per group is compared
+    against a hysteresis band -- ``>= xi_high`` divides the cadence by
+    ``tighten_div`` (refresh more often), ``<= xi_low`` for
+    ``relax_patience`` consecutive intervals adds ``relax_add`` (refresh
+    less often), in between nothing moves.  Cadences are clamped to
+    [t_min, t_max].
+    """
+
+    enabled: bool = False
+    dir: Optional[str] = None            # JSONL sink directory (None = off)
+    emit_every: int = 1                  # emit events every N steps
+    rotate_bytes: int = 32 * 1024 * 1024
+    auto_refresh: bool = False           # closed-loop cadence controller
+    interval: int = 25                   # steps between cadence decisions
+    t_min: int = 1
+    t_max: int = 50
+    xi_high: float = 0.25                # tighten when interval-mean xi >=
+    xi_low: float = 0.10                 # relax when <= (with patience)
+    relax_patience: int = 2
+    tighten_div: int = 2
+    relax_add: int = 1
+
+    def __post_init__(self):
+        if self.emit_every < 1:
+            raise ValueError(f"emit_every must be >= 1, "
+                             f"got {self.emit_every}")
+        if self.rotate_bytes < 1:
+            raise ValueError(f"rotate_bytes must be >= 1, "
+                             f"got {self.rotate_bytes}")

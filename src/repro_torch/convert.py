@@ -8,7 +8,9 @@ for an ``AdapproxState``, a ``SketchState``, an ``AdamWState`` and an
 ``AdafactorState`` or ``CAMEState``, int8 factors included
 (``quantized_from_numpy``), and ``guard_state_from_numpy`` /
 ``guarded_state_from_numpy`` for the guards' ``GuardState`` and
-``GuardedState``.  With them, a test can start the two packages from the
+``GuardedState``; an Adapprox state's telemetry snapshot and dynamic
+cadence, and a sketch state's snapshot, come across with it
+(``snapshot_from_numpy``, ``sketch_snapshot_from_numpy``).  With them, a test can start the two packages from the
 same mid-run state.  ``train_state_from_checkpoint`` turns a checkpoint
 directory the JAX package wrote into the port's ``TrainState``, reading
 its files with numpy alone.  Nothing here imports JAX.
@@ -30,6 +32,7 @@ from repro_torch.core.factored import DenseLeaf, FactoredLeaf
 from repro_torch.core.quantized import QuantizedMatrix
 from repro_torch.core.sketch import SketchDense, SketchLeaf, SketchState
 from repro_torch.resilience.guards import GuardedState, GuardState
+from repro_torch.telemetry.snapshot import SketchSnapshot, TelemetrySnapshot
 from repro_torch.train.steps import TrainState
 
 
@@ -52,15 +55,45 @@ def quantized_from_numpy(qm, device: str | torch.device = "cpu"
                            zero=_t(qm.zero, device, torch.float32))
 
 
+def snapshot_from_numpy(snap, device: str | torch.device = "cpu"
+                        ) -> TelemetrySnapshot:
+    """A JAX ``TelemetrySnapshot`` after ``device_get`` -> the port's: the
+    per-leaf vectors fp32 on ``device``, the counters host numbers."""
+    f32 = lambda x: _t(x, device, torch.float32)
+    return TelemetrySnapshot(
+        step=int(snap.step), xi=f32(snap.xi), k=f32(snap.k),
+        k_frac=f32(snap.k_frac), clip_rate=f32(snap.clip_rate),
+        did_refresh=float(snap.did_refresh),
+        refresh_steps=int(snap.refresh_steps),
+        fold_steps=int(snap.fold_steps),
+        refresh_every=int(snap.refresh_every),
+        leaf_indices=tuple(int(i) for i in snap.leaf_indices),
+        dense_indices=tuple(int(i) for i in snap.dense_indices))
+
+
+def sketch_snapshot_from_numpy(snap, device: str | torch.device = "cpu"
+                               ) -> SketchSnapshot:
+    """A JAX ``SketchSnapshot`` after ``device_get`` -> the port's."""
+    return SketchSnapshot(
+        step=int(snap.step),
+        occupancy=_t(snap.occupancy, device, torch.float32),
+        overestimate=_t(snap.overestimate, device, torch.float32),
+        leaf_indices=tuple(int(i) for i in snap.leaf_indices))
+
+
 def adapprox_state_from_numpy(step: int, leaves: Sequence,
                               device: str | torch.device = "cpu",
-                              guards=None, seed: int = 0) -> AdapproxState:
+                              guards=None, seed: int = 0, telemetry=None,
+                              refresh_every=None) -> AdapproxState:
     """``leaves``: per-parameter objects in flatten order carrying numpy
     fields ``q, u, k, xi, m1`` (factored) or ``v, m1`` (dense), as the JAX
     package's ``FactoredLeaf`` / ``DenseLeaf`` do after ``device_get``;
     int8 factors (``QuantizedMatrix``) stay int8.  ``guards``: the JAX
     ``GuardState`` after ``device_get`` (see
-    :func:`guard_state_from_numpy`), or None; ``seed``: the config's."""
+    :func:`guard_state_from_numpy`), or None; ``seed``: the config's;
+    ``telemetry``: the JAX ``TelemetrySnapshot`` after ``device_get``
+    (:func:`snapshot_from_numpy`), or None; ``refresh_every``: the JAX
+    state's dynamic cadence (an int32 scalar), or None."""
     f32 = lambda x: None if x is None else _t(x, device, torch.float32)
     fac = lambda x: (quantized_from_numpy(x, device) if hasattr(x, "q8")
                      else f32(x))
@@ -76,8 +109,12 @@ def adapprox_state_from_numpy(step: int, leaves: Sequence,
         guards = guard_state_from_numpy(
             guards.trips, guards.force_refresh, guards.demoted,
             guards.trip_total, guards.demotions, guards.dense_v, device)
-    return AdapproxState(step=int(step), leaves=tuple(out), guards=guards,
-                         seed=seed)
+    return AdapproxState(
+        step=int(step), leaves=tuple(out),
+        telemetry=(None if telemetry is None
+                   else snapshot_from_numpy(telemetry, device)),
+        refresh_every=None if refresh_every is None else int(refresh_every),
+        guards=guards, seed=seed)
 
 
 def guard_state_from_numpy(trips, force_refresh, demoted, trip_total,
@@ -115,11 +152,12 @@ def train_state_from_checkpoint(ckpt_dir, like: TrainState) -> TrainState:
 
 
 def sketch_state_from_numpy(step: int, leaves: Sequence,
-                            device: str | torch.device = "cpu"
-                            ) -> SketchState:
+                            device: str | torch.device = "cpu",
+                            telemetry=None) -> SketchState:
     """``leaves``: per-parameter objects in flatten order carrying ``table,
     m, seeds, shape`` (sketched) or ``m, v`` (dense), as the JAX package's
-    ``SketchLeaf`` / ``SketchDense`` do after ``device_get``."""
+    ``SketchLeaf`` / ``SketchDense`` do after ``device_get``;
+    ``telemetry``: its ``SketchSnapshot`` after ``device_get``, or None."""
     f32 = lambda x: None if x is None else _t(x, device, torch.float32)
     out = []
     for leaf in leaves:
@@ -130,7 +168,10 @@ def sketch_state_from_numpy(step: int, leaves: Sequence,
                                   shape=tuple(int(d) for d in leaf.shape)))
         else:
             out.append(SketchDense(m=f32(leaf.m), v=f32(leaf.v)))
-    return SketchState(step=int(step), leaves=tuple(out))
+    return SketchState(step=int(step), leaves=tuple(out),
+                       telemetry=(None if telemetry is None else
+                                  sketch_snapshot_from_numpy(telemetry,
+                                                             device)))
 
 
 def adam_state_from_numpy(step: int, m: dict, v: dict,

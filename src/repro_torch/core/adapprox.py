@@ -34,6 +34,19 @@ update and its engineered knobs on the GPT-2 path:
     the Gaussian sketch;
   * ``bucketed``: factored leaves of one shape and gradient dtype run as
     one stacked call (a singleton runs alone);
+  * ``telemetry``: the state carries a
+    ``telemetry.snapshot.TelemetrySnapshot`` of the step, assembled from
+    values the update already has (per-leaf means of xi and k, the clip
+    denominator each path computes anyway, the host's refresh decision),
+    so the updates are bitwise those with it off;
+  * ``dynamic_refresh``: the cadence lives on the state
+    (``AdapproxState.refresh_every``, a host int the closed-loop
+    controller retunes between steps, ``telemetry.set_refresh_every``) and
+    replaces ``cfg.refresh_every`` everywhere the step reads the cadence:
+    the refresh-or-fold choice and the rank's re-selection period.  The
+    JAX package computes pass 1's fold on every step in this mode, because
+    its ``lax.cond`` needs both branches; the port decides on the host and
+    folds on fold steps only, as with a static cadence;
   * ``guards`` (a ``resilience.guards.GuardConfig``): the xi watchdog.  A
     factored leaf whose worst xi exceeds ``xi_trip`` refreshes on the next
     step whatever the cadence; after ``max_demotions`` consecutive trips
@@ -58,9 +71,6 @@ JAX package (whose threefry numbers the port does not reproduce).  On a
 refresh step every factored leaf's sketch (on any step, every leaf the
 watchdog forces; never a demoted leaf's) is drawn, in flatten order,
 before any leaf or bucket runs.
-
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``telemetry``, ``dynamic_refresh``.
 """
 from __future__ import annotations
 
@@ -80,6 +90,7 @@ from repro_torch.core.types import GradientTransformation, chain, find_states
 from repro_torch.kernels import ops, ref
 from repro_torch.resilience.guards import (GuardConfig, GuardState,
                                            advance_counters, init_guard_state)
+from repro_torch.telemetry.snapshot import TelemetrySnapshot, init_snapshot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,21 +118,13 @@ class AdapproxConfig:
     warm_drift_xi: float = 0.5             # cold sketch above this xi
     bucketed: bool = False                 # same-shape leaves stacked
     fused_update: bool = False             # two-pass fused elementwise tail
-    telemetry: bool = False
-    dynamic_refresh: bool = False
+    telemetry: bool = False                # carry a TelemetrySnapshot
+    dynamic_refresh: bool = False          # the cadence on the state
     guards: Optional[GuardConfig] = None     # the xi watchdog
     sketch: Optional[S.SketchSource] = None  # None: seeded torch normals
 
 
-_NOT_PORTED = ("telemetry", "dynamic_refresh")
-
-
-def _check_ported(cfg: AdapproxConfig) -> None:
-    for name in _NOT_PORTED:
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"AdapproxConfig.{name} is not ported to PyTorch yet; "
-                f"see ROADMAP.md Queue A")
+def _check_config(cfg: AdapproxConfig) -> None:
     if cfg.factor_dtype not in ("float32", "int8"):
         raise ValueError(f"unknown factor_dtype {cfg.factor_dtype!r} "
                          f"(expected 'float32' or 'int8')")
@@ -150,6 +153,8 @@ class AdapproxState:
     step: int                         # counts from 0
     leaves: tuple                     # FactoredLeaf | DenseLeaf per param,
                                       # in flatten order
+    telemetry: Optional[TelemetrySnapshot] = None   # cfg.telemetry
+    refresh_every: Optional[int] = None   # cfg.dynamic_refresh: the cadence
     guards: Optional[GuardState] = None   # cfg.guards: the xi watchdog
     # cfg.seed, which the JAX state carries as its PRNG key (the leaf
     # ``key`` after ``step``); the port draws from (seed, t, i) generators
@@ -266,12 +271,15 @@ def _init_leaf(p: torch.Tensor, cfg: AdapproxConfig):
 def _factored_update(g, leaf: F.FactoredLeaf, step: int,
                      sketch: Optional[S.SketchSource], cfg: AdapproxConfig,
                      r_store: int, p_eff: int, k_max_leaf: int,
-                     force_refresh: bool = False):
+                     refresh_t: int, force_refresh: bool = False):
     """One step of a factored leaf.  ``leaf.q`` / ``leaf.u`` are fp32, or
     int8 :class:`QuantizedMatrix` factors on the fused path (pass 1 takes
     them as they are; the refresh or fold takes them dequantized once).
     ``sketch`` returns this step's Gaussian sketch on refresh steps;
-    ``force_refresh`` (the xi watchdog's) makes a fold step a refresh."""
+    ``refresh_t`` is the cadence in effect; ``force_refresh`` (the xi
+    watchdog's) makes a fold step a refresh.  Returns ``(m_out, new_leaf,
+    denom)``, ``denom`` the per-matrix clip denominator ``max(1,
+    RMS(u) / d)`` the step divided by (telemetry reads it)."""
     q, u, k, xi_prev, m1 = leaf.q, leaf.u, leaf.k, leaf.xi, leaf.m1
     g32 = g.float()
     q32, u32 = ((QZ.dequantize(q), QZ.dequantize(u))
@@ -283,8 +291,8 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
     vmat = (None if cfg.fused_update or cfg.use_kernels
             else v_op.materialize())
 
-    refresh = (cfg.refresh_every <= 1 or force_refresh
-               or _refresh_pred(step, cfg.refresh_every))
+    refresh = (refresh_t <= 1 or force_refresh
+               or _refresh_pred(step, refresh_t))
     yfold = vfro = None
     if cfg.fused_update:
         need_guid = cfg.b1 > 0 and cfg.guidance != "off"
@@ -318,7 +326,7 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
         k_new = R.select_rank(res.cum_energy, res.frob_sq, cfg.rank,
                               k_max_leaf, step,
                               torch.clamp_max(k, k_max_leaf),
-                              refresh_every=cfg.refresh_every)
+                              refresh_every=refresh_t)
         xi = R.xi_of_k(res.cum_energy, res.frob_sq, k_new)
         mask = S.col_mask(r_store, k_new).unsqueeze(-2)
         q_new, u_new = res.q * mask, res.u * mask
@@ -343,13 +351,14 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
             shared_out=cfg.b1 > 0 and cfg.guidance != "update",
             in_place=cfg.guards is None)
         return m_out, F.FactoredLeaf(q=q_new, u=u_new, k=k_new, xi=xi,
-                                     m1=m1_new)
+                                     m1=m1_new), denom
 
     if cfg.use_kernels:
         u_hat = ops.lowrank_update(q32, u32, g32, cfg.b2, cfg.eps)
     else:
         u_hat = g32 / (torch.sqrt(vmat) + cfg.eps)
-    u_hat = u_hat / _bc(torch.clamp_min(_rms(u_hat) / cfg.clip_d, 1.0))
+    denom = torch.clamp_min(_rms(u_hat) / cfg.clip_d, 1.0)
+    u_hat = u_hat / _bc(denom)
     if cfg.b1 > 0:
         m1_acc = cfg.b1 * m1 + (1.0 - cfg.b1) * u_hat
         m_out = m1_acc
@@ -369,7 +378,8 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
         m1_new = m1_acc
     else:
         m_out, m1_new = u_hat, None
-    return m_out, F.FactoredLeaf(q=q_new, u=u_new, k=k_new, xi=xi, m1=m1_new)
+    return (m_out, F.FactoredLeaf(q=q_new, u=u_new, k=k_new, xi=xi,
+                                  m1=m1_new), denom)
 
 
 def _r_store(leaf: F.FactoredLeaf) -> int:
@@ -379,13 +389,13 @@ def _r_store(leaf: F.FactoredLeaf) -> int:
 
 def _update_factored(g, leaf: F.FactoredLeaf, shape: tuple, step: int,
                      sketch: Optional[S.SketchSource], cfg: AdapproxConfig,
-                     force_refresh: bool = False):
+                     refresh_t: int, force_refresh: bool = False):
     """A factored leaf's step around :func:`_factored_update`: int8 factors
     are dequantized first unless the fused pass 1 takes them as they are;
     they are requantized after the step, on fold steps too.  ``shape`` is the
     parameter's, or a bucket's stacked shape.  Returns ``(m_out,
-    new_leaf)``, the new factors fp32: the caller requantizes int8 ones
-    (:func:`_requant`), per leaf of a bucket."""
+    new_leaf, denom)``, the new factors fp32: the caller requantizes int8
+    ones (:func:`_requant`), per leaf of a bucket."""
     int8 = cfg.factor_dtype == "int8"
     if int8 and not cfg.fused_update:
         leaf = dataclasses.replace(leaf, q=QZ.dequantize(leaf.q),
@@ -393,7 +403,7 @@ def _update_factored(g, leaf: F.FactoredLeaf, shape: tuple, step: int,
     r_store = _r_store(leaf)
     p_eff, k_max_leaf = _leaf_meta(shape, r_store, cfg)
     return _factored_update(g, leaf, step, sketch, cfg, r_store, p_eff,
-                            k_max_leaf, force_refresh)
+                            k_max_leaf, refresh_t, force_refresh)
 
 
 def _requant(nl: F.FactoredLeaf, cfg: AdapproxConfig) -> F.FactoredLeaf:
@@ -414,22 +424,23 @@ def _stack(xs: list):
 
 
 def _update_bucket(gs: list, leaves: list, shape: tuple, step: int,
-                   draws: Optional[list], cfg: AdapproxConfig) -> list:
+                   draws: Optional[list], cfg: AdapproxConfig,
+                   refresh_t: int) -> list:
     """One stacked step for a bucket of same-signature factored leaves:
     their gradients, state and (on refresh steps) their sketches, each
     drawn from its own leaf's generator, stack along a new leading axis,
     so every slice sees the per-leaf arithmetic, batched.  Returns
-    ``[(m_out, new_leaf)]`` in the bucket's order."""
+    ``[(m_out, new_leaf, denom)]`` in the bucket's order."""
     stacked = F.FactoredLeaf(
         **{f.name: _stack([getattr(leaf, f.name) for leaf in leaves])
            for f in dataclasses.fields(F.FactoredLeaf)})
     sketch = None if draws is None else _drawn(torch.stack(draws))
-    m_out, nl = _update_factored(torch.stack(gs), stacked,
-                                 (len(leaves),) + tuple(shape), step, sketch,
-                                 cfg)
+    m_out, nl, denom = _update_factored(torch.stack(gs), stacked,
+                                        (len(leaves),) + tuple(shape), step,
+                                        sketch, cfg, refresh_t)
     return [(m_out[j], _requant(F.FactoredLeaf(
         q=nl.q[j], u=nl.u[j], k=nl.k[j], xi=nl.xi[j],
-        m1=None if nl.m1 is None else nl.m1[j]), cfg))
+        m1=None if nl.m1 is None else nl.m1[j]), cfg), denom[j])
         for j in range(len(leaves))]
 
 
@@ -439,19 +450,21 @@ def _update_demoted(g, leaf: F.FactoredLeaf, dense_v: torch.Tensor,
     its shadow buffer, with the factored path's per-matrix RMS clip (over
     the trailing two axes), guidance off, the factors and k frozen and xi
     pinned to 0, in plain tensor code on every device (the JAX package's
-    dense branch is jnp too).  Returns ``(m_out, new_leaf, dense_v)``."""
+    dense branch is jnp too).  Returns ``(m_out, new_leaf, dense_v,
+    denom)``."""
     g32 = g.float()
     v = cfg.b2 * dense_v + (1.0 - cfg.b2) * torch.square(g32)
     u_hat = g32 / (torch.sqrt(v) + cfg.eps)
     rms = torch.sqrt(torch.mean(torch.square(u_hat), dim=(-2, -1)) + 1e-30)
-    u_hat = u_hat / _bc(torch.clamp_min(rms / cfg.clip_d, 1.0))
+    denom = torch.clamp_min(rms / cfg.clip_d, 1.0)
+    u_hat = u_hat / _bc(denom)
     if leaf.m1 is not None:
         m1 = cfg.b1 * leaf.m1 + (1.0 - cfg.b1) * u_hat
         m_out = m1
     else:
         m1, m_out = None, u_hat
     return m_out, dataclasses.replace(leaf, xi=torch.zeros_like(leaf.xi),
-                                      m1=m1), v
+                                      m1=m1), v, denom
 
 
 def _seed_dense_v(leaf: F.FactoredLeaf) -> torch.Tensor:
@@ -482,6 +495,7 @@ def settle_guards(state: AdapproxState, xi_max: np.ndarray) -> None:
 
 
 def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
+    """A dense leaf's step; returns ``(m_out, new_leaf, denom)``."""
     g32 = g.float()
     v = cfg.b2 * leaf.v + (1.0 - cfg.b2) * torch.square(g32)
     u_hat = g32 / (torch.sqrt(v) + cfg.eps)
@@ -497,14 +511,49 @@ def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
             shared_out=True, in_place=cfg.guards is None)
         return (m_out.reshape(u_hat.shape),
                 F.DenseLeaf(v=v, m1=None if m1_new is None
-                            else m1_new.reshape(u_hat.shape)))
-    u_hat = u_hat / torch.clamp_min(
+                            else m1_new.reshape(u_hat.shape)), denom)
+    denom = torch.clamp_min(
         torch.sqrt(torch.sum(torch.square(u_hat)) / u_hat.numel() + 1e-30)
         / cfg.clip_d, 1.0)
+    u_hat = u_hat / denom
     if leaf.m1 is not None:
         m1 = cfg.b1 * leaf.m1 + (1.0 - cfg.b1) * u_hat
-        return m1, F.DenseLeaf(v=v, m1=m1)
-    return u_hat, F.DenseLeaf(v=v, m1=None)
+        return m1, F.DenseLeaf(v=v, m1=m1), denom
+    return u_hat, F.DenseLeaf(v=v, m1=None), denom
+
+
+# ---------------------------------------------------------------------------
+# Telemetry (cfg.telemetry; repro_torch.telemetry.snapshot)
+# ---------------------------------------------------------------------------
+
+def _assemble_snapshot(prev: TelemetrySnapshot, step: int, new_leaves,
+                       denoms, k_max: dict, refresh_t: int,
+                       did_refresh: bool) -> TelemetrySnapshot:
+    """This step's snapshot, as the JAX package's ``_assemble_snapshot``:
+    per factored leaf the mean of its xi, of ``min(k, k_max)`` and of that
+    over k_max; per leaf the fraction of its matrices whose clip
+    denominator exceeded 1; the counters from the host's refresh decision
+    (the cadence's, not a refresh the xi watchdog forces).  Only means of
+    per-matrix values the update already holds run on the device."""
+    xi, k, k_frac = [], [], []
+    for i, leaf in enumerate(new_leaves):
+        if i not in k_max:
+            continue
+        kf = torch.clamp_max(leaf.k, k_max[i]).float()
+        xi.append(torch.mean(leaf.xi.float()))
+        k.append(torch.mean(kf))
+        k_frac.append(torch.mean(kf / k_max[i]))
+    clip = [torch.mean((d > 1.0).float()) for d in denoms]
+    stack = lambda xs: (torch.stack(xs) if xs else
+                        torch.zeros((0,), dtype=torch.float32,
+                                    device=prev.clip_rate.device))
+    did = 1.0 if did_refresh else 0.0
+    return TelemetrySnapshot(
+        step=step, xi=stack(xi), k=stack(k), k_frac=stack(k_frac),
+        clip_rate=stack(clip), did_refresh=did,
+        refresh_steps=prev.refresh_steps + int(did),
+        fold_steps=prev.fold_steps + 1 - int(did), refresh_every=refresh_t,
+        leaf_indices=prev.leaf_indices, dense_indices=prev.dense_indices)
 
 
 # ---------------------------------------------------------------------------
@@ -519,10 +568,19 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
     With ``cfg.guards`` it runs inside ``resilience.guards.guard_updates``,
     which settles each step's ``pending`` xi; a pending state given back
     raises."""
-    _check_ported(cfg)
+    _check_config(cfg)
 
     def init(params):
         leaves = tuple(_init_leaf(p, cfg) for p in params.values())
+        fidx = tuple(i for i, leaf in enumerate(leaves)
+                     if isinstance(leaf, F.FactoredLeaf))
+        device = next(iter(params.values())).device if params else "cpu"
+        tel = None
+        if cfg.telemetry:
+            tel = init_snapshot(
+                len(fidx), len(leaves), cfg.refresh_every, leaf_indices=fidx,
+                dense_indices=tuple(i for i in range(len(leaves))
+                                    if i not in fidx), device=device)
         gstate = None
         if cfg.guards is not None:
             fact = [p for p, leaf in zip(params.values(), leaves)
@@ -530,8 +588,10 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
             gstate = init_guard_state(
                 [tuple(p.shape) for p in fact], cfg.guards.max_demotions,
                 fact[0].device if fact else "cpu")
-        return AdapproxState(step=0, leaves=leaves, guards=gstate,
-                             seed=cfg.seed)
+        return AdapproxState(
+            step=0, leaves=leaves, telemetry=tel,
+            refresh_every=cfg.refresh_every if cfg.dynamic_refresh else None,
+            guards=gstate, seed=cfg.seed)
 
     def update(grads, state: AdapproxState, params):
         if state.pending is not None:
@@ -545,8 +605,11 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
                 if isinstance(leaf, F.FactoredLeaf)]
         ordinal = {i: j for j, i in enumerate(fact)}
         gcfg, gstate = cfg.guards, state.guards
-        cadence = cfg.refresh_every <= 1 or _refresh_pred(step,
-                                                          cfg.refresh_every)
+        # the cadence in effect: the state's under dynamic_refresh
+        refresh_t = (state.refresh_every if cfg.dynamic_refresh
+                     and state.refresh_every is not None
+                     else cfg.refresh_every)
+        cadence = refresh_t <= 1 or _refresh_pred(step, refresh_t)
         # the xi watchdog's decisions for this step, from the host counters
         force = demoted = [0] * len(fact)
         dense_v = None
@@ -568,11 +631,13 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
                 _sketch_generator(cfg.seed, step, i, g.device))
             draws[i] = draw.to(device=g.device, dtype=torch.float32)
         outs, new_leaves = [None] * len(names), [None] * len(names)
+        denoms = [None] * len(names)     # each leaf's clip denominator
         buckets: dict = {}
         for i, leaf in enumerate(state.leaves):
             g = grads[names[i]]
             if not isinstance(leaf, F.FactoredLeaf):
-                outs[i], new_leaves[i] = _update_dense(g, leaf, cfg)
+                outs[i], new_leaves[i], denoms[i] = _update_dense(g, leaf,
+                                                                  cfg)
             elif cfg.bucketed and gcfg is None:
                 buckets.setdefault(F.leaf_signature(shapes[i], g.dtype),
                                    []).append(i)
@@ -583,23 +648,31 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
                 i = idxs[0]
                 j = ordinal[i]
                 if demoted[j]:
-                    outs[i], new_leaves[i], dense_v[j] = _update_demoted(
+                    (outs[i], new_leaves[i], dense_v[j],
+                     denoms[i]) = _update_demoted(
                         grads[names[i]], state.leaves[i], dense_v[j], cfg)
                     continue
                 sketch = _drawn(draws[i]) if i in draws else None
-                m_out, nl = _update_factored(grads[names[i]],
-                                             state.leaves[i], shapes[i],
-                                             step, sketch, cfg,
-                                             force_refresh=force[j] > 0)
+                m_out, nl, denoms[i] = _update_factored(
+                    grads[names[i]], state.leaves[i], shapes[i], step,
+                    sketch, cfg, refresh_t, force_refresh=force[j] > 0)
                 outs[i], new_leaves[i] = m_out, _requant(nl, cfg)
                 continue
             res = _update_bucket(
                 [grads[names[i]] for i in idxs],
                 [state.leaves[i] for i in idxs], shapes[idxs[0]], step,
-                [draws[i] for i in idxs] if draws else None, cfg)
-            for i, (m_out, nl) in zip(idxs, res):
-                outs[i], new_leaves[i] = m_out, nl
+                [draws[i] for i in idxs] if draws else None, cfg, refresh_t)
+            for i, (m_out, nl, denom) in zip(idxs, res):
+                outs[i], new_leaves[i], denoms[i] = m_out, nl, denom
+        tel = None
+        if cfg.telemetry:
+            k_max = {i: _leaf_meta(shapes[i], _r_store(state.leaves[i]),
+                                   cfg)[1] for i in fact}
+            tel = _assemble_snapshot(state.telemetry, step, new_leaves,
+                                     denoms, k_max, refresh_t, cadence)
         new_state = AdapproxState(step=step, leaves=tuple(new_leaves),
+                                  telemetry=tel,
+                                  refresh_every=state.refresh_every,
                                   guards=gstate, seed=cfg.seed)
         if gcfg is not None and fact:
             if dense_v is not None:       # the demoted leaves' new buffers

@@ -29,7 +29,11 @@ kernels on the card, the plain version on the CPU.
           scale_by_schedule(lr),
           scale(-1.0))
 
-``telemetry`` is not ported yet and raises (see ROADMAP.md).
+With ``telemetry`` the state carries a
+``telemetry.snapshot.SketchSnapshot``: per sketched leaf the fraction of
+buckets holding mass and the queried mass over the table mass, plain
+torch reductions over the table and the query the scatter has just
+written (the kernel is unchanged), as the JAX package computes them.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
 from repro_torch.core.types import GradientTransformation, chain, find_states
 from repro_torch.kernels import ops
+from repro_torch.telemetry.snapshot import (SketchSnapshot,
+                                            init_sketch_snapshot)
 
 _PRIME = (1 << 31) - 1          # Mersenne prime for universal hashing
 _MASK64 = (1 << 64) - 1
@@ -60,7 +66,7 @@ class SketchConfig:
     width: int = 2048                      # buckets per hash
     min_rows: int = 1024                   # leading-dim threshold to sketch
     seed: int = 0                          # hash-seed derivation root
-    telemetry: bool = False                # not ported
+    telemetry: bool = False                # carry a SketchSnapshot
 
 
 @dataclasses.dataclass
@@ -91,6 +97,7 @@ class SketchState:
     step: int                         # counts from 0
     leaves: tuple                     # SketchLeaf | SketchDense per param,
                                       # in flatten order
+    telemetry: Optional[SketchSnapshot] = None   # cfg.telemetry
 
 
 def should_sketch(shape, min_rows: int) -> bool:
@@ -125,9 +132,6 @@ def scale_by_sketch(cfg: SketchConfig) -> GradientTransformation:
     every >= 2-D leaf whose leading dim reaches ``cfg.min_rows``; exact
     dense Adam on the rest.  Learning rate, weight decay and the descent
     sign are later stages (see :func:`sketch`)."""
-    if cfg.telemetry:
-        raise NotImplementedError("SketchConfig.telemetry is not ported to "
-                                  "PyTorch yet; see ROADMAP.md Queue A")
     # (seeds, rows, width, device) -> (idx, order, offsets), built once
     index: dict = {}
 
@@ -157,13 +161,21 @@ def scale_by_sketch(cfg: SketchConfig) -> GradientTransformation:
             else:
                 z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 leaves.append(SketchDense(m=z, v=z))
-        return SketchState(step=0, leaves=tuple(leaves))
+        tel = None
+        if cfg.telemetry:
+            sidx = tuple(i for i, leaf in enumerate(leaves)
+                         if isinstance(leaf, SketchLeaf))
+            tel = init_sketch_snapshot(
+                len(sidx), leaf_indices=sidx,
+                device=next(iter(params.values())).device if params
+                else "cpu")
+        return SketchState(step=0, leaves=tuple(leaves), telemetry=tel)
 
     def update(grads, state: SketchState, params):
         del params
         step = state.step + 1
         bc1, bc2 = bias_corrections(cfg.b1, cfg.b2, step)
-        dirs, new_leaves = {}, []
+        dirs, new_leaves, occs, overs = {}, [], [], []
         for (name, g), leaf in zip(grads.items(), state.leaves):
             if isinstance(leaf, SketchLeaf):
                 g32 = g.float()
@@ -181,11 +193,27 @@ def scale_by_sketch(cfg: SketchConfig) -> GradientTransformation:
                 dirs[name] = mhat / (torch.sqrt(vhat) + cfg.eps)
                 new_leaves.append(dataclasses.replace(
                     leaf, table=table_new, m=m_new))
+                if state.telemetry is not None:
+                    # occupancy: the share of buckets holding any mass;
+                    # overestimate: queried mass over table mass (one
+                    # depth row holds it all), >= 1, 1 without collisions
+                    hit = torch.amax(table_new, dim=-1) > 0.0
+                    occs.append(torch.mean(hit.float()))
+                    overs.append(torch.sum(q) / torch.clamp_min(
+                        torch.sum(table_new[0]), 1e-30))
             else:
                 dirs[name], m, v = adam_leaf(g, leaf.m, leaf.v, cfg.b1,
                                              cfg.b2, cfg.eps, bc1, bc2)
                 new_leaves.append(SketchDense(m=m, v=v))
-        return dirs, SketchState(step=step, leaves=tuple(new_leaves))
+        tel = state.telemetry
+        if tel is not None:
+            stack = lambda xs: (torch.stack(xs) if xs else torch.zeros(
+                (0,), dtype=torch.float32, device=tel.occupancy.device))
+            tel = SketchSnapshot(step=step, occupancy=stack(occs),
+                                 overestimate=stack(overs),
+                                 leaf_indices=tel.leaf_indices)
+        return dirs, SketchState(step=step, leaves=tuple(new_leaves),
+                                 telemetry=tel)
 
     return GradientTransformation(init, update)
 

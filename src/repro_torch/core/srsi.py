@@ -6,6 +6,21 @@ Orthonormalisation is shifted CholeskyQR3 (matmuls plus a small Cholesky),
 as in the JAX package.  Every function takes leading batch dims: a stacked
 ``(L, m, n)`` leaf is one batched call.
 
+Batched equals unbatched.  A stacked leaf's matrices must come out of
+S-RSI bitwise as each would alone (the JAX package's contract, which lets
+bucketed leaves equal the per-leaf loop).  On the CPU the batched torch
+ops give that.  On the card they do not: cuBLAS, cuSOLVER and the
+reductions pick other kernels for a batch than for one matrix (the
+transposed GEMM, the float64 Gram, its Cholesky, the Frobenius sum and
+cumsum each differed from one matrix alone on an H100, at GPT-2 117M's
+w_down stack (12, 3072, 768); ``chip_smoke.py``'s ``[srsi]`` holds the
+route to it).  So on the card (:func:`batch_invariant`) each matrix
+product, sum, scan and Cholesky of S-RSI runs on one matrix at a time
+(:func:`_each`), and the elementwise arithmetic around them stays
+batched.  The triangular inverse is substitution in column order
+(:func:`_tri_inv_lower`), whose steps are elementwise, so it runs batched
+on every device.
+
 The Gaussian sketch comes from a pluggable source, a callable
 ``(shape, generator) -> tensor``.  The default draws from the caller's
 seeded ``torch.Generator``; tests inject the JAX package's own threefry
@@ -29,29 +44,76 @@ def torch_normal(device: torch.device) -> SketchSource:
 
 
 # ---------------------------------------------------------------------------
+# One matrix at a time on the card
+# ---------------------------------------------------------------------------
+
+def batch_invariant(device: torch.device) -> bool:
+    """Whether S-RSI runs its matrix products, sums, scans and Cholesky
+    one matrix at a time (:func:`_each`): on the card, where the batched
+    library calls round otherwise than the single ones; not on the CPU."""
+    return device.type == "cuda"
+
+
+def _alone(t: torch.Tensor) -> torch.Tensor:
+    """A slice as a matrix of its own would be: a 256-byte aligned start
+    (what the allocator gives), so no kernel picks another path for it."""
+    return t if t.data_ptr() % 256 == 0 else t.clone()
+
+
+def _each(fn: Callable, *xs: torch.Tensor, core: int = 2):
+    """``fn`` of the last ``core`` dims of ``xs`` (which share their
+    leading batch dims): one call per matrix, stacked (each tensor of a
+    tuple that ``fn`` returns on its own), where :func:`batch_invariant`;
+    one batched call elsewhere."""
+    bd = xs[0].shape[:xs[0].dim() - core]
+    if not batch_invariant(xs[0].device):
+        return fn(*xs)
+    if not bd:
+        return fn(*(_alone(x) for x in xs))
+    flat = [x.reshape((-1,) + tuple(x.shape[x.dim() - core:])) for x in xs]
+    outs = [fn(*(_alone(f[i]) for f in flat))
+            for i in range(flat[0].shape[0])]
+
+    def stack(parts):
+        out = torch.stack(parts)
+        return out.reshape(tuple(bd) + tuple(out.shape[1:]))
+
+    if isinstance(outs[0], tuple):
+        return tuple(stack(list(parts)) for parts in zip(*outs))
+    return stack(outs)
+
+
+# ---------------------------------------------------------------------------
 # Orthonormalisation: CholeskyQR3
 # ---------------------------------------------------------------------------
 
 def _tri_inv_lower(l: torch.Tensor) -> torch.Tensor:
-    """Inverse of (*batch, r, r) lower-triangular matrices by row-wise
-    forward substitution:  X[i] = (e_i - L[i] @ X) / L[i, i].
+    """Inverse of (*batch, r, r) lower-triangular matrices by forward
+    substitution in column order: once row j of the inverse is known, its
+    term leaves every later row's right-hand side,
 
-    The JAX package uses substitution rather than trsm so that batched and
-    unbatched runs agree bitwise; the port keeps the same arithmetic so the
-    two packages round alike.  r is the sketch width (<= k_max + p)."""
+        X[j] = B[j] / L[j, j],   B[i] -= L[i, j] X[j]  (i > j),  B = I,
+
+    computed in place in B.  The JAX package uses substitution rather than
+    trsm so that batched and unbatched runs agree bitwise; here each step
+    is elementwise over (*batch, r, r), so every matrix of a batch rounds
+    as it would alone, on any device.  JAX sums each row's terms in one
+    matrix product (row order), this form subtracts them one at a time: the
+    two agree to float32 rounding.  r is the sketch width (<= k_max + p)."""
     r = l.shape[-1]
-    eye = torch.eye(r, dtype=l.dtype, device=l.device)
-    x = torch.zeros_like(l)
-    for i in range(r):
-        row = (eye[i] - (l[..., i:i + 1, :] @ x)[..., 0, :]) / l[..., i, i:i + 1]
-        x[..., i, :] = row
+    x = torch.eye(r, dtype=l.dtype, device=l.device).expand(
+        l.shape).clone()
+    for j in range(r):
+        x[..., j, :] /= l[..., j, j:j + 1]
+        x[..., j + 1:, :] -= l[..., j + 1:, j:j + 1] * x[..., j:j + 1, :]
     return x
 
 
 def _cholesky(gram: torch.Tensor) -> torch.Tensor:
     """Cholesky factor that, like ``jnp.linalg.cholesky``, is all-NaN for a
-    matrix that is not positive definite instead of raising."""
-    chol, info = torch.linalg.cholesky_ex(gram)
+    matrix that is not positive definite instead of raising; factored one
+    matrix at a time where :func:`batch_invariant`."""
+    chol, info = _each(torch.linalg.cholesky_ex, gram)
     bad = (info != 0).reshape(info.shape + (1, 1))
     return torch.where(bad, torch.full_like(chol, float("nan")), chol)
 
@@ -86,18 +148,20 @@ def _cholesky_qr(y: torch.Tensor, shift_rel: float = 1e-5) -> torch.Tensor:
     the Gram is their inner products to float64 rounding, which the shift
     keeps positive definite."""
     y32 = y.float()
-    col = torch.sqrt(torch.sum(torch.square(y32), dim=-2) + 1e-30)
+    col = torch.sqrt(
+        _each(lambda m: torch.sum(m, dim=-2), torch.square(y32)) + 1e-30)
     col = torch.maximum(col, 1e-6 * torch.amax(col, dim=-1, keepdim=True)
                         + 1e-30)
     ys = y32 / col.unsqueeze(-2)
     wide = gram_dtype(y.device)
     yw = ys.to(wide)
-    gram = yw.transpose(-1, -2) @ yw
+    gram = _each(lambda m: m.transpose(-1, -2) @ m, yw)
     r = gram.shape[-1]
     gram = gram + (shift_rel + 1e-30) * torch.eye(r, dtype=wide,
                                                   device=y.device)
     chol = _cholesky(gram).float()
-    q = ys @ _tri_inv_lower(chol).transpose(-1, -2)
+    q = _each(lambda a, t: a @ t.transpose(-1, -2), ys,
+              _tri_inv_lower(chol))
     return torch.where(torch.isfinite(q), q, torch.zeros_like(q))
 
 
@@ -130,16 +194,19 @@ class ImplicitV(NamedTuple):
         """V @ x for x (*batch, n, s)."""
         g32 = self.g.float()
         qm = self.q * self.col_mask
-        low = qm @ (self.u.transpose(-1, -2) @ x)
-        return self.b2 * low + (1.0 - self.b2) * ((g32 * g32) @ x)
+        low = _each(lambda q, u, b: q @ (u.transpose(-1, -2) @ b),
+                    qm, self.u, x)
+        sq = _each(lambda g, b: (g * g) @ b, g32, x)
+        return self.b2 * low + (1.0 - self.b2) * sq
 
     def rmv(self, y: torch.Tensor) -> torch.Tensor:
         """V^T @ y for y (*batch, m, s); V is not symmetric."""
         g32 = self.g.float()
         um = self.u * self.col_mask
-        low = um @ (self.q.transpose(-1, -2) @ y)
-        return self.b2 * low + (1.0 - self.b2) * (
-            (g32 * g32).transpose(-1, -2) @ y)
+        low = _each(lambda u, q, b: u @ (q.transpose(-1, -2) @ b),
+                    um, self.q, y)
+        sq = _each(lambda g, b: (g * g).transpose(-1, -2) @ b, g32, y)
+        return self.b2 * low + (1.0 - self.b2) * sq
 
     def materialize(self) -> torch.Tensor:
         """Clamp the low-rank term (not the sum) at zero before adding the
@@ -152,19 +219,24 @@ class ImplicitV(NamedTuple):
     def frob_sq(self, row_tile: int = 512) -> torch.Tensor:
         """||V||_F^2 per matrix, (*batch,), streamed over ``row_tile``-row
         slabs of Q and G, so no more than (row_tile, n) of V exists at a
-        time; the clamp is applied slab by slab."""
-        g32 = self.g.float()
-        qm = self.q * self.col_mask
-        ut = self.u.transpose(-1, -2)
-        total = None
-        for r0 in range(0, g32.shape[-2], row_tile):
-            gb = g32[..., r0:r0 + row_tile, :]
-            v = (self.b2 * torch.clamp_min(qm[..., r0:r0 + row_tile, :] @ ut,
-                                           0.0)
-                 + (1.0 - self.b2) * gb * gb)
-            part = torch.sum(torch.square(v), dim=(-2, -1))
-            total = part if total is None else total + part
-        return total
+        time; the clamp is applied slab by slab.  One matrix at a time
+        where :func:`batch_invariant`."""
+
+        def one(q, u, g):
+            g32 = g.float()
+            qm = q * self.col_mask
+            ut = u.transpose(-1, -2)
+            total = None
+            for r0 in range(0, g32.shape[-2], row_tile):
+                gb = g32[..., r0:r0 + row_tile, :]
+                v = (self.b2 * torch.clamp_min(
+                    qm[..., r0:r0 + row_tile, :] @ ut, 0.0)
+                     + (1.0 - self.b2) * gb * gb)
+                part = torch.sum(torch.square(v), dim=(-2, -1))
+                total = part if total is None else total + part
+            return total
+
+        return _each(one, self.q, self.u, self.g)
 
 
 def make_implicit_v(q, u, g, b2, col_mask=None) -> ImplicitV:
@@ -214,10 +286,12 @@ def _srsi_core(matmul_a: Callable[[torch.Tensor], torch.Tensor],
         raise ValueError(f"sketch source returned shape {tuple(u.shape)}, "
                          f"expected {want}")
     u = u.to(device=frob_sq.device, dtype=torch.float32)
+    col_sq = lambda m: _each(lambda c: torch.sum(c, dim=-2),
+                             torch.square(m))
     if u0 is not None:
         r_warm = u0.shape[-1]
         u032 = u0.float()
-        col_ok = (torch.sum(torch.square(u032), dim=-2) > 0.0).unsqueeze(-2)
+        col_ok = (col_sq(u032) > 0.0).unsqueeze(-2)
         warm = torch.cat([torch.where(col_ok, u032, u[..., :r_warm]),
                           u[..., r_warm:]], dim=-1)
         if use_warm is not None:
@@ -230,8 +304,9 @@ def _srsi_core(matmul_a: Callable[[torch.Tensor], torch.Tensor],
         u = matmul_at(q) * inv
     q = q[..., :r_store]
     u = u[..., :r_store] * scale.reshape(bd + (1, 1))
-    col_energy = torch.sum(torch.square(u * inv), dim=-2)
-    cum_energy = torch.cumsum(col_energy, dim=-1) * frob_sq.unsqueeze(-1)
+    col_energy = col_sq(u * inv)
+    cum_energy = _each(lambda c: torch.cumsum(c, dim=-1), col_energy,
+                       core=1) * frob_sq.unsqueeze(-1)
     return SRSIResult(q=q, u=u, cum_energy=cum_energy, frob_sq=frob_sq)
 
 
@@ -243,11 +318,12 @@ def srsi_dense(a: torch.Tensor, r_store: int, oversample: int, n_iter: int,
     """Paper-faithful S-RSI on explicit targets ``a: (*batch, m, n)``;
     ``u0`` / ``use_warm``: the warm start of :func:`_srsi_core`."""
     a32 = a.float()
-    at = a32.transpose(-1, -2)
-    return _srsi_core(lambda x: a32 @ x, lambda y: at @ y,
-                      torch.sum(torch.square(a32), dim=(-2, -1)),
-                      a.shape[-1], r_store, oversample, n_iter, sketch,
-                      generator, u0=u0, use_warm=use_warm)
+    return _srsi_core(
+        lambda x: _each(lambda m, b: m @ b, a32, x),
+        lambda y: _each(lambda m, b: m.transpose(-1, -2) @ b, a32, y),
+        _each(lambda m: torch.sum(torch.square(m), dim=(-2, -1)), a32),
+        a.shape[-1], r_store, oversample, n_iter, sketch, generator, u0=u0,
+        use_warm=use_warm)
 
 
 def srsi_implicit(v: ImplicitV, r_store: int, oversample: int, n_iter: int,
@@ -260,9 +336,9 @@ def srsi_implicit(v: ImplicitV, r_store: int, oversample: int, n_iter: int,
     ``frob_sq`` runs unless the caller has ||V||_F^2 already)."""
     if frob_sq is None:
         frob_sq = v.frob_sq()
-    return _srsi_core(v.mv, v.rmv, frob_sq, v.shape[-1], r_store,
-                      oversample, n_iter, sketch, generator, u0=u0,
-                      use_warm=use_warm)
+    return _srsi_core(v.mv, v.rmv, frob_sq,
+                      v.shape[-1], r_store, oversample, n_iter, sketch,
+                      generator, u0=u0, use_warm=use_warm)
 
 
 def reconstruct(q: torch.Tensor, u: torch.Tensor,

@@ -7,8 +7,8 @@ logged, and a straggler that persists for ``persist`` steps escalates (to
 ``escalate``, by default the ``escalations`` list), the hook where a
 cluster integration requests a replacement and a checkpoint-restart.
 The train loop times its steps with it.  ``sink`` takes an event sink
-with ``emit(dict)`` for ``kind="straggler"`` events; the port passes
-none until its telemetry is ported (ROADMAP.md Queue A).
+with ``emit(dict)`` for ``kind="straggler"`` events: the train loop passes
+its ``TelemetryRuntime``'s, so flags land on the optimizer's stream.
 """
 from __future__ import annotations
 

@@ -18,17 +18,30 @@ baselines, without the mixed groups unless ``--mixed-groups`` is given.
 the xi watchdog (``--guard-skip-threshold``, ``--max-demotions``);
 ``--ckpt-dir`` saves a checkpoint every ``--ckpt-every`` steps, resumes
 from the latest good one, and writes a preemption checkpoint on SIGTERM.
-Flags for parts that are not ported yet raise when set: ``--mesh``,
-telemetry and tracing (see ROADMAP.md Queue A).
+
+Telemetry, as in the JAX launcher: ``--telemetry-dir DIR`` streams the
+optimizer's per-group snapshots (xi, rank, clip activation, refresh
+counters; every ``--telemetry-every`` steps), guard faults and straggler
+flags as schema-checked JSONL (``repro_torch.telemetry``);
+``--auto-refresh`` adds the closed-loop controller, which retunes each
+group's S-RSI cadence from the observed xi (it turns the optimizer's
+telemetry and dynamic cadence on).  ``--trace-dir DIR`` records the
+train-step and checkpoint spans for ``tools/traceview.py`` (the same
+directory as ``--telemetry-dir`` shares one stream); ``--metrics-every N``
+adds a registry snapshot every N steps, and ``<trace-dir>/metrics.prom``
+is written at exit.  ``--mesh`` is not ported yet and raises (see
+ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
 import argparse
 import logging
+from pathlib import Path
 from typing import Optional
 
 from repro_torch.checkpoint import CheckpointConfig
-from repro_torch.config import OptimizerConfig, default_mixed_groups
+from repro_torch.config import (OptimizerConfig, TelemetryConfig,
+                                default_mixed_groups)
 from repro_torch.configs.archs import get_config, get_smoke_config
 from repro_torch.core.build import build_optimizer
 from repro_torch.core.srsi import SketchSource
@@ -38,16 +51,17 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.train.train_loop import LoopConfig, train
 
 # flag -> the default it must keep until its part is ported
-_NOT_PORTED = {"mesh": None,
-               "telemetry_dir": None, "auto_refresh": False,
-               "trace_dir": None, "metrics_every": 0}
+_NOT_PORTED = {"mesh": None}
+
+log = logging.getLogger(__name__)
 
 
 def optimizer_config(name: str, steps: int, lr: float,
                      refresh_every: int = 1, warm_start: bool = False,
                      bucketed: bool = False, fused_update: bool = False,
                      quantize_factors: bool = False,
-                     mixed_groups: bool = False, sketch_width: int = 2048,
+                     mixed_groups: bool = False, telemetry: bool = False,
+                     dynamic_refresh: bool = False, sketch_width: int = 2048,
                      sketch_depth: int = 4,
                      embedding_min_rows: int = 1024, guards: bool = False,
                      guard_xi_trip: float = 0.75,
@@ -70,6 +84,8 @@ def optimizer_config(name: str, steps: int, lr: float,
                                warm_start=warm_start, bucketed=bucketed,
                                fused_update=fused_update,
                                quantize_factors=quantize_factors,
+                               telemetry=telemetry,
+                               dynamic_refresh=dynamic_refresh,
                                guards=guards, guard_xi_trip=guard_xi_trip,
                                max_demotions=max_demotions)
     return OptimizerConfig(**common)
@@ -117,9 +133,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--embedding-min-rows", type=int, default=1024,
                     help=">= 2-D leaves with at least this many rows take "
                          "the sketch second moment")
-    ap.add_argument("--telemetry-dir", default=None)
-    ap.add_argument("--telemetry-every", type=int, default=1)
-    ap.add_argument("--auto-refresh", action="store_true")
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="stream optimizer / guard / straggler telemetry "
+                         "as JSONL events here")
+    ap.add_argument("--telemetry-every", type=int, default=1,
+                    help="emit optimizer events every N steps")
+    ap.add_argument("--auto-refresh", action="store_true",
+                    help="adapprox: the closed-loop controller retunes "
+                         "refresh_every per group from the observed xi "
+                         "(turns on telemetry and the dynamic cadence)")
     ap.add_argument("--guards", action="store_true",
                     help="adapprox: wrap the chain in the non-finite "
                          "skip-step guard and arm the per-leaf xi watchdog")
@@ -129,8 +151,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-demotions", type=int, default=0,
                     help="consecutive xi trips before a leaf is demoted to "
                          "the exact dense second moment (0 = never)")
-    ap.add_argument("--trace-dir", default=None)
-    ap.add_argument("--metrics-every", type=int, default=0)
+    ap.add_argument("--trace-dir", default=None,
+                    help="record train-step and checkpoint spans here as "
+                         "JSONL (tools/traceview.py); may equal "
+                         "--telemetry-dir to share one stream")
+    ap.add_argument("--metrics-every", type=int, default=0,
+                    help="a metric registry snapshot every N steps (0 = "
+                         "off); <trace-dir>/metrics.prom at exit")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=20)
@@ -157,25 +184,63 @@ def main(argv=None, *, params: Optional[dict] = None,
     cfg = (get_smoke_config(args.arch, max_seq_len=args.seq)
            if args.smoke else get_config(args.arch))
     model = build_model(cfg)
+    telemetry_on = args.telemetry_dir is not None or args.auto_refresh
     opt = build_optimizer(optimizer_config(
         args.optimizer, args.steps, args.lr,
         refresh_every=args.refresh_every, warm_start=args.warm_start,
         bucketed=args.bucketed, fused_update=args.fused_update,
         quantize_factors=args.quantize_factors, mixed_groups=mixed,
+        telemetry=telemetry_on, dynamic_refresh=args.auto_refresh,
         sketch_width=args.sketch_width, sketch_depth=args.sketch_depth,
         embedding_min_rows=args.embedding_min_rows, guards=args.guards,
         guard_xi_trip=args.guard_skip_threshold,
         max_demotions=args.max_demotions), sketch=sketch)
+    runtime = None
+    if telemetry_on:
+        from repro_torch.telemetry import TelemetryRuntime
+        runtime = TelemetryRuntime(TelemetryConfig(
+            enabled=True, dir=args.telemetry_dir,
+            emit_every=args.telemetry_every,
+            auto_refresh=args.auto_refresh))
+        log.info("telemetry on (dir=%s, auto_refresh=%s)",
+                 args.telemetry_dir, args.auto_refresh)
+    tracer = trace_sink = reg = None   # trace_sink: one this launcher owns
+    if args.trace_dir is not None:
+        from repro_torch.telemetry import (MetricsRegistry, SinkConfig,
+                                           TelemetrySink, Tracer)
+        reg = MetricsRegistry()
+        if runtime is not None and args.trace_dir == args.telemetry_dir:
+            span_sink = runtime.sink   # one directory, one stream
+        else:
+            trace_sink = span_sink = TelemetrySink(
+                SinkConfig(directory=args.trace_dir))
+        tracer = Tracer(sink=span_sink, registry=reg)
+        log.info("tracing on (dir=%s, metrics_every=%d)",
+                 args.trace_dir, args.metrics_every)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch)
     ckpt = (CheckpointConfig(directory=args.ckpt_dir,
                              save_every=args.ckpt_every)
             if args.ckpt_dir else None)
-    state, history = train(model, opt, data_cfg,
-                           LoopConfig(total_steps=args.steps,
-                                      log_every=args.log_every, ckpt=ckpt),
-                           device=device, params=params,
-                           install_signal_handler=ckpt is not None)
+    try:
+        state, history = train(
+            model, opt, data_cfg,
+            LoopConfig(total_steps=args.steps, log_every=args.log_every,
+                       ckpt=ckpt),
+            device=device, params=params, telemetry=runtime, tracer=tracer,
+            metrics_every=args.metrics_every,
+            install_signal_handler=ckpt is not None)
+    finally:
+        if runtime is not None:
+            runtime.close()
+        if tracer is not None:
+            tracer.flush()
+            if trace_sink is not None:
+                trace_sink.close()
+            prom = Path(args.trace_dir) / "metrics.prom"
+            prom.write_text(reg.render())
+            log.info("trace events and %s written under %s", prom.name,
+                     args.trace_dir)
     if history:
         print(f"final loss: {history[-1]['loss']:.4f} "
               f"({history[-1]['step_time_s'] * 1e3:.0f} ms/step)")

@@ -37,7 +37,9 @@ branches, and two things differ:
     in one device-to-host transfer a step: a guarded Adapprox stage leaves
     its xi on its new state (``pending``), and the wrapper reads it with
     the all-finite flag and advances the counters
-    (``core.adapprox.settle_guards``) before it returns.  So the two
+    (``core.adapprox.settle_guards``) before it returns.  The telemetry
+    snapshots' device vectors (``telemetry.snapshot``) ride the same
+    transfer, so telemetry under the guards adds none.  So the two
     halves go together: the wrapper refuses an unguarded Adapprox, and a
     guarded one refuses a state that no wrapper settled.
 
@@ -205,6 +207,8 @@ def guard_updates(inner: GradientTransformation) -> GradientTransformation:
     Unlike the JAX package's it takes no ``GuardConfig``: the skip-step
     guard has no setting, and each Adapprox stage keeps its watchdog's."""
     from repro_torch.core.adapprox import AdapproxState, settle_guards
+    from repro_torch.telemetry import collect
+    from repro_torch.telemetry import snapshot as SN
 
     def init(params):
         istate = inner.init(params)
@@ -220,12 +224,20 @@ def guard_updates(inner: GradientTransformation) -> GradientTransformation:
         upd, new_inner = inner.update(grads, state.inner, params)
         pending = [s for s in find_states(new_inner, AdapproxState)
                    if s.pending is not None]
+        snaps = SN.pending(
+            list(collect.named_snapshots(new_inner).values())
+            + list(collect.named_sketch_snapshots(new_inner).values()))
+        tel = SN.packed(snaps)
         finite = torch.logical_and(tree_all_finite(grads),
                                    tree_all_finite(upd))
-        # one device-to-host transfer: the flag, then each stage's xi
+        # one device-to-host transfer: the flag, each stage's xi, then
+        # the telemetry snapshots' vectors
         dev = pending[0].pending.xi_max.device if pending else finite.device
         host = torch.cat([finite.reshape(1).float().to(dev)] + [
-            s.pending.xi_max.float() for s in pending]).cpu().numpy()
+            s.pending.xi_max.float() for s in pending]
+            + ([] if tel is None else [tel.to(dev)])).cpu().numpy()
+        n_xi = 1 + sum(s.pending.xi_max.numel() for s in pending)
+        SN.set_host(snaps, host[n_xi:])
         if not host[0]:
             zeros = {k: torch.zeros_like(u) for k, u in upd.items()}
             return zeros, GuardedState(inner=state.inner, steps=steps,

@@ -1,6 +1,8 @@
 """Train step: loss -> autograd -> optimizer, with microbatch gradient
 accumulation in fp32 and an optional global-norm clip.  Master parameters
-are fp32; the model casts them to its compute dtype."""
+are fp32; the model casts them to its compute dtype.  The step metrics
+carry the optimizer's telemetry aggregates
+(``telemetry.collect.telemetry_metrics``), as in the JAX package."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +13,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core.types import (GradientTransformation, apply_updates,
                                     global_norm)
+from repro_torch.telemetry.collect import telemetry_metrics
 
 
 @dataclasses.dataclass
@@ -66,6 +69,10 @@ def build_train_step(model, opt: GradientTransformation,
             updates, opt_state = opt.update(grads, state.opt_state,
                                             state.params)
             apply_updates(state.params, updates)
+        # per-group aggregates of the optimizer's snapshots and the guard
+        # counters (empty without either): host numbers where the port
+        # holds them on the host, else 0-d device tensors
+        metrics.update(telemetry_metrics(opt_state))
         return (TrainState(params=state.params, opt_state=opt_state,
                            step=state.step + 1), metrics)
 

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it never falls back to the CPU, never
 silently swaps the optimizer the user asked for, refuses the parts that
-are not ported yet (and builds and steps those that are), and never
-imports JAX or the JAX package."""
+are not ported yet and the misuse of those that are (and builds and steps
+those that are), and never imports JAX or the JAX package."""
 import dataclasses
 import os
 import subprocess
@@ -11,8 +11,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import telemetry as T
 from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
-from repro_torch.config import OptimizerConfig
+from repro_torch.config import OptimizerConfig, TelemetryConfig
 from repro_torch.core import adapprox as TA
 from repro_torch.core.adafactor import AdafactorState
 from repro_torch.core.build import build_optimizer
@@ -63,8 +64,20 @@ def test_unported_launcher_flags_raise(flag):
 @pytest.mark.parametrize("knob", [dict(telemetry=True),
                                   dict(dynamic_refresh=True)])
 def test_unported_adapprox_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.scale_by_adapprox(TA.AdapproxConfig(**knob))
+    """Both knobs were refused until the telemetry slice ported them.  Now
+    they build and step, and what still raises is their misuse: a cadence
+    set on a state that carries none, or one below 1."""
+    params = {"w": torch.ones((128, 160)), "b": torch.ones(8)}
+    state = _step_twice(TA.scale_by_adapprox(TA.AdapproxConfig(
+        min_dim_factor=64, **knob)), params)
+    if "telemetry" in knob:
+        assert state.telemetry.step == 2 and state.refresh_every is None
+        with pytest.raises(ValueError, match="dynamic_refresh"):
+            T.set_refresh_every(state, {"default": 2})
+    else:
+        assert state.telemetry is None and state.refresh_every == 1
+        with pytest.raises(ValueError, match=">= 1"):
+            T.set_refresh_every(state, 0)
 
 
 def _factored_leaves(state):
@@ -170,19 +183,37 @@ def test_ported_knobs_build_their_state(way, tmp_path):
 @pytest.mark.parametrize("change", [dict(telemetry=True),
                                     dict(dynamic_refresh=True)])
 def test_build_optimizer_refuses_what_is_not_ported(change):
-    cfg = dataclasses.replace(OptimizerConfig(implicit=False), **change)
-    with pytest.raises(NotImplementedError):
-        build_optimizer(cfg)
+    """Ported now: build_optimizer builds each knob alone, and the
+    closed-loop controller refuses, at the first step, an optimizer that
+    lacks the other half (snapshots to observe, a cadence to move)."""
+    cfg = dataclasses.replace(OptimizerConfig(implicit=False,
+                                              min_dim_factor=64), **change)
+    state = _step_twice(build_optimizer(cfg),
+                        {"w": torch.ones((128, 160)), "b": torch.ones(8)})
+    runtime = T.TelemetryRuntime(TelemetryConfig(enabled=True,
+                                                 auto_refresh=True))
+    with pytest.raises(ValueError, match="dynamic_refresh=True"
+                       if "telemetry" in change else "telemetry=True"):
+        runtime.on_step(2, state)
 
 
 def test_sketch_telemetry_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scale_by_sketch(SketchConfig(telemetry=True))
+    """SketchConfig.telemetry builds a snapshot now; reading its host
+    copy before a transfer has brought it over raises."""
+    opt = scale_by_sketch(SketchConfig(telemetry=True, min_rows=4))
+    params = {"e": torch.ones((16, 8))}
+    state = opt.init(params)
+    _, state = opt.update({"e": torch.ones((16, 8))}, state, params)
+    assert state.telemetry.step == 1
+    with pytest.raises(RuntimeError, match="read to the host"):
+        state.telemetry.host("occupancy")
+    T.snapshot.fetch_host([state.telemetry])
+    assert 0.0 < float(state.telemetry.host("occupancy")[0]) <= 1.0
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Import every module of repro_torch, the chunked attention path's
-    entry points (``ops.FlashAttention``, ``sdpa_auto``), the Mamba2
+    """Import every module of repro_torch (the telemetry package's too),
+    the chunked attention path's entry points (``ops.FlashAttention``, ``sdpa_auto``), the Mamba2
     path's (``ops.SSDChunk``, ``ssd_chunked``, ``SSMLM``) and chip_smoke.py
     in a fresh interpreter and inspect sys.modules."""
     code = (
@@ -196,6 +227,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from repro_torch.models.mamba2 import ssd_chunked\n"
         "from repro_torch.models.ssm_lm import SSMLM\n"
         "import chip_smoke\n"
+        "tel = ('collect', 'controller', 'metrics', 'runtime', 'sink', "
+        "'snapshot', 'trace', 'validate')\n"
+        "assert all('repro_torch.telemetry.' + m in sys.modules "
+        "for m in tel)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

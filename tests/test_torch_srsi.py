@@ -53,6 +53,8 @@ def test_tri_inv_lower_matches_jax():
     low[np.diag_indices(12)] = 1.0 + rng.random(12)
     got = S._tri_inv_lower(torch.from_numpy(low))
     want = JS._tri_inv_lower(jnp.asarray(low))
+    # column order against JAX's row order: the same substitution, each
+    # row's terms subtracted one at a time instead of in one product
     _close_rel(got, want, 1e-6)
     # X L = I up to the inverse's growth on a random triangle
     _close_rel(got @ torch.from_numpy(low), np.eye(12), 1e-5)
@@ -187,3 +189,50 @@ def test_col_mask():
     m = S.col_mask(6, torch.tensor([0, 2, 6], dtype=torch.int32))
     want = np.stack([np.asarray(JS.col_mask(6, k)) for k in (0, 2, 6)])
     np.testing.assert_array_equal(m.numpy(), want)
+
+
+def test_tri_inv_lower_cols_is_batch_invariant():
+    """The column-order substitution: each matrix of a batch bitwise as it
+    comes alone, and the inverse JAX's row form gives, to fp32 rounding."""
+    rng = np.random.default_rng(1)
+    low = np.tril(rng.standard_normal((5, 24, 24))).astype(np.float32)
+    low[:, np.arange(24), np.arange(24)] = 1.0 + rng.random((5, 24))
+    batched = S._tri_inv_lower(torch.from_numpy(low))
+    for i in range(5):
+        alone = S._tri_inv_lower(torch.from_numpy(low[i]))
+        assert torch.equal(batched[i], alone), i
+        _close_rel(alone, JS._tri_inv_lower(jnp.asarray(low[i])), 1e-6)
+
+
+@pytest.mark.parametrize("op", ["dense", "implicit"])
+def test_card_route_is_batch_invariant(monkeypatch, op):
+    """S-RSI as the card runs it (``batch_invariant``: each matrix product,
+    sum, scan and Cholesky one matrix at a time), forced
+    on the CPU: a stack's matrices come out bitwise as each alone, and
+    within 1e-5 of the batched CPU route's reconstruction."""
+    rng = np.random.default_rng(2)
+    bd, m, n, r, p = (3,), 48, 40, 6, 4
+    a = torch.from_numpy(_second_moment(rng, bd, m, n))
+    draw = torch.from_numpy(rng.standard_normal(bd + (n, r + p)).astype(
+        np.float32))
+    q0 = torch.from_numpy(rng.random(bd + (m, r)).astype(np.float32))
+    u0 = torch.from_numpy(rng.random(bd + (n, r)).astype(np.float32))
+
+    def run(i=None):
+        pick = (lambda t: t) if i is None else (lambda t: t[i])
+        source = lambda shape, gen: pick(draw)
+        if op == "dense":
+            return S.srsi_dense(pick(a), r, p, 3, source)
+        v = S.make_implicit_v(pick(q0), pick(u0), pick(a), 0.999)
+        return S.srsi_implicit(v, r, p, 3, source)
+
+    cpu = run()
+    monkeypatch.setattr(S, "batch_invariant", lambda device: True)
+    card = run()
+    for i in range(bd[0]):
+        alone = run(i)
+        for f in alone._fields:
+            assert torch.equal(getattr(card, f)[i], getattr(alone, f)), (
+                i, f)
+    _close_rel(card.q @ card.u.transpose(-1, -2),
+               cpu.q @ cpu.u.transpose(-1, -2), 1e-5)

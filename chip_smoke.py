@@ -89,9 +89,24 @@ sm_90a) and the CUDA toolkit.  In order, it
      --trace-dir --metrics-every --auto-refresh --guards, paired fold-step
      times with everything on and off, and the device-to-host copies a
      fold step (telemetry adds at most one, none under the guards);
-     [chaos] also checks its runtime's fault events; [srsi] also holds
-     each of w_down's matrices alone against its slice of the batched
-     S-RSI, bitwise;
+     [chaos] also checks its runtime's fault events and runs
+     ``python -m repro_torch.tools.chaos`` on the card (exit 0); [srsi]
+     also holds each of w_down's matrices alone against its slice of the
+     batched S-RSI, bitwise, and at other widths (GPT-2 345M's w_down,
+     Mamba2-370m's in_proj, Qwen2-7B's w_down at their step-1 refresh)
+     one matrix against the CPU and alone against its batch; then the
+     dense family and the MoE block at full width, depth cut to 4 layers
+     (``depth_cut``: Qwen2-7B's fp32 state would not fit 28): [kernels-
+     dense] holds flash attention at Qwen2-7B's (2, 2048, 28 over 4, 128),
+     the sketch at its embed and 152,064-wide lm_head, pass 1 and pass 2
+     at one w_up and an OLMoE expert stack; [parity-dense] and
+     [parity-moe] (the router's top-k indices first: a flip fails as
+     one) run a qwen3-14b and an olmoe smoke model on the card and the
+     CPU; [train-qwen2] trains Qwen2-7B (attn_impl "chunked", batch 2 x
+     2048, the chunked cross entropy of the untied head) and
+     [train-olmoe] OLMoE-1B-7B 6 steps through the launcher, with the
+     launches the path implies, and runs OLMoE's step 2 twice from one
+     state, bitwise;
   6. breaks a step of each run down into model and optimizer time;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
@@ -150,6 +165,25 @@ TRAIN_GUARDED_ARGV = TRAIN_MIXED_ARGV + ["--guards"]
 # [0, 1]): the skip-step guard alone, a no-op on healthy steps
 TRAIN_GUARDED_CALM_ARGV = TRAIN_GUARDED_ARGV + ["--guard-skip-threshold", "1"]
 CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+# slice 12: the dense family's features and the MoE block at full width,
+# depth cut to 4 layers (``depth_cut``): Qwen2-7B's 7.6B fp32 master
+# parameters, their gradients and the first moment exceed 80 GB.  Batch
+# 2 x 2048: vocab x S >= 2^26 in both, so the loss is the chunked cross
+# entropy from the hiddens (the untied head).  The learning rates are the
+# models' scale, not the launcher's 3e-3 (GPT-2's), under which Qwen2-7B's
+# loss climbs.  The launcher warms up over max(steps / 20, 5) steps, so a
+# 6-step run reaches its peak rate at step 5: at 3e-4 Qwen2-7B climbs
+# 13.0 -> 23.1 by step 6 under Adapprox and AdamW alike
+# (scripts/dense_curves.py, PERF.md run 22b), so it runs at 1e-4;
+# OLMoE-1B-7B runs at its own peak rate, 4e-4 (arXiv 2409.02060), and
+# falls 11.5 -> 8.0.
+DENSE_LAYERS = 4
+TRAIN_QWEN2_ARGV = ["--arch", "qwen2-7b", "--steps", "6", "--batch", "2",
+                    "--seq", "2048", "--lr", "1e-4", "--fused-update",
+                    "--refresh-every", "5", "--log-every", "1",
+                    "--device", "cuda"]
+TRAIN_OLMOE_ARGV = (["--arch", "olmoe-1b-7b"] + TRAIN_QWEN2_ARGV[2:8]
+                    + ["--lr", "4e-4"] + TRAIN_QWEN2_ARGV[10:])
 
 # the smoke model's mixed groups: embed (512 rows) is sketched
 SMALL_MIXED = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)
@@ -186,6 +220,14 @@ TOL_SRSI = 1e-4
 # fp64 instead of fp32 move the parameters by 4.1e-4 of the largest.  The
 # step-1 gradients, where nothing amplifies, are held to 1e-4.
 TOL_PARAMS_MAMBA = 1e-3
+# The same on the MoE smoke model (olmoe, the token embedding sketched):
+# with equal routes the card's losses agree with the CPU's to 2e-7, but
+# after 4 steps the sketched embedding's entries whose gradient is ~eps
+# differ by 4.8e-4 to 5.0e-4 of its largest entry; on the CPU an init
+# whose wq is scaled by 1 + 1e-7 moves that leaf by 2.7e-4 to 6.1e-4
+# (the phase prints this witness; PERF.md runs 22a, 22b).  The step-1
+# gradients are held to 1e-4.
+TOL_PARAMS_MOE = 1e-3
 
 # Flash attention against its plain version on the same inputs.  fp32:
 # the same fp32 products, summed in 64-wide tiles against 1024-wide chunks
@@ -210,6 +252,10 @@ FLASH_CASES = [
     ("ragged gqa full", (2, 1000, 872, 8, 2, 80), False,
      ("float32", "bfloat16")),
     ("ragged dh 60", (2, 300, 300, 4, 2, 60), True, ("bfloat16",))]
+# Qwen2-7B's attention at batch 2 x 2048 (timed): dh 128 and 28 query
+# heads over 4 KV heads, a group of 7
+DENSE_FLASH_CASES = [
+    ("qwen2-7b", (2, 2048, 2048, 28, 4, 128), True, ("bfloat16", "float32"))]
 
 # The SSD intra-chunk block (B7) against its plain version on the same
 # inputs: y sums the same fp32 products as the plain einsums in other
@@ -475,25 +521,48 @@ def hold(what: str, labels, tols, got, want, rec: dict, again=None) -> str:
                               else "")
 
 
+def arch_config(arch: str, layers: int | None = None, **over):
+    """``arch``'s full-width config, its depth cut to ``layers`` and the
+    fields ``over`` set (the launcher has no depth flag, as the JAX
+    launcher has none)."""
+    from repro_torch.configs.archs import get_config
+    if layers is not None:
+        over["n_layers"] = layers
+    return dataclasses.replace(get_config(arch), **over)
+
+
+@contextlib.contextmanager
+def depth_cut(layers: int, **over):
+    """Within it, the launcher builds its ``--arch`` at full width with the
+    depth cut to ``layers`` and the fields ``over`` set
+    (:func:`arch_config`)."""
+    from repro_torch.launch import train as launcher
+    full = launcher.get_config
+    launcher.get_config = lambda arch: arch_config(arch, layers, **over)
+    try:
+        yield
+    finally:
+        launcher.get_config = full
+
+
 def main_path_leaves(device, mixed: bool = False, arch: str = "gpt2-117m",
-                     k_max: int = 128):
+                     k_max: int = 128, layers: int | None = None):
     """(factored [(name, shape, r)], dense [(name, size)]) of the Adapprox
-    leaves of ``arch`` (GPT-2 117M, or Mamba2-370m) under the launcher's
-    optimizer, read from the optimizer state itself: with
+    leaves of ``arch`` (GPT-2 117M, Mamba2-370m, or ``layers`` deep) under
+    the launcher's optimizer, read from the optimizer state itself: with
     --no-mixed-groups (Adapprox on every leaf) or, ``mixed``, on its
     default mixed groups (GPT-2: the six block matrices; Mamba2: in_proj
     and out_proj); ``k_max=10**9`` gives the paper's k_max, min(m, n) /
     4."""
     import torch
     from repro_torch import tree
-    from repro_torch.configs.archs import get_config
     from repro_torch.core.adapprox import adapprox_state
     from repro_torch.core.build import build_optimizer
     from repro_torch.core.factored import FactoredLeaf
     from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
 
-    cfg = get_config(arch)
+    cfg = arch_config(arch, layers)
     params = build_model(cfg).init(
         torch.Generator(device=device).manual_seed(0))
     flat = tree.flatten(params)
@@ -923,23 +992,24 @@ def check_apply(fact, dense, device):
 
 
 def sketch_cases(device, arch: str = "gpt2-117m",
-                 expect: tuple = ("embed", "pos_embed"), ragged: bool = True):
+                 expect: tuple = ("embed", "pos_embed"), ragged: bool = True,
+                 layers: int | None = None):
     """(name, rows, d, width, depth, seeds) for the sketch kernel checks:
-    the sketched leaves of ``arch`` under the launcher's mixed groups,
-    read from the optimizer state itself (``expect``: GPT-2 117M's embed
-    and pos_embed, Mamba2-370m's embed and lm_head, whose 1024 rows leave
-    most of the 2048 buckets empty; hash seeds of leaves 0 and 1 of the
+    the sketched leaves of ``arch`` (``layers`` deep) under the launcher's
+    mixed groups, read from the optimizer state itself (``expect``: GPT-2
+    117M's embed and pos_embed, Mamba2-370m's embed and lm_head, whose
+    1024 rows leave most of the 2048 buckets empty, Qwen2-7B's embed and
+    lm_head, 3584 rows of 152,064; hash seeds of leaves 0 and 1 of the
     sketch group, seed 0, depth 4, width 2048) and, with ``ragged``, two
     ragged shapes (d = 101 takes the kernels' unvectorized loads)."""
     import torch
     from repro_torch import tree
-    from repro_torch.configs.archs import get_config
     from repro_torch.core.build import build_optimizer
     from repro_torch.core.sketch import _leaf_seeds, sketch_state
     from repro_torch.launch.train import optimizer_config
     from repro_torch.models.model_zoo import build_model
 
-    flat = tree.flatten(build_model(get_config(arch)).init(
+    flat = tree.flatten(build_model(arch_config(arch, layers)).init(
         torch.Generator(device=device).manual_seed(0)))
     state = build_optimizer(optimizer_config(
         "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
@@ -1113,26 +1183,28 @@ def check_hgmma() -> None:
                  f"each with HGMMA): {counts}")
 
 
-def check_flash(device):
+def check_flash(device, cases=FLASH_CASES, timed: str = "gpt2-117m",
+                layers: int = FLASH_LAYERS):
     """Flash attention's forward and backward kernels against their plain
     versions on the same inputs, each kernel launched twice and compared
-    bitwise: at GPT-2 117M's shape (8, 1024, 12, 64), causal, in bf16 (as
-    the model feeds them) and in fp32, at ragged GQA shapes (S 1000, dh
-    80, 8 query heads over 2 KV heads; causal, and full attention with Sq
-    != Sk), both dtypes, and at dh 60 in bf16.  Then, at the GPT-2 shape,
-    each kernel's device time beside its bound and its plain version's,
-    and the library yardstick that the port never calls:
-    scaled_dot_product_attention forward and forward+backward, fp32 and
-    bf16; for bf16, the times per call and per step beside the bound, the
-    bound before the hi/lo pricing and SDPA.  Returns (forward, backward)
-    records, times per call."""
+    bitwise, at each of ``cases``: by default GPT-2 117M's shape (8, 1024,
+    12, 64), causal, in bf16 (as the model feeds them) and in fp32, ragged
+    GQA shapes (S 1000, dh 80, 8 query heads over 2 KV heads; causal, and
+    full attention with Sq != Sk), both dtypes, and dh 60 in bf16;
+    ``DENSE_FLASH_CASES``: Qwen2-7B's (2, 2048, 28 over 4, 128).  Then, at
+    the shape named ``timed``, each kernel's device time beside its bound
+    and its plain version's, and the library yardstick that the port never
+    calls: scaled_dot_product_attention forward and forward+backward, fp32
+    and bf16; for bf16, the times per call and per step of ``layers``
+    layers beside the bound, the bound before the hi/lo pricing and SDPA.
+    Returns (forward, backward) records, times per call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(7)
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_rec, bwd_rec = new_rec(), new_rec()
-    for name, (b, sq, sk, h, kv, dh), causal, dtypes in FLASH_CASES:
+    for name, (b, sq, sk, h, kv, dh), causal, dtypes in cases:
         for dt in (getattr(torch, d) for d in dtypes):
             rnd = lambda *shape: torch.randn(shape, generator=gen,
                                              device=device).to(dt)
@@ -1156,7 +1228,7 @@ def check_flash(device):
                         want, bwd_rec, again)
             print(f"  {what} causal={causal} bwd: {errs}")
             del got, again, want
-            if name != "gpt2-117m":
+            if name != timed:
                 continue
             b_fwd, b_bwd = flash_bounds(b, sq, sk, h, kv, dh, causal,
                                         q.dtype)
@@ -1182,8 +1254,8 @@ def check_flash(device):
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                           for x in (q, k, v))
             dot = do.transpose(1, 2).contiguous()
-            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                          is_causal=causal)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=kv != h)
 
             def sdpa_fwd():
                 with torch.no_grad():
@@ -1203,8 +1275,8 @@ def check_flash(device):
             if dt == bf16:
                 old_f, old_b = flash_bounds(b, sq, sk, h, kv, dh, causal,
                                             q.dtype, split=False)
-                both = lambda x: f"{x:.4f} ({x * FLASH_LAYERS:.4f})"
-                print(f"    bf16 ms per call (per step of {FLASH_LAYERS} "
+                both = lambda x: f"{x:.4f} ({x * layers:.4f})"
+                print(f"    bf16 ms per call (per step of {layers} "
                       f"layers): fwd {both(fwd_rec['ms'])}, dQ "
                       f"{both(bwd_rec['dq_ms'])}, dK/dV "
                       f"{both(bwd_rec['dkdv_ms'])}; bound fwd "
@@ -1573,6 +1645,146 @@ def check_srsi(device, fact_mixed: list):
                  f"on matrices {bad}")
 
 
+@contextlib.contextmanager
+def srsi_captured(shape: tuple):
+    """Within it, the first S-RSI call on a stacked leaf of ``shape`` (the
+    main path's refresh at step 1) records, on the host, its input V, its
+    sketch and its ``(r, oversample, n_iter)``: a list, empty until then."""
+    from repro_torch.core import srsi as S
+    plain = S.srsi_dense
+    got = []
+
+    def capture(a, r_store, oversample, n_iter, sketch, generator=None,
+                **kw):
+        if got or tuple(a.shape) != tuple(shape):
+            return plain(a, r_store, oversample, n_iter, sketch, generator,
+                         **kw)
+        draws = []
+
+        def source(shp, gen):
+            draws.append(sketch(shp, gen))
+            return draws[-1]
+
+        res = plain(a, r_store, oversample, n_iter, source, generator, **kw)
+        got.append((a.detach().cpu(), draws[0].detach().cpu(), r_store,
+                    oversample, n_iter))
+        return res
+
+    S.srsi_dense = capture
+    try:
+        yield got
+    finally:
+        S.srsi_dense = plain
+
+
+def check_srsi_widths(device, captured: list) -> None:
+    """[srsi] at other widths: for each ``(name, (V, sketch, r, p,
+    n_iter))`` captured at a main path's step-1 refresh, one matrix (the
+    stack's first) on the card against the card's route on the CPU (the
+    float64 Gram): every Gram factored, Q nonzero, xi(r) below 1, Q U^T
+    within ``TOL_SRSI``; then the batched stack on the card against that
+    matrix alone, bitwise (Q, U, cum_energy, frob_sq)."""
+    import torch
+    from repro_torch.core import srsi as S
+    for name, (v, draw, r, p, n_it) in captured:
+        t0 = time.monotonic()
+        vd, dd = v.to(device), draw.to(device)
+        out = srsi_routes(vd[:1], draw[:1], r, p, n_it,
+                          ("card", "cpu-fp64-gram"))
+        (rec, xi, mass, failed), (rec_cpu, _, _, failed_cpu) = (
+            out["card"], out["cpu-fp64-gram"])
+        worst = rel_err(rec[0].cpu(), rec_cpu[0])[1]
+        batched = S.srsi_dense(vd, r, p, n_it, lambda shape, gen: dd)
+        alone = S.srsi_dense(vd[0], r, p, n_it, lambda shape, gen: dd[0])
+        diff = [f for f in alone._fields
+                if not torch.equal(getattr(batched, f)[0],
+                                   getattr(alone, f))]
+        print(f"  {name} {tuple(v.shape)} r {r}, matrix 0: xi(r) "
+              f"{float(xi.max()):.4f}; Q U^T card vs CPU rel err "
+              f"{worst:.2e} (tolerance {TOL_SRSI}); failed Choleskys card "
+              f"{failed or 'none'}, CPU {failed_cpu or 'none'}; alone vs "
+              f"its slice of the batched run: "
+              f"{diff or 'bitwise equal (Q, U, cum_energy, frob_sq)'} "
+              f"({time.monotonic() - t0:.1f} s)")
+        if failed or failed_cpu or not bool((mass > 0).all()) \
+                or not bool((xi < 1.0).all()) or worst > TOL_SRSI:
+            fail(f"S-RSI at {name}: Q U^T rel err {worst:.2e}, failed "
+                 f"Choleskys card {failed}, CPU {failed_cpu}, xi {xi}")
+        if diff:
+            fail(f"S-RSI at {name}: batched differs from alone in {diff}")
+        del vd, dd, batched, alone, out
+        torch.cuda.empty_cache()
+
+
+def moe_repeat_step(device) -> None:
+    """[train-olmoe]'s model and optimizer, step 1 from the seed-0 init,
+    then step 2 twice from that one state: every tensor of the two results
+    bitwise equal (the MoE dispatch and combine use no float atomics)."""
+    import copy
+    import torch
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import LoopConfig, train
+    cfg = arch_config("olmoe-1b-7b", DENSE_LAYERS)
+    model = build_model(cfg)
+    opt = build_optimizer(optimizer_config(
+        "adapprox", 6, 4e-4, refresh_every=5, fused_update=True,
+        mixed_groups=True))
+    data = DataConfig(vocab=cfg.vocab, seq_len=2048, global_batch=2)
+    to = lambda n, st: train(model, opt, data, LoopConfig(
+        total_steps=n, log_every=1), device=device, state=st)[0]
+    t0 = time.monotonic()
+    first = to(1, None)
+    twin = copy.deepcopy(first)
+    snap = snapshot(to(2, first))
+    del first
+    unchanged("step 2 run twice from the step-1 state", snap, to(2, twin))
+    del snap, twin
+    torch.cuda.empty_cache()
+    print(f"  ({time.monotonic() - t0:.1f} s)")
+
+
+def chaos_tool(directory: Path) -> None:
+    """``python -m repro_torch.tools.chaos --out DIR`` on the card, its
+    default plan: exit 0."""
+    from repro_torch.tools import chaos
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.monotonic()
+    code = chaos.main(["--out", str(directory)])
+    print(f"  repro_torch.tools.chaos exit {code} "
+          f"({time.monotonic() - t0:.1f} s)")
+    if code != 0:
+        fail(f"repro_torch.tools.chaos exited {code}")
+
+
+def check_dense_kernels(device):
+    """[kernels-dense]: B6 at Qwen2-7B's attention (dh 128, a group of 7),
+    B5 at Qwen2-7B's embed and untied lm_head (152,064 columns: a (4,
+    2048, 152064) table, 1.25e9 entries), B1 and B2 at one layer's w_up
+    (3584 x 18944) and at one OLMoE-1B-7B expert stack (64, 2048, 1024),
+    each against its plain version, bitwise repeatable, timed beside its
+    bound.  Returns the records ``{"flash_fwd", "flash_bwd", "sketch",
+    "precond", "apply"}``."""
+    fwd, bwd = check_flash(device, DENSE_FLASH_CASES, "qwen2-7b",
+                           DENSE_LAYERS)
+    sk = check_sketch(sketch_cases(device, "qwen2-7b", ("embed", "lm_head"),
+                                   ragged=False, layers=DENSE_LAYERS),
+                      device)
+    one = lambda arch, leaf: [
+        (f"{arch} {name}", shape[1:], r) for name, shape, r in
+        main_path_leaves(device, mixed=True, arch=arch,
+                         layers=DENSE_LAYERS)[0] if name == leaf]
+    fact = (one("qwen2-7b", "blocks/mlp/w_up")
+            + one("olmoe-1b-7b", "blocks/moe/w_up"))
+    if [shape for _, shape, _ in fact] != [(3584, 18944), (64, 2048, 1024)]:
+        fail(f"[kernels-dense] leaves {fact}")
+    return dict(flash_fwd=fwd, flash_bwd=bwd, sketch=sk,
+                precond=check_precond(fact, device, ragged=False),
+                apply=check_apply(fact, [], device))
+
+
 class _CallOrderSketch:
     """Sketch source drawing from one CPU generator in call order, so two
     runs that call it alike get the same Gaussian sketches on any device."""
@@ -1602,24 +1814,75 @@ def plain_ssd_in_fp64():
         ref.ssd_chunk, ref.ssd_chunk_bwd = fwd, bwd
 
 
+@contextlib.contextmanager
+def routes_recorded():
+    """Within it, every call of the MoE router records, on the host, its
+    top-k indices and its smallest top-k margin: over the tokens, the
+    k-th largest probability minus the (k+1)-th."""
+    import torch
+    from repro_torch.models import moe as MOE
+    route = MOE._route
+    log = []
+
+    def traced(cfg, router_w, xf):
+        gates, idx, aux = route(cfg, router_w, xf)
+        with torch.no_grad():
+            probs = torch.softmax(xf.float() @ router_w.float(), dim=-1)
+            top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+            log.append((idx.detach().cpu(),
+                        float((top[:, -2] - top[:, -1]).min())))
+        return gates, idx, aux
+
+    MOE._route = traced
+    try:
+        yield log
+    finally:
+        MOE._route = route
+
+
+def hold_routes(cpu: list, card: list) -> None:
+    """The top-k indices of every router call equal on the card and the
+    CPU (:func:`routes_recorded`), checked before any loss or parameter:
+    a route that flips is a different result, so it fails as a routing
+    flip, with the calls and tokens that flipped and the smallest margin,
+    and is never folded into a tolerance."""
+    import torch
+    flips = [(i, int((a != b).any(dim=-1).sum()))
+             for i, ((a, _), (b, _)) in enumerate(zip(cpu, card))
+             if not torch.equal(a, b)]
+    margin = min(m for _, m in cpu + card)
+    print(f"  top-k indices of {len(cpu)} router calls: card vs CPU "
+          f"{'equal' if not flips else f'flipped (call, tokens) {flips}'}; "
+          f"smallest top-k margin {margin:.3e}")
+    if len(cpu) != len(card) or not cpu or flips:
+        fail(f"routing flip between the card and the CPU: {len(card)} vs "
+             f"{len(cpu)} router calls, (call, tokens) {flips}; smallest "
+             f"top-k margin {margin:.3e}")
+
+
 def small_parity(device, kind: str = "fused", mixed: bool = False,
-                 chunked: bool = False, mamba: bool = False, seed: int = 0,
+                 chunked: bool = False, seed: int = 0,
                  sketch_rows: int = SMALL_MIXED["embedding_min_rows"],
                  name: str = "adapprox", over: dict | None = None,
                  param_dtype: str = "float32",
-                 factored_steps: int | None = None):
-    """Kernel path (card) against plain path (CPU), end to end: GPT-2
-    smoke in fp32, 4 steps with refresh_every=3 (refresh, fold, fold,
+                 factored_steps: int | None = None,
+                 arch: str = "gpt2-117m"):
+    """Kernel path (card) against plain path (CPU), end to end: the smoke
+    model of ``arch`` (GPT-2 117M, a dense or MoE decoder, Mamba2-370m) in
+    fp32, 4 steps with refresh_every=3 (refresh, fold, fold,
     refresh), same init and sketches, the launcher's optimizer with
     ``kind`` "fused" (--fused-update), "int8" (and --quantize-factors) or
     "kernels" (use_kernels, no fused update).  With ``mixed`` on the
     launcher's mixed groups, with the token embedding sketched.  With
     ``chunked``, attn_impl "chunked" at batch 2 x 2048 (two 1024-token
     chunks, so the dispatch takes the flash-attention path on every
-    layer); else batch 4 x 128 on the naive path.  With ``mamba``, the
-    Mamba2 smoke model (2 layers, chunk 16) at batch 4 x 128 instead,
-    every layer's SSD block through B7, and beside it the fp64 witness
-    (:func:`plain_ssd_in_fp64`), unchecked.  ``seed`` draws the init;
+    layer); else batch 4 x 128 on the naive path.  On Mamba2 (2 layers,
+    chunk 16) every layer's SSD block runs B7, and beside it runs the fp64
+    witness (:func:`plain_ssd_in_fp64`), unchecked; on MoE the top-k
+    indices of every router call are compared first
+    (:func:`hold_routes`), and beside it runs a witness from a nudged
+    init, unchecked; both hold the first step's gradients to 1e-4
+    (:func:`step1_grads`).  ``seed`` draws the init;
     ``sketch_rows`` is the mixed groups' embedding_min_rows (64 puts the
     Mamba2 smoke lm_head, (64, 512), on the sketch too).  ``name`` is the
     launcher's optimizer (``kind`` "none" for the families without a
@@ -1646,24 +1909,19 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     from repro_torch.train.train_loop import LoopConfig, train
 
     seq, batch = (2048, 2) if chunked else (128, 4)
-    if mamba:
-        cfg = dataclasses.replace(
-            get_smoke_config("mamba2-370m", max_seq_len=seq),
-            dtype="float32")
-    else:
-        cfg = dataclasses.replace(
-            get_smoke_config("gpt2-117m", max_seq_len=seq), dtype="float32",
-            attn_impl="chunked" if chunked else "auto",
-            param_dtype=param_dtype)
+    cfg = dataclasses.replace(
+        get_smoke_config(arch, max_seq_len=seq), dtype="float32",
+        attn_impl="chunked" if chunked else "auto", param_dtype=param_dtype)
+    mamba, moe = cfg.ssm is not None, cfg.moe is not None
     model = build_model(cfg)
     init = model.init(torch.Generator().manual_seed(seed))
     kw = (dict(mixed_groups=True, **dict(SMALL_MIXED,
                                          embedding_min_rows=sketch_rows))
           if mixed else {})
-    if mamba:
+    if mamba or moe:
         step1_grads(model, init, cfg, seq, batch, device)
 
-    def run(dev):
+    def run(dev, start=init):
         ocfg = optimizer_config(name, 4, 3e-3, refresh_every=3,
                                 fused_update=kind != "kernels",
                                 quantize_factors=kind == "int8", **kw)
@@ -1672,26 +1930,43 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
         ocfg = dataclasses.replace(ocfg, **(over or {}))
         opt = build_optimizer(ocfg, sketch=_CallOrderSketch(5))
         params = {k: v.detach().clone().to(dev)
-                  for k, v in tree.flatten(init).items()}
+                  for k, v in tree.flatten(start).items()}
         reset_launches()
-        state, hist = train(model, opt,
-                            DataConfig(vocab=cfg.vocab, seq_len=seq,
-                                       global_batch=batch),
-                            LoopConfig(total_steps=4, log_every=1),
-                            device=dev, params=tree.unflatten(params))
+        with (routes_recorded() if moe
+              else contextlib.nullcontext([])) as routes:
+            state, hist = train(model, opt,
+                                DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                           global_batch=batch),
+                                LoopConfig(total_steps=4, log_every=1),
+                                device=dev, params=tree.unflatten(params))
+        routes_of[dev.type] = routes
         return state, [h["loss"] for h in hist]
 
     cpu = torch.device("cpu")
+    routes_of = {}
     if mamba:
         with plain_ssd_in_fp64():
             s_64, _ = run(cpu)
+    if moe:
+        nudged = tree.flatten(init)
+        nudged = tree.unflatten(dict(nudged, **{
+            "blocks/attn/wq": nudged["blocks/attn/wq"] * (1 + 1e-7)}))
+        s_nudge, _ = run(cpu, nudged)
     (s_cpu, l_cpu), (s_gpu, l_gpu) = run(cpu), run(device)
     launches = launch_counts()
+    if moe:
+        hold_routes(routes_of["cpu"], routes_of[device.type])
     if mamba:
         wit = max(rel_err(s_64.params[k], p)[1]
                   for k, p in s_cpu.params.items())
         print(f"  witness: the plain path with B7's plain version in fp64 "
               f"moves the params by {wit:.2e} (unchecked)")
+    if moe:
+        wit = max((rel_err(s_nudge.params[k], p)[1], k)
+                  for k, p in s_cpu.params.items())
+        print(f"  witness: the plain path from an init whose wq is scaled by "
+              f"1 + 1e-7 moves the params by {wit[0]:.2e} ({wit[1]}; "
+              f"unchecked)")
     print(f"  losses cpu {l_cpu}")
     print(f"  losses gpu {l_gpu}")
     for a, b in zip(l_cpu, l_gpu):
@@ -1706,16 +1981,18 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     if k_cpu != k_gpu:
         fail(f"small-input parity: ranks {k_gpu} on the card vs {k_cpu}")
     tol = (TOL_PARAMS_INT8 if kind == "int8"
-           else TOL_PARAMS_MAMBA if mamba else 1e-4)
+           else TOL_PARAMS_MAMBA if mamba else TOL_PARAMS_MOE if moe
+           else 1e-4)
     if param_dtype == "bfloat16":
         hold("small-input parity, bf16 params", list(s_cpu.params),
              [tol] * len(s_cpu.params),
              [p.detach().cpu() for p in s_gpu.params.values()],
              [p.detach() for p in s_cpu.params.values()], new_rec())
-    worst = max(rel_err(s_gpu.params[k].cpu(), p)[1]
-                for k, p in s_cpu.params.items())
-    print(f"  ranks {k_cpu}; max param rel err {worst:.2e} (tolerance "
-          f"{tol}{', and the bf16 rule' if param_dtype != 'float32' else ''})")
+    worst, at = max((rel_err(s_gpu.params[k].cpu(), p)[1], k)
+                    for k, p in s_cpu.params.items())
+    print(f"  ranks {k_cpu}; max param rel err {worst:.2e} at {at} "
+          f"(tolerance {tol}"
+          f"{', and the bf16 rule' if param_dtype != 'float32' else ''})")
     if param_dtype == "float32" and worst > tol:
         fail(f"small-input parity: params differ by {worst:.2e}")
     n_fact, n_apply, n_wide = adapprox_calls(
@@ -1773,7 +2050,8 @@ def step1_grads(model, init, cfg, seq, batch, device):
 
 def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
                     ssd_layers: int = 0, bucketed: bool = False,
-                    steps: int = 12, check: bool = True, keep=None):
+                    steps: int = 12, check: bool = True, keep=None,
+                    tokens: int = 8 * 1024):
     """One main-path run: ``run()`` trains ``steps`` steps (refresh every
     5) and returns ``(state, history)``.  Its launches must be those the
     optimizer state (its factored calls: ``bucketed`` stacks leaves of one
@@ -1783,9 +2061,10 @@ def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
     :func:`expected_launches`) and ``expect`` (every other kernel 0); the
     loss finite and falling.  ``check=False`` (the [remat] runs) checks
     neither.  Returns the launch counts and ``{"loss", "peak_gib",
-    "fold_s", "refresh_s", "wall_s"}`` (median fold-step time, refresh-step
-    times after the first, the whole run's wall time); ``keep(state)`` is
-    given the final state."""
+    "fold_s", "refresh_s", "wall_s", "state_mb"}`` (median fold-step
+    time, refresh-step times after the first, the whole run's wall time,
+    the optimizer state's MB); ``keep(state)`` is given the final state;
+    ``tokens`` a step's, for tokens/s."""
     import torch
     from repro_torch.core.sketch import SketchLeaf, SketchState
     from repro_torch.core.types import find_states
@@ -1797,6 +2076,8 @@ def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    from repro_torch.core.types import tree_nbytes
+    state_mb = tree_nbytes(state.opt_state) / 1e6
     if keep is not None:
         keep(state)
     losses = [h["loss"] for h in hist]
@@ -1826,12 +2107,13 @@ def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
     refresh = [t for i, t in enumerate(times, 1)
                if i in refresh_steps and i > 1]
     fold = [t for i, t in enumerate(times, 1) if i not in refresh_steps]
-    tokens = 8 * 1024
     fold_s = sorted(fold)[len(fold) // 2]
     print(f"  fold-step time median {fold_s:.4f} s "
-          f"({tokens / fold_s:.0f} tokens/s); refresh-step times {refresh}")
+          f"({tokens / fold_s:.0f} tokens/s); refresh-step times {refresh};"
+          f" optimizer state {state_mb:.1f} MB")
     return launches, {"loss": losses[-1], "peak_gib": peak, "fold_s": fold_s,
-                      "refresh_s": refresh, "wall_s": wall}
+                      "refresh_s": refresh, "wall_s": wall,
+                      "state_mb": state_mb}
 
 
 def launcher_run(argv):
@@ -2873,6 +3155,11 @@ def main():
     pre_k = check_precond_kmax(fact_kmax, device)
     phase("[kernels-kmax] the same with int8 factors")
     pre8_k = check_precond_kmax(fact_kmax, device, int8=True)
+    phase("[kernels-dense] flash attention at Qwen2-7B's (2, 2048, 28 over "
+          "4, 128), sketch_update at its embed and lm_head (152,064 "
+          "columns), fused_precond and fused_apply at one layer's w_up and "
+          "an OLMoE-1B-7B expert stack, vs plain")
+    dense_k = check_dense_kernels(device)
     phase("[srsi] S-RSI batched on the card at every factored leaf of the "
           "mixed groups at refresh steps 6 and 11 (w_down at 1), against "
           "the CPU")
@@ -2893,10 +3180,10 @@ def main():
     small_parity(device, mixed=True, chunked=True)
     phase("[parity-mamba2] Mamba2 smoke, mixed groups, kernel path on the "
           "card vs plain path on the CPU")
-    small_parity(device, mixed=True, mamba=True)
+    small_parity(device, mixed=True, arch=MAMBA)
     phase("[parity-mamba2] seed 1, lm_head on the sketch too "
           "(embedding_min_rows 64)")
-    small_parity(device, mixed=True, mamba=True, seed=1, sketch_rows=64)
+    small_parity(device, mixed=True, arch=MAMBA, seed=1, sketch_rows=64)
     for label, kw in (
             ("[parity-warm] mixed groups, --warm-start (n_iter_warm 1)",
              dict(over=dict(warm_start=True))),
@@ -2916,6 +3203,14 @@ def main():
              dict(param_dtype="bfloat16"))):
         phase(label + ", kernel path on the card vs plain path on the CPU")
         small_parity(device, mixed=kw.get("name") is None, **kw)
+    phase("[parity-dense] qwen3-14b smoke (qk-norm, RoPE, GQA, SwiGLU, "
+          "untied head), mixed groups, kernel path on the card vs plain "
+          "path on the CPU")
+    small_parity(device, mixed=True, arch="qwen3-14b")
+    phase("[parity-moe] olmoe-1b-7b smoke (8 experts, top-2, sort "
+          "dispatch), mixed groups, the router's top-k indices, then the "
+          "kernel path on the card vs plain path on the CPU")
+    small_parity(device, mixed=True, arch="olmoe-1b-7b")
     # every factored leaf trips at step 1, is refreshed off the cadence at
     # step 2, trips again and is demoted: B1 / B2 on steps 1-2 only
     phase("[parity-guards] mixed groups, --guards --guard-skip-threshold 0 "
@@ -2968,12 +3263,15 @@ def main():
     # 12 steps: in_proj and out_proj factored, embed and lm_head sketched,
     # 48 SSD blocks a step
     phase("[train-mamba2] Mamba2-370m, " + " ".join(TRAIN_MAMBA_ARGV))
-    runs["mamba2"] = train_main_path(
-        launcher_run(TRAIN_MAMBA_ARGV), "fused", dict(
-            fused_precond=24, fused_apply=24, sketch_scatter=24,
-            sketch_query=24, ssd_fwd=2 * 12 * SSD_LAYERS,
-            ssd_bwd_rows=12 * SSD_LAYERS, ssd_bwd_cols=12 * SSD_LAYERS),
-        ssd_layers=SSD_LAYERS)
+    # its step-1 in_proj refresh is kept for [srsi] at other widths
+    in_proj = dict((n, sh) for n, sh, _ in fact_mamba)["layers/mamba/in_proj"]
+    with srsi_captured(in_proj) as cap_mamba:
+        runs["mamba2"] = train_main_path(
+            launcher_run(TRAIN_MAMBA_ARGV), "fused", dict(
+                fused_precond=24, fused_apply=24, sketch_scatter=24,
+                sketch_query=24, ssd_fwd=2 * 12 * SSD_LAYERS,
+                ssd_bwd_rows=12 * SSD_LAYERS, ssd_bwd_cols=12 * SSD_LAYERS),
+            ssd_layers=SSD_LAYERS)
     # wq, wk, wv and wo share (12, 768, 768): one bucket, so 3 factored
     # calls a step (w_up, w_down alone)
     warm_cfg = launcher_cfg(fused_update=True, mixed_groups=True,
@@ -3000,6 +3298,49 @@ def main():
         argv = TRAIN_BASELINE_ARGV + ["--optimizer", name, "--lr", lr]
         phase(f"[train-{name}] GPT-2 117M, " + " ".join(argv))
         runs[name] = train_main_path(launcher_run(argv), "none", {})
+    # 6 steps, refresh at 1 and 6: wq, wk, wv, wo, w_gate, w_up, w_down
+    # factored (7 calls), embed and lm_head sketched; B6's forward twice a
+    # layer under remat "full"
+    phase(f"[train-qwen2] Qwen2-7B at full width, n_layers 28 -> "
+          f"{DENSE_LAYERS}, attn_impl \"chunked\", "
+          + " ".join(TRAIN_QWEN2_ARGV))
+    w_down = (DENSE_LAYERS, 18944, 3584)
+    with depth_cut(DENSE_LAYERS, attn_impl="chunked"), \
+            srsi_captured(w_down) as cap_qwen2:
+        runs["qwen2"] = train_main_path(
+            launcher_run(TRAIN_QWEN2_ARGV), "fused", dict(
+                fused_precond=42, fused_apply=42, sketch_scatter=12,
+                sketch_query=12, flash_fwd=2 * 6 * DENSE_LAYERS,
+                flash_bwd_dq=6 * DENSE_LAYERS,
+                flash_bwd_dkdv=6 * DENSE_LAYERS),
+            attn_layers=DENSE_LAYERS, steps=6, tokens=2 * 2048)
+    # wq, wk, wv, wo, the router and the three expert stacks (L, 64, m, n)
+    # factored (8 calls), embed and lm_head sketched; naive attention
+    phase(f"[train-olmoe] OLMoE-1B-7B at full width, n_layers 16 -> "
+          f"{DENSE_LAYERS}, " + " ".join(TRAIN_OLMOE_ARGV))
+    with depth_cut(DENSE_LAYERS):
+        runs["olmoe"] = train_main_path(
+            launcher_run(TRAIN_OLMOE_ARGV), "fused", dict(
+                fused_precond=48, fused_apply=48, sketch_scatter=12,
+                sketch_query=12), steps=6, tokens=2 * 2048)
+    phase("[train-olmoe] step 2 twice from one state, bitwise (MoE "
+          "determinism)")
+    moe_repeat_step(device)
+    argv_345 = ["--arch", "gpt2-345m", "--steps", "1"] + TRAIN_MIXED_ARGV[4:]
+    phase("[srsi] at other widths: one matrix of GPT-2 345M's w_down (its "
+          "step-1 refresh, " + " ".join(argv_345) + "), Mamba2-370m's "
+          "in_proj ([train-mamba2]) and Qwen2-7B's w_down ([train-qwen2])")
+    t_w = time.monotonic()
+    with srsi_captured((24, 4096, 1024)) as cap_345:
+        launcher_run(argv_345)()
+    caps = [("gpt2-345m blocks/mlp/w_down", cap_345),
+            ("mamba2-370m layers/mamba/in_proj", cap_mamba),
+            ("qwen2-7b blocks/mlp/w_down", cap_qwen2)]
+    if not all(len(c) == 1 for _, c in caps):
+        fail(f"[srsi] captured {[(n, len(c)) for n, c in caps]}")
+    check_srsi_widths(device, [(n, c[0]) for n, c in caps])
+    del caps, cap_345, cap_mamba, cap_qwen2
+    print(f"  [srsi] at other widths: {time.monotonic() - t_w:.1f} s")
     phase("[ckpt] GPT-2 117M, " + " ".join(TRAIN_GUARDED_ARGV)
           + ", 12 straight steps")
     ckpt = ckpt_phase(device, mixed_params, runs["mixed"][0])
@@ -3008,6 +3349,9 @@ def main():
     phase("[chaos] GPT-2 117M, chain(inject_faults(NaN at 5, 6; Inf at 9), "
           "the launcher's optimizer with --guards), 12 steps")
     runs["chaos"] = chaos_phase(device, runs["mixed"][0])
+    phase("[chaos] python -m repro_torch.tools.chaos on the card (NaN at 7, "
+          "8, 19 of 30 steps)")
+    chaos_tool(CKPT_ROOT / "chaos_tool")
     phase("[guards] GPT-2 117M, the launcher's optimizer with --guards "
           "--guard-skip-threshold 0 --max-demotions 2, 6 steps")
     runs["guards"] = guards_phase(device, guard_cpu)
@@ -3069,7 +3413,9 @@ def main():
         dict(name="fused_precond", route="cuda", source=src + "fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:130",
              **launches("fused_precond"), library_ms=None, **pre,
-             mamba2=pre_m,
+             mamba2=pre_m, dense=dict(dense_k["precond"], shapes=(
+                 "qwen2-7b w_up (3584, 18944); olmoe-1b-7b expert stack "
+                 "(64, 2048, 1024)")),
              int8={"launches": launches("fused_precond_int8")["launches"],
                    **pre8},
              kmax=dict(pre_k, route="pass 1 without the fold + sq_matmul_t",
@@ -3077,12 +3423,13 @@ def main():
         dict(name="fused_apply", route="cuda", source=src + "fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:233",
              **launches("fused_apply"), bound_by="bytes",
-             library_ms=None, **app, mamba2=app_m),
+             library_ms=None, **app, mamba2=app_m, dense=dense_k["apply"]),
         dict(name="sketch_update", route="cuda",
              source=src + "sketch_update.cu",
              replaces="src/repro/kernels/sketch_update.py:80",
              **launches("sketch_scatter", "sketch_query"), bound_by="bytes",
-             library_ms=None, **sk, mamba2=sk_m),
+             library_ms=None, **sk, mamba2=sk_m, dense=dict(
+                 dense_k["sketch"], shapes="qwen2-7b embed, lm_head")),
         dict(name="lowrank_update", route="cuda",
              source=src + "lowrank_update.cu",
              replaces="src/repro/kernels/lowrank_update.py:45",
@@ -3098,22 +3445,25 @@ def main():
     # shape and bf16 inputs; library_ms is scaled_dot_product_attention on
     # fp32 inputs (the same fp32 function), library_bf16_ms on bf16 inputs
     # (bf16 tensor-core products), the backward's as fwd+bwd minus fwd.
-    per_step = lambda rec: {k: (v * FLASH_LAYERS if k.endswith("ms")
-                                else v)
-                            for k, v in rec.items()}
+    per_step = lambda rec, n=FLASH_LAYERS: {
+        k: (v * n if k.endswith("ms") else v) for k, v in rec.items()}
+    # [kernels-dense]: per step of [train-qwen2]'s 4 layers
+    qwen2 = lambda rec: dict(per_step(rec, DENSE_LAYERS),
+                             shape="qwen2-7b (2, 2048, 28 over 4, 128)")
     kernels += [
         dict(name="flash_attention_fwd", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:78",
              **launches("flash_fwd"), bound_by="operations",
-             **per_step(fa_fwd)),
+             **per_step(fa_fwd), dense=qwen2(dense_k["flash_fwd"])),
         dict(name="flash_attention_bwd", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/models/attention.py:137",
              replaces_note="B6 has no backward kernel: the JAX model "
                            "differentiates the remat'd chunked recurrence",
              **launches("flash_bwd_dq", "flash_bwd_dkdv"),
-             bound_by="operations", **per_step(fa_bwd)),
+             bound_by="operations", **per_step(fa_bwd),
+             dense=qwen2(dense_k["flash_bwd"])),
     ]
     # the SSD block: per train step of Mamba2-370m (48 layers, one launch
     # of each kernel a layer), measured per call at the main path's shape

@@ -17,6 +17,19 @@ REMATS = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """Mixture-of-experts block sizes (the JAX package's ``MoESpec``):
+    ``impl`` "sort" dispatches tokens into fixed-capacity per-expert
+    buffers, "dense" runs every expert on every token (the oracle)."""
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    impl: str = "sort"            # "sort" | "dense" (tiny configs, oracle)
+    router_jitter: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMSpec:
     """Mamba2 / SSD block sizes (the JAX package's ``SSMSpec``)."""
     d_state: int = 128
@@ -30,7 +43,7 @@ class SSMSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                    # dense | ssm (the families ported)
+    family: str                    # dense | moe | ssm (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -38,14 +51,16 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None          # default d_model // n_heads
-    act: str = "swiglu"                     # dense: gelu is the one ported
-    norm: str = "rmsnorm"                   # dense: layernorm; ssm: rmsnorm
+    act: str = "swiglu"                     # swiglu | gelu | relu2
+    norm: str = "rmsnorm"                   # rmsnorm | layernorm
     qk_norm: bool = False
     qkv_bias: bool = False
     mlp_bias: bool = False
-    pos_embedding: str = "rope"             # learned is the one ported
+    rope_theta: float = 10_000.0
+    pos_embedding: str = "rope"             # rope | learned | none
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    moe: Optional[MoESpec] = None
     ssm: Optional[SSMSpec] = None
     dtype: str = "bfloat16"        # compute dtype
     param_dtype: str = "float32"   # master params (float32 | bfloat16)

@@ -1,26 +1,78 @@
-"""The paper's own GPT-2 configs (Table 1), Mamba2-370m, and their
-reduced smoke configs, as in the JAX package's ``configs/archs.py``.  The
-other architectures there belong to model families the port has not
-reached yet."""
+"""The paper's own GPT-2 configs (Table 1), the dense and MoE decoders,
+Mamba2-370m, and their reduced smoke configs, copied field for field from
+the JAX package's ``configs/archs.py`` (its values, not the published ones:
+every arch keeps ``rope_theta`` 10,000 there).  The hybrid, encoder-decoder
+and vision archs belong to model families the port has not reached yet."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.config import ModelConfig, SSMSpec
+from repro_torch.config import ModelConfig, MoESpec, SSMSpec
 
 
 def _smoke(cfg: ModelConfig, **over) -> ModelConfig:
     """Reduced config of the same family: few layers, thin width, tiny
-    vocab, every structural feature kept (GQA ratio and the SSD block
-    included)."""
+    vocab, every structural feature kept (GQA ratio, qk_norm, MoE top-k and
+    the SSD block included)."""
     base = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                 vocab=512, head_dim=16, max_seq_len=256, remat="none")
+    if cfg.moe is not None:
+        base["moe"] = dataclasses.replace(cfg.moe, n_experts=8, top_k=2,
+                                          d_ff_expert=32)
     if cfg.ssm is not None:
         base["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16,
                                           chunk=16)
     base.update(over)
     return dataclasses.replace(cfg, **base)
 
+
+# --- dense: pruned nemotron [arXiv:2407.14679; hf] --------------------------
+MINITRON_4B = ModelConfig(
+    arch="minitron-4b", family="dense", n_layers=32, d_model=3072,
+    n_heads=24, n_kv_heads=8, d_ff=9216, vocab=256_000, act="relu2",
+    head_dim=128, max_seq_len=32_768)
+
+# --- dense: GQA, QKV bias [arXiv:2407.10671; hf] ----------------------------
+QWEN2_7B = ModelConfig(
+    arch="qwen2-7b", family="dense", n_layers=28, d_model=3584,
+    n_heads=28, n_kv_heads=4, d_ff=18_944, vocab=152_064, qkv_bias=True,
+    max_seq_len=32_768)
+
+# --- dense: llama-arch [arXiv:2401.02954; hf] -------------------------------
+DEEPSEEK_67B = ModelConfig(
+    arch="deepseek-67b", family="dense", n_layers=95, d_model=8192,
+    n_heads=64, n_kv_heads=8, d_ff=22_016, vocab=102_400,
+    max_seq_len=32_768)
+
+# --- dense: qk_norm, GQA [hf:Qwen/Qwen3-8B; hf] -----------------------------
+QWEN3_14B = ModelConfig(
+    arch="qwen3-14b", family="dense", n_layers=40, d_model=5120,
+    n_heads=40, n_kv_heads=8, d_ff=17_408, vocab=151_936, qk_norm=True,
+    head_dim=128, max_seq_len=32_768)
+
+# --- moe: 64 experts top-8 [arXiv:2409.02060; hf] ---------------------------
+OLMOE_1B_7B = ModelConfig(
+    arch="olmoe-1b-7b", family="moe", n_layers=16, d_model=2048,
+    n_heads=16, n_kv_heads=16, d_ff=1024, vocab=50_304,
+    moe=MoESpec(n_experts=64, top_k=8, d_ff_expert=1024),
+    max_seq_len=32_768)
+
+# --- moe: Kimi K2 trillion-param MoE (paper-table) [arXiv:2501.kimi2] -------
+KIMI_K2 = ModelConfig(
+    arch="kimi-k2-1t-a32b", family="moe", n_layers=61, d_model=7168,
+    n_heads=64, n_kv_heads=8, d_ff=2048, vocab=163_840, head_dim=112,
+    moe=MoESpec(n_experts=384, top_k=8, d_ff_expert=2048),
+    param_dtype="bfloat16",       # 1T params: fp32 master cannot fit a pod
+    max_seq_len=32_768)
+
+# --- synthetic: embedding-dominated probe for the sketch backend ------------
+# Large multilingual-style vocab over a thin trunk: ~134M of ~147M params
+# sit in the (tied) token embedding, so optimizer-state memory is decided
+# by what happens to that one leaf.
+EMBED_HEAVY_256K = ModelConfig(
+    arch="embed-heavy-256k", family="dense", n_layers=4, d_model=512,
+    n_heads=8, n_kv_heads=8, d_ff=2048, vocab=262_144,
+    tie_embeddings=True, max_seq_len=2048)
 
 GPT2_117M = ModelConfig(
     arch="gpt2-117m", family="dense", n_layers=12, d_model=768,
@@ -43,7 +95,9 @@ MAMBA2_370M = ModelConfig(
     max_seq_len=524_288)
 
 ARCHS: dict[str, ModelConfig] = {
-    c.arch: c for c in [GPT2_117M, GPT2_345M, MAMBA2_370M]}
+    c.arch: c for c in [
+        MINITRON_4B, QWEN2_7B, DEEPSEEK_67B, QWEN3_14B, OLMOE_1B_7B,
+        KIMI_K2, MAMBA2_370M, GPT2_117M, GPT2_345M, EMBED_HEAVY_256K]}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -5,7 +5,10 @@
 
 Flags and defaults are those of ``python -m repro.launch.train``, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
-the kernels, for parity tests).  Without a GPU and without ``--device cpu``
+the kernels, for parity tests).  ``--arch`` takes every arch the port
+registers (``configs/archs.py``): GPT-2 117M / 345M, the dense decoders
+(qwen2-7b, qwen3-14b, minitron-4b, deepseek-67b, embed-heavy-256k), the
+MoE decoders (olmoe-1b-7b, kimi-k2-1t-a32b) and mamba2-370m.  Without a GPU and without ``--device cpu``
 it raises.  As in the JAX launcher, ``--optimizer adapprox`` runs the mixed
 groups by default (count-min sketch on embedding tables, Adapprox on
 matrices, dense Adam on the rest); ``--no-mixed-groups`` puts Adapprox on

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import K_CHUNK, NEG_INF
+from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init
 
 # The JAX package's dispatch constants: the chunked path above this many
@@ -22,23 +23,50 @@ Q_CHUNK = 1024
 
 
 def attn_init(gen: torch.Generator, cfg, n_layers: int) -> dict:
+    """Stacked projections; zero q / k / v biases under ``qkv_bias`` and
+    per-head RMSNorm scales (hd,) under ``qk_norm``."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return {
+    dev = gen.device
+    p = {
         "wq": dense_init(gen, (n_layers, d, cfg.n_heads * hd), d),
         "wk": dense_init(gen, (n_layers, d, cfg.n_kv_heads * hd), d),
         "wv": dense_init(gen, (n_layers, d, cfg.n_kv_heads * hd), d),
         "wo": dense_init(gen, (n_layers, cfg.n_heads * hd, d),
                          cfg.n_heads * hd),
     }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((n_layers, cfg.n_heads * hd), device=dev)
+        p["bk"] = torch.zeros((n_layers, cfg.n_kv_heads * hd), device=dev)
+        p["bv"] = torch.zeros((n_layers, cfg.n_kv_heads * hd), device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((n_layers, hd), device=dev)
+        p["k_norm"] = torch.ones((n_layers, hd), device=dev)
+    return p
 
 
-def _project_qkv(cfg, p: dict, x: torch.Tensor):
+def _project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    """q (B, S, H, dh), k / v (B, S, KV, dh): the projections, then the
+    biases, then RMSNorm of q and k per head, then RoPE at ``positions``,
+    in the JAX package's order."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.pos_embedding == "rope":
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -86,6 +114,8 @@ def sdpa_auto(cfg, q, k, v, *, causal: bool):
 
 
 def attn_apply_causal(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal self-attention (training)."""
-    q, k, v = _project_qkv(cfg, p, x)
+    """Full-sequence causal self-attention (training), positions
+    ``arange(S)``."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = _project_qkv(cfg, p, x, positions)
     return sdpa_auto(cfg, q, k, v, causal=True) @ p["wo"].to(x.dtype)

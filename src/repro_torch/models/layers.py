@@ -70,29 +70,89 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def make_norm_params(cfg, shape: tuple, device) -> dict:
-    """RMSNorm parameters of ``shape`` (leading stack dims, then d): a
-    scale of ones."""
+    """Norm parameters of ``shape`` (leading stack dims, then d): a scale
+    of ones, and a zero shift under ``cfg.norm == "layernorm"``."""
+    if cfg.norm == "layernorm":
+        return {"w": torch.ones(shape, device=device),
+                "b": torch.zeros(shape, device=device)}
     return {"w": torch.ones(shape, device=device)}
 
 
 def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm with ``cfg.norm_eps``; the dense decoder calls
-    ``layer_norm`` itself."""
+    """``cfg.norm`` (LayerNorm or RMSNorm) with ``cfg.norm_eps``."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The MLP activations.  ``jax.nn.gelu`` defaults to the tanh
+    approximation, so the port uses it too; relu2 is relu(x)^2."""
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        r = F.relu(x)
+        return r * r
+    if name == "silu":
+        return F.silu(x)
+    raise ValueError(name)
+
+
+def mlp_init(gen: torch.Generator, cfg, n_layers: int, d: int,
+             f: int) -> dict:
+    """Stacked MLP weights: gate / up / down under SwiGLU, else up / down;
+    zero biases of up and down under ``cfg.mlp_bias``."""
+    p = {}
+    if cfg.act == "swiglu":
+        p["w_gate"] = dense_init(gen, (n_layers, d, f), d)
+    p["w_up"] = dense_init(gen, (n_layers, d, f), d)
+    p["w_down"] = dense_init(gen, (n_layers, f, d), f)
+    if cfg.mlp_bias:
+        p["b_up"] = torch.zeros((n_layers, f), device=gen.device)
+        p["b_down"] = torch.zeros((n_layers, d), device=gen.device)
+    return p
+
+
 def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """GELU MLP.  ``jax.nn.gelu`` defaults to the tanh approximation, so
-    the port uses it too."""
+    """SwiGLU, or up -> ``cfg.act`` -> down.  As in the JAX package, the
+    SwiGLU branch never adds ``b_up``, even under ``mlp_bias``."""
     dt = x.dtype
-    h = x @ p["w_up"].to(dt)
-    if cfg.mlp_bias:
-        h = h + p["b_up"].to(dt)
-    h = F.gelu(h, approximate="tanh")
+    if cfg.act == "swiglu":
+        gate = x @ p["w_gate"].to(dt)
+        up = x @ p["w_up"].to(dt)
+        h = F.silu(gate) * up
+    else:
+        h = x @ p["w_up"].to(dt)
+        if cfg.mlp_bias:
+            h = h + p["b_up"].to(dt)
+        h = _act(cfg.act, h)
     out = h @ p["w_down"].to(dt)
-    if cfg.mlp_bias:
+    if cfg.mlp_bias and "b_down" in p:
         out = out + p["b_down"].to(dt)
     return out
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, dh); positions: broadcastable to (..., S).  Rotates
+    the interleaved pairs (x[..., ::2], x[..., 1::2]) by angles taken in
+    fp32 from the positions, as the JAX package does (not the half-split
+    ``rotate_half`` of other codebases)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                 # (dh/2,)
+    angles = positions[..., None].float() * freqs           # (..., S, dh/2)
+    cos = torch.cos(angles)[..., :, None, :]                # (..., S, 1, dh/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., ::2], x32[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -101,3 +161,37 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long().unsqueeze(-1))[..., 0]
     return torch.mean(logz - gold)
+
+
+def _chunk_nll(xc: torch.Tensor, head: torch.Tensor, tc: torch.Tensor,
+               mc: torch.Tensor) -> torch.Tensor:
+    logits = (xc @ head.to(xc.dtype)).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc.long().unsqueeze(-1))[..., 0]
+    return torch.sum((logz - gold) * mc)
+
+
+def fused_xent_from_hidden(x: torch.Tensor, head: torch.Tensor,
+                           targets: torch.Tensor,
+                           chunk: int = 512) -> torch.Tensor:
+    """Cross entropy from the pre-head hiddens in sequence chunks, each
+    chunk's logits recomputed in the backward, so the (B, S, V) fp32
+    logits never exist.  x: (B, S, D); head: (D, V); targets: (B, S);
+    returns the mean nll over the first S-1 positions (next-token), padded
+    to whole chunks with target 0 and mask 0, as the JAX package's
+    ``fused_xent_from_hidden``."""
+    b, s, d = x.shape
+    s_eff = s - 1
+    n_chunks = max(1, (s_eff + chunk - 1) // chunk)
+    pad = n_chunks * chunk - s_eff
+    xs = F.pad(x[:, :s_eff, :], (0, 0, 0, pad))
+    ts = F.pad(targets[:, 1:s_eff + 1], (0, pad))
+    msk = F.pad(torch.ones((b, s_eff), dtype=torch.float32,
+                           device=x.device), (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + ckpt.checkpoint(_chunk_nll, xs[:, sl], head,
+                                        ts[:, sl], msk[:, sl],
+                                        use_reentrant=False)
+    return total / (b * s_eff)

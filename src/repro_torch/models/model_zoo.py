@@ -9,7 +9,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.ssm_lm import SSMLM
 from repro_torch.models.transformer import TransformerLM
 
-_FAMILIES = {"dense": TransformerLM, "ssm": SSMLM}
+_FAMILIES = {"dense": TransformerLM, "moe": TransformerLM, "ssm": SSMLM}
 
 
 def build_model(cfg: ModelConfig):

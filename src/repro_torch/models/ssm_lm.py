@@ -52,8 +52,9 @@ class SSMLM(nn.Module):
         return x + M.mamba_apply(self.cfg, lp["mamba"],
                                  L.apply_norm(self.cfg, lp["norm"], x))
 
-    def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S) int -> logits (B, S, V) in the compute dtype."""
+    def forward(self, params: dict, tokens: torch.Tensor):
+        """tokens: (B, S) int -> ``(logits (B, S, V) in the compute dtype,
+        aux)``, aux 0 (the JAX package's model API)."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         x = params["embed"].to(dt)[tokens]
@@ -62,12 +63,13 @@ class SSMLM(nn.Module):
         for i in range(cfg.n_layers):
             x = L.remat(mode, self._block, x, _slice(params["layers"], i))
         x = L.apply_norm(cfg, params["final_norm"], x)
-        return x @ params["lm_head"].to(dt)
+        return (x @ params["lm_head"].to(dt),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
     def loss(self, params: dict, batch: dict):
         """Next-token cross entropy; returns ``(loss, {"loss": loss})``."""
         tokens = batch["tokens"]
-        logits = self.forward(params, tokens)
+        logits, _ = self.forward(params, tokens)
         ce = L.softmax_xent(logits[:, :-1, :], tokens[:, 1:])
         return ce, {"loss": ce}
 

@@ -1,8 +1,10 @@
 """Train step: loss -> autograd -> optimizer, with microbatch gradient
 accumulation in fp32 and an optional global-norm clip.  Master parameters
 are fp32; the model casts them to its compute dtype.  The step metrics
-carry the optimizer's telemetry aggregates
-(``telemetry.collect.telemetry_metrics``), as in the JAX package."""
+are the JAX package's: the model's (``aux_loss``; the microbatch path
+keeps only the loss), ``loss`` the total the gradients are of, ``step``
+the state's step before the update, and the optimizer's telemetry
+aggregates (``telemetry.collect.telemetry_metrics``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,9 +39,10 @@ def build_train_step(model, opt: GradientTransformation,
     is ``{"tokens": (B, S) tensor}`` on the parameters' device."""
 
     def grads_of(params: dict, tokens: torch.Tensor):
-        loss, _ = model.loss(tree.unflatten(params), {"tokens": tokens})
+        loss, metrics = model.loss(tree.unflatten(params), {"tokens": tokens})
         grads = torch.autograd.grad(loss, list(params.values()))
-        return dict(zip(params, grads)), loss.detach()
+        return (dict(zip(params, grads)), loss.detach(),
+                {k: v.detach() for k, v in metrics.items()})
 
     def compute_grads(params: dict, tokens: torch.Tensor):
         if microbatches == 1:
@@ -51,27 +54,30 @@ def build_train_step(model, opt: GradientTransformation,
                for k, p in params.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for mb in tokens.chunk(microbatches):
-            grads, loss = grads_of(params, mb)
+            grads, loss, _ = grads_of(params, mb)
             acc = {k: a + grads[k].float() for k, a in acc.items()}
             loss_sum = loss_sum + loss
         inv = 1.0 / microbatches
-        return {k: g * inv for k, g in acc.items()}, loss_sum * inv
+        loss = loss_sum * inv
+        return {k: g * inv for k, g in acc.items()}, loss, {"loss": loss}
 
     def train_step(state: TrainState, batch: dict):
-        grads, loss = compute_grads(state.params, batch["tokens"])
-        metrics = {"loss": loss}
+        grads, loss, metrics = compute_grads(state.params, batch["tokens"])
         if grad_clip_norm is not None:
             norm = global_norm(grads)
             scale = torch.clamp_max(grad_clip_norm / (norm + 1e-12), 1.0)
             grads = {k: g * scale for k, g in grads.items()}
-            metrics["grad_norm"] = norm
+            metrics = dict(metrics, grad_norm=norm)
         with torch.no_grad():
             updates, opt_state = opt.update(grads, state.opt_state,
                                             state.params)
             apply_updates(state.params, updates)
-        # per-group aggregates of the optimizer's snapshots and the guard
-        # counters (empty without either): host numbers where the port
-        # holds them on the host, else 0-d device tensors
+        # the model's metrics (the MoE aux loss), the total as "loss" and
+        # the step, as in the JAX package; then per-group aggregates of the
+        # optimizer's snapshots and the guard counters (empty without
+        # either): host numbers where the port holds them on the host, else
+        # 0-d device tensors
+        metrics = dict(metrics, loss=loss, step=state.step)
         metrics.update(telemetry_metrics(opt_state))
         return (TrainState(params=state.params, opt_state=opt_state,
                            step=state.step + 1), metrics)

@@ -73,6 +73,17 @@ SMOKE_ARGV = ["--smoke", "--device", "cpu", "--fused-update",
               "--sketch-depth", "2", "--log-every", "1"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The smoke models' ops are a few thousand elements: one intra-op
+    thread runs them fastest, and keeps them fast beside other test
+    workers (the setting is restored for the worker's next file)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 # ---------------------------------------------------------------------------
 # corpus source
 # ---------------------------------------------------------------------------
@@ -324,7 +335,8 @@ def test_sigterm_kills_and_the_relaunch_resumes_bitwise(tmp_path):
             "launcher.train = train_loop.train\n"
             f"launcher.main({argv!r})\n"
             "raise SystemExit('unreachable: SIGTERM should have killed it')\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread, as in this process (``one_thread``)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == -signal.SIGTERM, proc.stderr[-2000:]

@@ -214,7 +214,8 @@ def test_sketch_telemetry_raises():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of repro_torch (the telemetry package's too),
     the chunked attention path's entry points (``ops.FlashAttention``, ``sdpa_auto``), the Mamba2
-    path's (``ops.SSDChunk``, ``ssd_chunked``, ``SSMLM``) and chip_smoke.py
+    path's (``ops.SSDChunk``, ``ssd_chunked``, ``SSMLM``), the MoE block's
+    (``moe_apply_local``), the chaos tool and chip_smoke.py
     in a fresh interpreter and inspect sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -226,6 +227,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from repro_torch.kernels.ops import SSDChunk\n"
         "from repro_torch.models.mamba2 import ssd_chunked\n"
         "from repro_torch.models.ssm_lm import SSMLM\n"
+        "from repro_torch.models.moe import moe_apply_local\n"
+        "from repro_torch.tools.chaos import main\n"
         "import chip_smoke\n"
         "tel = ('collect', 'controller', 'metrics', 'runtime', 'sink', "
         "'snapshot', 'trace', 'validate')\n"

@@ -58,7 +58,9 @@ def test_gpt2_smoke_logits_loss_grads_match_jax():
         p.requires_grad_(True)
     nested = tree.unflatten(tparams)
     tt = torch.from_numpy(tokens)
-    _close_rel(tmodel.forward(nested, tt).detach(), jlogits, 1e-5, "logits")
+    tlogits, taux = tmodel.forward(nested, tt)
+    _close_rel(tlogits.detach(), jlogits, 1e-5, "logits")
+    assert float(taux) == 0.0
     tloss, _ = tmodel.loss(nested, {"tokens": tt})
     np.testing.assert_allclose(float(tloss.detach()), float(jloss),
                                rtol=1e-6)
@@ -78,22 +80,46 @@ def test_gpt2_smoke_bf16_loss_matches_jax():
 
 
 def test_flatten_order_is_jax_order():
-    _, _, params, _ = _models("float32")
-    names = list(tree.flatten(params))
-    paths = [jax.tree_util.keystr(p, simple=True, separator="/")
-             for p, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
-    assert names == paths
-    assert tree.unflatten(tree.flatten(params)).keys() == params.keys()
+    """GPT-2's tree, and a qwen2 (QKV bias, SwiGLU, untied head) and an
+    olmoe (4-D expert stacks) smoke tree: the port's flatten order is JAX's
+    and its init has the JAX init's paths, shapes and dtypes."""
+    _, _, gpt2, _ = _models("float32")
+    trees = [gpt2]
+    for arch in ("qwen2-7b", "olmoe-1b-7b"):
+        jparams = jax.device_get(jax_build_model(jax_smoke_config(arch))
+                                 .init(jax.random.PRNGKey(0)))
+        ours = tree.flatten(build_model(get_smoke_config(arch)).init(
+            torch.Generator().manual_seed(0)))
+        assert [(k, tuple(v.shape)) for k, v in ours.items()] == [
+            (k, v.shape) for k, v in tree.flatten(jparams).items()]
+        assert {v.dtype for v in ours.values()} == {torch.float32}
+        trees.append(jparams)
+    for params in trees:
+        names = list(tree.flatten(params))
+        paths = [jax.tree_util.keystr(p, simple=True, separator="/")
+                 for p, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
+        assert names == paths
+        assert tree.unflatten(tree.flatten(params)).keys() == params.keys()
 
 
 def test_unported_model_features_raise():
-    """Features of other model families raise; bf16 master parameters
-    (``param_dtype``), once among them, are ported: the init is cast."""
+    """The families not ported yet (hybrid, encdec, vlm) raise, and so do
+    the vlm stub frontend's precomputed ``embeds``; RoPE, SwiGLU and MoE
+    are ported and build.  bf16 master parameters (``param_dtype``), once
+    among the unported features, are ported: the init is cast."""
     cfg = get_smoke_config("gpt2-117m")
-    for change in (dict(pos_embedding="rope"), dict(act="swiglu"),
-                   dict(family="moe")):
+    for family in ("hybrid", "encdec", "vlm"):
         with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(cfg, **change))
+            build_model(dataclasses.replace(cfg, family=family))
+    for arch in ("qwen2-7b", "olmoe-1b-7b"):
+        model = build_model(get_smoke_config(arch))
+        params = model.init(torch.Generator().manual_seed(0))
+        tokens = torch.zeros((1, 8), dtype=torch.long)
+        with pytest.raises(NotImplementedError):
+            model.loss(params, {"tokens": tokens,
+                                "embeds": torch.zeros((1, 2, 64))})
+        with pytest.raises(NotImplementedError):
+            model.forward(params, tokens, torch.zeros((1, 2, 64)))
     params = build_model(dataclasses.replace(cfg, param_dtype="bfloat16")
                          ).init(torch.Generator().manual_seed(0))
     assert {p.dtype for p in tree.flatten(params).values()} == {

@@ -62,6 +62,17 @@ JA = importlib.import_module("repro.core.adapprox")
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The smoke models' ops are a few thousand elements: one intra-op
+    thread runs them fastest, and keeps them fast beside other test
+    workers (the setting is restored for the worker's next file)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 class KeyedJaxSketch:
     """Sketch source returning the draws JAX's S-RSI makes for the step
     and leaf the port's generator stands for: the port seeds leaf ``i``'s

@@ -106,7 +106,23 @@ sm_90a) and the CUDA toolkit.  In order, it
      2048, the chunked cross entropy of the untied head) and
      [train-olmoe] OLMoE-1B-7B 6 steps through the launcher, with the
      launches the path implies, and runs OLMoE's step 2 twice from one
-     state, bitwise;
+     state, bitwise; then the hybrid, encoder-decoder and vlm families at
+     full width: [kernels-families] holds the SSD block at Zamba2-2.7B's
+     (4, 2048, 80 heads, P 64, N 64), flash attention at Zamba2-2.7B's
+     (4, 2048, 32, dh 80) and LLaVA-NeXT-Mistral-7B's (2, 2048, 32 over
+     8, 128), each in bf16 and fp32, pass 1 and pass 2 at Zamba2-2.7B's
+     in_proj stack and the sketch at Whisper-large-v3's sketched leaves;
+     [parity-hybrid], [parity-encdec] and [parity-vlm] run the zamba2,
+     whisper and llava smoke models on the card and the CPU (the last
+     two on make_batch batches, which carry the stub frontend's embeds,
+     through build_train_step); [train-zamba2] trains Zamba2-2.7B whole
+     (54 layers, attn_impl "chunked", batch 4 x 2048) through the
+     launcher, [train-whisper] Whisper-large-v3 whole (batch 8, 1500
+     frames, 448 tokens) and [train-llava] LLaVA-NeXT-Mistral-7B (4 of 32
+     layers, 576 image + 1472 text tokens) through build_train_step,
+     each 6 steps (the last two on fresh make_batch embeds and synthetic
+     text a step) with the launches the path implies, and LLaVA text
+     only through the launcher for 6;
   6. breaks a step of each run down into model and optimizer time;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
@@ -185,6 +201,43 @@ TRAIN_QWEN2_ARGV = ["--arch", "qwen2-7b", "--steps", "6", "--batch", "2",
 TRAIN_OLMOE_ARGV = (["--arch", "olmoe-1b-7b"] + TRAIN_QWEN2_ARGV[2:8]
                     + ["--lr", "4e-4"] + TRAIN_QWEN2_ARGV[10:])
 
+# The hybrid, encoder-decoder and vlm families at full width,
+# each on the launcher's mixed groups with --fused-update --refresh-every 5
+# for 6 steps.  Zamba2-2.7B whole (54 layers, 2.48B parameters: fp32
+# parameters, gradients and first moment ~30 GB), attn_impl "chunked" (the
+# shared blocks' attention on B6 at dh 2560 / 32 = 80), batch 4 x 2048,
+# through the launcher, at lr 1.6e-4: GPT-3 2.7B's peak rate (arXiv
+# 2005.14165, Table 2.1), as the launcher's 3e-3 is GPT-2 117M's.
+# Whisper-large-v3 whole (32 + 32 layers, 1.58B), batch 8, 1500 frames
+# and 448 decoder tokens (its text context), at lr 1.75e-4, the Whisper
+# paper's rate for large (arXiv 2212.04356), and LLaVA-NeXT-Mistral-7B cut
+# to 4 of 32 layers (7.24B does not fit, for Qwen2-7B's reason), batch 2 x
+# (576 image + 1472 text tokens), attn_impl "chunked", at lr 1e-4, Qwen2-
+# 7B's (scripts/dense_curves.py: 3e-4 climbs in a 6-step run at that
+# width): both through build_train_step on a fresh batch a step
+# (``configs/base.py::make_batch``'s stub-frontend embeds, the launcher's
+# synthetic text; ``family_run``), since no launcher path feeds embeds,
+# in JAX or here.  LLaVA also runs text-only through the launcher for 6
+# steps, as [train-qwen2] does: at these rates the first fold steps of
+# the dense decoders climb before they fall (Qwen2-7B 12.04 -> 13.00 at
+# step 3, LLaVA text only 10.15 -> 14.17; PERF.md run 23c).
+ZAMBA = "zamba2-2.7b"
+ZAMBA_LAYERS = 54
+ZAMBA_APPS = 9          # shared-block applications: 54 layers / every 6
+TRAIN_ZAMBA_ARGV = ["--arch", ZAMBA, "--steps", "6", "--batch", "4",
+                    "--seq", "2048", "--lr", "1.6e-4", "--fused-update",
+                    "--refresh-every", "5", "--log-every", "1",
+                    "--device", "cuda"]
+WHISPER = "whisper-large-v3"
+WHISPER_RUN = dict(batch=8, seq=448, lr=1.75e-4)
+LLAVA = "llava-next-mistral-7b"
+LLAVA_LAYERS = 4
+LLAVA_RUN = dict(batch=2, seq=2048, lr=1e-4)
+TRAIN_LLAVA_ARGV = ["--arch", LLAVA, "--steps", "6", "--batch", "2",
+                    "--seq", "2048", "--lr", "1e-4", "--fused-update",
+                    "--refresh-every", "5", "--log-every", "1",
+                    "--device", "cuda"]
+
 # the smoke model's mixed groups: embed (512 rows) is sketched
 SMALL_MIXED = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)
 
@@ -257,6 +310,14 @@ FLASH_CASES = [
 DENSE_FLASH_CASES = [
     ("qwen2-7b", (2, 2048, 2048, 28, 4, 128), True, ("bfloat16", "float32"))]
 
+# Zamba2-2.7B's shared attention at batch 4 x 2048 (dh 80: the 128-wide
+# tiles 37.5% padding) and LLaVA-NeXT-Mistral-7B's (dh 128, 32 query heads
+# over 8 KV heads) at batch 2 x 2048, each timed
+ZAMBA_FLASH_CASES = [
+    (ZAMBA, (4, 2048, 2048, 32, 32, 80), True, ("bfloat16", "float32"))]
+LLAVA_FLASH_CASES = [
+    (LLAVA, (2, 2048, 2048, 32, 8, 128), True, ("bfloat16", "float32"))]
+
 # The SSD intra-chunk block (B7) against its plain version on the same
 # inputs: y sums the same fp32 products as the plain einsums in other
 # orders (64-wide tiles against whole chunks), so within 1e-5 of its
@@ -266,15 +327,24 @@ DENSE_FLASH_CASES = [
 # within one bf16 ulp of itself plus the same share of the largest entry.
 TOL_SSD = 1e-5
 TOL_SSD_GRAD = 1e-4
-# (name, (B, S, H, G, P, N, chunk), dtypes): Mamba2-370m's block at batch
-# 8 x 1024 (timed, bf16 as the model feeds it), then G > 1, S < chunk and
-# no multiple of the 64-row tiles, P and N no multiple of 16
+# (name, (B, S, H, G, P, N, chunk), dtypes, dY bf16-valued): Mamba2-370m's
+# block at batch 8 x 1024 (timed, bf16 as the model feeds it), then G > 1,
+# S < chunk and no multiple of the 64-row tiles, P and N no multiple of 16;
+# dY bf16-valued as the model feeds it, then at the ragged shape an fp32
+# dY: the bf16 kernels split dY into hi + lo and skip the lo products only
+# where a tile's lo half is all zero, so this case holds the split branch
+RAGGED_SSD = (2, 200, 8, 2, 48, 80, 256)
 SSD_CASES = [
     ("mamba2-370m", (8, 1024, 32, 1, 64, 128, 256),
-     ("bfloat16", "float32")),
-    ("ragged", (2, 200, 8, 2, 48, 80, 256), ("float32", "bfloat16"))]
+     ("bfloat16", "float32"), True),
+    ("ragged", RAGGED_SSD, ("float32", "bfloat16"), True),
+    ("ragged, dY not bf16-valued", RAGGED_SSD, ("bfloat16",), False)]
 SSD_LAYERS = 48
 MAMBA = "mamba2-370m"
+# Zamba2-2.7B's Mamba2 block at batch 4 x 2048: 80 heads of P 64, N 64 (the
+# 64-wide instances), G 1 (timed)
+ZAMBA_SSD_CASES = [
+    (ZAMBA, (4, 2048, 80, 1, 64, 64, 256), ("bfloat16", "float32"), True)]
 
 # Optimizer-state MB of adapprox_kmax_int8 at b1 = 0.9 as the JAX package's
 # own benchmarks/bench_memory.py::state_mb counts it (tier-1's
@@ -686,6 +756,7 @@ def check_precond(fact, device, ragged: bool = True):
             errs = hold(f"fused_precond[{variant}] {name} {shape}",
                         PRECOND_OUT, PRECOND_TOL, got, want, rec, again)
             print(f"  fused_precond[{variant}] {name} {shape} r={r}: {errs}")
+            del got, again, want      # a full-width stack's are GBs each
         if name == "ragged":
             continue
         # the main path's variant: fold rider, no guidance, no vfro
@@ -1371,30 +1442,26 @@ def ssd_bounds(shape, dtype, split: bool = True, by: bool = False):
 SSD_GRADS = ("dx", "db", "dc", "ddt", "dcums", "dh_in", "dd_skip")
 
 
-def check_ssd(device):
+def check_ssd(device, cases=SSD_CASES, timed: str = "mamba2-370m"):
     """The SSD block's forward and two backward kernels against their plain
     versions on the same inputs, each launched twice and compared bitwise,
     every output finite (the inputs make exp(cums_i - cums_j) overflow
-    above the diagonal, where the JAX formula's backward meets inf): at
-    Mamba2-370m's block (8, 1024, 32 heads, P 64, N 128, G 1) in bf16 (as
-    the model feeds it) and fp32, and at a ragged shape (S 200 < chunk,
-    G 2, P 48, N 80), dY bf16-valued as the model feeds it; then bf16 at
-    the ragged shape with an fp32 dY.  Then, at the Mamba2 shape in bf16,
-    each kernel's device time beside its bound (and the earlier pricing)
-    and its plain version's.  Returns (forward, backward) records, times
-    per call."""
+    above the diagonal, where the JAX formula's backward meets inf), at
+    each of ``cases``: by default Mamba2-370m's block (8, 1024, 32 heads,
+    P 64, N 128, G 1) in bf16 (as the model feeds it) and fp32, and a
+    ragged shape (S 200 < chunk, G 2, P 48, N 80), dY bf16-valued as the
+    model feeds it, then bf16 at the ragged shape with an fp32 dY;
+    ``ZAMBA_SSD_CASES``: Zamba2-2.7B's (4, 2048, 80 heads, P 64, N 64).
+    Then, at the shape named ``timed`` in bf16, each kernel's device time
+    beside its bound (and the earlier pricing) and its plain version's.
+    Returns (forward, backward) records, times per call."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(8)
     fwd_rec, bwd_rec = new_rec(), new_rec()
-    cases = [(name, shape, dt, True) for name, shape, dtypes in SSD_CASES
-             for dt in dtypes]
-    # the bf16 kernels split dY into hi + lo and skip the lo products only
-    # where a tile's lo half is all zero: an fp32 dY holds the split branch
-    # as the cases above hold the model's
-    cases.append(("ragged, dY not bf16-valued", SSD_CASES[1][1], "bfloat16",
-                  False))
-    for name, shape, dt, dy_bf16 in cases:
+    runs = [(name, shape, dt, dy_bf16)
+            for name, shape, dtypes, dy_bf16 in cases for dt in dtypes]
+    for name, shape, dt, dy_bf16 in runs:
         dt = getattr(torch, dt)
         ins = ssd_inputs(gen, shape, dt, device)
         dy = torch.randn(ins[0].shape, generator=gen, device=device)
@@ -1417,7 +1484,7 @@ def check_ssd(device):
                     bwd_rec, again)
         print(f"  {what} bwd: {errs}")
         del got, again, want
-        if name != "mamba2-370m" or dt != torch.bfloat16:
+        if name != timed or dt != torch.bfloat16:
             continue
         (b_fwd, b_bwd), by = ssd_bounds(shape, dt, by=True)
         fwd_rec["bound_by"], bwd_rec["bound_by"] = by
@@ -1785,6 +1852,36 @@ def check_dense_kernels(device):
                 apply=check_apply(fact, [], device))
 
 
+def check_family_kernels(device):
+    """[kernels-families]: B7 at Zamba2-2.7B's Mamba2 block (4, 2048, 80
+    heads, P 64, N 64); B6 at Zamba2-2.7B's shared attention (4, 2048, 32,
+    dh 80) and LLaVA-NeXT-Mistral-7B's (2, 2048, 32 over 8, 128), beside
+    SDPA; each in bf16 and fp32, forward and both backward kernels; B1 and
+    B2 at Zamba2-2.7B's in_proj stack (54, 2560, 10448) as the optimizer
+    calls them; B5 at Whisper-large-v3's sketched leaves (dec_pos, embed,
+    enc_pos: 32768, 51866 and 1500 rows of 1280).  Each against its plain
+    version, bitwise repeatable, timed beside its bound.  Returns the
+    records ``{"ssd_fwd", "ssd_bwd", "zamba_fwd", "zamba_bwd", "llava_fwd",
+    "llava_bwd", "precond", "apply", "sketch"}``."""
+    s_fwd, s_bwd = check_ssd(device, ZAMBA_SSD_CASES, ZAMBA)
+    z_fwd, z_bwd = check_flash(device, ZAMBA_FLASH_CASES, ZAMBA, ZAMBA_APPS)
+    l_fwd, l_bwd = check_flash(device, LLAVA_FLASH_CASES, LLAVA,
+                               LLAVA_LAYERS)
+    fact = [(f"{ZAMBA} {name}", shape, r) for name, shape, r in
+            main_path_leaves(device, mixed=True, arch=ZAMBA)[0]
+            if name == "layers/mamba/in_proj"]
+    if [shape for _, shape, _ in fact] != [(ZAMBA_LAYERS, 2560, 10448)]:
+        fail(f"[kernels-families] leaves {fact}")
+    pre = check_precond(fact, device, ragged=False)
+    app = check_apply(fact, [], device)
+    sk = check_sketch(sketch_cases(device, WHISPER,
+                                   ("dec_pos", "embed", "enc_pos"),
+                                   ragged=False), device)
+    return dict(ssd_fwd=s_fwd, ssd_bwd=s_bwd, zamba_fwd=z_fwd,
+                zamba_bwd=z_bwd, llava_fwd=l_fwd, llava_bwd=l_bwd,
+                precond=pre, apply=app, sketch=sk)
+
+
 class _CallOrderSketch:
     """Sketch source drawing from one CPU generator in call order, so two
     runs that call it alike get the same Gaussian sketches on any device."""
@@ -1882,9 +1979,15 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     indices of every router call are compared first
     (:func:`hold_routes`), and beside it runs a witness from a nudged
     init, unchecked; both hold the first step's gradients to 1e-4
-    (:func:`step1_grads`).  ``seed`` draws the init;
-    ``sketch_rows`` is the mixed groups' embedding_min_rows (64 puts the
-    Mamba2 smoke lm_head, (64, 512), on the sketch too).  ``name`` is the
+    (:func:`step1_grads`).  The hybrid (zamba2) runs B7 in every layer,
+    beside the same fp64 witness, but its parameters are held to 1e-4:
+    only the ssm family takes ``TOL_PARAMS_MAMBA``.  The vlm and encdec
+    families train on ``make_batch`` batches, which carry the stub
+    frontend's ``embeds``, through ``build_train_step``
+    (:func:`batch_run`), their step-1 gradients held to 1e-4 too.
+    ``seed`` draws the init; ``sketch_rows`` is the mixed groups'
+    embedding_min_rows (64 puts the Mamba2 smoke lm_head, (64, 512), on
+    the sketch too).  ``name`` is the
     launcher's optimizer (``kind`` "none" for the families without a
     kernel), ``over`` replaces fields of its OptimizerConfig (warm start,
     bucketing, implicit, k_max), ``param_dtype`` the master parameters'
@@ -1913,13 +2016,15 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
         get_smoke_config(arch, max_seq_len=seq), dtype="float32",
         attn_impl="chunked" if chunked else "auto", param_dtype=param_dtype)
     mamba, moe = cfg.ssm is not None, cfg.moe is not None
+    embeds = cfg.family in ("vlm", "encdec")
     model = build_model(cfg)
     init = model.init(torch.Generator().manual_seed(seed))
     kw = (dict(mixed_groups=True, **dict(SMALL_MIXED,
                                          embedding_min_rows=sketch_rows))
           if mixed else {})
-    if mamba or moe:
-        step1_grads(model, init, cfg, seq, batch, device)
+    batches = smoke_batches(cfg, seq, batch, 4)
+    if mamba or moe or embeds:
+        step1_grads(model, init, batches[0], device)
 
     def run(dev, start=init):
         ocfg = optimizer_config(name, 4, 3e-3, refresh_every=3,
@@ -1934,11 +2039,16 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
         reset_launches()
         with (routes_recorded() if moe
               else contextlib.nullcontext([])) as routes:
-            state, hist = train(model, opt,
-                                DataConfig(vocab=cfg.vocab, seq_len=seq,
-                                           global_batch=batch),
-                                LoopConfig(total_steps=4, log_every=1),
-                                device=dev, params=tree.unflatten(params))
+            if embeds:
+                state, hist = batch_run(model, opt, tree.unflatten(params),
+                                        batches, dev)
+            else:
+                state, hist = train(model, opt,
+                                    DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                               global_batch=batch),
+                                    LoopConfig(total_steps=4, log_every=1),
+                                    device=dev,
+                                    params=tree.unflatten(params))
         routes_of[dev.type] = routes
         return state, [h["loss"] for h in hist]
 
@@ -1981,7 +2091,8 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     if k_cpu != k_gpu:
         fail(f"small-input parity: ranks {k_gpu} on the card vs {k_cpu}")
     tol = (TOL_PARAMS_INT8 if kind == "int8"
-           else TOL_PARAMS_MAMBA if mamba else TOL_PARAMS_MOE if moe
+           else TOL_PARAMS_MAMBA if cfg.family == "ssm"
+           else TOL_PARAMS_MOE if moe
            else 1e-4)
     if param_dtype == "bfloat16":
         hold("small-input parity, bf16 params", list(s_cpu.params),
@@ -2020,23 +2131,59 @@ def small_parity(device, kind: str = "fused", mixed: bool = False,
     return c_cpu
 
 
-def step1_grads(model, init, cfg, seq, batch, device):
+def smoke_batches(cfg, seq: int, batch: int, steps: int) -> list:
+    """The batches of ``steps`` smoke steps, CPU tensors: the train loop's
+    (``SyntheticLM``'s tokens, ``{"tokens"}``) or, for the vlm and encdec
+    families, ``configs/base.py::make_batch``'s from one seeded generator
+    (tokens and the stub frontend's ``embeds``)."""
+    import torch
+    from repro_torch.configs.base import make_batch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    if cfg.family in ("vlm", "encdec"):
+        gen = torch.Generator().manual_seed(0)
+        return [make_batch(cfg, batch, seq, gen) for _ in range(steps)]
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch))
+    return [{"tokens": torch.from_numpy(data.batch_at(i)["tokens"])}
+            for i in range(steps)]
+
+
+def batch_run(model, opt, params: dict, batches: list, device):
+    """``build_train_step`` over ``batches`` (dicts of tensors, one a step)
+    from ``params`` on ``device``: ``(state, history)`` as the train loop
+    returns them, each step's ``step_time_s`` its wall time up to a
+    synchronize.  The path of a batch that carries ``embeds``, which no
+    data source of the launcher makes."""
+    import torch
+    from repro_torch.train.steps import TrainState, build_train_step
+    state = TrainState.create(params, opt)
+    step = build_train_step(model, opt)
+    hist = []
+    for i, b in enumerate(batches, 1):
+        b = {k: v.to(device) for k, v in b.items()}
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        hist.append({"loss": float(met["loss"]), "step": i,
+                     "step_time_s": dt})
+    return state, hist
+
+
+def step1_grads(model, init, batch: dict, device):
     """The first step's loss and every leaf's gradient, from the same init
-    and batch, on the card (B7) and on the CPU (its plain version): the
-    loss within 1e-4 relative, each gradient within 1e-4 of its leaf's
-    largest entry."""
+    and batch (CPU tensors), on the card (the kernels) and on the CPU
+    (their plain versions): the loss within 1e-4 relative, each gradient
+    within 1e-4 of its leaf's largest entry."""
     import torch
     from repro_torch import tree
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    tokens = torch.from_numpy(SyntheticLM(DataConfig(
-        vocab=cfg.vocab, seq_len=seq, global_batch=batch)).batch_at(0)[
-        "tokens"])
     out = []
     for dev in (torch.device("cpu"), device):
         params = {k: v.detach().clone().to(dev).requires_grad_(True)
                   for k, v in tree.flatten(init).items()}
         loss, _ = model.loss(tree.unflatten(params),
-                             {"tokens": tokens.to(dev)})
+                             {k: v.to(dev) for k, v in batch.items()})
         out.append((loss.item(), dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))))
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out
@@ -2110,10 +2257,46 @@ def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
     fold_s = sorted(fold)[len(fold) // 2]
     print(f"  fold-step time median {fold_s:.4f} s "
           f"({tokens / fold_s:.0f} tokens/s); refresh-step times {refresh};"
-          f" optimizer state {state_mb:.1f} MB")
+          f" optimizer state {state_mb:.1f} MB; the run {wall:.1f} s")
     return launches, {"loss": losses[-1], "peak_gib": peak, "fold_s": fold_s,
                       "refresh_s": refresh, "wall_s": wall,
                       "state_mb": state_mb}
+
+
+def family_run(device, arch: str, layers: int | None, batch: int, seq: int,
+               lr: float, steps: int = 6, **over):
+    """``arch`` at full width (``layers`` deep, the fields ``over`` set) on
+    the launcher's optimizer (mixed groups, --fused-update --refresh-every
+    5, ``lr``), seed-0 init on the card, ``steps`` steps through
+    ``build_train_step`` (:func:`batch_run`), each on a fresh batch
+    (``batch`` x ``seq``): ``configs/base.py::make_batch``'s from one
+    seeded generator (the stub frontend's ``embeds``), its uniform text
+    tokens replaced by the launcher's ``SyntheticLM`` stream, which a
+    model can learn from in a few steps where uniform tokens stay flat."""
+    import torch
+    from repro_torch.configs.base import _token_len, make_batch
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    cfg = arch_config(arch, layers, **over)
+
+    def run():
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        opt = build_optimizer(optimizer_config(
+            "adapprox", steps, lr, refresh_every=5, fused_update=True,
+            mixed_groups=True))
+        gen = torch.Generator(device=device).manual_seed(0)
+        text = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=batch,
+                                      seq_len=_token_len(cfg, seq)))
+        batches = [dict(make_batch(cfg, batch, seq, gen), tokens=torch.
+                        from_numpy(text.batch_at(i)["tokens"]).to(device))
+                   for i in range(steps)]
+        shapes = {k: tuple(v.shape) for k, v in batches[0].items()}
+        print(f"  batches {shapes}, {cfg.dtype} embeds")
+        return batch_run(model, opt, params, batches, device)
+    return run
 
 
 def launcher_run(argv):
@@ -3160,6 +3343,14 @@ def main():
           "columns), fused_precond and fused_apply at one layer's w_up and "
           "an OLMoE-1B-7B expert stack, vs plain")
     dense_k = check_dense_kernels(device)
+    phase("[kernels-families] ssd_chunk at Zamba2-2.7B's block (4, 2048, "
+          "80 heads, P 64, N 64), flash attention at Zamba2-2.7B's (4, 2048, "
+          "32, dh 80) and LLaVA-NeXT-Mistral-7B's (2, 2048, 32 over 8, 128), "
+          "fused_precond and fused_apply at Zamba2-2.7B's in_proj stack, "
+          "sketch_update at Whisper-large-v3's sketched leaves, vs plain")
+    t_k = time.monotonic()
+    fam_k = check_family_kernels(device)
+    print(f"  [kernels-families]: {time.monotonic() - t_k:.1f} s")
     phase("[srsi] S-RSI batched on the card at every factored leaf of the "
           "mixed groups at refresh steps 6 and 11 (w_down at 1), against "
           "the CPU")
@@ -3211,6 +3402,18 @@ def main():
           "dispatch), mixed groups, the router's top-k indices, then the "
           "kernel path on the card vs plain path on the CPU")
     small_parity(device, mixed=True, arch="olmoe-1b-7b")
+    for label, arch in (
+            ("[parity-hybrid] zamba2-2.7b smoke (4 Mamba2 layers, a shared "
+             "block after every 2nd)", ZAMBA),
+            ("[parity-encdec] whisper-large-v3 smoke (2 + 2 layers, "
+             "enc_seq 32, make_batch's embeds)", WHISPER),
+            ("[parity-vlm] llava-next-mistral-7b smoke (8 frontend tokens, "
+             "make_batch's embeds)", LLAVA)):
+        phase(label + ", mixed groups, kernel path on the card vs plain "
+              "path on the CPU")
+        t_p = time.monotonic()
+        small_parity(device, mixed=True, arch=arch)
+        print(f"  ({time.monotonic() - t_p:.1f} s)")
     # every factored leaf trips at step 1, is refreshed off the cadence at
     # step 2, trips again and is demoted: B1 / B2 on steps 1-2 only
     phase("[parity-guards] mixed groups, --guards --guard-skip-threshold 0 "
@@ -3326,6 +3529,62 @@ def main():
     phase("[train-olmoe] step 2 twice from one state, bitwise (MoE "
           "determinism)")
     moe_repeat_step(device)
+    # 6 steps, refresh at 1 and 6: in_proj, out_proj and the shared
+    # blocks' wq, wk, wv, wo, w_up, w_down factored (8 calls), embed and
+    # lm_head sketched; B7 in every layer and B6 at each of the 9 shared-
+    # block applications, each forward twice under remat "full"
+    phase(f"[train-zamba2] Zamba2-2.7B at full width and depth "
+          f"({ZAMBA_LAYERS} layers), attn_impl \"chunked\", "
+          + " ".join(TRAIN_ZAMBA_ARGV))
+    with depth_cut(ZAMBA_LAYERS, attn_impl="chunked"):
+        runs["zamba2"] = train_main_path(
+            launcher_run(TRAIN_ZAMBA_ARGV), "fused", dict(
+                fused_precond=48, fused_apply=48, sketch_scatter=12,
+                sketch_query=12, ssd_fwd=2 * 6 * ZAMBA_LAYERS,
+                ssd_bwd_rows=6 * ZAMBA_LAYERS,
+                ssd_bwd_cols=6 * ZAMBA_LAYERS,
+                flash_fwd=2 * 6 * ZAMBA_APPS, flash_bwd_dq=6 * ZAMBA_APPS,
+                flash_bwd_dkdv=6 * ZAMBA_APPS),
+            attn_layers=ZAMBA_APPS, ssd_layers=ZAMBA_LAYERS, steps=6,
+            tokens=4 * 2048)
+    # the encoder's and decoder's attention, self and cross, wk, wv, wq,
+    # wo, w_up, w_down factored (16 calls), dec_pos, embed, enc_pos
+    # sketched; naive attention (1500 frames and 448 tokens do not divide
+    # into 1024-row chunks, as in JAX)
+    phase(f"[train-whisper] Whisper-large-v3 at full width and depth (32 + "
+          f"32 layers), batch {WHISPER_RUN['batch']}, 1500 frames, "
+          f"{WHISPER_RUN['seq']} tokens, lr {WHISPER_RUN['lr']}, 6 steps "
+          f"through build_train_step")
+    runs["whisper"] = train_main_path(
+        family_run(device, WHISPER, None, **WHISPER_RUN), "fused", dict(
+            fused_precond=96, fused_apply=96, sketch_scatter=18,
+            sketch_query=18), steps=6,
+        tokens=WHISPER_RUN["batch"] * WHISPER_RUN["seq"])
+    # wq, wk, wv, wo, w_gate, w_up, w_down factored (7 calls), embed and
+    # lm_head sketched; B6 on every layer at 576 + 1472 = 2048 positions
+    phase(f"[train-llava] LLaVA-NeXT-Mistral-7B at full width, n_layers 32 "
+          f"-> {LLAVA_LAYERS}, attn_impl \"chunked\", batch "
+          f"{LLAVA_RUN['batch']} x (576 image + 1472 text tokens), lr "
+          f"{LLAVA_RUN['lr']}, 6 steps through build_train_step")
+    runs["llava"] = train_main_path(
+        family_run(device, LLAVA, LLAVA_LAYERS, attn_impl="chunked",
+                   **LLAVA_RUN), "fused", dict(
+            fused_precond=42, fused_apply=42, sketch_scatter=12,
+            sketch_query=12, flash_fwd=2 * 6 * LLAVA_LAYERS,
+            flash_bwd_dq=6 * LLAVA_LAYERS, flash_bwd_dkdv=6 * LLAVA_LAYERS),
+        attn_layers=LLAVA_LAYERS, steps=6,
+        tokens=LLAVA_RUN["batch"] * LLAVA_RUN["seq"])
+    phase(f"[train-llava] text only through the launcher, n_layers 32 -> "
+          f"{LLAVA_LAYERS}, attn_impl \"chunked\", "
+          + " ".join(TRAIN_LLAVA_ARGV))
+    with depth_cut(LLAVA_LAYERS, attn_impl="chunked"):
+        runs["llava_text"] = train_main_path(
+            launcher_run(TRAIN_LLAVA_ARGV), "fused", dict(
+                fused_precond=42, fused_apply=42, sketch_scatter=12,
+                sketch_query=12, flash_fwd=2 * 6 * LLAVA_LAYERS,
+                flash_bwd_dq=6 * LLAVA_LAYERS,
+                flash_bwd_dkdv=6 * LLAVA_LAYERS),
+            attn_layers=LLAVA_LAYERS, steps=6, tokens=2 * 2048)
     argv_345 = ["--arch", "gpt2-345m", "--steps", "1"] + TRAIN_MIXED_ARGV[4:]
     phase("[srsi] at other widths: one matrix of GPT-2 345M's w_down (its "
           "step-1 refresh, " + " ".join(argv_345) + "), Mamba2-370m's "
@@ -3416,6 +3675,8 @@ def main():
              mamba2=pre_m, dense=dict(dense_k["precond"], shapes=(
                  "qwen2-7b w_up (3584, 18944); olmoe-1b-7b expert stack "
                  "(64, 2048, 1024)")),
+             families=dict(fam_k["precond"], shapes=(
+                 "zamba2-2.7b in_proj stack (54, 2560, 10448)")),
              int8={"launches": launches("fused_precond_int8")["launches"],
                    **pre8},
              kmax=dict(pre_k, route="pass 1 without the fold + sq_matmul_t",
@@ -3423,13 +3684,17 @@ def main():
         dict(name="fused_apply", route="cuda", source=src + "fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:233",
              **launches("fused_apply"), bound_by="bytes",
-             library_ms=None, **app, mamba2=app_m, dense=dense_k["apply"]),
+             library_ms=None, **app, mamba2=app_m, dense=dense_k["apply"],
+             families=dict(fam_k["apply"], shapes=(
+                 "zamba2-2.7b in_proj stack (54, 2560, 10448)"))),
         dict(name="sketch_update", route="cuda",
              source=src + "sketch_update.cu",
              replaces="src/repro/kernels/sketch_update.py:80",
              **launches("sketch_scatter", "sketch_query"), bound_by="bytes",
              library_ms=None, **sk, mamba2=sk_m, dense=dict(
-                 dense_k["sketch"], shapes="qwen2-7b embed, lm_head")),
+                 dense_k["sketch"], shapes="qwen2-7b embed, lm_head"),
+             families=dict(fam_k["sketch"], shapes=(
+                 "whisper-large-v3 dec_pos, embed, enc_pos"))),
         dict(name="lowrank_update", route="cuda",
              source=src + "lowrank_update.cu",
              replaces="src/repro/kernels/lowrank_update.py:45",
@@ -3450,12 +3715,20 @@ def main():
     # [kernels-dense]: per step of [train-qwen2]'s 4 layers
     qwen2 = lambda rec: dict(per_step(rec, DENSE_LAYERS),
                              shape="qwen2-7b (2, 2048, 28 over 4, 128)")
+    # [kernels-families]: per step of [train-zamba2]'s 9 shared-block
+    # applications and of [train-llava]'s 4 layers
+    fam = lambda key: dict(
+        zamba2=dict(per_step(fam_k[f"zamba_{key}"], ZAMBA_APPS),
+                    shape="zamba2-2.7b (4, 2048, 32, 80)"),
+        llava=dict(per_step(fam_k[f"llava_{key}"], LLAVA_LAYERS),
+                   shape="llava-next-mistral-7b (2, 2048, 32 over 8, 128)"))
     kernels += [
         dict(name="flash_attention_fwd", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:78",
              **launches("flash_fwd"), bound_by="operations",
-             **per_step(fa_fwd), dense=qwen2(dense_k["flash_fwd"])),
+             **per_step(fa_fwd), dense=qwen2(dense_k["flash_fwd"]),
+             families=fam("fwd")),
         dict(name="flash_attention_bwd", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/models/attention.py:137",
@@ -3463,25 +3736,30 @@ def main():
                            "differentiates the remat'd chunked recurrence",
              **launches("flash_bwd_dq", "flash_bwd_dkdv"),
              bound_by="operations", **per_step(fa_bwd),
-             dense=qwen2(dense_k["flash_bwd"])),
+             dense=qwen2(dense_k["flash_bwd"]), families=fam("bwd")),
     ]
     # the SSD block: per train step of Mamba2-370m (48 layers, one launch
     # of each kernel a layer), measured per call at the main path's shape
     # and bf16 inputs; no single PyTorch call computes it
-    per_step = lambda rec: {k: (v * SSD_LAYERS if k.endswith("ms") else v)
-                            for k, v in rec.items()}
+    per_step = lambda rec, n=SSD_LAYERS: {
+        k: (v * n if k.endswith("ms") else v) for k, v in rec.items()}
+    # [kernels-families]: per step of [train-zamba2]'s 54 layers
+    zamba2 = lambda rec: dict(per_step(rec, ZAMBA_LAYERS),
+                              shape="zamba2-2.7b (4, 2048, 80, 1, 64, 64)")
     kernels += [
         dict(name="ssd_chunk_fwd", route="cuda",
              source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:61",
-             **launches("ssd_fwd"), library_ms=None, **per_step(ssd_fwd)),
+             **launches("ssd_fwd"), library_ms=None, **per_step(ssd_fwd),
+             families=zamba2(fam_k["ssd_fwd"])),
         dict(name="ssd_chunk_bwd", route="cuda",
              source=src + "ssd_chunk.cu",
              replaces="src/repro/models/mamba2.py:108",
              replaces_note="B7 has no backward kernel: the JAX model "
                            "differentiates the jnp ssd_chunked",
              **launches("ssd_bwd_rows", "ssd_bwd_cols"),
-             library_ms=None, **per_step(ssd_bwd)),
+             library_ms=None, **per_step(ssd_bwd),
+             families=zamba2(fam_k["ssd_bwd"])),
     ]
     phase("[report] every check passed")
     print(json.dumps({"train": info, "remat": remat, "ckpt": ckpt_costs}))

@@ -43,7 +43,7 @@ class SSMSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                    # dense | moe | ssm (the families ported)
+    family: str                    # dense | moe | vlm | ssm | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -62,6 +62,15 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoESpec] = None
     ssm: Optional[SSMSpec] = None
+    # hybrid (zamba2): a shared attention+MLP block applied every N ssm layers
+    hybrid_attn_every: int = 0
+    n_shared_blocks: int = 2
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    enc_seq: int = 1500
+    # modality frontends are stubs: the batch carries their embeddings
+    frontend: str = "none"                  # none | audio | vision
+    frontend_tokens: int = 0                # vision patch tokens prepended
     dtype: str = "bfloat16"        # compute dtype
     param_dtype: str = "float32"   # master params (float32 | bfloat16)
     attn_impl: str = "auto"        # auto | chunked | naive (perf knob)

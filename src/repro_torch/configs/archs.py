@@ -1,8 +1,9 @@
-"""The paper's own GPT-2 configs (Table 1), the dense and MoE decoders,
-Mamba2-370m, and their reduced smoke configs, copied field for field from
-the JAX package's ``configs/archs.py`` (its values, not the published ones:
-every arch keeps ``rope_theta`` 10,000 there).  The hybrid, encoder-decoder
-and vision archs belong to model families the port has not reached yet."""
+"""The JAX package's 13 archs and their reduced smoke configs, copied
+field for field from its ``configs/archs.py`` (its values, not the
+published ones: every arch keeps ``rope_theta`` 10,000 there): the
+paper's own GPT-2 configs (Table 1), the dense and MoE decoders,
+Mamba2-370m, the Zamba2 hybrid, the Whisper encoder-decoder and the
+LLaVA-NeXT decoder behind its stub vision frontend."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,8 +13,8 @@ from repro_torch.config import ModelConfig, MoESpec, SSMSpec
 
 def _smoke(cfg: ModelConfig, **over) -> ModelConfig:
     """Reduced config of the same family: few layers, thin width, tiny
-    vocab, every structural feature kept (GQA ratio, qk_norm, MoE top-k and
-    the SSD block included)."""
+    vocab, every structural feature kept (GQA ratio, qk_norm, MoE top-k,
+    the SSD block, the hybrid period, the encoder, the frontend tokens)."""
     base = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                 vocab=512, head_dim=16, max_seq_len=256, remat="none")
     if cfg.moe is not None:
@@ -22,9 +23,26 @@ def _smoke(cfg: ModelConfig, **over) -> ModelConfig:
     if cfg.ssm is not None:
         base["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16,
                                           chunk=16)
+    if cfg.family == "hybrid":
+        base["n_layers"] = 4
+        base["hybrid_attn_every"] = 2
+    if cfg.family == "encdec":
+        base["enc_layers"] = 2
+        base["enc_seq"] = 32
+    if cfg.family == "vlm":
+        base["frontend_tokens"] = 8
     base.update(over)
     return dataclasses.replace(cfg, **base)
 
+
+# --- hybrid: Mamba2 + shared attention blocks [arXiv:2411.15242; hf] -------
+ZAMBA2_2P7B = ModelConfig(
+    arch="zamba2-2.7b", family="hybrid", n_layers=54, d_model=2560,
+    n_heads=32, n_kv_heads=32, d_ff=10240, vocab=32000,
+    ssm=SSMSpec(d_state=64, d_conv=4, expand=2, head_dim=64, n_groups=1,
+                chunk=256),
+    hybrid_attn_every=6, n_shared_blocks=2, act="gelu",
+    max_seq_len=524_288)
 
 # --- dense: pruned nemotron [arXiv:2407.14679; hf] --------------------------
 MINITRON_4B = ModelConfig(
@@ -65,6 +83,20 @@ KIMI_K2 = ModelConfig(
     param_dtype="bfloat16",       # 1T params: fp32 master cannot fit a pod
     max_seq_len=32_768)
 
+# --- audio: enc-dec, conv frontend STUB [arXiv:2212.04356] ------------------
+WHISPER_LARGE_V3 = ModelConfig(
+    arch="whisper-large-v3", family="encdec", n_layers=32, d_model=1280,
+    n_heads=20, n_kv_heads=20, d_ff=5120, vocab=51_866,
+    enc_layers=32, enc_seq=1500, act="gelu", norm="layernorm",
+    pos_embedding="learned", tie_embeddings=True, frontend="audio",
+    max_seq_len=32_768)
+
+# --- vlm: anyres tiling [hf:llava-hf/llava-v1.6-mistral-7b-hf] --------------
+LLAVA_NEXT_MISTRAL_7B = ModelConfig(
+    arch="llava-next-mistral-7b", family="vlm", n_layers=32, d_model=4096,
+    n_heads=32, n_kv_heads=8, d_ff=14_336, vocab=32_000,
+    frontend="vision", frontend_tokens=576, max_seq_len=32_768)
+
 # --- synthetic: embedding-dominated probe for the sketch backend ------------
 # Large multilingual-style vocab over a thin trunk: ~134M of ~147M params
 # sit in the (tied) token embedding, so optimizer-state memory is decided
@@ -96,8 +128,9 @@ MAMBA2_370M = ModelConfig(
 
 ARCHS: dict[str, ModelConfig] = {
     c.arch: c for c in [
-        MINITRON_4B, QWEN2_7B, DEEPSEEK_67B, QWEN3_14B, OLMOE_1B_7B,
-        KIMI_K2, MAMBA2_370M, GPT2_117M, GPT2_345M, EMBED_HEAVY_256K]}
+        ZAMBA2_2P7B, MINITRON_4B, QWEN2_7B, DEEPSEEK_67B, QWEN3_14B,
+        OLMOE_1B_7B, KIMI_K2, WHISPER_LARGE_V3, MAMBA2_370M,
+        LLAVA_NEXT_MISTRAL_7B, GPT2_117M, GPT2_345M, EMBED_HEAVY_256K]}
 
 
 def get_config(arch: str) -> ModelConfig:

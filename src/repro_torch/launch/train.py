@@ -6,10 +6,15 @@
 Flags and defaults are those of ``python -m repro.launch.train``, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
 the kernels, for parity tests).  ``--arch`` takes every arch the port
-registers (``configs/archs.py``): GPT-2 117M / 345M, the dense decoders
-(qwen2-7b, qwen3-14b, minitron-4b, deepseek-67b, embed-heavy-256k), the
-MoE decoders (olmoe-1b-7b, kimi-k2-1t-a32b) and mamba2-370m.  Without a GPU and without ``--device cpu``
-it raises.  As in the JAX launcher, ``--optimizer adapprox`` runs the mixed
+registers (``configs/archs.py``), the JAX package's 13: GPT-2 117M /
+345M, the dense decoders (qwen2-7b, qwen3-14b, minitron-4b, deepseek-67b,
+embed-heavy-256k), the MoE decoders (olmoe-1b-7b, kimi-k2-1t-a32b),
+mamba2-370m, the hybrid zamba2-2.7b, llava-next-mistral-7b (text only:
+the data stream makes no frontend ``embeds``) and whisper-large-v3, which
+stops at its first loss for want of ``embeds`` (KeyError), as the JAX
+launcher does; ``build_train_step`` takes batches that carry them
+(``configs/base.py::make_batch``).  Without a GPU and without ``--device
+cpu`` it raises.  As in the JAX launcher, ``--optimizer adapprox`` runs the mixed
 groups by default (count-min sketch on embedding tables, Adapprox on
 matrices, dense Adam on the rest); ``--no-mixed-groups`` puts Adapprox on
 every matrix; ``--quantize-factors`` stores the Adapprox factors as int8

@@ -1,11 +1,13 @@
-"""Causal grouped-query attention for training, dispatched as the JAX
-package's ``sdpa_auto`` does: the naive score matrix upcast to fp32
+"""Grouped-query attention over a whole sequence (training; causal, or
+full for an encoder and cross-attention), dispatched as the JAX package's
+``sdpa_auto`` does: the naive score matrix upcast to fp32
 (``_sdpa``) or the chunked online-softmax path (``_sdpa_chunked``), which
 here is the flash-attention kernel (``kernels/ops.py::FlashAttention``).
 The decode and paged paths are not ported yet (see ROADMAP.md)."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -113,9 +115,15 @@ def sdpa_auto(cfg, q, k, v, *, causal: bool):
     return _sdpa(cfg, q, k, v, mask)
 
 
-def attn_apply_causal(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal self-attention (training), positions
-    ``arange(S)``."""
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+def attn_apply_full(cfg, p: dict, x: torch.Tensor, *, causal: bool,
+                    positions: Optional[torch.Tensor] = None,
+                    kv_override: Optional[tuple] = None) -> torch.Tensor:
+    """Full-sequence attention (training, the encoder): causal or not,
+    positions ``arange(S)`` unless given; ``kv_override`` (k, v) replaces
+    the projected keys and values (cross-attention on the encoder's)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project_qkv(cfg, p, x, positions)
-    return sdpa_auto(cfg, q, k, v, causal=True) @ p["wo"].to(x.dtype)
+    if kv_override is not None:
+        k, v = kv_override
+    return sdpa_auto(cfg, q, k, v, causal=causal) @ p["wo"].to(x.dtype)

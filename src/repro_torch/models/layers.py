@@ -40,6 +40,23 @@ def remat(mode: str, fn: Callable, *args):
     return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
+def layer_remat(cfg) -> str:
+    """The remat mode of a model whose layer body the JAX package
+    checkpoints whole under any ``remat`` but "none" (the ssm, hybrid and
+    encdec families): "dots" is taken as "full"."""
+    return "none" if cfg.remat == "none" else "full"
+
+
+def unstack(tree: dict, n: int) -> list:
+    """The ``n`` per-layer trees of a tree of ``(n, ...)`` stacks, as
+    ``torch.unbind`` views: the backward stacks every layer's gradient
+    once (indexing each layer instead would write each layer's gradient
+    into a zero stack of its own)."""
+    flat = {k: unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
 def dense_init(gen: torch.Generator, shape: tuple, d_in: int,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal weights of ``shape`` (trailing dims (d_in, d_out)) with

@@ -8,17 +8,25 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models.ssm_lm import SSMLM
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.whisper import EncDecLM
+from repro_torch.models.zamba2 import HybridLM
 
-_FAMILIES = {"dense": TransformerLM, "moe": TransformerLM, "ssm": SSMLM}
+_FAMILIES = {
+    "dense": TransformerLM,
+    "moe": TransformerLM,
+    "vlm": TransformerLM,
+    "ssm": SSMLM,
+    "hybrid": HybridLM,
+    "encdec": EncDecLM,
+}
 
 
 def build_model(cfg: ModelConfig):
     try:
         cls = _FAMILIES[cfg.family]
     except KeyError:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported to PyTorch yet; the "
-            f"port has {sorted(_FAMILIES)} (see ROADMAP.md Queue A)") from None
+        raise ValueError(f"unknown model family {cfg.family!r}; "
+                         f"available: {sorted(_FAMILIES)}") from None
     model = cls(cfg)
     if cfg.param_dtype != "float32":
         # the init is drawn in fp32 and cast once, as in the JAX package

@@ -5,7 +5,8 @@ attention-free stack of RMSNorm + Mamba2 blocks, as the JAX package's
 Parameters keep the JAX tree (``embed``, ``layers.{norm,mamba}.*`` stacked
 ``(L, ...)``, ``final_norm``, ``lm_head``), so ``repro_torch.convert``
 carries the JAX parameters across unchanged; the forward walks the layers
-with a Python loop over slices of the stack, as ``TransformerLM`` does.
+with a Python loop over ``layers.unstack``'s views of the stack, as
+``TransformerLM`` does.
 The caches, prefill and decode belong to serving and are not ported yet
 (ROADMAP.md Queue A, serving).
 """
@@ -17,16 +18,10 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.transformer import _slice
+from repro_torch.models.base import TrainOnly
 
 
-def _serving(what: str):
-    raise NotImplementedError(
-        f"SSMLM.{what} (the Mamba2 caches, prefill and decode) is not "
-        f"ported to PyTorch yet; see ROADMAP.md Queue A, serving")
-
-
-class SSMLM(nn.Module):
+class SSMLM(TrainOnly, nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -58,10 +53,9 @@ class SSMLM(nn.Module):
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         x = params["embed"].to(dt)[tokens]
-        # any remat but "none" checkpoints the whole block, as in JAX
-        mode = "none" if cfg.remat == "none" else "full"
-        for i in range(cfg.n_layers):
-            x = L.remat(mode, self._block, x, _slice(params["layers"], i))
+        mode = L.layer_remat(cfg)
+        for lp in L.unstack(params["layers"], cfg.n_layers):
+            x = L.remat(mode, self._block, x, lp)
         x = L.apply_norm(cfg, params["final_norm"], x)
         return (x @ params["lm_head"].to(dt),
                 torch.zeros((), dtype=torch.float32, device=x.device))
@@ -72,12 +66,3 @@ class SSMLM(nn.Module):
         logits, _ = self.forward(params, tokens)
         ce = L.softmax_xent(logits[:, :-1, :], tokens[:, 1:])
         return ce, {"loss": ce}
-
-    def init_cache(self, batch: int, cache_len: int):
-        _serving("init_cache")
-
-    def prefill(self, params: dict, tokens: torch.Tensor, cache):
-        _serving("prefill")
-
-    def decode_step(self, params: dict, cache, tokens: torch.Tensor):
-        _serving("decode_step")

@@ -1,17 +1,19 @@
-"""Decoder-only transformer LM, families "dense" and "moe": GPT-2's
+"""Decoder-only transformer LM, families "dense", "moe" and "vlm": GPT-2's
 LayerNorm, learned positions and tied GELU MLP, and the RMSNorm, RoPE,
 SwiGLU / ReLU^2, qk-norm, QKV-bias, GQA and untied-head decoders, with an
-MoE block in place of the MLP where the config has one.
+MoE block in place of the MLP where the config has one.  The vlm family's
+stub frontend hands the model its embeddings (``embeds``, (B, F, D)),
+which go before the text tokens' embeddings; the loss is over the text.
 
 Block parameters are stacked ``(L, ...)`` leaves, as in the JAX package,
 so the optimizer sees the same ``(L, m, n)`` matrices (``(L, E, m, n)``
 for the experts); the forward walks the layers with a Python loop over
-slices of the stack, each layer's body under ``cfg.remat``
-(``layers.remat``), as the JAX package's scan body.  The model holds no
-parameters itself: ``init`` returns a nested dict of fp32 master tensors
-and ``forward`` / ``loss`` take it, mirroring the JAX API
+``layers.unstack``'s views of the stack, each layer's body under
+``cfg.remat`` (``layers.remat``), as the JAX package's scan body.  The
+model holds no parameters itself: ``init`` returns a nested dict of fp32
+master tensors and ``forward`` / ``loss`` take it, mirroring the JAX API
 (``repro_torch.convert`` loads the JAX package's parameters into it).
-The vlm family's stub frontend (``embeds``) is not ported yet.
+Serving (caches, prefill, decode) is not ported yet (``TrainOnly``).
 """
 from __future__ import annotations
 
@@ -24,13 +26,14 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models.base import TrainOnly
 
 # The loss takes the chunked cross entropy from the hiddens (the (B, S, V)
 # logits never exist) for an untied head at vocab * S at least this.
 FUSED_XENT_MIN = 2 ** 26
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(TrainOnly, nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -60,7 +63,7 @@ class TransformerLM(nn.Module):
         """One layer: ``(x, aux)``, aux the MoE load-balance loss or None."""
         cfg = self.cfg
         h = L.apply_norm(cfg, bp["norm1"], x)
-        x = x + A.attn_apply_causal(cfg, bp["attn"], h)
+        x = x + A.attn_apply_full(cfg, bp["attn"], h, causal=True)
         h = L.apply_norm(cfg, bp["norm2"], x)
         if not self.is_moe:
             return x + L.mlp_apply(cfg, bp["mlp"], h), None
@@ -72,23 +75,24 @@ class TransformerLM(nn.Module):
         layers)``."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(cfg.n_layers):
-            x, a = L.remat(cfg.remat, self._block, x,
-                           _slice(params["blocks"], i))
+        for bp in L.unstack(params["blocks"], cfg.n_layers):
+            x, a = L.remat(cfg.remat, self._block, x, bp)
             if a is not None:
                 aux = aux + a
         return L.apply_norm(cfg, params["final_norm"], x), aux
 
     def forward(self, params: dict, tokens: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None):
-        """tokens: (B, S) int -> ``(logits (B, S, V) in the compute dtype,
+        """tokens: (B, S_txt) int, embeds: (B, F, D) the stub frontend's
+        output or None -> ``(logits (B, F + S_txt, V) in the compute dtype,
         aux)``."""
-        _no_embeds(embeds)
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         x = params["embed"].to(dt)[tokens]
+        if embeds is not None:
+            x = torch.cat([embeds.to(dt), x], dim=1)
         if cfg.pos_embedding == "learned":
-            x = x + params["pos_embed"].to(dt)[None, :tokens.shape[1], :]
+            x = x + params["pos_embed"].to(dt)[None, :x.shape[1], :]
         x, aux = self._trunk(params, x)
         head = (params["embed"].to(dt).T if cfg.tie_embeddings
                 else params["lm_head"].to(dt))
@@ -102,29 +106,21 @@ class TransformerLM(nn.Module):
         return self._trunk(params, params["embed"].to(dt)[tokens])
 
     def loss(self, params: dict, batch: dict):
-        """Next-token cross entropy plus 0.01 x the MoE aux loss; returns
-        ``(total, {"loss": ce, "aux_loss": aux})``, as the JAX package."""
+        """Next-token cross entropy over the text tokens plus 0.01 x the
+        MoE aux loss; returns ``(total, {"loss": ce, "aux_loss": aux})``, as
+        the JAX package.  With ``batch["embeds"]`` the logits of the
+        frontend's positions are dropped, and the chunked cross entropy is
+        never taken."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        _no_embeds(batch.get("embeds"))
-        if (not cfg.tie_embeddings
+        embeds = batch.get("embeds")
+        if (not cfg.tie_embeddings and embeds is None
                 and cfg.vocab * tokens.shape[1] >= FUSED_XENT_MIN):
             x, aux = self._hidden(params, tokens)
             ce = L.fused_xent_from_hidden(x, params["lm_head"], tokens)
         else:
-            logits, aux = self.forward(params, tokens)
-            ce = L.softmax_xent(logits[:, :-1, :], tokens[:, 1:])
+            logits, aux = self.forward(params, tokens, embeds)
+            n_front = 0 if embeds is None else embeds.shape[1]
+            ce = L.softmax_xent(logits[:, n_front:-1, :], tokens[:, 1:])
         return ce + 0.01 * aux, {"loss": ce, "aux_loss": aux}
 
-
-def _no_embeds(embeds) -> None:
-    if embeds is not None:
-        raise NotImplementedError(
-            "TransformerLM: precomputed frontend embeddings (the vlm "
-            "family's stub frontend) are not ported to PyTorch yet; see "
-            "ROADMAP.md Queue A")
-
-
-def _slice(tree: dict, i: int) -> dict:
-    return {k: _slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}

@@ -36,33 +36,40 @@ def build_train_step(model, opt: GradientTransformation,
                      microbatches: int = 1,
                      grad_clip_norm: Optional[float] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
-    is ``{"tokens": (B, S) tensor}`` on the parameters' device."""
+    is a dict of tensors on the parameters' device, ``{"tokens": (B, S)}``
+    and, for the vlm and encdec families, ``"embeds"`` (the stub
+    frontend's output): the model's loss takes the whole dict, and
+    microbatches split every tensor of it on the leading axis, as in the
+    JAX package."""
 
-    def grads_of(params: dict, tokens: torch.Tensor):
-        loss, metrics = model.loss(tree.unflatten(params), {"tokens": tokens})
+    def grads_of(params: dict, batch: dict):
+        loss, metrics = model.loss(tree.unflatten(params), batch)
         grads = torch.autograd.grad(loss, list(params.values()))
         return (dict(zip(params, grads)), loss.detach(),
                 {k: v.detach() for k, v in metrics.items()})
 
-    def compute_grads(params: dict, tokens: torch.Tensor):
+    def compute_grads(params: dict, batch: dict):
         if microbatches == 1:
-            return grads_of(params, tokens)
-        if tokens.shape[0] % microbatches:
-            raise ValueError(f"batch {tokens.shape[0]} does not split into "
-                             f"{microbatches} microbatches")
+            return grads_of(params, batch)
+        for k, x in batch.items():
+            if x.shape[0] % microbatches:
+                raise ValueError(f"batch {k!r} of {x.shape[0]} does not "
+                                 f"split into {microbatches} microbatches")
+        parts = {k: x.chunk(microbatches) for k, x in batch.items()}
         acc = {k: torch.zeros_like(p, dtype=torch.float32)
                for k, p in params.items()}
-        loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        for mb in tokens.chunk(microbatches):
-            grads, loss, _ = grads_of(params, mb)
+        loss_sum = None
+        for i in range(microbatches):
+            grads, loss, _ = grads_of(
+                params, {k: xs[i] for k, xs in parts.items()})
             acc = {k: a + grads[k].float() for k, a in acc.items()}
-            loss_sum = loss_sum + loss
+            loss_sum = loss if loss_sum is None else loss_sum + loss
         inv = 1.0 / microbatches
         loss = loss_sum * inv
         return {k: g * inv for k, g in acc.items()}, loss, {"loss": loss}
 
     def train_step(state: TrainState, batch: dict):
-        grads, loss, metrics = compute_grads(state.params, batch["tokens"])
+        grads, loss, metrics = compute_grads(state.params, batch)
         if grad_clip_norm is not None:
             norm = global_norm(grads)
             scale = torch.clamp_max(grad_clip_norm / (norm + 1e-12), 1.0)

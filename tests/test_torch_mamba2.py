@@ -138,16 +138,25 @@ def test_launcher_mamba2_tracks_jax_launcher():
 
 
 def test_unported_families_and_serving_raise():
-    """build_model refuses the hybrid family (zamba2); SSMLM's serving
-    entry points raise until Queue A's serving item ports them."""
+    """Every family builds (dense, moe, vlm, ssm, hybrid, encdec) and an
+    unknown one is refused, as in the JAX package; every family's serving
+    entry points (``init_cache``, ``prefill``, ``decode_step``) raise,
+    naming ROADMAP, until Queue A's serving item ports them."""
     from repro_torch.config import ModelConfig
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        build_model(ModelConfig(arch="x", family="hybrid", n_layers=1,
+    with pytest.raises(ValueError, match="unknown model family 'rnn'"):
+        build_model(ModelConfig(arch="x", family="rnn", n_layers=1,
                                 d_model=8, n_heads=1, n_kv_heads=1, d_ff=8,
                                 vocab=8))
-    model = build_model(get_smoke_config(ARCH))
-    for call in (lambda: model.prefill({}, torch.zeros((1, 4)), None),
-                 lambda: model.init_cache(1, 4),
-                 lambda: model.decode_step({}, None, torch.zeros((1, 1)))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    families = set()
+    for arch in ("gpt2-117m", "olmoe-1b-7b", "llava-next-mistral-7b", ARCH,
+                 "zamba2-2.7b", "whisper-large-v3"):
+        cfg = get_smoke_config(arch)
+        families.add(cfg.family)
+        model = build_model(cfg)
+        for call in (lambda: model.prefill({}, torch.zeros((1, 4)), None),
+                     lambda: model.init_cache(1, 4),
+                     lambda: model.decode_step({}, None,
+                                               torch.zeros((1, 1)))):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                call()
+    assert families == {"dense", "moe", "vlm", "ssm", "hybrid", "encdec"}

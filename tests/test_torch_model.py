@@ -103,25 +103,37 @@ def test_flatten_order_is_jax_order():
 
 
 def test_unported_model_features_raise():
-    """The families not ported yet (hybrid, encdec, vlm) raise, and so do
-    the vlm stub frontend's precomputed ``embeds``; RoPE, SwiGLU and MoE
-    are ported and build.  bf16 master parameters (``param_dtype``), once
-    among the unported features, are ported: the init is cast."""
-    cfg = get_smoke_config("gpt2-117m")
-    for family in ("hybrid", "encdec", "vlm"):
-        with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(cfg, family=family))
-    for arch in ("qwen2-7b", "olmoe-1b-7b"):
-        model = build_model(get_smoke_config(arch))
-        params = model.init(torch.Generator().manual_seed(0))
-        tokens = torch.zeros((1, 8), dtype=torch.long)
-        with pytest.raises(NotImplementedError):
-            model.loss(params, {"tokens": tokens,
-                                "embeds": torch.zeros((1, 2, 64))})
-        with pytest.raises(NotImplementedError):
-            model.forward(params, tokens, torch.zeros((1, 2, 64)))
-    params = build_model(dataclasses.replace(cfg, param_dtype="bfloat16")
-                         ).init(torch.Generator().manual_seed(0))
+    """The families once refused here (hybrid, encdec, vlm) build, and the
+    vlm stub frontend's precomputed ``embeds`` are taken: the logits span
+    the frontend and text positions, the loss the text alone, and it moves
+    with ``embeds``.  RoPE, SwiGLU and MoE build; bf16 master parameters
+    (``param_dtype``) are cast at init.  What still raises is serving
+    (``test_torch_mamba2.py::test_unported_families_and_serving_raise``)."""
+    for arch in ("zamba2-2.7b", "whisper-large-v3", "llava-next-mistral-7b",
+                 "qwen2-7b", "olmoe-1b-7b"):
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg)
+        assert type(model).__name__ == {
+            "hybrid": "HybridLM", "encdec": "EncDecLM"}.get(
+            cfg.family, "TransformerLM")
+    cfg = dataclasses.replace(get_smoke_config("llava-next-mistral-7b"),
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+    embeds = torch.randn((2, cfg.frontend_tokens, 64), generator=gen)
+    with torch.no_grad():
+        logits, _ = model.forward(params, tokens, embeds)
+        assert logits.shape == (2, cfg.frontend_tokens + 12, cfg.vocab)
+        with_e, _ = model.loss(params, {"tokens": tokens, "embeds": embeds})
+        text, _ = model.loss(params, {"tokens": tokens})
+        again, _ = model.loss(params, {"tokens": tokens,
+                                       "embeds": embeds * 2})
+    assert float(with_e) != float(text) and float(with_e) != float(again)
+    params = build_model(dataclasses.replace(
+        get_smoke_config("gpt2-117m"), param_dtype="bfloat16")).init(
+        torch.Generator().manual_seed(0))
     assert {p.dtype for p in tree.flatten(params).values()} == {
         torch.bfloat16}
 

@@ -111,7 +111,7 @@ C.phase("[train-chunked]")
 _, info = C.train_main_path(
     C.loop_run(dev, cfg, C.chunked_model_config()), "fused", dict(
         fused_precond=72, fused_apply=72, sketch_scatter=24,
-        sketch_query=24, flash_fwd=144, flash_bwd_dq=144,
+        sketch_query=24, flash_fwd=2 * 144, flash_bwd_dq=144,
         flash_bwd_dkdv=144), attn_layers=12)
 res.update(info)
 C.phase("[breakdown-chunked]")
@@ -145,7 +145,7 @@ C.phase("[train-mamba2]")
 _, info = C.train_main_path(
     C.launcher_run(C.TRAIN_MAMBA_ARGV), "fused", dict(
         fused_precond=24, fused_apply=24, sketch_scatter=24,
-        sketch_query=24, ssd_fwd=12 * C.SSD_LAYERS,
+        sketch_query=24, ssd_fwd=2 * 12 * C.SSD_LAYERS,
         ssd_bwd_rows=12 * C.SSD_LAYERS, ssd_bwd_cols=12 * C.SSD_LAYERS),
     ssd_layers=C.SSD_LAYERS)
 res.update(info)

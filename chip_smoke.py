@@ -129,7 +129,27 @@ sm_90a) and the CUDA toolkit.  In order, it
      them against ``BENCH_memory.json``, and those of
      the int8 factors (117M and 345M) and of Mamba2-370m (mixed groups,
      AdamW) against the JAX package's count;
-  8. prints one JSON line with each training run's loss, times and peak
+  8. serves, under torch.inference_mode (after the profiled phases, as
+     late in a long run torch.profiler drops kernel records):
+     [kernels-serve] holds B6's forward at Qwen2-7B's wave prefill (2,
+     8192, 28 over 4, 128) beside SDPA and B7's at Mamba2-370m's and
+     Zamba2-2.7B's prefills; [serve-qwen2] serves Qwen2-7B whole (28
+     layers) through ``repro_torch.launch.serve``: a 2-slot wave at prompt
+     8192 (B6's forward once a layer in the prefill, nothing else), the
+     continuous engine (8 requests of 512 tokens on 4 slots, the paged
+     cache, chunks of 64) and its requests through the wave engine, each
+     request's logits teacher-forced against the full forward of its
+     sequence, the continuous streams held to the wave's (a parting only
+     at a tie within a few bf16 ulps) and the allocator drained;
+     [serve-families] serves Mamba2-370m and Zamba2-2.7B (whole) on the
+     wave engine, Whisper-large-v3 (whole) and LLaVA-NeXT-Mistral-7B (4
+     layers) through prefill and decode_step, and OLMoE-1B-7B (4 layers,
+     dropless) on the continuous engine, each with its launches and the
+     same gate (a tolerance per family, failing too where the gate could
+     not tell a path off by one position); [parity-serve] runs every
+     family's smoke model and the paged path in fp32 on the card and the
+     CPU, and paged decode against dense decode on the card, bitwise;
+  9. prints one JSON line with each training run's loss, times and peak
      memory, one with each kernel's launches, error and times, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -140,6 +160,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -238,6 +259,46 @@ TRAIN_LLAVA_ARGV = ["--arch", LLAVA, "--steps", "6", "--batch", "2",
                     "--refresh-every", "5", "--log-every", "1",
                     "--device", "cuda"]
 
+# Serving, through ``repro_torch.launch.serve`` and the models'
+# prefill / decode.  Serving holds no gradient or optimizer state, so
+# Qwen2-7B runs whole: 28 layers, ~30.5 GB of fp32 parameters, the port's
+# seed-0 init.  A 2-slot wave at prompt 8192 (cache 8448 rows: 0.97 GB of
+# bf16 KV) prefills through B6 (attn_impl "auto" takes the chunked path
+# for S > 4096 that divides into 1024), 28 forward launches; decode and the
+# paged paths run the naive _sdpa, as in JAX.  The continuous engine serves
+# 8 requests of 512 tokens on 4 slots over a pool of 1024 tokens a slot,
+# and the same requests go through the wave engine for the stream check.
+QWEN2 = "qwen2-7b"
+QWEN2_LAYERS = 28
+SERVE_WAVE_ARGV = ["--arch", QWEN2, "--slots", "2", "--requests", "2",
+                   "--prompt-len", "8192", "--cache-len", "8448",
+                   "--max-new", "32", "--device", "cuda"]
+SERVE_CONT_ARGV = ["--arch", QWEN2, "--continuous", "--block-size", "16",
+                   "--slots", "4", "--requests", "8", "--prompt-len", "512",
+                   "--cache-len", "1024", "--max-new", "32",
+                   "--prefill-chunk", "64", "--device", "cuda"]
+SERVE_CONT_WAVE_ARGV = [a for a in SERVE_CONT_ARGV if a != "--continuous"]
+# the other families at full width: Mamba2-370m (B7 once a layer in the
+# prefill), Zamba2-2.7B whole (B7 in 54 layers, B6 at its 9 shared-block
+# applications: prompt 8192, one slot), OLMoE-1B-7B at 4 of 16 layers on
+# the continuous engine; Whisper-large-v3 whole and LLaVA-NeXT-Mistral-7B
+# at 4 of 32 layers through prefill / decode_step directly (no engine
+# passes embeds, in JAX or here)
+SERVE_MAMBA_ARGV = ["--arch", "mamba2-370m", "--slots", "2", "--requests", "2",
+                    "--prompt-len", "1024", "--cache-len", "1056",
+                    "--max-new", "32", "--device", "cuda"]
+SERVE_ZAMBA_ARGV = ["--arch", ZAMBA, "--slots", "1", "--requests", "1",
+                    "--prompt-len", "8192", "--cache-len", "8224",
+                    "--max-new", "32", "--device", "cuda"]
+OLMOE = "olmoe-1b-7b"
+SERVE_OLMOE_ARGV = ["--arch", OLMOE] + SERVE_CONT_ARGV[2:]
+SERVE_WHISPER = dict(batch=2, prompt=64, steps=32)
+SERVE_LLAVA = dict(batch=2, text=1472, steps=32)
+# [parity-serve]: (arch, prompt length, frontend rows) at smoke size
+PARITY_SERVE = [("gpt2-117m", 32, None), ("qwen3-14b", 32, None),
+                (OLMOE, 32, None), (LLAVA, 24, 8), ("mamba2-370m", 32, None),
+                (ZAMBA, 32, None), (WHISPER, 12, "enc_seq")]
+
 # the smoke model's mixed groups: embed (512 rows) is sketched
 SMALL_MIXED = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)
 
@@ -281,6 +342,56 @@ TOL_PARAMS_MAMBA = 1e-3
 # (the phase prints this witness; PERF.md runs 22a, 22b).  The step-1
 # gradients are held to 1e-4.
 TOL_PARAMS_MOE = 1e-3
+
+# Serving, teacher-forced, on the card in the model's bf16 compute: the
+# logits each generated token came from (the prefill's last row, then one
+# decode step a token against the cache) against the full forward's
+# logits at the same positions of the same sequence, relative to the
+# largest entry of the forward's rows, held to a tolerance per family.
+# The two paths round differently: bf16 keeps 8 significant bits (2^-9
+# relative a rounding) at every projection, norm and residual of every
+# layer, each side rounds M = 1 and M = S products in other orders, the
+# prefill's B6 keeps P in fp32 where the forward's naive path rounds the
+# probabilities to bf16, the SSM decode runs the conv and the state update
+# in fp32 from a bf16 buffer where the forward runs B7 on bf16 operands,
+# and a near-tied MoE route can flip; at random init nothing cancels this.
+# Each tolerance sits about twice above its family's readings (runs
+# 24b-24f, identical each run) and at or above the bf16 forward's own
+# error against an fp32 forward of the same sequence (the witness each run
+# prints).  Dense and vlm: 1.1e-2 to 2.2e-2 (Qwen2-7B, LLaVA), witness
+# 1.7e-2 to 2.3e-2.
+TOL_SERVE_DENSE = 5e-2
+# SSM and hybrid: 4.2e-2 to 4.9e-2 (Mamba2-370m, Zamba2-2.7B), witness
+# 6.2e-2 (Zamba2-2.7B) and 7.3e-2 (Mamba2-370m).
+TOL_SERVE_SSM = 1e-1
+# Encoder-decoder: 1.26e-2 (Whisper-large-v3), witness 1.77e-2; at random
+# init its decoder output barely moves with the position, so a path off by
+# one position reads only 5.05e-2 to 5.30e-2 and the bound stays below
+# SERVE_SHIFT_MARGIN times under that.
+TOL_SERVE_ENCDEC = 2.5e-2
+# MoE: up to 8.9e-2 (OLMoE-1B-7B, dropless), witness 1.59e-1 (run 24c): a
+# router score near-tied between an expert and the next routes a token
+# apart under either rounding.  Held to the bf16 forward's own scale.
+TOL_SERVE_MOE = 2e-1
+TOL_SERVE = {"dense": TOL_SERVE_DENSE, "vlm": TOL_SERVE_DENSE,
+             "ssm": TOL_SERVE_SSM, "hybrid": TOL_SERVE_SSM,
+             "encdec": TOL_SERVE_ENCDEC, "moe": TOL_SERVE_MOE}
+# The gate must tell a cache path off by one position: the rows against
+# the forward's next position must read at least this many times the
+# family's tolerance, or the phase fails (smallest readings: 0.62 dense,
+# 1.29 SSM, 0.47 MoE, 5.05e-2 Whisper).
+SERVE_SHIFT_MARGIN = 1.5
+# Where a continuous stream parts from the wave's, both logits rows at
+# that step lie within the family's tolerance of each other and the two
+# chosen tokens are tied in each row to within this many bf16 ulps of the
+# row's largest entry: each engine's token leads the other's by at most
+# that much in its own row.  The rows differ by 1.6e-2 to 2.2e-2 of the
+# largest entry (3-5 ulps), so a rounding breaks a tie only that close;
+# the partings lead by 0 to 3 ulps (run 24g).
+SERVE_TIE_ULPS = 4
+# [parity-serve]: card against CPU at smoke size in fp32 compute, logits
+# and caches relative to each tensor's largest entry (summation order only)
+TOL_SERVE_PARITY = 1e-4
 
 # Flash attention against its plain version on the same inputs.  fp32:
 # the same fp32 products, summed in 64-wide tiles against 1024-wide chunks
@@ -2398,9 +2509,10 @@ def step_breakdown(device, ocfg, model_cfg=None):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             grads, t_model = timed(model_part)
             opt_state, t_opt = timed(opt_part)
+        kind = "refresh" if t == 6 else "fold"
+        kernel_records(prof, f"step {t} ({kind})")
         busy = sum(e.self_device_time_total for e in prof.key_averages())
         wall = t_model + t_opt
-        kind = "refresh" if t == 6 else "fold"
         print(f"  step {t} ({kind}, profiled): model fwd+bwd {t_model:.4f} "
               f"s, optimizer {t_opt:.4f} s; device busy {busy / 1e6:.4f} s "
               f"of {wall:.4f} s (idle share {1 - busy / 1e6 / wall:.3f})")
@@ -2434,6 +2546,7 @@ def codec_cost(opt_state):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         codec()
         torch.cuda.synchronize()
+    kernel_records(prof, "int8 codec")
     evs = prof.key_averages()
     print(f"  int8 codec per step ({len(leaves)} leaves, dequantize + "
           f"requantize Q and U): stream {stream:.4f} ms, device "
@@ -2933,9 +3046,21 @@ def same_as_mixed(what: str, state, mixed_state: list) -> None:
           f"[train-mixed] bitwise equal")
 
 
+def kernel_records(prof, what: str) -> None:
+    """Fail unless the profile ``prof`` of ``what``, work known to launch
+    kernels, holds a kernel record: a profile that lost them all would
+    read no copies and no busy time."""
+    from torch.autograd import DeviceType
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset")))
+    if n == 0:
+        fail(f"{what}: the profile holds no kernel record")
+
+
 def dtoh_copies(fn) -> int:
     """Device-to-host copies (torch.profiler's ``Memcpy DtoH`` activity)
-    that ``fn()`` makes."""
+    that ``fn()``, work that launches kernels, makes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2943,6 +3068,7 @@ def dtoh_copies(fn) -> int:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    kernel_records(prof, "device-to-host copies")
     return sum(e.count for e in prof.key_averages()
                if "Memcpy DtoH" in e.key)
 
@@ -3266,6 +3392,698 @@ def guards_phase(device, cpu_counters: dict):
     del state, qs
     torch.cuda.empty_cache()
     return launches, {"loss": hist[-1]["loss"]}
+
+
+# -- serving -----------------------------------------------------------------
+
+class ServeRecorder:
+    """The model as a serving engine sees it, recording on the card the
+    logits row that each request's every token came from, keyed ``(uid,
+    index of the token in its stream)``, and the seconds of each prefill
+    and decode call up to a synchronize (the engines keep only the argmax).
+    The wave engine hands it its wave (``wave``), the continuous engine
+    itself (``engine``), so that each row finds its request."""
+
+    def __init__(self, model):
+        self.model = model
+        self.engine = None
+        self.wave = []
+        self.rows = {}
+        self.seconds = {"prefill": [], "decode": []}
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def _timed(self, kind: str, fn, *args):
+        import torch
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        self.seconds[kind].append(time.perf_counter() - t0)
+        return out
+
+    def prefill(self, params, tokens, cache):
+        logits, cache = self._timed("prefill", self.model.prefill, params,
+                                    tokens, cache)
+        for i, r in enumerate(self.wave):
+            self.rows[(r.uid, 0)] = logits[i, -1]
+        return logits, cache
+
+    def decode_step(self, params, cache, tokens):
+        logits, cache = self._timed("decode", self.model.decode_step,
+                                    params, cache, tokens)
+        for i, r in enumerate(self.wave):
+            if not r.done:
+                self.rows[(r.uid, len(r.out_tokens))] = logits[i, -1]
+        return logits, cache
+
+    def prefill_paged(self, params, pool, tokens, table, p0, last_idx):
+        import numpy as np
+        logits, pool = self._timed("prefill", self.model.prefill_paged,
+                                   params, pool, tokens, table, p0, last_idx)
+        eng, row = self.engine, table.cpu().numpy()
+        for s in eng.slots:
+            if (s.phase == "prefill" and s.prompt_done == p0
+                    and np.array_equal(s.table.padded(eng.nbt), row)
+                    and p0 + last_idx + 1 == len(s.req.prompt)):
+                self.rows[(s.req.uid, 0)] = logits[0, -1]
+        return logits, pool
+
+    def decode_paged(self, params, pool, tokens, tables, positions):
+        logits, pool = self._timed("decode", self.model.decode_paged,
+                                   params, pool, tokens, tables, positions)
+        for i, s in enumerate(self.engine.slots):
+            if s.phase == "decode":
+                self.rows[(s.req.uid, len(s.req.out_tokens))] = logits[i, -1]
+        return logits, pool
+
+
+@contextlib.contextmanager
+def serve_recorded(layers: int | None = None, **over):
+    """Within it, ``repro_torch.launch.serve`` builds its model wrapped in
+    a :class:`ServeRecorder` (yielded as ``rec["model"]``) and its engines
+    hand it what it needs; with ``layers`` or ``over``, the arch's full
+    config cut and changed as :func:`arch_config` does."""
+    from repro_torch.launch import serve as launcher
+    saved = (launcher.build_model, launcher.Engine,
+             launcher.ContinuousEngine, launcher.get_config)
+    rec = {}
+
+    def build(cfg):
+        rec["model"] = ServeRecorder(saved[0](cfg))
+        return rec["model"]
+
+    class Wave(saved[1]):
+        def run_wave(self, reqs, t0=None):
+            self.model.wave = reqs
+            super().run_wave(reqs, t0)
+
+    class Continuous(saved[2]):
+        def __init__(self, model, *args, **kw):
+            super().__init__(model, *args, **kw)
+            model.engine = self
+
+    launcher.build_model, launcher.Engine = build, Wave
+    launcher.ContinuousEngine = Continuous
+    if layers is not None or over:
+        launcher.get_config = lambda arch: arch_config(arch, layers, **over)
+    try:
+        yield rec
+    finally:
+        (launcher.build_model, launcher.Engine, launcher.ContinuousEngine,
+         launcher.get_config) = saved
+
+
+def forward_rows(model, params, prompt, out_tokens: list, embeds=None,
+                 pad_to: int = 1):
+    """The full forward of ``prompt + out_tokens`` (zero tokens after them
+    up to a multiple of ``pad_to``: the SSD chunk; the model is causal, so
+    they change no earlier position): its logits rows, fp32, from the last
+    prompt position on (one a generated token, and one after the last)."""
+    import torch
+    dev = params["embed"].device
+    seq = [int(t) for t in prompt] + [int(t) for t in out_tokens]
+    seq += [0] * ((-len(seq)) % pad_to)
+    toks = torch.tensor(seq, device=dev)[None]
+    with torch.inference_mode():
+        if embeds is None:
+            logits, _ = model.forward(params, toks)
+        else:
+            logits, _ = model.forward(params, toks, embeds)
+    front = (embeds.shape[1] if embeds is not None
+             and model.cfg.family == "vlm" else 0)
+    lo = front + len(prompt) - 1
+    rows = logits[0, lo:lo + len(out_tokens) + 1].float()
+    del logits
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def hold_teacher_forced(what: str, model, params, items, pad_to: int = 1
+                        ) -> dict:
+    """For each of ``items`` (prompt, out_tokens, rows: the logits each
+    token came from, embeds): the rows against the full forward's at the
+    same positions (:func:`forward_rows`), relative to the forward's
+    largest entry, failing past the family's ``TOL_SERVE``; and the rows
+    against the forward's one position later (a cache path off by one
+    position reads so: O(1) for the decoders, 5e-2 for Whisper at random
+    init, whose decoder output barely moves with the position), failing
+    below ``SERVE_SHIFT_MARGIN`` times the tolerance, where the gate could
+    not tell such a path; beside them, how many tokens the forward's
+    argmax gives too.  For the first request, the witness, unchecked: the
+    bf16 forward against an fp32 forward (the same parameters, compute
+    dtype float32) of the same sequence.  Returns the worst error, the
+    smallest shifted error and the witness."""
+    import torch
+    from repro_torch.models.model_zoo import build_model
+    worst, shifted_min, witness = 0.0, math.inf, None
+    tol = TOL_SERVE[model.cfg.family]
+    for i, (prompt, out, rows, embeds) in enumerate(items):
+        want = forward_rows(model, params, prompt, out, embeds, pad_to)
+        got = torch.stack([r.float() for r in rows])
+        n = len(rows)
+        err, shifted = _rel(got, want[:n]), _rel(got, want[1:n + 1])
+        same = int((want[:n].argmax(-1).cpu() == torch.tensor(
+            [int(t) for t in out][:n])).sum())
+        print(f"  {what} request {i}: teacher-forced logits rel err "
+              f"{err:.3e} over {n} tokens (tolerance {tol}; against the "
+              f"next position's: {shifted:.3e}, at least "
+              f"{SERVE_SHIFT_MARGIN * tol:.3e}); the forward's argmax "
+              f"agrees on {same} of {n}")
+        if i == 0:
+            fp32 = build_model(dataclasses.replace(model.cfg,
+                                                   dtype="float32"))
+            witness = _rel(want[:n], forward_rows(fp32, params, prompt, out,
+                                                  embeds, pad_to)[:n])
+            print(f"  {what} witness: the bf16 forward against an fp32 "
+                  f"forward of request 0's sequence, rel err {witness:.3e} "
+                  f"(unchecked)")
+        del want, got
+        if not err <= tol:
+            fail(f"{what}: request {i} teacher-forced logits rel err "
+                 f"{err:.3e} > {tol}")
+        if not shifted >= SERVE_SHIFT_MARGIN * tol:
+            fail(f"{what}: request {i}: the rows against the next "
+                 f"position's read {shifted:.3e}, under "
+                 f"{SERVE_SHIFT_MARGIN} x {tol}: the gate could not tell a "
+                 f"path off by one position")
+        worst, shifted_min = max(worst, err), min(shifted_min, shifted)
+    return {"teacher_forced_err": worst, "next_position_err": shifted_min,
+            "bf16_vs_fp32_forward": witness}
+
+
+def serve_summary(what: str, tokens: int, ttft: float, wall: float, rec,
+                  launches: dict, peak: float, steps: str) -> dict:
+    """Print and return a serve run's numbers: tokens/s over the run's
+    wall time, mean TTFT, seconds, peak memory, seconds a prefill call and
+    a decode step (medians, each up to a synchronize), launches."""
+    med = lambda xs: statistics.median(xs) if xs else None
+    info = {"tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+            "ttft_mean_s": ttft, "peak_gib": peak, "steps": steps,
+            "prefill_s": med(rec.seconds["prefill"]),
+            "prefill_calls": len(rec.seconds["prefill"]),
+            "decode_s": med(rec.seconds["decode"]),
+            "decode_calls": len(rec.seconds["decode"])}
+    live = {k: v for k, v in launches.items() if v}
+    print(f"  {what}: {tokens} tokens in {wall:.2f} s ({tokens / wall:.1f} "
+          f"tokens/s, {steps}), mean TTFT {ttft * 1e3:.1f} ms, peak "
+          f"{peak:.2f} GiB; prefill {info['prefill_calls']} calls, median "
+          f"{info['prefill_s']:.4f} s; decode {info['decode_calls']} steps, "
+          f"median {info['decode_s']:.4f} s; launches {live}")
+    return info
+
+
+def serve_run(device, argv, expect: dict, what: str, layers=None,
+              params=None, pad_to: int = 1, gate: bool = True, **over):
+    """One run of ``repro_torch.launch.serve``'s ``main`` on the card with
+    the launch counters set to 0 just before it: every request served to
+    its budget, the allocator drained (continuous), the launches those of
+    ``expect`` (every other kernel 0), and the teacher-forced gate on each
+    request.  Returns ``(launches, info, (engine, reqs, recorder))``."""
+    import torch
+    from repro_torch.launch import serve as launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with serve_recorded(layers, **over) as rec:
+        reset_launches()
+        t0 = time.perf_counter()
+        eng, reqs = launcher.main(argv, params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = rec["model"]
+    budget = int(argv[argv.index("--max-new") + 1])
+    if any(len(r.out_tokens) != budget for r in reqs):
+        fail(f"{what}: streams {[len(r.out_tokens) for r in reqs]} long, "
+             f"budget {budget}")
+    continuous = hasattr(eng, "alloc")
+    if continuous and not (eng.alloc.free_blocks() == eng.alloc.usable
+                           == eng.alloc.available()):
+        fail(f"{what}: allocator not drained: {eng.alloc.free_blocks()} "
+             f"free, {eng.alloc.available()} available of "
+             f"{eng.alloc.usable}")
+    want = {**dict.fromkeys(launches, 0), **expect}
+    steps = (f"{eng.steps} engine steps" if continuous
+             else f"{eng.waves} waves")
+    info = serve_summary(
+        what, sum(len(r.out_tokens) for r in reqs),
+        statistics.mean(r.first_token_s - r.arrival_s for r in reqs), wall,
+        rec, launches, peak, steps)
+    if continuous:
+        print(f"  allocator drained: {eng.alloc.usable} of "
+              f"{eng.alloc.usable} blocks free, nothing reserved")
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want}")
+    if gate:
+        info.update(hold_teacher_forced(
+            what, rec.model, eng.params,
+            [(r.prompt, r.out_tokens,
+              [rec.rows[(r.uid, t)] for t in range(len(r.out_tokens))],
+              None) for r in reqs], pad_to))
+    rec.engine = None        # the engine and its model refer to each other
+    return launches, info, (eng, reqs, rec)
+
+
+def hold_streams(what: str, cont, wave) -> int:
+    """The continuous run's streams against the wave run's of the same
+    requests: equal, or where one parts, both logits rows at that step
+    within the family's ``TOL_SERVE`` of each other and the two chosen
+    tokens tied in each row to within ``SERVE_TIE_ULPS`` bf16 ulps of the
+    row's largest entry.  Prints both rows' numbers; returns the count of
+    streams that part."""
+    import torch
+    (_, c_reqs, c_rec), (_, w_reqs, w_rec) = cont, wave
+    tol = TOL_SERVE[c_rec.model.cfg.family]
+    parted = 0
+    for c, w in zip(c_reqs, w_reqs):
+        t = next((i for i, (a, b) in enumerate(zip(c.out_tokens,
+                                                   w.out_tokens)) if a != b),
+                 None)
+        if t is None:
+            continue
+        parted += 1
+        a, b = c_rec.rows[(c.uid, t)].float(), w_rec.rows[(w.uid, t)].float()
+        tc, tw = c.out_tokens[t], w.out_tokens[t]
+        diff = float((a - b).abs().max()) / float(b.abs().max())
+        # each row's lead of its own token over the other engine's, in
+        # bf16 ulps of the row's largest entry
+        gaps = [float((r[mine] - r[other]) / bf16_ulp(r.abs().max()))
+                for r, mine, other in ((a, tc, tw), (b, tw, tc))]
+        print(f"  {what} request {c.uid} parts at token {t}: continuous "
+              f"{tc} vs wave {tw}; rows rel diff {diff:.3e}; each row's "
+              f"token leads the other's by {gaps[0]:g} (continuous) and "
+              f"{gaps[1]:g} (wave) bf16 ulps of the row's largest entry")
+        if not (diff <= tol and max(gaps) <= SERVE_TIE_ULPS):
+            fail(f"{what}: request {c.uid} parts at token {t} without a "
+                 f"tie (rows {diff:.3e} > {tol}, or leads {gaps} ulps > "
+                 f"{SERVE_TIE_ULPS})")
+        del a, b
+    torch.cuda.empty_cache()
+    print(f"  {what}: {len(c_reqs) - parted} of {len(c_reqs)} streams equal "
+          f"the wave engine's token for token; the {parted} that part each "
+          f"do so at a tie within {SERVE_TIE_ULPS} bf16 ulps")
+    return parted
+
+
+def serve_qwen2(device) -> dict:
+    """[serve-qwen2]: Qwen2-7B whole through the launcher, the wave run
+    (B6's forward 28 times, nothing else), the continuous run, the
+    continuous requests through the wave engine; each gated teacher-forced
+    and the continuous streams held to the wave's."""
+    import torch
+    out = {}
+    phase("[serve-qwen2] wave, " + " ".join(SERVE_WAVE_ARGV))
+    t_p = time.monotonic()
+    launches, info, (eng, reqs, rec) = serve_run(
+        device, SERVE_WAVE_ARGV, dict(flash_fwd=QWEN2_LAYERS), "serve-qwen2 "
+        "wave")
+    params = eng.params
+    out["serve-qwen2-wave"] = (launches, info)
+    del eng, reqs, rec
+    print(f"  [serve-qwen2] wave: {time.monotonic() - t_p:.1f} s")
+    phase("[serve-qwen2] continuous, " + " ".join(SERVE_CONT_ARGV))
+    t_p = time.monotonic()
+    launches, info, cont = serve_run(device, SERVE_CONT_ARGV, {},
+                                     "serve-qwen2 continuous", params=params)
+    out["serve-qwen2-continuous"] = (launches, info)
+    phase("[serve-qwen2] the same requests through the wave engine, "
+          + " ".join(SERVE_CONT_WAVE_ARGV))
+    launches, info, wave = serve_run(device, SERVE_CONT_WAVE_ARGV, {},
+                                     "serve-qwen2 wave (4 slots)",
+                                     params=params)
+    out["serve-qwen2-wave4"] = (launches, info)
+    out["serve-qwen2-continuous"][1]["parted"] = hold_streams(
+        "serve-qwen2", cont, wave)
+    del cont, wave, params
+    torch.cuda.empty_cache()
+    print(f"  [serve-qwen2] continuous and its wave: "
+          f"{time.monotonic() - t_p:.1f} s")
+    return out
+
+
+def serve_direct(device, arch: str, layers, batch: int, prompt: int,
+                 steps: int, front: int, expect: dict, **over):
+    """``arch`` at full width (``layers`` deep), seed-0 init, driven through
+    ``init_cache`` / ``prefill`` (with ``front`` rows of stub frontend
+    ``embeds``) / ``steps`` greedy ``decode_step``s on the card, the
+    launch counters set to 0 just before; the launches those of
+    ``expect``, and the teacher-forced gate per row.  Returns ``(launches,
+    info)``."""
+    import torch
+    from repro_torch.models.model_zoo import build_model
+    cfg = arch_config(arch, layers, **over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(1)
+    dt = getattr(torch, cfg.dtype)
+    embeds = torch.randn((batch, front, cfg.d_model), generator=gen,
+                         device=device).to(dt)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                           device=device)
+    n_front = front if cfg.family == "vlm" else 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = ServeRecorder(model)
+    rows = [[] for _ in range(batch)]
+    outs = [[] for _ in range(batch)]
+    reset_launches()
+    t0 = time.perf_counter()
+    cache = model.init_cache(batch, n_front + prompt + steps, device=device)
+    logits, cache = rec._timed("prefill", model.prefill, params, tokens,
+                               cache, embeds)
+    ttft = time.perf_counter() - t0
+    for _ in range(steps + 1):
+        tok = torch.argmax(logits[:, -1, :], dim=-1)
+        for b in range(batch):
+            rows[b].append(logits[b, -1])
+            outs[b].append(int(tok[b]))
+        if len(outs[0]) > steps:
+            break
+        logits, cache = rec._timed("decode", model.decode_step, params,
+                                   cache, tok[:, None])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del cache
+    what = f"serve-{arch}"
+    print(f"  {what}: batch {batch}, {n_front} frontend + {prompt} prompt "
+          f"tokens")
+    info = serve_summary(what, batch * (steps + 1), ttft, wall, rec,
+                         launches, peak, f"{steps} steps")
+    want = {**dict.fromkeys(launches, 0), **expect}
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want}")
+    info.update(hold_teacher_forced(
+        what, model, params,
+        [(tokens[b].tolist(), outs[b], rows[b], embeds[b:b + 1])
+         for b in range(batch)]))
+    del params, model, rows, logits
+    torch.cuda.empty_cache()
+    return launches, info
+
+
+def serve_families(device) -> dict:
+    """[serve-families]: Mamba2-370m and Zamba2-2.7B (whole) on the wave
+    engine, Whisper-large-v3 (whole) and LLaVA-NeXT-Mistral-7B (4 layers)
+    driven directly, OLMoE-1B-7B (4 layers) on the continuous engine; each
+    at full width with its launches and the teacher-forced gate."""
+    from repro_torch.configs.archs import get_config
+    out = {}
+    phase("[serve-families] Mamba2-370m, " + " ".join(SERVE_MAMBA_ARGV))
+    t_p = time.monotonic()
+    launches, info, _ = serve_run(device, SERVE_MAMBA_ARGV,
+                                  dict(ssd_fwd=SSD_LAYERS),
+                                  "serve-mamba2", pad_to=256)
+    out["serve-mamba2"] = (launches, info)
+    phase("[serve-families] Zamba2-2.7B whole, " + " ".join(SERVE_ZAMBA_ARGV))
+    launches, info, _ = serve_run(device, SERVE_ZAMBA_ARGV,
+                                  dict(ssd_fwd=ZAMBA_LAYERS,
+                                       flash_fwd=ZAMBA_APPS),
+                                  "serve-zamba2", pad_to=256)
+    out["serve-zamba2"] = (launches, info)
+    w = SERVE_WHISPER
+    phase(f"[serve-families] Whisper-large-v3 whole, prefill of batch "
+          f"{w['batch']} with 1500 stub frames and {w['prompt']} tokens, "
+          f"then {w['steps']} decode_steps")
+    out["serve-whisper"] = serve_direct(
+        device, WHISPER, None, w["batch"], w["prompt"], w["steps"],
+        arch_config(WHISPER).enc_seq, {})
+    v = SERVE_LLAVA
+    phase(f"[serve-families] LLaVA-NeXT-Mistral-7B, n_layers 32 -> "
+          f"{LLAVA_LAYERS}, attn_impl \"chunked\", prefill of batch "
+          f"{v['batch']} x (576 image + {v['text']} text tokens), then "
+          f"{v['steps']} decode_steps")
+    out["serve-llava"] = serve_direct(
+        device, LLAVA, LLAVA_LAYERS, v["batch"], v["text"], v["steps"],
+        arch_config(LLAVA).frontend_tokens, dict(flash_fwd=LLAVA_LAYERS),
+        attn_impl="chunked")
+    # dropless, as the published OLMoE: capacity = the token count at any
+    # batch (capacity_factor n_experts / top_k).  At the config's 1.25 a
+    # 4-row decode step keeps one token an expert where the forward of a
+    # whole sequence keeps ceil(0.156 T), so the two drop different tokens
+    # and the teacher-forced gate would compare two functions.
+    moe = get_config(OLMOE).moe
+    dropless = dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k)
+    phase(f"[serve-families] OLMoE-1B-7B, n_layers 16 -> {DENSE_LAYERS}, "
+          f"dropless (capacity_factor {dropless.capacity_factor}), "
+          + " ".join(SERVE_OLMOE_ARGV))
+    launches, info, _ = serve_run(device, SERVE_OLMOE_ARGV, {},
+                                  "serve-olmoe", layers=DENSE_LAYERS,
+                                  moe=dropless)
+    out["serve-olmoe"] = (launches, info)
+    print(f"  [serve-families]: {time.monotonic() - t_p:.1f} s")
+    return out
+
+
+def _to_device(tree: dict, dev) -> dict:
+    return {k: _to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _cache_tensors(cache) -> dict:
+    """A serving cache's tensors by name (KV, Mamba, cross), as CPU
+    copies (``clone``: on the CPU ``.cpu()`` returns the cache itself,
+    which the next decode step writes)."""
+    out = {}
+    for key, val in cache.items():
+        if key == "pos":
+            continue
+        if hasattr(val, "_fields"):
+            for f in val._fields:
+                out[f"{key}.{f}"] = getattr(val, f).float().cpu().clone()
+        else:
+            out[key] = val.float().cpu().clone()
+    return out
+
+
+def _hold_parity(what: str, got, want, worst: list) -> None:
+    ab, rel = rel_err(got.float().cpu(), want.float().cpu())
+    worst.append((rel, what))
+    if not rel <= TOL_SERVE_PARITY:
+        fail(f"[parity-serve] {what}: rel err {rel:.3e} > "
+             f"{TOL_SERVE_PARITY}")
+
+
+def parity_serve(device) -> None:
+    """[parity-serve]: every family's smoke model in fp32 compute, the same
+    init and inputs on the CPU and the card: the prefill and six decode
+    steps (the CPU's greedy tokens fed to both), logits and caches within
+    ``TOL_SERVE_PARITY``; the paged trio (gpt2: prefill_paged in two
+    chunks and one, six decode_paged steps with a parked row), logits and
+    the pool but its null block; and paged decode against dense decode on
+    the card from one ``pool_from_dense``, bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.archs import get_smoke_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import BlockAllocator, SlotTable, pool_from_dense
+    cpu = torch.device("cpu")
+    for arch, plen, front in PARITY_SERVE:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        model = build_model(cfg)
+        init = model.init(torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (2, plen), generator=gen)
+        rows = cfg.enc_seq if front == "enc_seq" else front
+        embeds = (None if rows is None else
+                  torch.randn((2, rows, cfg.d_model), generator=gen))
+        fed, runs = [], []
+        for dev in (cpu, device):
+            p = _to_device(init, dev)
+            kw = {} if embeds is None else {"embeds": embeds.to(dev)}
+            cache = model.init_cache(2, 48, device=dev)
+            logits, cache = model.prefill(p, tokens.to(dev), cache, **kw)
+            run = {"logits": [logits.cpu()], "prefill": _cache_tensors(cache)}
+            for i in range(6):
+                if dev == cpu:
+                    fed.append(torch.argmax(logits[:, -1], -1)[:, None])
+                logits, cache = model.decode_step(p, cache, fed[i].to(dev))
+                run["logits"].append(logits.cpu())
+            run["final"] = _cache_tensors(cache)
+            runs.append(run)
+        worst = []
+        for i, (a, b) in enumerate(zip(runs[1]["logits"],
+                                       runs[0]["logits"])):
+            _hold_parity(f"{arch} logits {i}", a, b, worst)
+        for when in ("prefill", "final"):
+            for k in runs[0][when]:
+                _hold_parity(f"{arch} {when} cache {k}", runs[1][when][k],
+                             runs[0][when][k], worst)
+        rel, at = max(worst)
+        print(f"  {arch}: prefill + 6 decode steps, logits and caches card "
+              f"vs CPU within {rel:.3e} of the largest entry (worst: {at})")
+    # the paged trio, card against CPU
+    cfg = dataclasses.replace(get_smoke_config("gpt2-117m"), dtype="float32")
+    model = build_model(cfg)
+    init = model.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 512, (21,), generator=gen),
+               torch.randint(0, 512, (9,), generator=gen)]
+    # slot 0 reaches position 26: its 4th block (3) holds 24 on, as the
+    # engine grows a table before a step; a null column there would take
+    # the parked row's duplicate writes into block 0 and be read unmasked
+    tables = torch.tensor([[5, 2, 9, 3, 0, 0], [7, 1, 12, 0, 0, 0],
+                           [0] * 6])
+    runs, fed = [], []      # fed: the CPU's greedy tokens, fed to both
+    for dev in (cpu, device):
+        p = _to_device(init, dev)
+        pool = model.init_paged_cache(13, 8, device=dev)
+        out = []
+        for slot, chunks in ((0, ((0, 16, 16), (16, 5, 8))),
+                             (1, ((0, 9, 16),))):
+            for p0, real, padded in chunks:
+                chunk = torch.zeros((1, padded), dtype=torch.long)
+                chunk[0, :real] = prompts[slot][p0:p0 + real]
+                logits, pool = model.prefill_paged(
+                    p, pool, chunk.to(dev), tables[slot].to(dev), p0,
+                    real - 1)
+                out.append(logits.cpu())
+            if dev == cpu:
+                fed.append(int(torch.argmax(logits[0, -1])))
+        positions = torch.tensor([21, 9, 0])
+        toks = torch.tensor([[fed[0]], [fed[1]], [0]])
+        for i in range(6):
+            logits, pool = model.decode_paged(p, pool, toks.to(dev),
+                                              tables.to(dev),
+                                              positions.to(dev))
+            out.append(logits[:2].cpu())
+            if dev == cpu:
+                fed.append(torch.argmax(logits[:2, -1], -1).cpu())
+            toks[:2, 0] = fed[2 + i]
+            positions[:2] += 1
+        runs.append((out, {k: v[:, 1:].cpu() for k, v in pool.items()}))
+    worst = []
+    for i, (a, b) in enumerate(zip(runs[1][0], runs[0][0])):
+        _hold_parity(f"paged logits {i}", a, b, worst)
+    for k in ("k", "v"):
+        _hold_parity(f"pool {k}", runs[1][1][k], runs[0][1][k], worst)
+    rel, at = max(worst)
+    print(f"  paged trio (gpt2 smoke): prefill_paged 16 + 8 (padded) and 16 "
+          f"(padded), 6 decode_paged steps with a parked row: card vs CPU "
+          f"within {rel:.3e} (worst: {at}); the null block not compared")
+    # paged decode against dense decode on the card, from one dense prefill
+    p = _to_device(init, device)
+    cache_len, bs = 128, 16
+    nbt = cache_len // bs
+    prompts = torch.randint(0, 512, (2, 16), generator=gen).to(device)
+    cache = model.init_cache(2, cache_len, device=device)
+    logits, cache = model.prefill(p, prompts, cache)
+    alloc = BlockAllocator(2 * nbt + 1, bs)
+    slot_tables = [SlotTable(alloc.alloc(nbt)) for _ in range(2)]
+    pool = pool_from_dense(model, cache, slot_tables, [16, 16],
+                           2 * nbt + 1, bs)
+    tabs = torch.from_numpy(np.stack([t.padded(nbt) for t in slot_tables])
+                            ).long().to(device)
+    toks = torch.argmax(logits[:, -1], -1)[:, None]
+    pos = torch.full((2,), 16, device=device)
+    diffs = []
+    for _ in range(6):
+        ld, cache = model.decode_step(p, cache, toks)
+        lp, pool = model.decode_paged(p, pool, toks, tabs, pos)
+        diffs.append(float((ld - lp).abs().max()))
+        toks = torch.argmax(ld[:, -1], -1)[:, None]
+        pos += 1
+    print(f"  paged decode vs dense decode on the card from one "
+          f"pool_from_dense, 6 steps: max abs diff per step {diffs}")
+    if any(diffs):
+        fail("[parity-serve] paged decode is not bitwise the dense decode "
+             "on the card")
+
+
+SERVE_FLASH = ("qwen2-7b serve prefill", (2, 8192, 8192, 28, 4, 128))
+SERVE_SSD = [("mamba2-370m serve prefill", (2, 1024, 32, 1, 64, 128, 256)),
+             ("zamba2-2.7b serve prefill", (1, 8192, 80, 1, 64, 64, 256))]
+
+
+def time_stream(kern, plain, kernel_name: str, rec: dict, bound: float,
+                label: str) -> None:
+    """:func:`time_pair` for calls of a millisecond or so, by CUDA events
+    (the stream's time over 10 calls of the kernel, 3 of its plain
+    version), the profiler's reading printed beside it: late in a long
+    run the profiler drops kernel records (runs 24b, 24c read B6 and B7
+    below their bounds while the stream read them as before)."""
+    t_k, t_p = events_ms(kern), events_ms(plain, reps=3)
+    d_k = device_ms(kern, kernel_name, reps=10, profiles=1)
+    print(f"    timing {label}: kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+          f"bound_ms {bound:.4f} (CUDA events; the profiler read the "
+          f"kernel at {d_k:.4f})")
+    rec["ms"] += t_k
+    rec["plain_ms"] += t_p
+    rec["bound_ms"] += bound
+
+
+def check_serve_kernels(device) -> dict:
+    """[kernels-serve]: the forward kernels at the serving path's prefill
+    shapes, bf16 as the models feed them, under ``torch.inference_mode``:
+    B6 at Qwen2-7B's wave prefill (2, 8192, 28 over 4, 128), causal, beside
+    SDPA (``enable_gqa``) forward; B7 at Mamba2-370m's prefill (2, 1024,
+    32 heads, P 64, N 128) and Zamba2-2.7B's (1, 8192, 80 heads, P 64, N
+    64).  Each against its plain version on the same inputs, bitwise
+    repeatable, timed beside its bound (``flash_bounds`` / ``ssd_bounds``)
+    and its plain version's time, per call, by CUDA events
+    (:func:`time_stream`).  Returns ``{"flash_fwd",
+    "ssd_fwd": {name: record}}``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(9)
+    name, (b, sq, sk, h, kv, dh) = SERVE_FLASH
+    rec = new_rec()
+    with torch.inference_mode():
+        rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                         device=device).to(bf16)
+        q, k, v = rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)
+        fwd = lambda: ops.flash_attention_fwd(q, k, v, True)
+        got, again = fwd(), fwd()
+        want = ref.flash_attention(q, k, v, True)
+        torch.cuda.synchronize()
+        errs = hold(f"flash_attention {name}", ("out", "lse"),
+                    (TOL_FLASH,) * 2, got, want, rec, again)
+        print(f"  flash_attention {name} {tuple(q.shape)} bf16 fwd: {errs}")
+        del got, again, want
+        bound = flash_bounds(b, sq, sk, h, kv, dh, True, bf16)[0]
+        time_stream(fwd, lambda: ref.flash_attention(q, k, v, True),
+                    "flash_fwd_kernel", rec, bound, f"{name} bf16 fwd")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        rec["library_ms"] = events_ms(sdpa)
+        rec.update(bound_by="operations", shape=f"{name} {(b, sq, h, kv, dh)}")
+        print(f"    library: scaled_dot_product_attention bf16 fwd "
+              f"{rec['library_ms']:.4f} ms")
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    ssd = {}
+    for name, shape in SERVE_SSD:
+        r = new_rec()
+        with torch.inference_mode():
+            ins = ssd_inputs(gen, shape, bf16, device)
+            fwd = lambda: ops.ssd_chunk_fwd(*ins)
+            got, again = fwd(), fwd()
+            want = ref.ssd_chunk(*ins)
+            torch.cuda.synchronize()
+            errs = hold(f"ssd_chunk {name}", ("y",), (TOL_SSD,), (got,),
+                        (want,), r, (again,))
+            print(f"  ssd_chunk {name} {shape} bf16 fwd: {errs}")
+            del got, again, want
+            (bound, _), (by, _) = ssd_bounds(shape, bf16, by=True)
+            time_stream(fwd, lambda: ref.ssd_chunk(*ins), "ssd_fwd_kernel",
+                        r, bound, f"{name} bf16 fwd")
+            r.update(bound_by=by, library_ms=None, shape=f"{name} {shape}")
+            del ins
+        torch.cuda.empty_cache()
+        ssd[name.split()[0]] = r
+    return {"flash_fwd": rec, "ssd_fwd": ssd}
 
 
 def main():
@@ -3660,6 +4478,20 @@ def main():
     phase("[memory] optimizer state vs BENCH_memory.json and the JAX "
           "package's count")
     check_memory(device)
+    # serving last: it reads no profile, and the phases above read
+    # torch.profiler, which drops kernel records late in a long run
+    phase("[kernels-serve] B6 and B7 forward at the serving path's prefill "
+          "shapes, bf16, under inference_mode")
+    serve_k = check_serve_kernels(device)
+    t_s = time.monotonic()
+    serve = serve_qwen2(device)
+    serve.update(serve_families(device))
+    phase("[parity-serve] every family's smoke model and the paged trio in "
+          "fp32, card vs CPU; paged vs dense decode on the card")
+    parity_serve(device)
+    print(f"  serving phases: {time.monotonic() - t_s:.1f} s")
+    serve_info = {p: r[1] for p, r in serve.items()}
+    runs.update({p: r[0] for p, r in serve.items()})
 
     def launches(*names):
         return dict(
@@ -3728,7 +4560,10 @@ def main():
              replaces="src/repro/kernels/flash_attention.py:78",
              **launches("flash_fwd"), bound_by="operations",
              **per_step(fa_fwd), dense=qwen2(dense_k["flash_fwd"]),
-             families=fam("fwd")),
+             families=fam("fwd"),
+             serve=dict(serve_k["flash_fwd"], launches=sum(
+                 r["flash_fwd"] for p, r in runs.items()
+                 if p.startswith("serve-")), per="call")),
         dict(name="flash_attention_bwd", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/models/attention.py:137",
@@ -3751,7 +4586,10 @@ def main():
              source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:61",
              **launches("ssd_fwd"), library_ms=None, **per_step(ssd_fwd),
-             families=zamba2(fam_k["ssd_fwd"])),
+             families=zamba2(fam_k["ssd_fwd"]),
+             serve=dict(serve_k["ssd_fwd"], launches=sum(
+                 r["ssd_fwd"] for p, r in runs.items()
+                 if p.startswith("serve-")), per="call")),
         dict(name="ssd_chunk_bwd", route="cuda",
              source=src + "ssd_chunk.cu",
              replaces="src/repro/models/mamba2.py:108",
@@ -3762,7 +4600,8 @@ def main():
              families=zamba2(fam_k["ssd_bwd"])),
     ]
     phase("[report] every check passed")
-    print(json.dumps({"train": info, "remat": remat, "ckpt": ckpt_costs}))
+    print(json.dumps({"train": info, "remat": remat, "ckpt": ckpt_costs,
+                      "serve": serve_info}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,11 @@ cadence, and a sketch state's snapshot, come across with it
 (``snapshot_from_numpy``, ``sketch_snapshot_from_numpy``).  With them, a test can start the two packages from the
 same mid-run state.  ``train_state_from_checkpoint`` turns a checkpoint
 directory the JAX package wrote into the port's ``TrainState``, reading
-its files with numpy alone.  Nothing here imports JAX.
+its files with numpy alone.  ``cache_from_numpy`` carries a serving
+cache across (each family's dense cache dict: the KV caches, the Mamba
+caches, the cross K / V and the position) and ``pool_from_numpy`` a paged
+block pool, so a test can start both packages' decode from one cache.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ from repro_torch.core.came import CAMELeaf, CAMEState
 from repro_torch.core.factored import DenseLeaf, FactoredLeaf
 from repro_torch.core.quantized import QuantizedMatrix
 from repro_torch.core.sketch import SketchDense, SketchLeaf, SketchState
+from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba2 import MambaCache
 from repro_torch.resilience.guards import GuardedState, GuardState
 from repro_torch.telemetry.snapshot import SketchSnapshot, TelemetrySnapshot
 from repro_torch.train.steps import TrainState
@@ -44,6 +50,42 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> dict:
     """Nested dict of arrays -> nested dict of fp32 tensors on ``device``."""
     return {k: params_from_numpy(v, device) if isinstance(v, dict)
             else _t(v, device, torch.float32) for k, v in tree.items()}
+
+
+def _array(x, device) -> torch.Tensor:
+    """A numpy array (bf16 as ml_dtypes or JAX give it) -> a tensor of the
+    same dtype on ``device``."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return _t(a.astype(np.float32), device).to(torch.bfloat16)
+    return _t(a, device)
+
+
+def cache_from_numpy(cache: dict, device: str | torch.device = "cpu"
+                     ) -> dict:
+    """A JAX serving cache after ``device_get`` -> the port's: ``kv`` (a
+    ``KVCache`` of (L, B, S, KV, dh)), ``mamba`` (a ``MambaCache`` of (L,
+    B, d_conv, conv_dim) and (L, B, H, P, N)), ``cross`` ((L, 2, B,
+    enc_seq, KV, dh)) as tensors of their dtypes, ``pos`` an int."""
+    out = {}
+    for key, val in cache.items():
+        if key == "pos":
+            out[key] = int(val)
+        elif key == "kv":
+            out[key] = KVCache(k=_array(val.k, device),
+                               v=_array(val.v, device))
+        elif key == "mamba":
+            out[key] = MambaCache(conv=_array(val.conv, device),
+                                  ssm=_array(val.ssm, device))
+        else:
+            out[key] = _array(val, device)
+    return out
+
+
+def pool_from_numpy(pool: dict, device: str | torch.device = "cpu") -> dict:
+    """A JAX paged pool ``{"k", "v"}`` of (L, NB, bs, KV, dh) -> the
+    port's."""
+    return {k: _array(v, device) for k, v in pool.items()}
 
 
 def quantized_from_numpy(qm, device: str | torch.device = "cpu"

@@ -1,13 +1,24 @@
-"""Grouped-query attention over a whole sequence (training; causal, or
-full for an encoder and cross-attention), dispatched as the JAX package's
-``sdpa_auto`` does: the naive score matrix upcast to fp32
-(``_sdpa``) or the chunked online-softmax path (``_sdpa_chunked``), which
-here is the flash-attention kernel (``kernels/ops.py::FlashAttention``).
-The decode and paged paths are not ported yet (see ROADMAP.md)."""
+"""Grouped-query attention, the JAX package's ``models/attention.py``:
+over a whole sequence (training, prefill; causal, or full for an encoder
+and cross-attention), dispatched as its ``sdpa_auto`` does: the naive
+score matrix upcast to fp32 (``_sdpa``) or the chunked online-softmax path
+(``_sdpa_chunked``), which here is the flash-attention kernel
+(``kernels/ops.py::FlashAttention``); and the serving paths against a
+dense KV cache (``attn_prefill``, ``attn_decode``) or a paged block pool
+(``attn_decode_paged``, ``attn_prefill_paged``), which run the naive
+``_sdpa`` as in JAX.
+
+The serving paths write the cache in place (the JAX functions return an
+updated copy, which the engines donate); they return the cache all the
+same, so the call sites read as JAX's.  Where JAX clamps an index that a
+serving path can push out of range, the port clamps it too: the dense
+decode's write position to the cache's last row (``dynamic_update_slice``),
+the paged prefill's block index to the table's last column (a gather).
+"""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,6 +55,22 @@ def attn_init(gen: torch.Generator, cfg, n_layers: int) -> dict:
         p["q_norm"] = torch.ones((n_layers, hd), device=dev)
         p["k_norm"] = torch.ones((n_layers, hd), device=dev)
     return p
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, S_max, KV, dh)
+    v: torch.Tensor       # (B, S_max, KV, dh)
+
+
+def init_kv_cache(batch: int, cache_len: int, cfg, dtype,
+                  device=None, layers: Optional[int] = None) -> KVCache:
+    """Zeros (B, S_max, KV, dh), or ``(layers, B, S_max, KV, dh)``: the
+    JAX package's per-layer caches stacked."""
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if layers is not None:
+        shape = (layers,) + shape
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
@@ -127,3 +154,98 @@ def attn_apply_full(cfg, p: dict, x: torch.Tensor, *, causal: bool,
     if kv_override is not None:
         k, v = kv_override
     return sdpa_auto(cfg, q, k, v, causal=causal) @ p["wo"].to(x.dtype)
+
+
+def attn_prefill(cfg, p: dict, x: torch.Tensor, cache: KVCache):
+    """Causal attention over the prompt x (B, S, D) through ``sdpa_auto``
+    (the flash kernel where JAX takes ``_sdpa_chunked``); fills
+    ``cache[:, :S]``.  Returns ``(out, cache)``."""
+    s = x.shape[1]
+    q, k, v = _project_qkv(cfg, p, x, torch.arange(s, device=x.device)[None])
+    out = sdpa_auto(cfg, q, k, v, causal=True)
+    cache.k[:, :s] = k.to(cache.k.dtype)
+    cache.v[:, :s] = v.to(cache.v.dtype)
+    return out @ p["wo"].to(x.dtype), cache
+
+
+def attn_decode(cfg, p: dict, x: torch.Tensor, cache: KVCache, pos: int):
+    """One-token step, x (B, 1, D) at position ``pos`` (an int): its k / v
+    written at row ``min(pos, S_max - 1)`` (JAX's clamp), attention over
+    rows ``<= pos``.  Returns ``(out, cache)``."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(cfg, p, x, torch.full((b, 1), pos,
+                                                 device=x.device))
+    s_max = cache.k.shape[1]
+    row = min(max(pos, 0), s_max - 1)
+    cache.k[:, row] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, row] = v[:, 0].to(cache.v.dtype)
+    mask = torch.arange(s_max, device=x.device)[None, None, :] <= pos
+    out = _sdpa(cfg, q, cache.k, cache.v, mask)
+    return out @ p["wo"].to(x.dtype), cache
+
+
+# -- paged (block-table) KV cache ---------------------------------------------
+# One layer's pool is (num_blocks, block_size, KV, dh); a sequence owns an
+# ordered list of block ids (its block table) and a position.  The read
+# gathers the pool through the table into the logical dense layout (B,
+# n_blocks_per_slot * block_size, KV, dh) and runs the same ``_sdpa`` as
+# the dense cache, positions past each row's masked to NEG_INF, whose
+# softmax weight underflows to exactly 0.0: with the logical length equal
+# to ``cache_len`` this is bitwise ``attn_decode`` on a dense cache holding
+# the same tokens.  Block 0 is the null block (serve/kv_cache.py): rows
+# parked on it write garbage there with duplicate indices (an index_put_
+# whose winner is unspecified on the card), which is only ever read masked.
+
+
+def _paged_gather(pool: torch.Tensor, block_tables: torch.Tensor):
+    """pool (NB, bs, KV, dh), block_tables (B, nbt) -> (B, nbt * bs, KV,
+    dh)."""
+    g = pool[block_tables]
+    b, nbt, bs = g.shape[:3]
+    return g.reshape(b, nbt * bs, *g.shape[3:])
+
+
+def attn_decode_paged(cfg, p: dict, x: torch.Tensor, pk: torch.Tensor,
+                      pv: torch.Tensor, block_tables: torch.Tensor,
+                      positions: torch.Tensor):
+    """One-token step against one layer's pool, per-row positions: x (B,
+    1, D), pk / pv (NB, bs, KV, dh), block_tables (B, nbt) int, positions
+    (B,) int.  Row i's k / v land in block ``block_tables[i, pos // bs]``
+    at offset ``pos % bs``.  Returns ``(out, pk, pv)``."""
+    bs = pk.shape[1]
+    q, k, v = _project_qkv(cfg, p, x, positions[:, None])
+    bids = torch.gather(block_tables, 1, (positions // bs)[:, None])[:, 0]
+    offs = positions % bs
+    pk[bids, offs] = k[:, 0].to(pk.dtype)
+    pv[bids, offs] = v[:, 0].to(pv.dtype)
+    kall = _paged_gather(pk, block_tables)
+    vall = _paged_gather(pv, block_tables)
+    mask = (torch.arange(kall.shape[1], device=x.device)[None, None, :]
+            <= positions[:, None, None])
+    out = _sdpa(cfg, q, kall, vall, mask)
+    return out @ p["wo"].to(x.dtype), pk, pv
+
+
+def attn_prefill_paged(cfg, p: dict, x: torch.Tensor, pk: torch.Tensor,
+                       pv: torch.Tensor, block_table: torch.Tensor, p0: int):
+    """Causal attention over one prompt chunk x (1, C, D) at logical
+    positions p0 .. p0 + C - 1 of one slot (``block_table`` (nbt,)),
+    written through the table; the chunk attends to the slot's earlier
+    chunks and itself.  Chunk padding writes throwaway k / v that the next
+    chunk or decode overwrites before it is ever unmasked.  Returns
+    ``(out, pk, pv)``."""
+    c = x.shape[1]
+    bs = pk.shape[1]
+    tok_pos = p0 + torch.arange(c, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, tok_pos[None, :])
+    col = torch.clamp(tok_pos // bs, max=block_table.shape[0] - 1)
+    bids = block_table[col]
+    offs = tok_pos % bs
+    pk[bids, offs] = k[0].to(pk.dtype)
+    pv[bids, offs] = v[0].to(pv.dtype)
+    kall = _paged_gather(pk, block_table[None, :])
+    vall = _paged_gather(pv, block_table[None, :])
+    mask = (torch.arange(kall.shape[1], device=x.device)[None, None, :]
+            <= tok_pos[None, :, None])
+    out = _sdpa(cfg, q, kall, vall, mask)
+    return out @ p["wo"].to(x.dtype), pk, pv

@@ -11,12 +11,17 @@ autograd differentiates through them.  B and C keep their ``n_groups``
 heads: the op's head h reads group ``h // (H / G)``, as the JAX model's
 ``_expand_groups`` (``jnp.repeat``) copies them.
 
-Decode, the ``MambaCache`` and prefill belong to serving and are not
-ported yet (ROADMAP.md Queue A, serving).
+Serving: ``mamba_apply`` with a ``MambaCache`` also returns the cache
+after the sequence (the conv tail, the last ``d_conv`` pre-conv ``xbc``
+rows left-padded with zeros, and the final SSD state), and
+``mamba_decode`` is the O(1) one-token step: the conv over the rolled
+buffer as one fp32 einsum, and the state update h <- h exp(dt a) +
+dt x B^T.  The state is (B, H, P, N) fp32, the JAX package's layout.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +64,25 @@ def mamba_init(gen: torch.Generator, cfg, n_layers: int) -> dict:
     }
 
 
+class MambaCache(NamedTuple):
+    conv: torch.Tensor    # (B, d_conv, conv_dim) in the compute dtype
+    ssm: torch.Tensor     # (B, H, P, N) fp32
+
+
+def init_mamba_cache(batch: int, cfg, dtype, device=None,
+                     layers: Optional[int] = None) -> MambaCache:
+    """Zeros, or ``(layers, ...)`` stacks of them (the JAX package's
+    per-layer caches stacked)."""
+    s = cfg.ssm
+    _, nh, conv_dim = _dims(cfg)
+    lead = (batch,) if layers is None else (layers, batch)
+    return MambaCache(
+        conv=torch.zeros(lead + (s.d_conv, conv_dim), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros(lead + (nh, s.head_dim, s.d_state),
+                        dtype=torch.float32, device=device))
+
+
 def _split_proj(cfg, zxbcdt):
     d_inner, _, conv_dim = _dims(cfg)
     return torch.split(zxbcdt, [d_inner, conv_dim,
@@ -95,7 +119,9 @@ def _softplus(x):
 def ssd_chunked(xs, b, c, dt, a, d_skip, chunk: int):
     """Chunked SSD with the skip term, the JAX model's ``ssd_chunked``
     plus ``d_skip xs``.  xs (Bt, S, H, P); b, c (Bt, S, G, N); dt (Bt, S,
-    H) fp32; a (H,) < 0; d_skip (H,).  Returns y (Bt, S, H, P) fp32."""
+    H) fp32; a (H,) < 0; d_skip (H,).  Returns y (Bt, S, H, P) fp32 and
+    the state after the last chunk, (Bt, H, P, N) fp32 (the JAX layout;
+    the recurrence here carries it as (Bt, H, N, P))."""
     bt, s, h, p = xs.shape
     g, n = b.shape[2:]
     q = min(chunk, s)
@@ -118,13 +144,16 @@ def ssd_chunked(xs, b, c, dt, a, d_skip, chunk: int):
     for ci in range(nc):
         h_in.append(state)
         state = state * decay[:, ci, :, None, None] + s_chunk[:, ci]
-    return ops.SSDChunk.apply(xs, b, c, dt, cums.reshape(bt, s, h),
-                              torch.stack(h_in, dim=1), d_skip)
+    y = ops.SSDChunk.apply(xs, b, c, dt, cums.reshape(bt, s, h),
+                           torch.stack(h_in, dim=1), d_skip)
+    return y, state.transpose(-1, -2)
 
 
-def mamba_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mamba_apply(cfg, p: dict, x: torch.Tensor,
+                cache: Optional[MambaCache] = None):
     """Full-sequence forward of one layer's block, x (B, S, D) in the
-    compute dtype -> (B, S, D)."""
+    compute dtype -> (B, S, D); with ``cache``, ``(out, the cache after
+    the sequence)`` (a new one; ``cache`` gives its conv dtype)."""
     s_cfg = cfg.ssm
     bt, s, _ = x.shape
     d_inner, nh, _ = _dims(cfg)
@@ -132,11 +161,44 @@ def mamba_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     xs, b, c = _split_xbc(cfg, _causal_conv(xbc, p["conv_w"], p["conv_b"]))
     dt = _softplus(dt.float() + p["dt_bias"])                   # (Bt, S, H)
     a = -torch.exp(p["a_log"])
-    y = ssd_chunked(xs.reshape(bt, s, nh, s_cfg.head_dim),
-                    b.reshape(bt, s, s_cfg.n_groups, s_cfg.d_state),
-                    c.reshape(bt, s, s_cfg.n_groups, s_cfg.d_state),
-                    dt, a, p["d_skip"], s_cfg.chunk)
+    y, h_final = ssd_chunked(
+        xs.reshape(bt, s, nh, s_cfg.head_dim),
+        b.reshape(bt, s, s_cfg.n_groups, s_cfg.d_state),
+        c.reshape(bt, s, s_cfg.n_groups, s_cfg.d_state),
+        dt, a, p["d_skip"], s_cfg.chunk)
     y = y.reshape(bt, s, d_inner).to(x.dtype)
     # gated RMSNorm, then the output projection
     y = L.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"].to(x.dtype)
+    out = y @ p["out_proj"].to(x.dtype)
+    if cache is None:
+        return out
+    tail = xbc[:, -s_cfg.d_conv:, :]
+    tail = F.pad(tail, (0, 0, s_cfg.d_conv - tail.shape[1], 0))
+    return out, MambaCache(conv=tail.to(cache.conv.dtype), ssm=h_final)
+
+
+def mamba_decode(cfg, p: dict, x: torch.Tensor, cache: MambaCache):
+    """One-token step, x (B, 1, D) -> ``(out (B, 1, D), the new cache)``."""
+    s_cfg = cfg.ssm
+    bt = x.shape[0]
+    d_inner, nh, _ = _dims(cfg)
+    g, n, hp = s_cfg.n_groups, s_cfg.d_state, s_cfg.head_dim
+    z, xbc, dt = _split_proj(cfg, x[:, 0, :] @ p["in_proj"].to(x.dtype))
+    conv_buf = torch.cat([cache.conv[:, 1:, :],
+                          xbc[:, None, :].to(cache.conv.dtype)], dim=1)
+    xbc_c = torch.einsum("bkc,ck->bc", conv_buf.float(), p["conv_w"].float())
+    xs, b, c = _split_xbc(cfg, F.silu(xbc_c + p["conv_b"]).to(x.dtype))
+    dt = _softplus(dt.float() + p["dt_bias"])                   # (B, H)
+    dec = torch.exp(dt * -torch.exp(p["a_log"]))
+    xs = xs.reshape(bt, nh, hp).float()
+    # each group's B and C repeated over its heads (the JAX _expand_groups)
+    b = b.reshape(bt, g, n).repeat_interleave(nh // g, dim=1).float()
+    c = c.reshape(bt, g, n).repeat_interleave(nh // g, dim=1).float()
+    h = cache.ssm * dec[:, :, None, None] + (
+        dt[:, :, None, None] * xs[:, :, :, None] * b[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", h, c)
+    y = y + p["d_skip"][None, :, None] * xs
+    y = y.reshape(bt, d_inner).to(x.dtype)
+    y = L.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    return (y @ p["out_proj"].to(x.dtype))[:, None, :], MambaCache(
+        conv=conv_buf, ssm=h)

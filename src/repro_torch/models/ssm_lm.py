@@ -7,8 +7,12 @@ Parameters keep the JAX tree (``embed``, ``layers.{norm,mamba}.*`` stacked
 carries the JAX parameters across unchanged; the forward walks the layers
 with a Python loop over ``layers.unstack``'s views of the stack, as
 ``TransformerLM`` does.
-The caches, prefill and decode belong to serving and are not ported yet
-(ROADMAP.md Queue A, serving).
+
+Serving, as the JAX model: one ``MambaCache`` per layer, stacked
+(``init_cache``); ``prefill`` and ``decode_step`` run a length-1 input
+through ``mamba_decode`` and a longer one through ``mamba_apply`` with the
+cache, each under ``torch.inference_mode``, and write the new caches into
+the stacks in place.
 """
 from __future__ import annotations
 
@@ -18,10 +22,9 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.base import TrainOnly
 
 
-class SSMLM(TrainOnly, nn.Module):
+class SSMLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -66,3 +69,49 @@ class SSMLM(TrainOnly, nn.Module):
         logits, _ = self.forward(params, tokens)
         ce = L.softmax_xent(logits[:, :-1, :], tokens[:, 1:])
         return ce, {"loss": ce}
+
+    # -- serving -------------------------------------------------------------
+    def _serve(self, params: dict, tokens: torch.Tensor, cache: dict):
+        """Every layer against its cache (written in place), then the
+        final norm: (B, S, D)."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        x = params["embed"].to(dt)[tokens]
+        mc = cache["mamba"]
+        for i, lp in enumerate(L.unstack(params["layers"], cfg.n_layers)):
+            h = L.apply_norm(cfg, lp["norm"], x)
+            c = M.MambaCache(mc.conv[i], mc.ssm[i])
+            if x.shape[1] > 1:
+                mo, new = M.mamba_apply(cfg, lp["mamba"], h, c)
+            else:
+                mo, new = M.mamba_decode(cfg, lp["mamba"], h, c)
+            mc.conv[i] = new.conv
+            mc.ssm[i] = new.ssm
+            x = x + mo
+        return L.apply_norm(cfg, params["final_norm"], x)
+
+    def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        return x @ params["lm_head"].to(x.dtype)
+
+    @torch.inference_mode()
+    def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
+        """``{"mamba": MambaCache of (L, ...) stacks, "pos": 0}``; the
+        state does not grow with ``cache_len``."""
+        cfg = self.cfg
+        return {"mamba": M.init_mamba_cache(batch, cfg,
+                                            getattr(torch, cfg.dtype),
+                                            device, layers=cfg.n_layers),
+                "pos": 0}
+
+    @torch.inference_mode()
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict):
+        """``(logits (B, 1, V) of the last position, cache at pos S)``."""
+        x = self._serve(params, tokens, cache)
+        return self._head(params, x[:, -1:, :]), {
+            "mamba": cache["mamba"], "pos": tokens.shape[1]}
+
+    @torch.inference_mode()
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
+        """tokens (B, 1) -> ``(logits (B, 1, V), cache at pos + 1)``."""
+        return self._head(params, self._serve(params, tokens, cache)), {
+            "mamba": cache["mamba"], "pos": int(cache["pos"]) + 1}

@@ -13,7 +13,14 @@ for the experts); the forward walks the layers with a Python loop over
 model holds no parameters itself: ``init`` returns a nested dict of fp32
 master tensors and ``forward`` / ``loss`` take it, mirroring the JAX API
 (``repro_torch.convert`` loads the JAX package's parameters into it).
-Serving (caches, prefill, decode) is not ported yet (``TrainOnly``).
+
+Serving, as the JAX model: a dense KV cache per layer (``init_cache``,
+``prefill`` with the vlm family's ``embeds``, ``decode_step`` at the
+cache's position) and a paged block pool shared by the serving slots
+(``init_paged_cache``, ``prefill_paged`` one chunk of one slot,
+``decode_paged`` every slot at its own position; ``serve/``).  Each runs
+under ``torch.inference_mode`` and writes the cache in place.  Learned
+positions past the table clamp to its last row, as JAX's gathers do.
 """
 from __future__ import annotations
 
@@ -26,14 +33,19 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-from repro_torch.models.base import TrainOnly
 
 # The loss takes the chunked cross entropy from the hiddens (the (B, S, V)
 # logits never exist) for an untied head at vocab * S at least this.
 FUSED_XENT_MIN = 2 ** 26
 
 
-class TransformerLM(TrainOnly, nn.Module):
+def _pos_rows(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """``table[positions]`` with the indices clamped to the table, as the
+    JAX package's gathers and ``dynamic_slice`` clamp them."""
+    return table[torch.clamp(positions, 0, table.shape[0] - 1)]
+
+
+class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -59,16 +71,25 @@ class TransformerLM(TrainOnly, nn.Module):
                                              scale=0.02)
         return params
 
+    def _moe_or_mlp(self, bp: dict, h: torch.Tensor):
+        """``(y, aux)``, aux the MoE load-balance loss or None."""
+        if not self.is_moe:
+            return L.mlp_apply(self.cfg, bp["mlp"], h), None
+        return MOE.moe_apply_local(self.cfg, bp["moe"], h)
+
     def _block(self, x: torch.Tensor, bp: dict):
-        """One layer: ``(x, aux)``, aux the MoE load-balance loss or None."""
+        """One layer: ``(x, aux)``."""
         cfg = self.cfg
         h = L.apply_norm(cfg, bp["norm1"], x)
         x = x + A.attn_apply_full(cfg, bp["attn"], h, causal=True)
-        h = L.apply_norm(cfg, bp["norm2"], x)
-        if not self.is_moe:
-            return x + L.mlp_apply(cfg, bp["mlp"], h), None
-        y, aux = MOE.moe_apply_local(cfg, bp["moe"], h)
+        y, aux = self._moe_or_mlp(bp, L.apply_norm(cfg, bp["norm2"], x))
         return x + y, aux
+
+    def _lm_head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"].to(dt).T
+        return x @ params["lm_head"].to(dt)
 
     def _trunk(self, params: dict, x: torch.Tensor):
         """Every layer, then the final norm: ``(x, aux summed over the
@@ -86,17 +107,9 @@ class TransformerLM(TrainOnly, nn.Module):
         """tokens: (B, S_txt) int, embeds: (B, F, D) the stub frontend's
         output or None -> ``(logits (B, F + S_txt, V) in the compute dtype,
         aux)``."""
-        cfg = self.cfg
-        dt = getattr(torch, cfg.dtype)
-        x = params["embed"].to(dt)[tokens]
-        if embeds is not None:
-            x = torch.cat([embeds.to(dt), x], dim=1)
-        if cfg.pos_embedding == "learned":
-            x = x + params["pos_embed"].to(dt)[None, :x.shape[1], :]
-        x, aux = self._trunk(params, x)
-        head = (params["embed"].to(dt).T if cfg.tie_embeddings
-                else params["lm_head"].to(dt))
-        return x @ head, aux
+        x, aux = self._trunk(params, self._embed(params, tokens,
+                                                 embeds=embeds))
+        return self._lm_head(params, x), aux
 
     def _hidden(self, params: dict, tokens: torch.Tensor):
         """Forward up to the final norm (no LM head), as the JAX package's
@@ -124,3 +137,118 @@ class TransformerLM(TrainOnly, nn.Module):
             ce = L.softmax_xent(logits[:, n_front:-1, :], tokens[:, 1:])
         return ce + 0.01 * aux, {"loss": ce, "aux_loss": aux}
 
+
+    # -- serving -------------------------------------------------------------
+    def _serve_layers(self, params: dict, x: torch.Tensor, caches, attend):
+        """Every layer with ``attend(attn params, h, layer cache) -> (out,
+        ...)`` in place of full attention, then the final norm.  ``caches``
+        is a list of per-layer caches (views of the stacks)."""
+        cfg = self.cfg
+        layers = L.unstack(params["blocks"], cfg.n_layers)
+        for bp, cache in zip(layers, caches):
+            h = L.apply_norm(cfg, bp["norm1"], x)
+            x = x + attend(bp["attn"], h, cache)[0]
+            y, _ = self._moe_or_mlp(bp, L.apply_norm(cfg, bp["norm2"], x))
+            x = x + y
+        return L.apply_norm(cfg, params["final_norm"], x)
+
+    def _embed(self, params: dict, tokens: torch.Tensor, positions=None,
+               embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings (after ``embeds``), plus the learned positions
+        at ``positions`` (default 0 .. S - 1)."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        x = params["embed"].to(dt)[tokens]
+        if embeds is not None:
+            x = torch.cat([embeds.to(dt), x], dim=1)
+        if cfg.pos_embedding == "learned":
+            if positions is None:
+                x = x + params["pos_embed"].to(dt)[None, :x.shape[1], :]
+            else:
+                x = x + _pos_rows(params["pos_embed"].to(dt), positions)
+        return x
+
+    @torch.inference_mode()
+    def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
+        """``{"kv": KVCache of (L, B, cache_len, KV, dh) zeros in the
+        compute dtype, "pos": 0}``."""
+        cfg = self.cfg
+        return {"kv": A.init_kv_cache(batch, cache_len, cfg,
+                                      getattr(torch, cfg.dtype), device,
+                                      layers=cfg.n_layers),
+                "pos": 0}
+
+    @torch.inference_mode()
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
+                embeds: Optional[torch.Tensor] = None):
+        """The prompt (``embeds`` (B, F, D) before ``tokens`` (B, S)) into
+        the cache; returns ``(logits (B, 1, V) of the last position,
+        cache at pos F + S)``."""
+        cfg = self.cfg
+        x = self._embed(params, tokens, embeds=embeds)
+        kv = cache["kv"]
+        caches = [A.KVCache(k, v) for k, v in zip(kv.k, kv.v)]
+        x = self._serve_layers(
+            params, x, caches,
+            lambda p, h, c: A.attn_prefill(cfg, p, h, c))
+        return (self._lm_head(params, x[:, -1:, :]),
+                {"kv": kv, "pos": x.shape[1]})
+
+    @torch.inference_mode()
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
+        """tokens (B, 1): one step at ``cache["pos"]``; returns ``(logits
+        (B, 1, V), cache at pos + 1)``."""
+        cfg = self.cfg
+        pos = int(cache["pos"])
+        x = self._embed(params, tokens, positions=torch.full(
+            (1, 1), pos, device=tokens.device))
+        kv = cache["kv"]
+        caches = [A.KVCache(k, v) for k, v in zip(kv.k, kv.v)]
+        x = self._serve_layers(
+            params, x, caches,
+            lambda p, h, c: A.attn_decode(cfg, p, h, c, pos))
+        return self._lm_head(params, x), {"kv": kv, "pos": pos + 1}
+
+    # -- paged serving (block-table KV cache; see serve/kv_cache.py) --------
+    @torch.inference_mode()
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         device=None) -> dict:
+        """The block pool every slot shares: ``{"k", "v"}`` zeros of (L,
+        num_blocks, block_size, KV, dh).  Block tables and positions are
+        the engine's, passed per call."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        dt = getattr(torch, cfg.dtype)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    @torch.inference_mode()
+    def prefill_paged(self, params: dict, pool: dict, tokens: torch.Tensor,
+                      block_table: torch.Tensor, p0: int, last_idx: int):
+        """One prompt chunk of one slot: tokens (1, C) at positions p0 ..
+        p0 + C - 1, block_table (nbt,); returns ``(logits (1, 1, V) at
+        chunk index last_idx (the last real prompt token), pool)``."""
+        cfg = self.cfg
+        c = tokens.shape[1]
+        x = self._embed(params, tokens, positions=(
+            p0 + torch.arange(c, device=tokens.device))[None])
+        x = self._serve_layers(
+            params, x, list(zip(pool["k"], pool["v"])),
+            lambda p, h, kv: A.attn_prefill_paged(cfg, p, h, *kv,
+                                                  block_table, p0))
+        return self._lm_head(params, x[:, last_idx:last_idx + 1]), pool
+
+    @torch.inference_mode()
+    def decode_paged(self, params: dict, pool: dict, tokens: torch.Tensor,
+                     block_tables: torch.Tensor, positions: torch.Tensor):
+        """One step for every slot at its own position: tokens (B, 1),
+        block_tables (B, nbt), positions (B,).  Idle rows point at the null
+        block.  Returns ``(logits (B, 1, V), pool)``."""
+        cfg = self.cfg
+        x = self._embed(params, tokens, positions=positions[:, None])
+        x = self._serve_layers(
+            params, x, list(zip(pool["k"], pool["v"])),
+            lambda p, h, kv: A.attn_decode_paged(cfg, p, h, *kv,
+                                                 block_tables, positions))
+        return self._lm_head(params, x), pool

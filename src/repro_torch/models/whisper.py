@@ -14,10 +14,19 @@ Parameters keep the JAX tree (``embed``, ``enc_pos``, ``dec_pos``,
 ``enc_blocks`` stacked ``(enc_layers, ...)``, ``dec_blocks`` stacked
 ``(n_layers, ...)``, ``enc_norm``, ``dec_norm``).  Under any ``remat`` but
 "none" each encoder and decoder layer is recomputed in the backward, as
-the JAX package checkpoints both scan bodies.  Caches, prefill and decode
-belong to serving (``TrainOnly``).
+the JAX package checkpoints both scan bodies.
+
+Serving, as the JAX model: ``init_cache`` holds a self-attention KV cache
+per decoder layer and the cross K / V, ``(L, 2, B, enc_seq, KV, dh)``;
+``prefill`` encodes the frames once, fills both and returns the last
+position's logits; ``decode_step`` attends to the cached cross K / V.
+Both run under ``torch.inference_mode`` and write the caches in place.
+``prefill`` needs ``embeds``: without them it stops with the JAX model's
+``AttributeError`` (no serving engine passes them, in either package).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -25,10 +34,9 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.base import TrainOnly
 
 
-class EncDecLM(TrainOnly, nn.Module):
+class EncDecLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -133,3 +141,80 @@ class EncDecLM(TrainOnly, nn.Module):
         logits, _ = self.forward(params, tokens, batch["embeds"])
         ce = L.softmax_xent(logits[:, :-1, :], tokens[:, 1:])
         return ce, {"loss": ce}
+
+    # -- serving -------------------------------------------------------------
+    @torch.inference_mode()
+    def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
+        """``{"kv": KVCache of (L, B, cache_len, KV, dh), "cross": (L, 2, B,
+        enc_seq, KV, dh), "pos": 0}``, zeros in the compute dtype."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        cross = torch.zeros((cfg.n_layers, 2, batch, cfg.enc_seq,
+                             cfg.n_kv_heads, cfg.resolved_head_dim),
+                            dtype=dt, device=device)
+        return {"kv": A.init_kv_cache(batch, cache_len, cfg, dt, device,
+                                      layers=cfg.n_layers),
+                "cross": cross, "pos": 0}
+
+    def _decoder(self, params: dict, x: torch.Tensor, cache: dict,
+                 self_attend, cross_kv) -> torch.Tensor:
+        """The decoder layers with ``self_attend(p, h, layer cache)`` and
+        ``cross_kv(i, bp) -> (k, v)``, then ``dec_norm`` and the tied head
+        of the last position."""
+        cfg = self.cfg
+        kv = cache["kv"]
+        for i, bp in enumerate(L.unstack(params["dec_blocks"],
+                                         cfg.n_layers)):
+            h = L.apply_norm(cfg, bp["norm1"], x)
+            x = x + self_attend(bp["self_attn"], h,
+                                A.KVCache(kv.k[i], kv.v[i]))[0]
+            h = L.apply_norm(cfg, bp["norm_x"], x)
+            x = x + self._cross_attend(bp, h, *cross_kv(i, bp))
+            h = L.apply_norm(cfg, bp["norm2"], x)
+            x = x + L.mlp_apply(cfg, bp["mlp"], h)
+        x = L.apply_norm(cfg, params["dec_norm"], x)
+        return x[:, -1:, :] @ params["embed"].to(x.dtype).T
+
+    @torch.inference_mode()
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
+                embeds: Optional[torch.Tensor] = None):
+        """Encode ``embeds`` (B, enc_seq, D), then the prompt tokens (B, S)
+        through the decoder, filling the self-attention cache and each
+        layer's cross K / V.  Returns ``(logits (B, 1, V), cache at pos
+        S)``."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        enc_out = self.encode(params, embeds)
+        s = tokens.shape[1]
+        x = (params["embed"].to(dt)[tokens]
+             + params["dec_pos"].to(dt)[None, :s, :])
+        cross = cache["cross"]
+
+        def cross_kv(i, bp):
+            ek, ev = self._cross_kv(bp, enc_out)
+            cross[i, 0] = ek.to(dt)
+            cross[i, 1] = ev.to(dt)
+            return ek, ev
+
+        logits = self._decoder(
+            params, x, cache, lambda p, h, c: A.attn_prefill(cfg, p, h, c),
+            cross_kv)
+        return logits, {"kv": cache["kv"], "cross": cross, "pos": s}
+
+    @torch.inference_mode()
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
+        """tokens (B, 1) at ``cache["pos"]`` (its learned position clamped
+        to ``dec_pos``, as JAX's ``dynamic_slice`` clamps it) -> ``(logits
+        (B, 1, V), cache at pos + 1)``."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        pos = int(cache["pos"])
+        table = params["dec_pos"].to(dt)
+        x = (params["embed"].to(dt)[tokens]
+             + table[min(max(pos, 0), table.shape[0] - 1)][None, None, :])
+        cross = cache["cross"]
+        logits = self._decoder(
+            params, x, cache,
+            lambda p, h, c: A.attn_decode(cfg, p, h, c, pos),
+            lambda i, bp: (cross[i, 0], cross[i, 1]))
+        return logits, {"kv": cache["kv"], "cross": cross, "pos": pos + 1}

@@ -19,8 +19,15 @@ parameters across unchanged.  The layers run as a Python loop; under any
 ``remat`` but "none" each layer's body, its shared block included, is
 recomputed in the backward, as the JAX package checkpoints its scan body.
 The Mamba2 block is ``models/mamba2.py`` (the SSD block B7), the shared
-attention ``models/attention.py`` (B6 under ``attn_impl="chunked"``).
-Caches, prefill and decode belong to serving (``TrainOnly``).
+attention ``models/attention.py`` (B6 under ``attn_impl="chunked"``, or
+"auto" past 4096 tokens).
+
+Serving, as the JAX model: per-layer Mamba caches plus one KV cache per
+shared-block application point (``n_layers // hybrid_attn_every`` of
+them; point ``i // every``), in ``init_cache``; ``prefill`` (the prompt
+through ``mamba_apply`` and ``attn_prefill``) and ``decode_step``
+(``mamba_decode``, ``attn_decode``) under ``torch.inference_mode``,
+writing the caches in place.
 """
 from __future__ import annotations
 
@@ -33,10 +40,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.base import TrainOnly
 
 
-class HybridLM(TrainOnly, nn.Module):
+class HybridLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -48,6 +54,7 @@ class HybridLM(TrainOnly, nn.Module):
                 f"a multiple of hybrid_attn_every > 0, got {cfg.family!r} / "
                 f"{cfg.ssm!r} / {cfg.n_layers} % {every}")
         self.cfg = cfg
+        self.n_apps = cfg.n_layers // every
 
     def init(self, gen: torch.Generator) -> dict:
         """Random fp32 master parameters on ``gen``'s device."""
@@ -108,3 +115,68 @@ class HybridLM(TrainOnly, nn.Module):
         logits, _ = self.forward(params, tokens)
         ce = L.softmax_xent(logits[:, :-1, :], tokens[:, 1:])
         return ce, {"loss": ce}
+
+    # -- serving -------------------------------------------------------------
+    def _serve(self, params: dict, tokens: torch.Tensor, cache: dict,
+               pos: int) -> torch.Tensor:
+        """Every layer against its caches (written in place), prefill for
+        S > 1 and decode at ``pos`` for one token, then the final norm and
+        the head: logits (B, S', V), S' 1."""
+        cfg = self.cfg
+        every = cfg.hybrid_attn_every
+        dt = getattr(torch, cfg.dtype)
+        x = params["embed"].to(dt)[tokens]
+        mc, kv = cache["mamba"], cache["kv"]
+        shared = L.unstack(params["shared"], cfg.n_shared_blocks)
+        prefill = x.shape[1] > 1
+        for i, lp in enumerate(L.unstack(params["layers"], cfg.n_layers)):
+            h = L.apply_norm(cfg, lp["norm"], x)
+            c = M.MambaCache(mc.conv[i], mc.ssm[i])
+            if prefill:
+                mo, new = M.mamba_apply(cfg, lp["mamba"], h, c)
+            else:
+                mo, new = M.mamba_decode(cfg, lp["mamba"], h, c)
+            mc.conv[i] = new.conv
+            mc.ssm[i] = new.ssm
+            x = x + mo
+            if i % every != every - 1:
+                continue
+            app = i // every
+            sp = shared[app % cfg.n_shared_blocks]
+            c = A.KVCache(kv.k[app], kv.v[app])
+            h = L.apply_norm(cfg, sp["norm1"], x)
+            if prefill:
+                a_out, _ = A.attn_prefill(cfg, sp["attn"], h, c)
+            else:
+                a_out, _ = A.attn_decode(cfg, sp["attn"], h, c, pos)
+            x = x + a_out
+            x = x + L.mlp_apply(cfg, sp["mlp"],
+                                L.apply_norm(cfg, sp["norm2"], x))
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        return x[:, -1:, :] @ params["lm_head"].to(dt)
+
+    @torch.inference_mode()
+    def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
+        """``{"mamba": (L, ...) Mamba caches, "kv": (n_apps, B, cache_len,
+        KV, dh) KV caches, "pos": 0}``."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        return {"mamba": M.init_mamba_cache(batch, cfg, dt, device,
+                                            layers=cfg.n_layers),
+                "kv": A.init_kv_cache(batch, cache_len, cfg, dt, device,
+                                      layers=self.n_apps),
+                "pos": 0}
+
+    @torch.inference_mode()
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict):
+        """``(logits (B, 1, V) of the last position, cache at pos S)``."""
+        logits = self._serve(params, tokens, cache, 0)
+        return logits, {"mamba": cache["mamba"], "kv": cache["kv"],
+                        "pos": tokens.shape[1]}
+
+    @torch.inference_mode()
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
+        """tokens (B, 1) -> ``(logits (B, 1, V), cache at pos + 1)``."""
+        pos = int(cache["pos"])
+        return self._serve(params, tokens, cache, pos), {
+            "mamba": cache["mamba"], "kv": cache["kv"], "pos": pos + 1}

@@ -11,7 +11,7 @@ import pytest
 from repro.telemetry import validate_dir as jax_validate_dir
 from repro_torch.telemetry import validate as port_validate
 from repro_torch.tools import chaos
-from test_torch_dense import one_thread  # noqa: F401 (autouse fixture)
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 
 def test_chaos_tool_default_plan_passes_both_validators(tmp_path, capsys):

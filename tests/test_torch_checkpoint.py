@@ -62,6 +62,7 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.resilience import corrupt_latest_checkpoint, flip_bit
 from repro_torch.train.steps import TrainState
 from repro_torch.train.train_loop import LoopConfig, train
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 JA = importlib.import_module("repro.core.adapprox")
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,17 +72,6 @@ SMOKE_ARGV = ["--smoke", "--device", "cpu", "--fused-update",
               "--refresh-every", "5", "--guards", "--max-demotions", "1",
               "--embedding-min-rows", "256", "--sketch-width", "256",
               "--sketch-depth", "2", "--log-every", "1"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The smoke models' ops are a few thousand elements: one intra-op
-    thread runs them fastest, and keeps them fast beside other test
-    workers (the setting is restored for the worker's next file)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 # ---------------------------------------------------------------------------

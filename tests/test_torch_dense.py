@@ -43,21 +43,11 @@ from repro_torch.models import layers as TL
 from repro_torch.models.model_zoo import build_model
 from test_torch_model import _close_rel
 from test_torch_parity import SEQ, _JaxSketch
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 DENSE = ("qwen2-7b", "qwen3-14b", "minitron-4b", "deepseek-67b",
          "embed-heavy-256k")
 MIXED = dict(sketch_width=256, sketch_depth=2, embedding_min_rows=256)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The smoke models' ops are a few thousand elements: one intra-op
-    thread runs them fastest, and keeps them fast beside other test
-    workers (the setting is restored for the worker's next file)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _rng(seed):

@@ -34,16 +34,9 @@ from repro_torch.models import attention as TA
 from repro_torch.models.model_zoo import build_model
 from test_torch_dense import _grads_of
 from test_torch_model import _close_rel
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ARCH = "whisper-large-v3"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _f32(*shape, seed=0):

@@ -42,6 +42,8 @@ from repro_torch.core.transform import PartitionState
 from repro_torch.launch.train import optimizer_config
 from test_torch_parity import MIN_DIM, SEQ, _close_rel, _grads, _JaxSketch
 from test_torch_parity import _jax_params as _init_jax_params
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
+
 
 MIXED = dict(sketch_width=256, sketch_depth=2, embedding_min_rows=256)
 

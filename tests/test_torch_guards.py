@@ -215,7 +215,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of repro_torch (the telemetry package's too),
     the chunked attention path's entry points (``ops.FlashAttention``, ``sdpa_auto``), the Mamba2
     path's (``ops.SSDChunk``, ``ssd_chunked``, ``SSMLM``), the MoE block's
-    (``moe_apply_local``), the chaos tool and chip_smoke.py
+    (``moe_apply_local``), the chaos tool, the serving engines and
+    launcher (``repro_torch.serve``, ``launch.serve``) and chip_smoke.py
     in a fresh interpreter and inspect sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -229,6 +230,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from repro_torch.models.ssm_lm import SSMLM\n"
         "from repro_torch.models.moe import moe_apply_local\n"
         "from repro_torch.tools.chaos import main\n"
+        "from repro_torch.serve import ContinuousEngine, Engine\n"
+        "from repro_torch.launch.serve import main as serve_main\n"
         "import chip_smoke\n"
         "tel = ('collect', 'controller', 'metrics', 'runtime', 'sink', "
         "'snapshot', 'trace', 'validate')\n"

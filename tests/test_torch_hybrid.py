@@ -36,16 +36,9 @@ from repro_torch.models.model_zoo import build_model
 from test_torch_dense import _jax_launcher
 from test_torch_model import _close_rel
 from test_torch_parity import _JaxSketch
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ARCH = "zamba2-2.7b"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _case(remat: str, **over):

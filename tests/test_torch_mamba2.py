@@ -33,6 +33,8 @@ from repro_torch.core.adapprox import adapprox_state
 from repro_torch.core.factored import FactoredLeaf
 from repro_torch.models.model_zoo import build_model
 from test_torch_parity import SEQ, _JaxSketch
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
+
 
 ARCH = "mamba2-370m"
 MIXED = dict(sketch_width=256, sketch_depth=2, embedding_min_rows=256)
@@ -139,9 +141,11 @@ def test_launcher_mamba2_tracks_jax_launcher():
 
 def test_unported_families_and_serving_raise():
     """Every family builds (dense, moe, vlm, ssm, hybrid, encdec) and an
-    unknown one is refused, as in the JAX package; every family's serving
-    entry points (``init_cache``, ``prefill``, ``decode_step``) raise,
-    naming ROADMAP, until Queue A's serving item ports them."""
+    unknown one is refused, as in the JAX package.  Serving raised here
+    until it was ported; now no family raises for it: each one's
+    ``init_cache`` / ``prefill`` / ``decode_step`` run from its own init
+    (whisper with its frame ``embeds``) and give finite logits, (B, 1, V)
+    a call (``tests/test_torch_decode.py`` holds them to JAX)."""
     from repro_torch.config import ModelConfig
     with pytest.raises(ValueError, match="unknown model family 'rnn'"):
         build_model(ModelConfig(arch="x", family="rnn", n_layers=1,
@@ -153,10 +157,17 @@ def test_unported_families_and_serving_raise():
         cfg = get_smoke_config(arch)
         families.add(cfg.family)
         model = build_model(cfg)
-        for call in (lambda: model.prefill({}, torch.zeros((1, 4)), None),
-                     lambda: model.init_cache(1, 4),
-                     lambda: model.decode_step({}, None,
-                                               torch.zeros((1, 1)))):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                call()
+        params = model.init(torch.Generator().manual_seed(0))
+        kw = ({"embeds": torch.randn((1, cfg.enc_seq, cfg.d_model))}
+              if cfg.family == "encdec" else {})
+        cache = model.init_cache(1, 32)
+        logits, cache = model.prefill(params, torch.zeros((1, 16),
+                                                          dtype=torch.long),
+                                      cache, **kw)
+        assert cache["pos"] == 16
+        logits, cache = model.decode_step(params, cache,
+                                          torch.zeros((1, 1),
+                                                      dtype=torch.long))
+        assert logits.shape == (1, 1, cfg.vocab) and cache["pos"] == 17
+        assert bool(torch.isfinite(logits).all()), arch
     assert families == {"dense", "moe", "vlm", "ssm", "hybrid", "encdec"}

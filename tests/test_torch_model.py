@@ -107,7 +107,7 @@ def test_unported_model_features_raise():
     vlm stub frontend's precomputed ``embeds`` are taken: the logits span
     the frontend and text positions, the loss the text alone, and it moves
     with ``embeds``.  RoPE, SwiGLU and MoE build; bf16 master parameters
-    (``param_dtype``) are cast at init.  What still raises is serving
+    (``param_dtype``) are cast at init.  Serving no longer raises
     (``test_torch_mamba2.py::test_unported_families_and_serving_raise``)."""
     for arch in ("zamba2-2.7b", "whisper-large-v3", "llava-next-mistral-7b",
                  "qwen2-7b", "olmoe-1b-7b"):

@@ -37,6 +37,8 @@ from repro_torch.convert import adapprox_state_from_numpy, params_from_numpy
 from repro_torch.core import adapprox as TA
 from repro_torch.core.factored import FactoredLeaf
 from repro_torch.core.rank import RankConfig
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
+
 
 # repro.core re-exports a function named ``adapprox`` over the module
 JA = importlib.import_module("repro.core.adapprox")

@@ -51,6 +51,8 @@ from repro_torch.core.rank import RankConfig
 from repro_torch.core.types import tree_nbytes
 from test_torch_parity import _cfg_kw, _close_rel, _grads, _JaxSketch
 from test_torch_parity import _jax_params as _init_jax_params
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
+
 
 JA = importlib.import_module("repro.core.adapprox")
 

@@ -57,20 +57,10 @@ from repro_torch.resilience import (FaultPlan, GuardConfig, GuardedState,
                                     guard_updates, inject_faults,
                                     tree_all_finite)
 from repro_torch.train.train_loop import LoopConfig, train
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 JA = importlib.import_module("repro.core.adapprox")
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The smoke models' ops are a few thousand elements: one intra-op
-    thread runs them fastest, and keeps them fast beside other test
-    workers (the setting is restored for the worker's next file)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 class KeyedJaxSketch:

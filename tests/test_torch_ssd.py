@@ -109,8 +109,9 @@ def test_ref_ssd_chunk_matches_pallas_interpret(chunk, groups):
 @pytest.mark.parametrize("groups", [1, 2])
 def test_ssd_chunked_and_grads_match_jax(chunk, groups):
     """The port's ssd_chunked (cumsum, states and scan in torch, the block
-    through ops.SSDChunk) against JAX's ssd_chunked plus the skip: y, and
-    the gradients of <y, dY> in all six inputs against jax.vjp."""
+    through ops.SSDChunk) against JAX's ssd_chunked plus the skip: y, the
+    final state (Bt, H, P, N) that serving caches, and the gradients of
+    <y, dY> in all six inputs against jax.vjp."""
     d = _inputs(10 + chunk + groups, groups)
     dy = np.random.default_rng(99).standard_normal(
         (BT, S, H, P)).astype(np.float32)
@@ -119,8 +120,15 @@ def test_ssd_chunked_and_grads_match_jax(chunk, groups):
                         *(jnp.asarray(d[k]) for k in names))
     jgrads = vjp(jnp.asarray(dy))
     ins = [torch.tensor(d[k], requires_grad=True) for k in names]
-    got = TM.ssd_chunked(*ins[:5], ins[5], chunk)
+    got, state = TM.ssd_chunked(*ins[:5], ins[5], chunk)
     _close(got.detach().numpy(), want, 1e-5, "ssd_chunked y")
+    h = d["xs"].shape[2]
+    _, jstate = JM.ssd_chunked(
+        *(jnp.asarray(d[k]) for k in ("xs",)),
+        JM._expand_groups(jnp.asarray(d["b"]), h, groups),
+        JM._expand_groups(jnp.asarray(d["c"]), h, groups),
+        jnp.asarray(d["dt"]), jnp.asarray(d["a"]), chunk)
+    _close(state.detach().numpy(), jstate, 1e-5, "ssd_chunked final state")
     grads = torch.autograd.grad(got, ins, torch.tensor(dy))
     for k, g, jg in zip(names, grads, jgrads):
         assert np.isfinite(np.asarray(jg)).all(), k

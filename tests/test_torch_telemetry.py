@@ -72,22 +72,12 @@ from repro_torch.launch.train import optimizer_config
 from repro_torch.models.model_zoo import build_model
 from repro_torch.resilience import GuardConfig, guard_updates
 from repro_torch.train.train_loop import LoopConfig, train
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 JA = importlib.import_module("repro.core.adapprox")
 JC = importlib.import_module("repro.telemetry.controller")
 CPU = torch.device("cpu")
 SMALL = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The smoke models' ops are a few thousand elements: one intra-op
-    thread runs them fastest, and keeps them fast beside other test
-    workers (the setting is restored for the worker's next file)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 class KeyedJaxSketch:

@@ -41,19 +41,10 @@ from repro_torch.launch import train as launcher
 from repro_torch.telemetry import validate as validate_cli
 from repro_torch.telemetry.trace import ROOT_SPAN
 from repro_torch.train.train_loop import LoopConfig, train
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the smoke models' small ops (fastest, also
-    beside other test workers); restored for the worker's next file."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _traceview_check(directory) -> int:

@@ -34,17 +34,10 @@ from repro_torch.models import layers as TL
 from repro_torch.models.model_zoo import build_model
 from repro_torch.train.steps import TrainState, build_train_step
 from test_torch_model import _close_rel
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ARCH = "llava-next-mistral-7b"
 LR = 0.05
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _batch(b, s_txt, f=8, d=64, vocab=512, seed=0):

@@ -123,7 +123,16 @@ sm_90a) and the CUDA toolkit.  In order, it
      each 6 steps (the last two on fresh make_batch embeds and synthetic
      text a step) with the launches the path implies, and LLaVA text
      only through the launcher for 6;
-  6. breaks a step of each run down into model and optimizer time;
+  6. [mesh]: trains GPT-2 117M (mixed groups, 12 steps, writing a
+     checkpoint) and OLMoE-1B-7B (4 layers, 6 steps, the MoE block
+     through moe_apply_sharded) through the launcher with --mesh 1,1
+     --fsdp, on a one-rank NCCL group (the split leaves DTensors, the
+     step's gathers, batch split and gradient sums real collectives),
+     and holds each to its run without a mesh, bitwise: every loss,
+     every final state tensor, the launches; the checkpoint's manifest
+     carries a spec string on every leaf and the rules' param specs, and
+     restores without a mesh bitwise; then breaks a step of each run
+     down into model and optimizer time;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
      them against ``BENCH_memory.json``, and those of
@@ -221,6 +230,15 @@ TRAIN_QWEN2_ARGV = ["--arch", "qwen2-7b", "--steps", "6", "--batch", "2",
                     "--device", "cuda"]
 TRAIN_OLMOE_ARGV = (["--arch", "olmoe-1b-7b"] + TRAIN_QWEN2_ARGV[2:8]
                     + ["--lr", "4e-4"] + TRAIN_QWEN2_ARGV[10:])
+# wq, wk, wv, wo, the router and the three expert stacks (L, 64, m, n)
+# factored (8 calls), embed and lm_head sketched; naive attention
+OLMOE_EXPECT = dict(fused_precond=48, fused_apply=48, sketch_scatter=12,
+                    sketch_query=12)
+# the distributed training path on a one-rank NCCL group (--mesh 1,1:
+# the check runs on one card, and NCCL refuses two ranks on one device),
+# every collective an identity: held bitwise to [train-mixed] and
+# [train-olmoe]
+MESH_ARGV = ["--mesh", "1,1", "--fsdp"]
 
 # The hybrid, encoder-decoder and vlm families at full width,
 # each on the launcher's mixed groups with --fused-update --refresh-every 5
@@ -2371,7 +2389,7 @@ def train_main_path(run, kind: str, expect: dict, attn_layers: int = 0,
           f" optimizer state {state_mb:.1f} MB; the run {wall:.1f} s")
     return launches, {"loss": losses[-1], "peak_gib": peak, "fold_s": fold_s,
                       "refresh_s": refresh, "wall_s": wall,
-                      "state_mb": state_mb}
+                      "state_mb": state_mb, "losses": losses}
 
 
 def family_run(device, arch: str, layers: int | None, batch: int, seq: int,
@@ -3071,6 +3089,111 @@ def dtoh_copies(fn) -> int:
     kernel_records(prof, "device-to-host copies")
     return sum(e.count for e in prof.key_averages()
                if "Memcpy DtoH" in e.key)
+
+
+def mesh_phase(mixed_state: list, mixed_info: dict, mixed_expect: dict,
+               olmoe_state: list, olmoe_info: dict) -> dict:
+    """[mesh]: the launcher's distributed path (``--mesh 1,1 --fsdp``) on
+    a one-rank NCCL group: every split leaf a DTensor on a (data=1,
+    model=1) mesh, the step gathering, splitting the batch and summing the
+    gradients over the dp axes through real collectives, OLMoE's MoE block
+    through ``moe_apply_sharded`` (a model axis of 1).  Each is held
+    bitwise to its run without a mesh ([train-mixed], [train-olmoe]):
+    losses, launches and every final state tensor; per-rank state bytes
+    and the fold / refresh step times printed beside the unsharded run's.
+    GPT-2's run writes its checkpoint: JAX's spec string on every leaf,
+    the param specs the rules give, ``mesh_axes`` {data: 1, model: 1},
+    and a restore without a mesh bitwise the gathered final state."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core.types import tree_nbytes
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model_zoo import build_model
+    t0 = time.monotonic()
+    card = card_line()
+    runs = {}
+
+    def held(what, info, ref_info, ref_state, state):
+        if info["losses"] != ref_info["losses"]:
+            fail(f"[mesh] {what}: losses {info['losses']} vs "
+                 f"{ref_info['losses']} without a mesh")
+        full = tensor_leaves(SH.gather_tree(state))
+        ref = dict(ref_state)
+        if [p for p, _ in full] != [p for p, _ in ref_state]:
+            fail(f"[mesh] {what}: the state's leaves differ")
+        bad = [p for p, t in full
+               if not torch.equal(t.detach().cpu(), ref[p])]
+        if bad:
+            fail(f"[mesh] {what}: {len(bad)} state tensors differ from the "
+                 f"run without a mesh, e.g. {bad[:3]}")
+        rank_mb = tree_nbytes(state.opt_state) / 1e6
+        print(f"  {what}: losses and all {len(full)} state tensors bitwise "
+              f"the run without a mesh; optimizer state per rank "
+              f"{rank_mb:.1f} MB vs {ref_info['state_mb']:.1f} MB without "
+              f"a mesh; fold step {info['fold_s']:.4f} vs "
+              f"{ref_info['fold_s']:.4f} s; refresh steps "
+              f"{info['refresh_s']} vs {ref_info['refresh_s']}; peak "
+              f"{info['peak_gib']:.2f} vs {ref_info['peak_gib']:.2f} GiB "
+              f"({card})")
+        return full
+
+    ckpt = CKPT_ROOT / "mesh"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = TRAIN_MIXED_ARGV + MESH_ARGV + ["--ckpt-dir", str(ckpt),
+                                           "--ckpt-every", "12"]
+    phase("[mesh] GPT-2 117M, " + " ".join(argv))
+    kept = {}
+    runs["mesh"] = train_main_path(launcher_run(argv), "fused", mixed_expect,
+                                   keep=lambda st: kept.update(st=st))
+    full = held("GPT-2 117M (mixed)", runs["mesh"][1], mixed_info,
+                mixed_state, kept["st"])
+    step_dir = ckpt / "step_000000012"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    specs = dict(zip(manifest["paths"],
+                     [e["spec"] for e in manifest["leaves"]]))
+    if manifest["mesh_axes"] != {"data": 1, "model": 1}:
+        fail(f"[mesh] manifest mesh_axes {manifest['mesh_axes']}")
+    if not all(str(s).startswith("PartitionSpec(") for s in specs.values()):
+        fail("[mesh] a manifest leaf has no spec string")
+    from repro_torch.launch import train as launcher
+    params = {k: v for k, v in kept["st"].params.items()}
+    want = SH.param_pspecs(build_model(launcher.get_config("gpt2-117m")),
+                           {"data": 1, "model": 1}, params=params)
+    for name, spec in want.items():
+        path = ".params" + "".join(f"[{k!r}]" for k in name.split("/"))
+        if specs[path] != str(spec):
+            fail(f"[mesh] {path}: {specs[path]} in the manifest, the rules "
+                 f"give {spec}")
+    like = SH.gather_tree(kept["st"])
+    restored, step = CheckpointManager(CheckpointConfig(
+        directory=str(ckpt))).restore(like)
+    bad = [p for (p, a), (_, b) in zip(tensor_leaves(restored), full)
+           if not torch.equal(a, b)]
+    if step != 12 or bad:
+        fail(f"[mesh] restore without a mesh: step {step}, {len(bad)} "
+             f"tensors differ, e.g. {bad[:3]}")
+    split = sum(1 for s in specs.values() if "'data'" in s)
+    print(f"  manifest: {len(specs)} leaves with spec strings, {split} "
+          f"split over data, mesh_axes {manifest['mesh_axes']}; restore "
+          f"without a mesh bitwise")
+    del kept, full, like, restored
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    phase(f"[mesh] OLMoE-1B-7B at full width, n_layers 16 -> {DENSE_LAYERS}, "
+          f"moe_apply_sharded, " + " ".join(TRAIN_OLMOE_ARGV + MESH_ARGV))
+    kept = {}
+    with depth_cut(DENSE_LAYERS):
+        runs["mesh_olmoe"] = train_main_path(
+            launcher_run(TRAIN_OLMOE_ARGV + MESH_ARGV), "fused",
+            OLMOE_EXPECT, steps=6, tokens=2 * 2048,
+            keep=lambda st: kept.update(st=st))
+    held("OLMoE-1B-7B (4 layers)", runs["mesh_olmoe"][1], olmoe_info,
+         olmoe_state, kept["st"])
+    del kept
+    dist.destroy_process_group()
+    print(f"  [mesh] {time.monotonic() - t0:.1f} s")
+    return runs
 
 
 def telemetry_phase(device, mixed_state: list, mixed_expect: dict) -> dict:
@@ -4339,11 +4462,12 @@ def main():
     # factored (8 calls), embed and lm_head sketched; naive attention
     phase(f"[train-olmoe] OLMoE-1B-7B at full width, n_layers 16 -> "
           f"{DENSE_LAYERS}, " + " ".join(TRAIN_OLMOE_ARGV))
+    olmoe_state = []      # host copies, for [mesh]
     with depth_cut(DENSE_LAYERS):
         runs["olmoe"] = train_main_path(
-            launcher_run(TRAIN_OLMOE_ARGV), "fused", dict(
-                fused_precond=48, fused_apply=48, sketch_scatter=12,
-                sketch_query=12), steps=6, tokens=2 * 2048)
+            launcher_run(TRAIN_OLMOE_ARGV), "fused", OLMOE_EXPECT, steps=6,
+            tokens=2 * 2048, keep=lambda st: olmoe_state.extend(
+                (p, t.detach().cpu()) for p, t in tensor_leaves(st)))
     phase("[train-olmoe] step 2 twice from one state, bitwise (MoE "
           "determinism)")
     moe_repeat_step(device)
@@ -4446,7 +4570,9 @@ def main():
           "--fused-update --refresh-every 5, 12 steps, with the telemetry "
           "subsystem: snapshots, the closed loop, the launcher's flags, cost")
     runs.update(telemetry_phase(device, mixed_state, mixed_expect))
-    del mixed_state
+    runs.update(mesh_phase(mixed_state, runs["mixed"][1], mixed_expect,
+                           olmoe_state, runs["olmoe"][1]))
+    del mixed_state, olmoe_state
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
     info = {p: r[1] for p, r in runs.items()}

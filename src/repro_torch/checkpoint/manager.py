@@ -53,6 +53,21 @@ from repro_torch.telemetry.trace import NULL_TRACER
 log = logging.getLogger(__name__)
 
 
+def _world() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier()
+
+
 @dataclasses.dataclass
 class CheckpointConfig:
     directory: str
@@ -78,6 +93,10 @@ class CheckpointManager:
         self._signal = None              # (signum, frame) once received
         self.last_gather_s = self.last_write_s = self.last_restore_s = 0.0
         self.tracer = None               # optional telemetry Tracer
+        # the placement of the states saved and restored (a tree of
+        # distributed.sharding.NamedSharding; the train loop sets its
+        # own), the default of save's and restore's ``shardings``
+        self.shardings = None
 
     def _with_retries(self, fn, what: str):
         """Run ``fn``, retrying OSErrors with exponential backoff; any
@@ -99,14 +118,29 @@ class CheckpointManager:
         return step > 0 and step % self.cfg.save_every == 0
 
     def save(self, tree: Any, step: int, blocking: bool = False,
-             extra_meta: Optional[dict] = None) -> None:
+             extra_meta: Optional[dict] = None,
+             shardings: Any = None) -> None:
+        """Save ``tree`` as step ``step``.  Under a mesh (``shardings``, a
+        tree of ``NamedSharding`` mirroring ``tree``) every rank calls it:
+        the gather of the DTensor leaves is a collective, rank 0 writes,
+        and a blocking save ends in a barrier, so no rank reads before
+        the files are committed."""
         tr = self.tracer if self.tracer is not None else NULL_TRACER
+        if shardings is None:
+            shardings = self.shardings
         with tr.span("ckpt_gather", step=step):
             self.wait()                  # one in-flight save at a time
             t0 = time.perf_counter()
             host = SER.host_leaves(tree)  # synchronous: a consistent copy
             treedef = SER.describe(tree)
+            specs, axes = (SER.leaf_spec_meta(shardings)
+                           if shardings is not None else (None, None))
             self.last_gather_s = time.perf_counter() - t0
+        multi = _world() > 1
+        if multi and _rank() != 0:
+            if blocking:
+                _barrier()
+            return
 
         def work():
             try:
@@ -117,7 +151,7 @@ class CheckpointManager:
                     self._with_retries(
                         lambda: SER.write_checkpoint(
                             host, self.directory, step, extra_meta,
-                            treedef),
+                            treedef, specs, axes),
                         what=f"checkpoint save step {step}")
                     self.last_write_s = time.perf_counter() - t1
                     self._retain()
@@ -129,6 +163,8 @@ class CheckpointManager:
             self._thread.start()
         else:
             work()
+            if multi:
+                _barrier()
             self._raise_if_failed()
 
     def wait(self) -> None:
@@ -168,20 +204,27 @@ class CheckpointManager:
                 p = None
         return SER.read_meta(p) if p is not None else {}
 
-    def restore(self, like: Any, step: Optional[int] = None
-                ) -> tuple[Any, int]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[Any, int]:
         """Restore into the structure of ``like`` (see
-        ``serialization.restore_pytree``).  With no explicit ``step`` the
-        checkpoints are tried newest first with full checksum
-        verification, and a corrupt one is skipped with a warning; an
-        explicit ``step`` is a user decision, and corruption there
-        raises :class:`CheckpointCorruptError`."""
+        ``serialization.restore_pytree``), placed under ``shardings``
+        (any mesh's, e.g. ``train_shardings``') when given, else whole on
+        ``like``'s devices.  With no explicit ``step`` the checkpoints
+        are tried newest first with full checksum verification, and a
+        corrupt one is skipped with a warning; an explicit ``step`` is a
+        user decision, and corruption there raises
+        :class:`CheckpointCorruptError`."""
         tr = self.tracer if self.tracer is not None else NULL_TRACER
+        if shardings is None:
+            shardings = self.shardings
         with tr.span("ckpt_restore"):
             t0 = time.perf_counter()
-            out = self._restore(like, step)
+            tree, got = self._restore(like, step)
+            if shardings is not None:
+                from repro_torch.distributed.sharding import place_tree
+                tree = place_tree(tree, shardings)
             self.last_restore_s = time.perf_counter() - t0
-        return out
+        return tree, got
 
     def _restore(self, like: Any, step: Optional[int]) -> tuple[Any, int]:
         if step is not None:

@@ -38,9 +38,14 @@ checkpoint of either package lists the same leaves under the same names:
     and the ``.npy`` descr ``'<V2'`` that numpy and ml_dtypes give them,
     read and written here without ml_dtypes.
 
-``spec`` is null and ``mesh_axes`` empty: the port runs on one device.
-Restore needs no mesh either: it places each leaf on the device (and
-dtype) of the matching leaf of the target structure.
+A save under a mesh writes each leaf's spec string, exactly
+``str(PartitionSpec(...))`` as JAX writes it (``"PartitionSpec()"`` for a
+replicated leaf), and the saving mesh's ``mesh_axes``; without a mesh
+``spec`` is null and ``mesh_axes`` empty, as JAX writes single-device
+arrays.  The files always hold the whole (logical) arrays, gathered from
+the ranks' blocks, so restore is mesh-independent: it reads each leaf
+onto the device (and dtype) of the matching leaf of the target structure,
+and the caller places the result under any mesh's shardings, or none.
 """
 from __future__ import annotations
 
@@ -94,26 +99,28 @@ def _dict_path(key: str) -> str:
     return "".join(f"[{part!r}]" for part in key.split("/"))
 
 
-def _map(node, path: str, fn: Callable):
+def _map(node, path: str, fn: Callable, is_leaf: Optional[Callable] = None):
     """Rebuild ``node`` with every leaf replaced by ``fn(path, leaf)``, in
     the JAX package's flatten order (see the module docstring); a leaf is
-    a tensor, a Python int or float, or a :class:`_Derived`, whose result
-    is dropped."""
+    a tensor, a Python int or float, anything ``is_leaf`` accepts, or a
+    :class:`_Derived`, whose result is dropped."""
     if node is None:
         return None
     if isinstance(node, (torch.Tensor, float)) or (
-            isinstance(node, int) and not isinstance(node, bool)):
+            isinstance(node, int) and not isinstance(node, bool)) or (
+            is_leaf is not None and is_leaf(node)):
         return fn(path, node)
     if isinstance(node, dict):
         out = {}
         for key in sorted(node, key=lambda k: str(k).split("/")):
-            out[key] = _map(node[key], path + _dict_path(str(key)), fn)
+            out[key] = _map(node[key], path + _dict_path(str(key)), fn,
+                            is_leaf)
         return {key: out[key] for key in node}
     if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return type(node)(*(_map(getattr(node, f), f"{path}.{f}", fn)
-                            for f in node._fields))
+        return type(node)(*(_map(getattr(node, f), f"{path}.{f}", fn,
+                                 is_leaf) for f in node._fields))
     if isinstance(node, (tuple, list)):
-        return type(node)(_map(x, f"{path}[{i}]", fn)
+        return type(node)(_map(x, f"{path}[{i}]", fn, is_leaf)
                           for i, x in enumerate(node))
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
         fields = dataclasses.fields(node)
@@ -124,7 +131,7 @@ def _map(node, path: str, fn: Callable):
             if f.metadata.get("static"):
                 continue
             new[f.name] = _map(getattr(node, f.name), f"{path}.{f.name}",
-                               fn)
+                               fn, is_leaf)
             for src, (name, after, derive) in derived:
                 if after == f.name:
                     fn(f"{path}.{name}",
@@ -132,6 +139,38 @@ def _map(node, path: str, fn: Callable):
         return dataclasses.replace(node, **new)
     raise TypeError(f"{path}: no checkpoint layout for "
                     f"{type(node).__name__}")
+
+
+def spec_leaves(shardings) -> list[tuple[str, Any]]:
+    """``[(JAX key path, sharding)]`` of a tree of shardings that mirrors
+    a state (``distributed.sharding.NamedSharding`` or spec leaves where
+    the state has its leaves), in flatten order; a leaf the port derives
+    (the PRNG key) is replicated, ``None`` in the list."""
+    out = []
+
+    def take(path, leaf):
+        out.append((path, None if isinstance(leaf, _Derived) else leaf))
+        return leaf
+
+    _map(shardings, "", take, is_leaf=lambda n: hasattr(n, "spec") or (
+        isinstance(n, tuple) and type(n).__name__ == "PartitionSpec"))
+    return out
+
+
+def leaf_spec_meta(shardings) -> tuple[list, dict]:
+    """Per-leaf spec strings and the saving mesh's axis sizes, as the JAX
+    package's ``leaf_spec_meta`` writes them for arrays placed by
+    ``shardings`` (every leaf of a mesh run has a spec, ``"PartitionSpec()"``
+    when replicated)."""
+    specs, mesh_axes = [], {}
+    for _, sh in spec_leaves(shardings):
+        spec = getattr(sh, "spec", sh)
+        specs.append(str(spec) if spec is not None else "PartitionSpec()")
+        mesh = getattr(sh, "mesh", None)
+        if mesh is not None and not mesh_axes:
+            mesh_axes = {str(n): int(mesh.size(i))
+                         for i, n in enumerate(mesh.mesh_dim_names)}
+    return specs, mesh_axes
 
 
 def leaves_with_paths(tree) -> list[tuple[str, Any]]:
@@ -158,6 +197,8 @@ def _host_array(leaf) -> tuple[np.ndarray, str]:
         return np.asarray(leaf, np.int32), "int32"
     if isinstance(leaf, float):
         return np.asarray(leaf, np.float32), "float32"
+    if hasattr(leaf, "full_tensor"):     # a DTensor: its whole tensor
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -168,7 +209,9 @@ def _host_array(leaf) -> tuple[np.ndarray, str]:
 def host_leaves(tree) -> list[tuple[str, np.ndarray, str]]:
     """``[(path, host array, dtype name)]`` for every leaf of ``tree``:
     the synchronous device-to-host copy of a save.  The arrays are copies,
-    so the caller may update the tensors in place as soon as it returns."""
+    so the caller may update the tensors in place as soon as it returns.
+    A DTensor leaf is gathered whole, a collective: every rank of its
+    mesh calls this together."""
     out = []
 
     def take(path, leaf):
@@ -222,9 +265,16 @@ def _load_npy(path: Path, dtype: str) -> np.ndarray:
 
 def write_checkpoint(host: list, directory: "str | Path", step: int,
                      extra_meta: Optional[dict] = None,
-                     treedef: str = "") -> Path:
+                     treedef: str = "", leaf_specs: Optional[list] = None,
+                     mesh_axes: Optional[dict] = None) -> Path:
     """Write host leaves (:func:`host_leaves`) atomically: tmp dir ->
-    files -> manifest -> commit marker -> rename (the commit point)."""
+    files -> manifest -> commit marker -> rename (the commit point).
+    ``leaf_specs`` / ``mesh_axes`` (:func:`leaf_spec_meta`) record how
+    each leaf was placed when saved: metadata only, the files hold the
+    whole arrays."""
+    if leaf_specs is not None and len(leaf_specs) != len(host):
+        raise ValueError(f"leaf_specs has {len(leaf_specs)} entries for "
+                         f"{len(host)} leaves")
     directory = Path(directory)
     final = directory / f"step_{step:09d}"
     tmp = directory / f".tmp_step_{step:09d}"
@@ -237,7 +287,7 @@ def write_checkpoint(host: list, directory: "str | Path", step: int,
         "paths": [path for path, _, _ in host],
         "leaves": [],
         "meta": extra_meta or {},
-        "mesh_axes": {},
+        "mesh_axes": mesh_axes or {},
         "format": FORMAT,
     }
     for i, (_, arr, dtype) in enumerate(host):
@@ -245,7 +295,7 @@ def write_checkpoint(host: list, directory: "str | Path", step: int,
         _save_npy(tmp / fname, arr, dtype)
         manifest["leaves"].append({
             "file": fname, "shape": list(arr.shape), "dtype": dtype,
-            "spec": None,
+            "spec": leaf_specs[i] if leaf_specs is not None else None,
             "bytes": os.path.getsize(tmp / fname),
             "sha256": _sha256(tmp / fname),
         })
@@ -266,10 +316,15 @@ def write_checkpoint(host: list, directory: "str | Path", step: int,
 
 
 def save_pytree(tree: Any, directory: "str | Path", step: int,
-                extra_meta: Optional[dict] = None) -> Path:
-    """Copy ``tree`` to the host and write it (:func:`write_checkpoint`)."""
+                extra_meta: Optional[dict] = None,
+                shardings: Any = None) -> Path:
+    """Copy ``tree`` to the host and write it (:func:`write_checkpoint`),
+    with the spec of each leaf under ``shardings`` (a tree of the same
+    structure, e.g. ``distributed.sharding.train_shardings``'s)."""
+    specs, axes = (leaf_spec_meta(shardings) if shardings is not None
+                   else (None, None))
     return write_checkpoint(host_leaves(tree), directory, step, extra_meta,
-                            describe(tree))
+                            describe(tree), specs, axes)
 
 
 def is_committed(ckpt_dir: "str | Path") -> bool:

@@ -76,6 +76,9 @@ class ModelConfig:
     attn_impl: str = "auto"        # auto | chunked | naive (perf knob)
     remat: str = "full"            # none | full | dots
     max_seq_len: int = 32_768
+    # the mesh rule set of distributed/sharding.py: tp (the logical-axis
+    # tables, FSDP over data) | fsdp (ZeRO-3 over every mesh axis)
+    parallel_strategy: str = "tp"
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:

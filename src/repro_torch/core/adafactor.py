@@ -27,7 +27,7 @@ from repro_torch.core.factored import should_factor
 from repro_torch.core.transform import (add_decayed_weights, rms, scale,
                                         scale_by_relative_step,
                                         scale_by_schedule)
-from repro_torch.core.types import GradientTransformation, chain
+from repro_torch.core.types import GradientTransformation, P, chain
 from repro_torch.kernels.ref import f32_one_minus
 
 
@@ -115,7 +115,27 @@ def scale_by_factored_rms(cfg: AdafactorConfig) -> GradientTransformation:
             new_leaves.append(new)
         return outs, AdafactorState(step=step, leaves=tuple(new_leaves))
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, _adafactor_state_spec)
+
+
+def rowcol_spec(pspec: P) -> tuple[P, P]:
+    """Row and column stat specs of a param (..., m, n) with spec (..., a,
+    b): (..., a) and (..., b)."""
+    parts = list(pspec)
+    bd, a, b = parts[:-2], parts[-2], parts[-1]
+    return P(*bd, a), P(*bd, b)
+
+
+def _adafactor_state_spec(state: AdafactorState, param_specs: dict):
+    leaves = []
+    for pspec, leaf in zip(param_specs.values(), state.leaves):
+        m1 = pspec if leaf.m1 is not None else None
+        if leaf.r is not None:
+            rs, cs = rowcol_spec(pspec)
+            leaves.append(AdafactorLeaf(r=rs, c=cs, v=None, m1=m1))
+        else:
+            leaves.append(AdafactorLeaf(r=None, c=None, v=pspec, m1=m1))
+    return AdafactorState(step=P(), leaves=tuple(leaves))
 
 
 def adafactor(cfg: AdafactorConfig,

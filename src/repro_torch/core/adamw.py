@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
-from repro_torch.core.types import GradientTransformation, chain
+from repro_torch.core.types import GradientTransformation, P, chain
 from repro_torch.kernels.ref import f32_one_minus
 
 
@@ -90,7 +90,11 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
                                               b2, eps, bc1, bc2)
         return dirs, AdamWState(step=step, m=ms, v=vs)
 
-    return GradientTransformation(init, update)
+    def spec(state: AdamWState, param_specs: dict):
+        del state
+        return AdamWState(step=P(), m=dict(param_specs), v=dict(param_specs))
+
+    return GradientTransformation(init, update, spec)
 
 
 def adamw(cfg: AdamWConfig,

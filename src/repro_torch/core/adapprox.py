@@ -86,7 +86,8 @@ from repro_torch.core import rank as R
 from repro_torch.core import srsi as S
 from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
-from repro_torch.core.types import GradientTransformation, chain, find_states
+from repro_torch.core.types import (GradientTransformation, P, chain,
+                                    find_states, replicate_state_spec)
 from repro_torch.kernels import ops, ref
 from repro_torch.resilience.guards import (GuardConfig, GuardState,
                                            advance_counters, init_guard_state)
@@ -682,7 +683,52 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
                 new_leaves[i].xi.float().amax() for i in fact]), gcfg)
         return dict(zip(names, outs)), new_state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, _state_spec)
+
+
+def _factored_leaf_spec(leaf: F.FactoredLeaf, pspec: P) -> F.FactoredLeaf:
+    """Param (..., m, n) with spec (..., a, b): q (..., m, r) -> (..., a,
+    None), u (..., n, r) -> (..., b, None), k and xi the batch part, m1
+    the param's spec; the factors of a split matrix split along the same
+    axes as the matrix.  An int8 factor's scale and zero take its spec."""
+    parts = list(pspec)
+    bd, a, b = parts[:-2], parts[-2], parts[-1]
+
+    def factor(x, spec):
+        if isinstance(x, QZ.QuantizedMatrix):
+            return QZ.QuantizedMatrix(spec, spec, spec)
+        return spec
+
+    return F.FactoredLeaf(
+        q=factor(leaf.q, P(*bd, a, None)), u=factor(leaf.u, P(*bd, b, None)),
+        k=P(*bd), xi=P(*bd), m1=P(*parts) if leaf.m1 is not None else None)
+
+
+def _state_spec(state: AdapproxState, param_specs: dict) -> AdapproxState:
+    """The JAX package's ``_state_spec``: per-leaf specs from the param
+    specs; the telemetry snapshot, the dynamic cadence and the guard
+    counters replicated; the guards' dense shadow buffers split like the
+    factored params they mirror."""
+    specs = list(param_specs.values())
+    leaves = []
+    for pspec, leaf in zip(specs, state.leaves):
+        if isinstance(leaf, F.FactoredLeaf):
+            leaves.append(_factored_leaf_spec(leaf, pspec))
+        else:
+            leaves.append(F.DenseLeaf(
+                v=pspec, m1=pspec if leaf.m1 is not None else None))
+    guards = None
+    if state.guards is not None:
+        fspecs = [s for s, leaf in zip(specs, state.leaves)
+                  if isinstance(leaf, F.FactoredLeaf)]
+        guards = dataclasses.replace(
+            replicate_state_spec(state.guards),
+            dense_v=tuple(fspecs[:len(state.guards.dense_v)]))
+    return AdapproxState(
+        step=P(), leaves=tuple(leaves),
+        telemetry=replicate_state_spec(state.telemetry),
+        refresh_every=P() if state.refresh_every is not None else None,
+        guards=guards, seed=state.seed)
 
 
 def adapprox(cfg: AdapproxConfig,

@@ -22,11 +22,11 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.adafactor import ema_rowcol, factored_vhat
+from repro_torch.core.adafactor import ema_rowcol, factored_vhat, rowcol_spec
 from repro_torch.core.factored import should_factor
 from repro_torch.core.transform import (add_decayed_weights, rms, scale,
                                         scale_by_schedule)
-from repro_torch.core.types import GradientTransformation, chain
+from repro_torch.core.types import GradientTransformation, P, chain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +107,20 @@ def scale_by_came(cfg: CAMEConfig) -> GradientTransformation:
         return outs, CAMEState(step=state.step + 1,
                                leaves=tuple(new_leaves))
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, _came_state_spec)
+
+
+def _came_state_spec(state: CAMEState, param_specs: dict):
+    leaves = []
+    for pspec, leaf in zip(param_specs.values(), state.leaves):
+        if leaf.r is not None:
+            rs, cs = rowcol_spec(pspec)
+            leaves.append(CAMELeaf(r=rs, c=cs, v=None, rs=rs, cs=cs,
+                                   m1=pspec))
+        else:
+            leaves.append(CAMELeaf(r=None, c=None, v=pspec, rs=None,
+                                   cs=None, m1=pspec))
+    return CAMEState(step=P(), leaves=tuple(leaves))
 
 
 def came(cfg: CAMEConfig,

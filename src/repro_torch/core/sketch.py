@@ -46,7 +46,8 @@ import torch
 from repro_torch.core.adamw import adam_leaf, bias_corrections
 from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
-from repro_torch.core.types import GradientTransformation, chain, find_states
+from repro_torch.core.types import (GradientTransformation, P, chain,
+                                    find_states, replicate_state_spec)
 from repro_torch.kernels import ops
 from repro_torch.telemetry.snapshot import (SketchSnapshot,
                                             init_sketch_snapshot)
@@ -215,7 +216,26 @@ def scale_by_sketch(cfg: SketchConfig) -> GradientTransformation:
         return dirs, SketchState(step=step, leaves=tuple(new_leaves),
                                  telemetry=tel)
 
-    return GradientTransformation(init, update)
+    def spec(state: SketchState, param_specs: dict):
+        leaves = []
+        for pspec, leaf in zip(param_specs.values(), state.leaves):
+            if isinstance(leaf, SketchLeaf):
+                parts = list(pspec)
+                parts += [None] * (len(leaf.shape) - len(parts))
+                # the hashed row axis is gone from the table; the inner
+                # axis keeps param axis 1's spec only when nothing was
+                # flattened into it (a 2-D leaf), else it is replicated
+                inner = parts[1] if len(leaf.shape) == 2 else None
+                leaves.append(SketchLeaf(
+                    table=P(None, None, inner),
+                    m=P(*parts) if leaf.m is not None else None,
+                    seeds=leaf.seeds, shape=leaf.shape))
+            else:
+                leaves.append(SketchDense(m=pspec, v=pspec))
+        return SketchState(step=P(), leaves=tuple(leaves),
+                           telemetry=replicate_state_spec(state.telemetry))
+
+    return GradientTransformation(init, update, spec)
 
 
 def sketch(cfg: SketchConfig,

@@ -18,7 +18,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.types import (EmptyState, GradientTransformation,
-                                    resolve_schedule)
+                                    resolve_schedule, state_sharding_spec)
 
 
 @dataclasses.dataclass
@@ -207,4 +207,14 @@ def partition(labeler: "Callable | dict",
         return ({k: merged[k] for k in params},
                 PartitionState(inner=inner, labels=labels))
 
-    return GradientTransformation(init, update)
+    def spec(state: PartitionState, param_specs: dict):
+        # each group's hook sees the specs of the leaves it owns, in
+        # flatten order, as its init saw the leaves
+        return PartitionState(
+            inner={label: state_sharding_spec(
+                t, state.inner[label],
+                own(param_specs, param_specs, state.labels, label))
+                for label, t in items},
+            labels=state.labels)
+
+    return GradientTransformation(init, update, spec)

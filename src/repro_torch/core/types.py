@@ -6,21 +6,91 @@ state of every stage lines up leaf by leaf with the JAX package's.  A
 ``GradientTransformation`` is a pair of functions, ``init(params) ->
 state`` and ``update(grads, state, params) -> (updates, state)``; updates
 are additive (the caller applies ``params + updates``).
+
+A transformation may carry a third function, ``state_sharding_spec(state,
+param_specs) -> state-like tree of PartitionSpec``: given its state and a
+``{name: PartitionSpec}`` dict mirroring the parameters, it returns the
+state with every leaf (tensor, Python-int counter) replaced by the spec
+it is placed with on a device mesh.  ``distributed/sharding.py`` derives
+the optimizer state's placement through this hook and knows no state
+class; a transformation without one has its state replicated.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 Params = dict  # {name: tensor}
 
 
+class PartitionSpec(tuple):
+    """Per tensor dimension, the mesh axes it is split over: a mesh-axis
+    name, a tuple of names (split over their product, the first the
+    major one), or ``None`` (not split); the counterpart of
+    ``jax.sharding.PartitionSpec``, whose ``str`` it prints (a tuple of
+    one name is that name, an empty one ``None``, as there)."""
+
+    def __new__(cls, *parts):
+        def canon(ax):
+            if isinstance(ax, tuple) and len(ax) <= 1:
+                return ax[0] if ax else None
+            return ax
+        return super().__new__(cls, tuple(canon(ax) for ax in parts))
+
+    def __repr__(self) -> str:
+        return "PartitionSpec" + tuple.__repr__(self)
+
+    __str__ = __repr__
+
+
+P = PartitionSpec
+
+
 class GradientTransformation(NamedTuple):
     init: Callable[[Params], Any]
     update: Callable[[Params, Any, Params], tuple[Params, Any]]
+    state_sharding_spec: Optional[Callable[[Any, dict], Any]] = None
+
+
+def map_state(state, fn: Callable, is_leaf: Callable = lambda x: False):
+    """``state`` with every leaf (a tensor, a Python int or float, or what
+    ``is_leaf`` accepts) replaced by ``fn(leaf)``: dataclasses (their
+    static fields kept as they are), named tuples, tuples and dicts are
+    rebuilt, ``None`` stays."""
+    if state is None:
+        return None
+    if is_leaf(state) or isinstance(state, (torch.Tensor, float, int)):
+        return fn(state)
+    rec = lambda x: map_state(x, fn, is_leaf)
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*map(rec, state))
+    if isinstance(state, (tuple, list)):
+        return type(state)(map(rec, state))
+    if isinstance(state, dict):
+        return {k: rec(v) for k, v in state.items()}
+    if dataclasses.is_dataclass(state) and not isinstance(state, type):
+        return dataclasses.replace(state, **{
+            f.name: rec(getattr(state, f.name))
+            for f in dataclasses.fields(state)
+            if f.init and not f.metadata.get("static")})
+    raise TypeError(f"no state layout for {type(state).__name__}")
+
+
+def replicate_state_spec(state):
+    """Default sharding spec: every leaf of ``state`` replicated."""
+    return map_state(state, lambda _: P())
+
+
+def state_sharding_spec(transform: GradientTransformation, state,
+                        param_specs: dict):
+    """A transformation's state specs through its hook, or replicated for
+    a transformation without one."""
+    if transform.state_sharding_spec is None:
+        return replicate_state_spec(state)
+    return transform.state_sharding_spec(state, param_specs)
 
 
 @dataclasses.dataclass
@@ -41,7 +111,11 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
             new_states.append(s)
         return grads, tuple(new_states)
 
-    return GradientTransformation(init, update)
+    def spec(state, param_specs):
+        return tuple(state_sharding_spec(t, s, param_specs)
+                     for t, s in zip(transforms, state))
+
+    return GradientTransformation(init, update, spec)
 
 
 @torch.no_grad()
@@ -73,8 +147,11 @@ def tree_nbytes(tree) -> int:
     named tuples such as int8 ``QuantizedMatrix`` factors included -- and
     dicts) at its element size (int8: 1 byte), the counterpart of the JAX
     package's ``tree_nbytes`` over the state's array leaves; Python-int
-    step counters are not counted."""
+    step counters are not counted, and a DTensor counts this rank's
+    block."""
     if isinstance(tree, torch.Tensor):
+        if hasattr(tree, "to_local"):     # a DTensor: this rank's block
+            tree = tree.to_local()
         return tree.numel() * tree.element_size()
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]

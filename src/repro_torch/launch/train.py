@@ -37,15 +37,29 @@ telemetry and dynamic cadence on).  ``--trace-dir DIR`` records the
 train-step and checkpoint spans for ``tools/traceview.py`` (the same
 directory as ``--telemetry-dir`` shares one stream); ``--metrics-every N``
 adds a registry snapshot every N steps, and ``<trace-dir>/metrics.prom``
-is written at exit.  ``--mesh`` is not ported yet and raises (see
-ROADMAP.md Queue A).
+is written at exit.
+
+Sharded runs, as in the JAX launcher: ``--mesh 4,2`` builds a (data=4,
+model=2) device mesh (three numbers add a leading ``pod`` axis, one
+number is pure data parallelism) and derives the param / optimizer-state
+/ batch placement through ``distributed.sharding.train_shardings``; the
+optimizer state is split alongside the FSDP params (``--fsdp``, the
+default), which is where Adapprox's factored state saves memory per
+device.  One process per rank: ``torchrun --nproc-per-node 8 -m
+repro_torch.launch.train --smoke --device cpu --mesh 4,2`` on the CPU
+(gloo), one GPU a rank on the card (NCCL); ``--mesh 1,1`` starts its
+own one-rank group (``launch/mesh.py``) and leaves it up for the
+caller, which may gather the returned state's DTensor leaves.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import math
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 from repro_torch.checkpoint import CheckpointConfig
 from repro_torch.config import (OptimizerConfig, TelemetryConfig,
@@ -57,9 +71,6 @@ from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import build_model
 from repro_torch.train.train_loop import LoopConfig, train
-
-# flag -> the default it must keep until its part is ported
-_NOT_PORTED = {"mesh": None}
 
 log = logging.getLogger(__name__)
 
@@ -99,6 +110,24 @@ def optimizer_config(name: str, steps: int, lr: float,
     return OptimizerConfig(**common)
 
 
+def parse_mesh(spec: str, device_type: str = "cuda"):
+    """``"4,2"`` -> a (data=4, model=2) ``DeviceMesh``; one number -> pure
+    DP ``(data,)``; three -> ``(pod, data, model)``.  Raises
+    ``ValueError`` unless the process group has as many ranks."""
+    from repro_torch.launch.mesh import make_mesh
+    shape = tuple(int(s) for s in spec.split(",") if s)
+    axes = {1: ("data",), 2: ("data", "model"),
+            3: ("pod", "data", "model")}.get(len(shape))
+    if axes is None:
+        raise ValueError(f"--mesh takes 1-3 comma-separated sizes, "
+                         f"got {spec!r}")
+    try:
+        return make_mesh(shape, axes, device_type)
+    except ValueError as e:
+        raise ValueError(f"--mesh {spec} needs {math.prod(shape)} "
+                         f"devices: {e}") from None
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt2-117m")
@@ -120,10 +149,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "kernels in kernels/csrc/fused_update.cu)")
     ap.add_argument("--quantize-factors", action="store_true",
                     help="adapprox: int8 factors (core/quantized.py)")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="device mesh sizes, e.g. '4,2' = (data=4, "
+                         "model=2), one rank a device; omit for the "
+                         "single-device path")
     fsdp = ap.add_mutually_exclusive_group()
     fsdp.add_argument("--fsdp", dest="fsdp", action="store_true",
-                      default=True)
+                      default=True,
+                      help="split params and optimizer state over the data "
+                           "axis (default)")
     fsdp.add_argument("--no-fsdp", dest="fsdp", action="store_false")
     mg = ap.add_mutually_exclusive_group()
     mg.add_argument("--mixed-groups", dest="mixed_groups",
@@ -179,19 +213,17 @@ def main(argv=None, *, params: Optional[dict] = None,
     start the port from the JAX package's init and draws.  Returns
     ``(final_state, history)``."""
     args = parse_args(argv)
-    for flag, default in _NOT_PORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to PyTorch yet; "
-                f"see ROADMAP.md Queue A")
     mixed = (args.optimizer == "adapprox" if args.mixed_groups is None
              else args.mixed_groups)
     device = resolve_device(args.device)
+    mesh = parse_mesh(args.mesh, device.type) if args.mesh else None
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     cfg = (get_smoke_config(args.arch, max_seq_len=args.seq)
            if args.smoke else get_config(args.arch))
-    model = build_model(cfg)
+    model = build_model(cfg, mesh)
     telemetry_on = args.telemetry_dir is not None or args.auto_refresh
     opt = build_optimizer(optimizer_config(
         args.optimizer, args.steps, args.lr,
@@ -227,6 +259,17 @@ def main(argv=None, *, params: Optional[dict] = None,
                  args.trace_dir, args.metrics_every)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch)
+    state_shardings = batch_shardings = None
+    if mesh is not None:
+        from repro_torch.distributed import sharding as SH
+        if params is None:     # the loop's own init, drawn here once
+            params = model.init(torch.Generator(device=device).manual_seed(0))
+        model.constrain = SH.make_act_constrainer(mesh, "train")
+        state_shardings, batch_shardings = SH.train_shardings(
+            model, opt, mesh, {"tokens": (args.batch, args.seq)},
+            fsdp=args.fsdp, params=params)
+        log.info("mesh %s, fsdp=%s, mixed_groups=%s",
+                 SH.mesh_axis_sizes(mesh), args.fsdp, mixed)
     ckpt = (CheckpointConfig(directory=args.ckpt_dir,
                              save_every=args.ckpt_every)
             if args.ckpt_dir else None)
@@ -237,7 +280,9 @@ def main(argv=None, *, params: Optional[dict] = None,
                        ckpt=ckpt),
             device=device, params=params, telemetry=runtime, tracer=tracer,
             metrics_every=args.metrics_every,
-            install_signal_handler=ckpt is not None)
+            install_signal_handler=ckpt is not None,
+            state_shardings=state_shardings,
+            batch_shardings=batch_shardings)
     finally:
         if runtime is not None:
             runtime.close()

@@ -57,6 +57,20 @@ def attn_init(gen: torch.Generator, cfg, n_layers: int) -> dict:
     return p
 
 
+def attn_specs(cfg) -> dict:
+    """Logical axes of one layer's attention weights."""
+    s = {"wq": ("embed", "q_heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("q_heads", "embed")}
+    if cfg.qkv_bias:
+        s["bq"] = ("q_heads",)
+        s["bk"] = ("kv_heads",)
+        s["bv"] = ("kv_heads",)
+    if cfg.qk_norm:
+        s["q_norm"] = (None,)
+        s["k_norm"] = (None,)
+    return s
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor       # (B, S_max, KV, dh)
     v: torch.Tensor       # (B, S_max, KV, dh)

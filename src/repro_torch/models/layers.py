@@ -95,6 +95,20 @@ def make_norm_params(cfg, shape: tuple, device) -> dict:
     return {"w": torch.ones(shape, device=device)}
 
 
+def norm_specs(cfg) -> dict:
+    """Logical axes of one norm's parameters (``distributed/sharding.py``
+    maps them to mesh axes)."""
+    if cfg.norm == "layernorm":
+        return {"w": ("embed",), "b": ("embed",)}
+    return {"w": ("embed",)}
+
+
+def stacked_specs(name: str, specs: dict) -> dict:
+    """``specs`` with the stack axis ``name`` ahead of every leaf's axes."""
+    return {k: stacked_specs(name, v) if isinstance(v, dict)
+            else (name,) + tuple(v) for k, v in specs.items()}
+
+
 def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     """``cfg.norm`` (LayerNorm or RMSNorm) with ``cfg.norm_eps``."""
     if cfg.norm == "layernorm":
@@ -128,6 +142,17 @@ def mlp_init(gen: torch.Generator, cfg, n_layers: int, d: int,
         p["b_up"] = torch.zeros((n_layers, f), device=gen.device)
         p["b_down"] = torch.zeros((n_layers, d), device=gen.device)
     return p
+
+
+def mlp_specs(cfg) -> dict:
+    """Logical axes of one layer's MLP weights."""
+    s = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+    if cfg.act == "swiglu":
+        s["w_gate"] = ("embed", "mlp")
+    if cfg.mlp_bias:
+        s["b_up"] = ("mlp",)
+        s["b_down"] = ("embed",)
+    return s
 
 
 def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -64,6 +64,14 @@ def mamba_init(gen: torch.Generator, cfg, n_layers: int) -> dict:
     }
 
 
+def mamba_specs(cfg) -> dict:
+    """Logical axes of one Mamba2 layer's weights."""
+    return {"in_proj": ("embed", "ssm_proj"), "conv_w": ("ssm_conv", None),
+            "conv_b": ("ssm_conv",), "a_log": (None,), "d_skip": (None,),
+            "dt_bias": (None,), "norm_w": ("ssm_inner",),
+            "out_proj": ("ssm_inner", "embed")}
+
+
 class MambaCache(NamedTuple):
     conv: torch.Tensor    # (B, d_conv, conv_dim) in the compute dtype
     ssm: torch.Tensor     # (B, H, P, N) fp32

@@ -21,13 +21,16 @@ _FAMILIES = {
 }
 
 
-def build_model(cfg: ModelConfig):
+def build_model(cfg: ModelConfig, mesh=None):
+    """The family's model; ``mesh`` (a ``DeviceMesh``) routes the MoE
+    block of the transformer families to its mesh paths, as the JAX
+    package's ``build_model(cfg, mesh)``."""
     try:
         cls = _FAMILIES[cfg.family]
     except KeyError:
         raise ValueError(f"unknown model family {cfg.family!r}; "
                          f"available: {sorted(_FAMILIES)}") from None
-    model = cls(cfg)
+    model = cls(cfg, mesh) if cls is TransformerLM else cls(cfg)
     if cfg.param_dtype != "float32":
         # the init is drawn in fp32 and cast once, as in the JAX package
         dt = getattr(torch, cfg.param_dtype)

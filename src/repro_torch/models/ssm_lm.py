@@ -46,6 +46,15 @@ class SSMLM(nn.Module):
             "lm_head": L.dense_init(gen, (d, cfg.vocab), d, scale=0.02),
         }
 
+    def param_specs(self) -> dict:
+        """Logical axes of every parameter, the structure of ``init``."""
+        cfg = self.cfg
+        return {"embed": ("vocab", "embed"),
+                "layers": L.stacked_specs("layers", {
+                    "norm": L.norm_specs(cfg), "mamba": M.mamba_specs(cfg)}),
+                "final_norm": L.norm_specs(cfg),
+                "lm_head": ("embed", "vocab")}
+
     def _block(self, x: torch.Tensor, lp: dict) -> torch.Tensor:
         return x + M.mamba_apply(self.cfg, lp["mamba"],
                                  L.apply_norm(self.cfg, lp["norm"], x))

@@ -47,10 +47,21 @@ def _pos_rows(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 
 class TransformerLM(nn.Module):
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.is_moe = cfg.moe is not None
+        # a DeviceMesh routes the MoE block to its mesh paths ("train":
+        # moe_apply_sharded, "decode": moe_apply_ep_tp), as in JAX
+        self.mesh = mesh
+        self.moe_mode = "train"
+
+    @staticmethod
+    def constrain(x: torch.Tensor) -> torch.Tensor:
+        """The activation-placement hook the launcher sets under a mesh
+        (``distributed.sharding.make_act_constrainer``), applied to the
+        residual stream after each attention and each layer, as in JAX."""
+        return x
 
     def init(self, gen: torch.Generator) -> dict:
         """Random fp32 master parameters on ``gen``'s device."""
@@ -71,19 +82,55 @@ class TransformerLM(nn.Module):
                                              scale=0.02)
         return params
 
+    def param_specs(self) -> dict:
+        """Logical axes of every parameter, the structure of ``init``."""
+        cfg = self.cfg
+        block = {"norm1": L.norm_specs(cfg), "attn": A.attn_specs(cfg),
+                 "norm2": L.norm_specs(cfg)}
+        if self.is_moe:
+            block["moe"] = MOE.moe_specs(cfg)
+        else:
+            block["mlp"] = L.mlp_specs(cfg)
+        specs = {"embed": ("vocab", "embed"),
+                 "blocks": L.stacked_specs("layers", block),
+                 "final_norm": L.norm_specs(cfg)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = ("embed", "vocab")
+        if cfg.pos_embedding == "learned":
+            specs["pos_embed"] = (None, "embed")
+        return specs
+
+    def mesh_local_leaves(self) -> tuple:
+        """The parameters the forward takes as this rank's blocks under its
+        mesh (the expert stacks of the MoE mesh paths); every other
+        parameter it takes whole."""
+        if self.mesh is None or not self.is_moe or self.cfg.moe.impl != "sort":
+            return ()
+        return tuple(f"blocks/moe/{w}" for w in ("w_gate", "w_up", "w_down"))
+
     def _moe_or_mlp(self, bp: dict, h: torch.Tensor):
         """``(y, aux)``, aux the MoE load-balance loss or None."""
+        cfg = self.cfg
         if not self.is_moe:
-            return L.mlp_apply(self.cfg, bp["mlp"], h), None
-        return MOE.moe_apply_local(self.cfg, bp["moe"], h)
+            return L.mlp_apply(cfg, bp["mlp"], h), None
+        if self.mesh is not None and cfg.moe.impl == "sort":
+            names = self.mesh.mesh_dim_names or ()
+            if self.moe_mode == "decode":
+                return MOE.moe_apply_ep_tp(cfg, bp["moe"], h, self.mesh)
+            dp = tuple(a for a in ("pod", "data") if a in names)
+            gather = tuple(a for a in ("data",) if a in names)
+            return MOE.moe_apply_sharded(cfg, bp["moe"], h, self.mesh,
+                                         dp_axes=dp, gather_axes=gather)
+        return MOE.moe_apply_local(cfg, bp["moe"], h)
 
     def _block(self, x: torch.Tensor, bp: dict):
         """One layer: ``(x, aux)``."""
         cfg = self.cfg
         h = L.apply_norm(cfg, bp["norm1"], x)
-        x = x + A.attn_apply_full(cfg, bp["attn"], h, causal=True)
+        x = self.constrain(
+            x + A.attn_apply_full(cfg, bp["attn"], h, causal=True))
         y, aux = self._moe_or_mlp(bp, L.apply_norm(cfg, bp["norm2"], x))
-        return x + y, aux
+        return self.constrain(x + y), aux
 
     def _lm_head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype

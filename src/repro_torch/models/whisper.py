@@ -70,6 +70,24 @@ class EncDecLM(nn.Module):
             "dec_norm": L.make_norm_params(cfg, (d,), dev),
         }
 
+    def param_specs(self) -> dict:
+        """Logical axes of every parameter, the structure of ``init``."""
+        cfg = self.cfg
+        norm, attn, mlp = L.norm_specs(cfg), A.attn_specs(cfg), \
+            L.mlp_specs(cfg)
+        return {
+            "embed": ("vocab", "embed"),
+            "enc_pos": (None, "embed"),
+            "dec_pos": (None, "embed"),
+            "enc_blocks": L.stacked_specs("layers", {
+                "norm1": norm, "attn": attn, "norm2": norm, "mlp": mlp}),
+            "dec_blocks": L.stacked_specs("layers", {
+                "norm1": norm, "self_attn": attn, "norm_x": norm,
+                "cross_attn": attn, "norm2": norm, "mlp": mlp}),
+            "enc_norm": norm,
+            "dec_norm": norm,
+        }
+
     def _enc_block(self, x: torch.Tensor, bp: dict) -> torch.Tensor:
         cfg = self.cfg
         h = L.apply_norm(cfg, bp["norm1"], x)

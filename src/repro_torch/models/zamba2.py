@@ -73,6 +73,18 @@ class HybridLM(nn.Module):
             "lm_head": L.dense_init(gen, (d, cfg.vocab), d, scale=0.02),
         }
 
+    def param_specs(self) -> dict:
+        """Logical axes of every parameter, the structure of ``init``."""
+        cfg = self.cfg
+        return {"embed": ("vocab", "embed"),
+                "layers": L.stacked_specs("layers", {
+                    "norm": L.norm_specs(cfg), "mamba": M.mamba_specs(cfg)}),
+                "shared": L.stacked_specs("shared", {
+                    "norm1": L.norm_specs(cfg), "attn": A.attn_specs(cfg),
+                    "norm2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}),
+                "final_norm": L.norm_specs(cfg),
+                "lm_head": ("embed", "vocab")}
+
     def _shared_block(self, sp: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = L.apply_norm(cfg, sp["norm1"], x)

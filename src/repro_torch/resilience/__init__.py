@@ -7,7 +7,7 @@ default-off; the hardened checkpoint I/O is ``repro_torch.checkpoint``.
 from repro_torch.resilience.chaos import (FaultPlan,
                                           corrupt_latest_checkpoint,
                                           flip_bit, inject_faults,
-                                          truncate_file)
+                                          remesh_after_loss, truncate_file)
 from repro_torch.resilience.guards import (GuardConfig, GuardedState,
                                            GuardState, guard_updates,
                                            init_guard_state,

@@ -1,6 +1,5 @@
 """Deterministic fault injection: the port of the JAX package's
-``resilience/chaos.py`` (without ``remesh_after_loss``, which belongs with
-the distributed modules, ROADMAP.md Queue A).
+``resilience/chaos.py``.
 
 Every injector is a pure function of explicit inputs (the step counter, a
 byte offset), never of wall-clock or RNG, so a chaos run replays
@@ -12,18 +11,20 @@ bit-identically and tests can hold counters to the schedule exactly:
     gradients the way a real overflow would arrive.
   * ``truncate_file`` / ``flip_bit`` / ``corrupt_latest_checkpoint``:
     checkpoint corruption on the host, a kill mid-write (truncation) and
-    silent media corruption (a bit flip).
+    silent media corruption (a bit flip);
+  * ``remesh_after_loss``: simulated device loss, the mesh plan the
+    restarted job builds for the survivors.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.types import GradientTransformation
+from repro_torch.core.types import GradientTransformation, P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +61,11 @@ def inject_faults(plan: FaultPlan) -> GradientTransformation:
             return grads, step
         return {k: torch.full_like(g, fill) for k, g in grads.items()}, step
 
-    return GradientTransformation(init, update)
+    def spec(state, param_specs):
+        del state, param_specs
+        return P()
+
+    return GradientTransformation(init, update, spec)
 
 
 def truncate_file(path: str, keep_bytes: int) -> None:
@@ -113,3 +118,30 @@ def corrupt_latest_checkpoint(directory: str, kind: str = "truncate") -> str:
     else:
         raise ValueError(f"unknown corruption kind: {kind!r}")
     return target
+
+
+# ---------------------------------------------------------------------------
+# Device loss
+# ---------------------------------------------------------------------------
+
+def remesh_after_loss(lost: int, target_model: int = 16,
+                      available_devices: Optional[int] = None):
+    """Mesh plan for the survivors after losing ``lost`` devices: the
+    chaos harness shrinks the device count and asks
+    ``distributed.elastic`` for the mesh the restarted job builds, then
+    restores the checkpoint under it (``elastic_restore``; placement
+    happens at load).  The count defaults to the process group's world
+    size, else the visible GPUs."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.elastic import plan_remesh
+    if available_devices is not None:
+        n = available_devices
+    elif dist.is_initialized():
+        n = dist.get_world_size()
+    else:
+        n = torch.cuda.device_count()
+    survivors = n - lost
+    if survivors < 1:
+        raise ValueError(f"lost {lost} of {n} devices -- nothing left")
+    return plan_remesh(survivors, target_model=target_model)

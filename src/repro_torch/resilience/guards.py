@@ -57,7 +57,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.types import GradientTransformation, find_states
+from repro_torch.core.types import (GradientTransformation, P, find_states,
+                                    state_sharding_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,7 +206,9 @@ def guard_updates(inner: GradientTransformation) -> GradientTransformation:
     ``apply_updates`` leaves the parameters as they were) and the inner
     state is the pre-step one, untouched (see the module docstring).
     Unlike the JAX package's it takes no ``GuardConfig``: the skip-step
-    guard has no setting, and each Adapprox stage keeps its watchdog's."""
+    guard has no setting, and each Adapprox stage keeps its watchdog's.
+    It forwards the ``state_sharding_spec`` protocol, its own counters
+    replicated."""
     from repro_torch.core.adapprox import AdapproxState, settle_guards
     from repro_torch.telemetry import collect
     from repro_torch.telemetry import snapshot as SN
@@ -252,4 +255,9 @@ def guard_updates(inner: GradientTransformation) -> GradientTransformation:
                                  skipped=state.skipped,
                                  last_skip=state.last_skip)
 
-    return GradientTransformation(init, update)
+    def spec(state: GuardedState, param_specs: dict):
+        return GuardedState(
+            inner=state_sharding_spec(inner, state.inner, param_specs),
+            steps=P(), skipped=P(), last_skip=P())
+
+    return GradientTransformation(init, update, spec)

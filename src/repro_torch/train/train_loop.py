@@ -24,6 +24,13 @@ open spans and the telemetry sink, best-effort, before the checkpoint.
 ``metrics_every`` adds a ``kind="metric"`` registry snapshot every N
 steps.  Spans touch no tensor, so a traced run is bitwise the untraced
 one.
+
+Sharded runs, as in JAX: ``state_shardings`` / ``batch_shardings``
+(``distributed.sharding.train_shardings``) place the state on their
+device mesh and run the mesh step (``train/steps.py``); every rank runs
+this loop on the same global batches, checkpoints record each leaf's
+spec, and a restore is placed under the run's shardings whatever mesh
+wrote it.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch
 from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
 from repro_torch.core.types import GradientTransformation
 from repro_torch.data.pipeline import DataConfig, DataIterator
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.straggler import StragglerMonitor
 from repro_torch.telemetry.trace import NULL_TRACER
 from repro_torch.train.steps import TrainState, build_train_step
@@ -87,7 +95,9 @@ def train(model, opt: GradientTransformation, data_cfg: DataConfig,
           state: Optional[TrainState] = None,
           metric_hook: Optional[Callable[[int, dict], None]] = None,
           telemetry=None, tracer=None, metrics_every: int = 0,
-          registry=None, install_signal_handler: bool = False
+          registry=None, install_signal_handler: bool = False,
+          state_shardings: Optional[TrainState] = None,
+          batch_shardings: Optional[dict] = None
           ) -> tuple[TrainState, list]:
     """Train until step ``loop_cfg.total_steps``.  The start state is, in
     order: the latest good checkpoint under ``loop_cfg.ckpt`` (if any),
@@ -107,8 +117,14 @@ def train(model, opt: GradientTransformation, data_cfg: DataConfig,
     owns its sink).  ``metrics_every`` > 0 emits a registry snapshot
     (``train_steps_total``, ``train_step_seconds``, ``train_loss``) every
     N steps to the tracer's sink, else the runtime's; ``registry``
-    defaults to the tracer's, else the process-wide one."""
+    defaults to the tracer's, else the process-wide one.
+
+    ``state_shardings`` (a ``TrainState`` of ``NamedSharding``) and
+    ``batch_shardings`` run the steps on their device mesh; a ``state``
+    given whole is placed under them."""
     ckpt = CheckpointManager(loop_cfg.ckpt) if loop_cfg.ckpt else None
+    if ckpt is not None:
+        ckpt.shardings = state_shardings
     tr = tracer if tracer is not None else NULL_TRACER
     if ckpt is not None and tracer is not None:
         ckpt.tracer = tracer
@@ -128,6 +144,16 @@ def train(model, opt: GradientTransformation, data_cfg: DataConfig,
             params = model.init(
                 torch.Generator(device=device).manual_seed(seed))
         state = TrainState.create(params, opt)
+    if state_shardings is None:
+        for p in state.params.values():   # a given state's, gathered ones
+            p.requires_grad_(True)
+    else:
+        state = TrainState(
+            params={k: SH.place(v, state_shardings.params[k])
+                    for k, v in state.params.items()},
+            opt_state=SH.place_tree(state.opt_state,
+                                    state_shardings.opt_state),
+            step=state.step)
     start_step = state.step
     if ckpt is not None and ckpt.latest_step() is not None:
         state, start_step = ckpt.restore(state)
@@ -138,7 +164,9 @@ def train(model, opt: GradientTransformation, data_cfg: DataConfig,
             telemetry.restore_meta(ckpt.read_meta(start_step))
 
     step_fn = build_train_step(model, opt, microbatches=loop_cfg.microbatches,
-                               grad_clip_norm=loop_cfg.grad_clip_norm)
+                               grad_clip_norm=loop_cfg.grad_clip_norm,
+                               state_shardings=state_shardings,
+                               batch_shardings=batch_shardings)
     data = DataIterator(data_cfg, start_step=start_step)
     monitor = StragglerMonitor(
         sink=telemetry.sink if telemetry is not None else None)

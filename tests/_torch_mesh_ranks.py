@@ -1,0 +1,426 @@
+"""The ranks of ``test_torch_mesh.py``: one 8-rank gloo spawn on the CPU
+runs every multi-rank scenario and rank 0 writes what the tests read.
+
+The scenarios are the JAX package's sharded-training contracts
+(``tests/test_sharded_train.py``), on the smoke GPT-2 with the mixed
+three-family partition, plus the MoE mesh paths, the 4-stage GPipe
+pipeline and the elastic restore onto the six survivors of eight ranks.
+Inputs (the JAX init, JAX's S-RSI draws keyed by the port's generator
+seeds, the MoE and pipeline arrays) come from the test in a pickle.
+"""
+import json
+import os
+import pickle
+import shutil
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+VOCAB, SEQ, BATCH = 128, 32, 8
+WORLD = 8
+
+
+class TableSketch:
+    """S-RSI sketch source reading the draws the test looked up by the
+    port's generator seed (JAX's threefry draws for that step and leaf)."""
+
+    def __init__(self, table: dict):
+        self.table = table
+
+    def __call__(self, shape, generator):
+        arr = self.table[generator.initial_seed()]
+        assert tuple(arr.shape) == tuple(shape), (arr.shape, shape)
+        return torch.tensor(arr)
+
+
+def make_opt(sketch):
+    """The JAX test's optimizer: refresh_every 2 puts a step-3 checkpoint
+    mid-interval; embedding_min_rows 64 sketches the 128-row token
+    embedding, so all three state families ride the round trip."""
+    from repro_torch.config import OptimizerConfig, default_mixed_groups
+    from repro_torch.core.build import build_optimizer
+    return build_optimizer(OptimizerConfig(
+        name="adapprox", schedule="constant", lr=1e-3, weight_decay=0.1,
+        decay_mask="no_1d", min_dim_factor=32, k=4, rank_mode="static",
+        implicit=False, refresh_every=2, groups=default_mixed_groups(),
+        embedding_min_rows=64, sketch_width=256, sketch_depth=2),
+        sketch=sketch)
+
+
+def smoke_config():
+    from repro_torch.configs.archs import get_smoke_config
+    return get_smoke_config("gpt2-117m", vocab=VOCAB, max_seq_len=SEQ)
+
+
+_MESHES = {}
+
+
+def mesh_of(shape):
+    from torch.distributed.device_mesh import init_device_mesh
+    if shape is None:
+        return None
+    if shape not in _MESHES:
+        axes = {1: ("data",), 2: ("data", "model"),
+                3: ("pod", "data", "model")}[len(shape)]
+        _MESHES[shape] = init_device_mesh("cpu", shape,
+                                          mesh_dim_names=axes)
+    return _MESHES[shape]
+
+
+def run(inp, shape, total, ckpt_dir=None, state=None):
+    from repro_torch.checkpoint import CheckpointConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import LoopConfig, train
+    mesh = mesh_of(shape)
+    model = build_model(smoke_config(), mesh)
+    opt = make_opt(TableSketch(inp["draws"]))
+    params = params_from_numpy(inp["params"])
+    ssh = bsh = None
+    if mesh is not None:
+        ssh, bsh = SH.train_shardings(model, opt, mesh,
+                                      {"tokens": (BATCH, SEQ)},
+                                      params=params)
+    ck = (CheckpointConfig(directory=ckpt_dir, save_every=10 ** 9,
+                           async_save=False) if ckpt_dir else None)
+    st, hist = train(model, opt, DataConfig(vocab=VOCAB, seq_len=SEQ,
+                                            global_batch=BATCH),
+                     LoopConfig(total_steps=total, log_every=1, ckpt=ck),
+                     device=torch.device("cpu"), params=params, state=state,
+                     state_shardings=ssh, batch_shardings=bsh)
+    return st, [h["loss"] for h in hist], ssh
+
+
+def leaves(state):
+    from repro_torch.checkpoint.serialization import leaves_with_paths
+    from repro_torch.distributed import sharding as SH
+    return leaves_with_paths(SH.gather_tree(state))
+
+
+def equal(a, b) -> bool:
+    la, lb = leaves(a), leaves(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return False
+    for (_, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and torch.equal(x, y)):
+                return False
+        elif not (type(x) is type(y) and np.array_equal(x, y)):
+            return False
+    return True
+
+
+def copy_dir(src, dst):
+    if dist.get_rank() == 0:
+        shutil.copytree(src, dst)
+    dist.barrier()
+
+
+def training(inp, out, res, arrs):
+    """The resharding round trip, restarts and cross-mesh continuation."""
+    from repro_torch.core.sketch import SketchLeaf, sketch_state
+    from repro_torch.core.transform import PartitionState
+    from repro_torch.core.types import tree_nbytes
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.distributed import sharding as SH
+    from torch.distributed.tensor import DTensor
+    base = os.path.join(out, "ckpt")
+
+    # uninterrupted reference: 5 steps on (4, 2)
+    state5, l5, ssh42 = run(inp, (4, 2), 5)
+    res["losses_42"] = l5
+    res["bytes_42"] = tree_nbytes(state5.opt_state)
+    res["param_bytes_42"] = tree_nbytes(state5.params)
+    pstate = state5.opt_state
+    res["labels"] = (sorted(set(pstate.labels))
+                     if isinstance(pstate, PartitionState) else None)
+    sk = sketch_state(pstate.inner["embeddings"])
+    sls = [leaf for leaf in sk.leaves if isinstance(leaf, SketchLeaf)]
+    res["sketch_tables"] = [list(leaf.table.shape) for leaf in sls]
+    res["sketch_m_split"] = any(isinstance(leaf.m, DTensor) for leaf in sls)
+    from repro_torch.core.adapprox import adapprox_state
+    from repro_torch.core.factored import FactoredLeaf
+    fls = [leaf for leaf in adapprox_state(pstate.inner["factored"]).leaves
+           if isinstance(leaf, FactoredLeaf)]
+    res["q_split"] = any(isinstance(leaf.q, DTensor) and any(
+        getattr(p, "dim", None) is not None for p in leaf.q.placements)
+        for leaf in fls)
+
+    # 3 steps on (4, 2), blocking save mid refresh interval
+    d0 = os.path.join(base, "save42")
+    state3, l3, _ = run(inp, (4, 2), 3, ckpt_dir=d0)
+    res["prefix_ok"] = l3 == l5[:3]
+    if dist.get_rank() == 0:
+        m = json.load(open(os.path.join(d0, "step_000000003",
+                                        "manifest.json")))
+        res["manifest"] = {"paths": m["paths"],
+                           "specs": [e["spec"] for e in m["leaves"]],
+                           "mesh_axes": m["mesh_axes"]}
+
+    # restore bitwise on every target mesh, and unsharded
+    restored = {}
+    for tag, shape in [("24", (2, 4)), ("8", (8,)), ("1", None)]:
+        mgr = CheckpointManager(CheckpointConfig(directory=d0))
+        shard = None
+        if shape is not None:
+            from repro_torch.models.model_zoo import build_model
+            model = build_model(smoke_config(), mesh_of(shape))
+            from repro_torch.convert import params_from_numpy
+            shard, _ = SH.train_shardings(
+                model, make_opt(TableSketch(inp["draws"])), mesh_of(shape),
+                params=params_from_numpy(inp["params"]))
+        st, step = mgr.restore(state3, shardings=shard)
+        res[f"restore_{tag}"] = bool(step == 3 and equal(st, state3))
+        restored[tag] = st
+    res["restore_24_split"] = any(
+        isinstance(v, DTensor) and any(getattr(p, "dim", None) is not None
+                                       for p in v.placements)
+        for v in restored["24"].params.values())
+    res["restore_24_labels"] = (restored["24"].opt_state.labels
+                                == state3.opt_state.labels)
+
+    # same-mesh restart is bitwise
+    d1 = os.path.join(base, "cont42")
+    copy_dir(d0, d1)
+    state5b, l45, _ = run(inp, (4, 2), 5, ckpt_dir=d1)
+    res["same_mesh_losses"] = l45
+    res["same_mesh_bitwise"] = bool(l45 == l5[3:] and equal(state5b, state5))
+
+    # checkpoint restore == live re-placement (single-device continuation)
+    live = SH.gather_tree(state3)
+    _, l_live, _ = run(inp, None, 5, state=live)
+    d2 = os.path.join(base, "cont1")
+    copy_dir(d0, d2)
+    _, l_ckpt, _ = run(inp, None, 5, ckpt_dir=d2)
+    res["ckpt_eq_live"] = l_ckpt == l_live
+    res["losses_cont1"] = l_ckpt
+
+    # continuation across meshes
+    for tag, shape in [("24", (2, 4)), ("8", (8,))]:
+        d = os.path.join(base, "cont" + tag)
+        copy_dir(d0, d)
+        _, lc, _ = run(inp, shape, 5, ckpt_dir=d)
+        res[f"losses_cont{tag}"] = lc
+
+
+LAUNCH_ARGV = ["--smoke", "--device", "cpu", "--fused-update",
+               "--refresh-every", "3", "--embedding-min-rows", "256",
+               "--sketch-width", "256", "--sketch-depth", "2", "--steps", "6",
+               "--log-every", "1"]
+
+
+def launcher_mesh(inp, res):
+    """The launcher itself at ``--mesh 4,2`` (its default mixed groups,
+    bf16 compute) from the JAX init with JAX's draws."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import train as launcher
+    _, hist = launcher.main(LAUNCH_ARGV + ["--mesh", "4,2"],
+                            params=params_from_numpy(inp["launch_params"]),
+                            sketch=TableSketch(inp["launch_draws"]))
+    res["launcher_42"] = [h["loss"] for h in hist]
+
+
+def moe(inp, res, arrs):
+    """moe_apply_sharded on (2, 4) and moe_apply_ep_tp, outputs and the
+    gradients of each data block's loss, against the port's local path."""
+    from repro_torch.config import ModelConfig, MoESpec
+    from repro_torch.distributed import comm
+    from repro_torch.models import moe as MOE
+    cfg = ModelConfig(arch="t", family="moe", n_layers=1, d_model=32,
+                      n_heads=4, n_kv_heads=4, d_ff=64, vocab=64,
+                      moe=MoESpec(n_experts=8, top_k=2, d_ff_expert=16,
+                                  capacity_factor=64.0, impl="sort"))
+    mesh = mesh_of((2, 4))
+    di, mi = mesh.get_local_rank(0), mesh.get_local_rank(1)
+    p = {k: torch.tensor(v) for k, v in inp["moe_p"].items()}
+    x = torch.tensor(inp["moe_x"])
+    names = ("router", "w_gate", "w_up", "w_down")
+
+    def local_grads(xs):
+        """Sum over the blocks ``xs`` of the gradients of sum(y^2) + aux
+        through the port's single-shard path."""
+        tot = {k: torch.zeros_like(p[k]) for k in names}
+        for xb in xs:
+            q = {k: p[k].clone().requires_grad_(True) for k in names}
+            y, aux = MOE.moe_apply_local(cfg, q, xb)
+            g = torch.autograd.grad((y ** 2).sum() + aux, [q[k] for k in names])
+            for k, gk in zip(names, g):
+                tot[k] += gk
+        return tot
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    # EP over model + the FSDP gather over data (the training layout)
+    ex = slice(mi * 2, mi * 2 + 2)
+    dsl = slice(di * 16, di * 16 + 16)
+    blk = {"router": p["router"].clone(),
+           "w_gate": p["w_gate"][ex, dsl].clone(),
+           "w_up": p["w_up"][ex, dsl].clone(),
+           "w_down": p["w_down"][ex, :, dsl].clone()}
+    blk = {k: v.requires_grad_(True) for k, v in blk.items()}
+    xb = x.chunk(2)[di]
+    y, aux = MOE.moe_apply_sharded(cfg, blk, xb, mesh, dp_axes=("data",),
+                                   gather_axes=("data",))
+    g = dict(zip(names, torch.autograd.grad((y ** 2).sum() + aux,
+                                            [blk[k] for k in names])))
+    g["router"] = comm.all_sum(g["router"], mesh.get_group("data"))
+    want = local_grads(x.chunk(2))
+    errs = {"router": err(g["router"], want["router"]),
+            "w_gate": err(g["w_gate"], want["w_gate"][ex, dsl]),
+            "w_up": err(g["w_up"], want["w_up"][ex, dsl]),
+            "w_down": err(g["w_down"], want["w_down"][ex, :, dsl])}
+    errs = {k: max(comm.all_concat(torch.tensor([v]), 0,
+                                   dist.group.WORLD).tolist())
+            for k, v in errs.items()}
+    res["moe_sharded_grad_err"] = errs
+    res["moe_sharded_grad_scale"] = {k: float(want[k].abs().max())
+                                     for k in names}
+    ys = comm.all_concat(y.detach(), 0, mesh.get_group("data"))
+    arrs["moe_sharded_y"] = ys.numpy()
+
+    # weights-stationary EP-TP: experts over model, FFN over data
+    fsl = slice(di * 8, di * 8 + 8)
+    blk = {"router": p["router"].clone(),
+           "w_gate": p["w_gate"][ex, :, fsl].clone(),
+           "w_up": p["w_up"][ex, :, fsl].clone(),
+           "w_down": p["w_down"][ex, fsl].clone()}
+    blk = {k: v.requires_grad_(True) for k, v in blk.items()}
+    y, aux = MOE.moe_apply_ep_tp(cfg, blk, x, mesh)
+    g = dict(zip(names, torch.autograd.grad((y ** 2).sum() + aux,
+                                            [blk[k] for k in names])))
+    want = local_grads([x])
+    errs = {"router": err(g["router"], want["router"]),
+            "w_gate": err(g["w_gate"], want["w_gate"][ex, :, fsl]),
+            "w_up": err(g["w_up"], want["w_up"][ex, :, fsl]),
+            "w_down": err(g["w_down"], want["w_down"][ex, fsl])}
+    errs = {k: max(comm.all_concat(torch.tensor([v]), 0,
+                                   dist.group.WORLD).tolist())
+            for k, v in errs.items()}
+    res["moe_ep_tp_grad_err"] = errs
+    res["moe_ep_tp_grad_scale"] = {k: float(want[k].abs().max())
+                                   for k in names}
+    arrs["moe_ep_tp_y"] = y.detach().numpy()
+
+
+def pipeline(inp, res, arrs):
+    """4 stages over the ``stage`` axis of a (2, 4) mesh (each data
+    replica runs the pipeline), forward and gradient."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.pipeline import (pipeline_apply,
+                                                  split_stages,
+                                                  stage_fn_from_layers)
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "stage"))
+    w = torch.tensor(inp["pipe_w"]).requires_grad_(True)
+    x = torch.tensor(inp["pipe_x"])
+    stage_fn = stage_fn_from_layers(lambda wl, h: torch.tanh(h @ wl))
+    out = pipeline_apply(stage_fn, split_stages(w, 4), x, mesh)
+    (g,) = torch.autograd.grad((out ** 2).sum(), [w])
+    g = comm.all_sum(g, mesh.get_group("stage"))
+    ws = torch.tensor(inp["pipe_w"]).requires_grad_(True)
+    h = x
+    for layer in range(ws.shape[0]):
+        h = torch.tanh(h @ ws[layer])
+    (gs,) = torch.autograd.grad((h ** 2).sum(), [ws])
+    arrs["pipe_out"], arrs["pipe_grad"] = out.detach().numpy(), g.numpy()
+    arrs["pipe_seq_out"], arrs["pipe_seq_grad"] = (h.detach().numpy(),
+                                                   gs.numpy())
+
+
+def elastic(out, res):
+    """A bit-flipped newest checkpoint, two ranks lost, the survivors'
+    (3, 2) mesh restores the older one."""
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core.types import P
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.elastic import elastic_restore
+    from repro_torch.resilience.chaos import (corrupt_latest_checkpoint,
+                                              remesh_after_loss)
+    d = os.path.join(out, "elastic")
+    tree = {"w": torch.arange(96, dtype=torch.float32).reshape(12, 8),
+            "step": torch.tensor(0, dtype=torch.int32)}
+    mgr = CheckpointManager(CheckpointConfig(directory=d, async_save=False))
+    mgr.save(tree, 1, blocking=True)
+    mgr.save({**tree, "step": torch.tensor(2, dtype=torch.int32)}, 2,
+             blocking=True)
+    if dist.get_rank() == 0:
+        corrupt_latest_checkpoint(d, kind="bitflip")
+    dist.barrier()
+    plan = remesh_after_loss(lost=2, target_model=2, available_devices=8)
+    res["elastic_plan"] = [plan.pods, plan.data, plan.model, plan.devices]
+
+    def make_shardings(mesh):
+        return {"w": SH.NamedSharding(mesh, P("data", "model")),
+                "step": SH.NamedSharding(mesh, P())}
+
+    state, step, mesh = elastic_restore(
+        CheckpointManager(CheckpointConfig(directory=d)), like=tree,
+        make_shardings=make_shardings, available_devices=plan.devices,
+        target_model=2)
+    ok = step == 1 and SH.mesh_axis_sizes(mesh) == {"data": 3, "model": 2}
+    if dist.get_rank() < 6:
+        w = state["w"]
+        ok = ok and w.device_mesh.size() == 6 and tuple(
+            w.to_local().shape) == (4, 4)
+        ok = ok and torch.equal(w.full_tensor(), tree["w"])
+    else:
+        ok = ok and state is None
+    from repro_torch.distributed import comm
+    res["elastic_ok"] = bool(min(comm.all_concat(
+        torch.tensor([float(ok)]), 0, dist.group.WORLD).tolist()))
+
+
+def worker(rank: int, port: int, inp_path: str, out: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=WORLD)
+    with open(inp_path, "rb") as f:
+        inp = pickle.load(f)
+    res, arrs = {}, {}
+    try:
+        training(inp, out, res, arrs)
+        launcher_mesh(inp, res)
+        moe(inp, res, arrs)
+        pipeline(inp, res, arrs)
+        elastic(out, res)
+        if rank == 0:
+            with open(os.path.join(out, "results.json"), "w") as f:
+                json.dump(res, f)
+            np.savez(os.path.join(out, "arrays.npz"), **arrs)
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def spawn(inp: dict, out: str, timeout_s: float = 600.0) -> None:
+    """Run the scenarios on 8 gloo ranks; results under ``out``.  Raises
+    if a rank fails, or (the ranks killed) if they take over
+    ``timeout_s``."""
+    import socket
+    import time
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    inp_path = os.path.join(out, "inputs.pkl")
+    with open(inp_path, "wb") as f:
+        pickle.dump(inp, f)
+    ctx = mp.start_processes(worker, args=(port, inp_path, out),
+                             nprocs=WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"the {WORLD} ranks took over {timeout_s} s")
+
+
+if __name__ == "__main__":
+    spawn(pickle.load(open(sys.argv[1], "rb")), sys.argv[2])

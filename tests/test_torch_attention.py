@@ -60,6 +60,7 @@ from repro_torch.models import attention as TA
 from repro_torch.models.model_zoo import build_model
 from test_torch_groups import MIXED, _factored_shapes
 from test_torch_parity import _close_rel, _JaxSketch
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 # the JAX package's own chunked-attention cases (test_attention_chunked.py)
 HEADS = [(4, 4, 16), (8, 2, 32), (4, 1, 16), (2, 2, 80)]

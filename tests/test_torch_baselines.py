@@ -32,6 +32,7 @@ from repro_torch.core.build import build_optimizer
 from repro_torch.core.came import CAMEState
 from repro_torch.core.types import find_states
 from test_torch_parity import SEQ, _close_rel, _grads, _jax_params
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 CASES = {
     "adafactor": dict(name="adafactor"),

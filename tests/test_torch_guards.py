@@ -56,7 +56,10 @@ def test_mixed_groups_raise_instead_of_switching(flags):
 
 @pytest.mark.parametrize("flag", [["--mesh", "2"]])
 def test_unported_launcher_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """--mesh raised NotImplementedError until it was ported; now a mesh
+    of two devices in one process raises as JAX's parse_mesh does when
+    the devices are missing (one rank a device, started by torchrun)."""
+    with pytest.raises(ValueError, match="needs 2 devices"):
         launcher.main(SMOKE + ["--device", "cpu", "--no-mixed-groups"]
                       + flag)
 

@@ -34,6 +34,7 @@ from repro_torch.core.rank import RankConfig
 from test_torch_parity import (_cfg_kw, _close_rel, _grads, _jax_params,
                                _JaxSketch)
 from test_torch_srsi import _jax_draws, _second_moment
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 JA = importlib.import_module("repro.core.adapprox")
 

@@ -40,6 +40,7 @@ from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch.train import optimizer_config
 from repro_torch.models.model_zoo import build_model
 from test_torch_parity import SEQ, _close_rel, _JaxSketch
+from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = {"gpt2-117m": (1e-6, 1e-5), "mamba2-370m": (1e-5, 1e-4)}
 

@@ -19,7 +19,7 @@ JAX package's tools.
     --auto-refresh`` on a CPU smoke run: the stream passes both
     validators and ``tools/traceview.py --check``, ``metrics.prom``
     parses with both parsers; ``--auto-refresh`` alone builds the
-    dynamic cadence; ``--mesh`` still raises.
+    dynamic cadence; ``--mesh 2`` in one process raises.
 
 Not ported: JAX's ``test_bench_trace_overhead_within_3pct`` (a CPU
 wall-time ratio of a committed benchmark); the port's overhead is
@@ -354,5 +354,8 @@ def test_launcher_separate_streams(tmp_path, flags):
 
 
 def test_launcher_mesh_still_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """--mesh is ported (tests/test_torch_mesh.py); what still raises is a
+    mesh of two devices in one process, as JAX's parse_mesh raises when
+    the devices are missing."""
+    with pytest.raises(ValueError, match="needs 2 devices"):
         launcher.main(SMOKE + ["--mesh", "2"])

@@ -132,7 +132,13 @@ sm_90a) and the CUDA toolkit.  In order, it
      every final state tensor, the launches; the checkpoint's manifest
      carries a spec string on every leaf and the rules' param specs, and
      restores without a mesh bitwise; then breaks a step of each run
-     down into model and optimizer time;
+     down into model and optimizer time; [dryrun] runs the dry run
+     (``repro_torch.launch.dryrun``) of [mesh]'s GPT-2 117M configuration
+     on a one-rank fake mesh (1, 1), fake CPU tensors, its step 2 (a fold
+     step), holds its per-rank parameter and optimizer-state bytes
+     exactly to a 2-step ``--mesh 1,1`` run on the card and to [mesh]'s
+     final state, and prints its predicted peak beside the card's
+     fold-step max_memory_allocated, with their ratio;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
      them against ``BENCH_memory.json``, and those of
@@ -3128,6 +3134,8 @@ def mesh_phase(mixed_state: list, mixed_info: dict, mixed_expect: dict,
             fail(f"[mesh] {what}: {len(bad)} state tensors differ from the "
                  f"run without a mesh, e.g. {bad[:3]}")
         rank_mb = tree_nbytes(state.opt_state) / 1e6
+        info["rank_param_bytes"] = tree_nbytes(state.params)
+        info["rank_opt_state_bytes"] = tree_nbytes(state.opt_state)
         print(f"  {what}: losses and all {len(full)} state tensors bitwise "
               f"the run without a mesh; optimizer state per rank "
               f"{rank_mb:.1f} MB vs {ref_info['state_mb']:.1f} MB without "
@@ -3194,6 +3202,123 @@ def mesh_phase(mixed_state: list, mixed_info: dict, mixed_expect: dict,
     dist.destroy_process_group()
     print(f"  [mesh] {time.monotonic() - t0:.1f} s")
     return runs
+
+
+def dryrun_cell(mesh, train: bool = True):
+    """[mesh]'s GPT-2 117M configuration as the dry run's cell on ``mesh``:
+    the full config, the launcher's mixed groups (--fused-update
+    --refresh-every 5, 12 steps), [train-mixed]'s batch 8 x 1024."""
+    from repro_torch.config import ShapeCell
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.build import build_optimizer
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.train import optimizer_config
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_config("gpt2-117m")
+    model = build_model(cfg, mesh)
+    model.constrain = SH.make_act_constrainer(mesh, "train")
+    opt = build_optimizer(optimizer_config(
+        "adapprox", 12, 3e-3, refresh_every=5, fused_update=True,
+        mixed_groups=True))
+    return D.Cell("gpt2-117m", "train-mixed", cfg,
+                  ShapeCell("train-mixed", 1024, 8, "train"), mesh, model,
+                  opt=opt)
+
+
+def dryrun_predict() -> dict:
+    """The dry run's record of :func:`dryrun_cell`'s step 2 (a fold step)
+    on a one-rank fake mesh (1, 1), on fake CPU tensors: no card."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_fake_mesh
+    try:
+        c = dryrun_cell(make_fake_mesh((1, 1), ("data", "model")))
+        return D.measure(c, start_step=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_measure(device) -> dict:
+    """:func:`dryrun_cell` on a one-rank NCCL group on the card, as the
+    launcher's ``--mesh 1,1 --fsdp`` places and steps it: step 1 (a
+    refresh), then step 2 (a fold) from a reset peak; the fold step's
+    ``max_memory_allocated`` and the state's per-rank bytes after it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.types import tree_nbytes
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.steps import TrainState, build_train_step
+    torch.cuda.empty_cache()
+    try:
+        c = dryrun_cell(make_mesh((1, 1), ("data", "model"), "cuda"))
+        params = c.model.init(torch.Generator(device=device).manual_seed(0))
+        sshard, bshard = SH.train_shardings(
+            c.model, c.opt, c.mesh, {"tokens": (8, 1024)}, fsdp=True,
+            params=params)
+        state = SH.place_state(TrainState.create(params, c.opt), sshard)
+        del params
+        step = build_train_step(c.model, c.opt, state_shardings=sshard,
+                                batch_shardings=bshard)
+        data = SyntheticLM(DataConfig(vocab=c.cfg.vocab, seq_len=1024,
+                                      global_batch=8))
+        batches = [{"tokens": torch.from_numpy(data.batch_at(i)["tokens"])
+                    .to(device)} for i in range(2)]
+        state, _ = step(state, batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        state, met = step(state, batches[1])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if not math.isfinite(float(met["loss"])):
+            fail(f"[dryrun] the card's step 2 loss {met['loss']}")
+        return {"peak_bytes": peak, "held_bytes": held,
+                "param_bytes": tree_nbytes(state.params),
+                "opt_state_bytes": tree_nbytes(state.opt_state)}
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_phase(device, mesh_info: dict) -> dict:
+    """[dryrun]: the dry run's prediction of [mesh]'s GPT-2 117M run
+    against the card.  Its per-rank parameter and optimizer-state bytes
+    must equal the card's exactly, both the 2-step run's and [mesh]'s
+    12-step final state's; its predicted peak (the plain route's, on fake
+    tensors) is printed beside the card's fold-step
+    ``max_memory_allocated``, with their ratio."""
+    t0 = time.monotonic()
+    pred = dryrun_predict()
+    t_pred = time.monotonic() - t0
+    got = dryrun_measure(device)
+    for key, mesh_key in (("param_bytes", "rank_param_bytes"),
+                          ("opt_state_bytes", "rank_opt_state_bytes")):
+        if not pred[key] == got[key] == mesh_info[mesh_key]:
+            fail(f"[dryrun] {key}: predicted {pred[key]}, the card's "
+                 f"2-step run {got[key]}, [mesh]'s final state "
+                 f"{mesh_info[mesh_key]}")
+    ratio = got["peak_bytes"] / pred["peak_bytes"]
+    print(f"  per-rank bytes: parameters {pred['param_bytes']}, optimizer "
+          f"state {pred['opt_state_bytes']}: predicted = the card's 2-step "
+          f"run = [mesh]'s final state, exactly")
+    print(f"  fold step (step 2) peak: predicted {pred['peak_bytes']} B "
+          f"({pred['peak_bytes'] / 2**30:.3f} GiB, plain route, at "
+          f"{pred['peak_op']}), the card's max_memory_allocated "
+          f"{got['peak_bytes']} B ({got['peak_bytes'] / 2**30:.3f} GiB, "
+          f"{got['held_bytes'] / 2**30:.3f} GiB held before it): "
+          f"measured / predicted {ratio:.4f} ({card_line()})")
+    secs = time.monotonic() - t0
+    print(f"  [dryrun] {secs:.1f} s (the dry run {t_pred:.1f} s of it); "
+          f"predicted flops {pred['flops']:.4g}, collectives "
+          f"{pred['collectives']}")
+    return {"predicted_peak_bytes": pred["peak_bytes"],
+            "measured_peak_bytes": got["peak_bytes"],
+            "measured_over_predicted": ratio,
+            "param_bytes": pred["param_bytes"],
+            "opt_state_bytes": pred["opt_state_bytes"],
+            "flops": pred["flops"], "seconds": secs}
 
 
 def telemetry_phase(device, mixed_state: list, mixed_expect: dict) -> dict:
@@ -4573,6 +4698,10 @@ def main():
     runs.update(mesh_phase(mixed_state, runs["mixed"][1], mixed_expect,
                            olmoe_state, runs["olmoe"][1]))
     del mixed_state, olmoe_state
+    phase("[dryrun] GPT-2 117M, [mesh]'s mixed groups at batch 8 x 1024: "
+          "the dry run on a one-rank fake mesh (1, 1) vs --mesh 1,1 on "
+          "the card, step 2 (a fold step)")
+    dryrun = dryrun_phase(device, runs["mesh"][1])
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
     info = {p: r[1] for p, r in runs.items()}
@@ -4727,7 +4856,7 @@ def main():
     ]
     phase("[report] every check passed")
     print(json.dumps({"train": info, "remat": remat, "ckpt": ckpt_costs,
-                      "serve": serve_info}))
+                      "serve": serve_info, "dryrun": dryrun}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

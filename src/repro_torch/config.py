@@ -1,5 +1,6 @@
-"""Model, optimizer and telemetry configs (frozen dataclasses), copied from
-the JAX package's ``config.py`` for the fields the port reads."""
+"""Model, optimizer and telemetry configs (frozen dataclasses) and the
+dry run's shape cells, copied from the JAX package's ``config.py`` for
+the fields the port reads."""
 from __future__ import annotations
 
 import dataclasses
@@ -79,6 +80,9 @@ class ModelConfig:
     # the mesh rule set of distributed/sharding.py: tp (the logical-axis
     # tables, FSDP over data) | fsdp (ZeRO-3 over every mesh axis)
     parallel_strategy: str = "tp"
+    # which shape cells apply (see CELLS): long_500k only for archs whose
+    # sequence mixing is sub-quadratic (SSM, hybrid)
+    sub_quadratic: bool = False
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -91,6 +95,79 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks), the JAX
+        package's formula, used for MODEL_FLOPS = 6*N*D in roofline
+        tables.  It counts what the JAX package counts: the model's
+        leaves can differ from it by norm scales and biases."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        hd = self.resolved_head_dim
+        n_attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        n_mlp = 3 * d * f if self.act == "swiglu" else 2 * d * f
+        if self.moe is not None:
+            fe = self.moe.d_ff_expert
+            n_mlp = self.moe.n_experts * 3 * d * fe + d * self.moe.n_experts
+        n_ssm = 0
+        if self.ssm is not None:
+            di = self.ssm.expand * d
+            conv_dim = di + 2 * self.ssm.n_groups * self.ssm.d_state
+            nh = di // self.ssm.head_dim
+            in_proj = d * (2 * di + 2 * self.ssm.n_groups * self.ssm.d_state
+                           + nh)
+            n_ssm = in_proj + conv_dim * self.ssm.d_conv + di * d + di + 3 * nh
+        if self.family == "ssm":
+            per_layer = n_ssm + d
+        elif self.family == "hybrid":
+            per_layer = n_ssm + 2 * d
+        else:
+            per_layer = n_attn + n_mlp + 2 * d
+        total = self.n_layers * per_layer + v * d
+        if self.family == "hybrid":
+            total += self.n_shared_blocks * (n_attn + 3 * d * f + 2 * d)
+        if self.enc_layers:
+            total += self.enc_layers * (n_attn + 2 * d * f + 2 * d)
+            total += self.n_layers * n_attn          # decoder cross-attn
+        if not self.tie_embeddings:
+            total += v * d
+        return total
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only top_k experts count)."""
+        if self.moe is None:
+            return self.param_count()
+        per_expert = 3 * self.d_model * self.moe.d_ff_expert
+        idle = (self.moe.n_experts - self.moe.top_k) * per_expert
+        return self.param_count() - self.n_layers * idle
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One shape of the dry run: a sequence length and global batch for
+    one kind of step (train | prefill | decode)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+CELLS = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_cells(model: ModelConfig) -> list:
+    """long_500k needs sub-quadratic attention: it runs for the SSM and
+    hybrid archs and is skipped (the skip recorded) for full-attention
+    archs."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if model.sub_quadratic:
+        cells.append("long_500k")
+    return cells
 
 
 @dataclasses.dataclass(frozen=True)

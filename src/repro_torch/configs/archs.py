@@ -42,7 +42,7 @@ ZAMBA2_2P7B = ModelConfig(
     ssm=SSMSpec(d_state=64, d_conv=4, expand=2, head_dim=64, n_groups=1,
                 chunk=256),
     hybrid_attn_every=6, n_shared_blocks=2, act="gelu",
-    max_seq_len=524_288)
+    sub_quadratic=True, max_seq_len=524_288)
 
 # --- dense: pruned nemotron [arXiv:2407.14679; hf] --------------------------
 MINITRON_4B = ModelConfig(
@@ -124,13 +124,21 @@ MAMBA2_370M = ModelConfig(
     n_heads=0, n_kv_heads=0, d_ff=0, vocab=50_280,
     ssm=SSMSpec(d_state=128, d_conv=4, expand=2, head_dim=64, n_groups=1,
                 chunk=256),
-    max_seq_len=524_288)
+    sub_quadratic=True, max_seq_len=524_288)
 
 ARCHS: dict[str, ModelConfig] = {
     c.arch: c for c in [
         ZAMBA2_2P7B, MINITRON_4B, QWEN2_7B, DEEPSEEK_67B, QWEN3_14B,
         OLMOE_1B_7B, KIMI_K2, WHISPER_LARGE_V3, MAMBA2_370M,
         LLAVA_NEXT_MISTRAL_7B, GPT2_117M, GPT2_345M, EMBED_HEAVY_256K]}
+
+# The ten architectures of the dry run's matrix (GPT-2 is the paper's own
+# model, driven by the training runs instead; embed-heavy-256k is a probe).
+ASSIGNED = [
+    "zamba2-2.7b", "minitron-4b", "qwen2-7b", "deepseek-67b", "qwen3-14b",
+    "olmoe-1b-7b", "kimi-k2-1t-a32b", "whisper-large-v3", "mamba2-370m",
+    "llava-next-mistral-7b",
+]
 
 
 def get_config(arch: str) -> ModelConfig:

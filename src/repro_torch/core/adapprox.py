@@ -87,11 +87,13 @@ from repro_torch.core import srsi as S
 from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
 from repro_torch.core.types import (GradientTransformation, P, chain,
-                                    find_states, replicate_state_spec)
+                                    find_states)
 from repro_torch.kernels import ops, ref
 from repro_torch.resilience.guards import (GuardConfig, GuardState,
-                                           advance_counters, init_guard_state)
-from repro_torch.telemetry.snapshot import TelemetrySnapshot, init_snapshot
+                                           advance_counters, guard_spec,
+                                           init_guard_state)
+from repro_torch.telemetry.snapshot import (TelemetrySnapshot, init_snapshot,
+                                            snapshot_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -719,14 +721,12 @@ def _state_spec(state: AdapproxState, param_specs: dict) -> AdapproxState:
                 v=pspec, m1=pspec if leaf.m1 is not None else None))
     guards = None
     if state.guards is not None:
-        fspecs = [s for s, leaf in zip(specs, state.leaves)
-                  if isinstance(leaf, F.FactoredLeaf)]
-        guards = dataclasses.replace(
-            replicate_state_spec(state.guards),
-            dense_v=tuple(fspecs[:len(state.guards.dense_v)]))
+        guards = guard_spec(state.guards, [
+            s for s, leaf in zip(specs, state.leaves)
+            if isinstance(leaf, F.FactoredLeaf)])
     return AdapproxState(
         step=P(), leaves=tuple(leaves),
-        telemetry=replicate_state_spec(state.telemetry),
+        telemetry=snapshot_spec(state.telemetry),
         refresh_every=P() if state.refresh_every is not None else None,
         guards=guards, seed=state.seed)
 

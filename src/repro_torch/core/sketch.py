@@ -47,10 +47,11 @@ from repro_torch.core.adamw import adam_leaf, bias_corrections
 from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
 from repro_torch.core.types import (GradientTransformation, P, chain,
-                                    find_states, replicate_state_spec)
+                                    find_states)
 from repro_torch.kernels import ops
 from repro_torch.telemetry.snapshot import (SketchSnapshot,
-                                            init_sketch_snapshot)
+                                            init_sketch_snapshot,
+                                            snapshot_spec)
 
 _PRIME = (1 << 31) - 1          # Mersenne prime for universal hashing
 _MASK64 = (1 << 64) - 1
@@ -233,7 +234,7 @@ def scale_by_sketch(cfg: SketchConfig) -> GradientTransformation:
             else:
                 leaves.append(SketchDense(m=pspec, v=pspec))
         return SketchState(step=P(), leaves=tuple(leaves),
-                           telemetry=replicate_state_spec(state.telemetry))
+                           telemetry=snapshot_spec(state.telemetry))
 
     return GradientTransformation(init, update, spec)
 

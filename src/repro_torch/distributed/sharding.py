@@ -127,22 +127,42 @@ def sanitize_spec(spec: P, shape: tuple, mesh) -> P:
     return P(*parts)
 
 
-def _param_shapes(model, params: Optional[dict]) -> dict:
-    """``{path: shape}`` of the model's parameters in flatten order, from
-    ``params`` (nested or flat) or, without them, a CPU init."""
+def param_structs(model, params: Optional[dict] = None) -> dict:
+    """``{path: meta tensor}`` of the model's parameters in flatten order,
+    their shapes and dtypes without storage: from ``params`` (nested or
+    flat; tensors on any device, fake ones included, or shapes, which
+    take ``cfg.param_dtype``) or, without them, from the model's init
+    under a ``FakeTensorMode``, so that no size of model is allocated."""
     if params is None:
-        params = model.init(torch.Generator().manual_seed(0))
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            params = model.init(torch.Generator().manual_seed(0))
     flat = TREE.flatten(params) if any(
         isinstance(v, dict) for v in params.values()) else params
-    return {k: tuple(v.shape) for k, v in flat.items()}
+    dt = getattr(torch, model.cfg.param_dtype)
+
+    def meta(v):
+        if isinstance(v, torch.Tensor):
+            return torch.empty(v.shape, dtype=v.dtype, device="meta")
+        return torch.empty(tuple(v), dtype=dt, device="meta")
+
+    return {k: meta(v) for k, v in flat.items()}
+
+
+def _param_shapes(model, params: Optional[dict]) -> dict:
+    """``{path: shape}`` of the model's parameters in flatten order
+    (:func:`param_structs`)."""
+    return {k: tuple(v.shape) for k, v in param_structs(model, params)
+            .items()}
 
 
 def param_pspecs(model, mesh, kind: str = "train", fsdp: bool = True,
                  params: Optional[dict] = None) -> dict:
     """``{path: PartitionSpec}`` of the parameters, in flatten order, each
     sanitized against its shape.  ``mesh`` may be a ``DeviceMesh`` or a
-    ``{axis: size}`` mapping; ``params`` gives the shapes (default: a CPU
-    init, fine at smoke size)."""
+    ``{axis: size}`` mapping; ``params`` gives the shapes (tensors or
+    shapes; default: the model's init without storage,
+    :func:`param_structs`)."""
     cfg = model.cfg
     shapes = _param_shapes(model, params)
     if getattr(cfg, "parallel_strategy", "tp") == "fsdp":
@@ -285,6 +305,56 @@ def gather_tree(state):
     return map_state(state, gather)
 
 
+def place_state(state, shardings):
+    """A ``TrainState`` with its parameters and optimizer state placed by
+    the matching leaves of ``shardings`` (:func:`train_shardings`' state
+    shardings); its step as it is."""
+    with torch.no_grad():
+        return dataclasses.replace(
+            state, params={k: place(v, shardings.params[k])
+                           for k, v in state.params.items()},
+            opt_state=place_tree(state.opt_state, shardings.opt_state))
+
+
+def model_params(params: dict, local=(), whole: Optional[dict] = None
+                 ) -> dict:
+    """The parameters a model runs on over a mesh: every leaf whole
+    (``whole``'s, where given, else gathered), but the leaves named in
+    ``local`` (the model's ``mesh_local_leaves``: the MoE mesh paths'
+    expert stacks) as this rank's block."""
+    out = {}
+    with torch.no_grad():
+        for k, v in params.items():
+            if k in local:
+                out[k] = v.to_local() if hasattr(v, "to_local") else v
+            else:
+                out[k] = whole[k] if whole is not None else gather(v)
+    return out
+
+
+def gather_tree_except(state, shardings, keep: tuple):
+    """``state`` with each DTensor leaf replaced by this rank's block over
+    the mesh axes in ``keep`` only (the matching leaf of ``shardings``
+    gives its spec): all-gathered over every other axis the spec splits,
+    a dimension split over ``keep`` axes alone staying split (a cache
+    keeps its batch block over the dp axes and gathers its sequence).
+    Other leaves as they are."""
+    from repro_torch.checkpoint.serialization import _map, spec_leaves
+    pairs = iter(spec_leaves(shardings))
+
+    def one(path, t):
+        sharding = next(pairs)[1]
+        if not hasattr(t, "redistribute") or sharding is None:
+            return t
+        kept = P(*(ax if ax is not None and set(
+            ax if isinstance(ax, tuple) else (ax,)) <= set(keep) else None
+            for ax in sharding.spec))
+        return t.redistribute(sharding.mesh, placements_for(
+            kept, sharding.mesh)).to_local()
+
+    return _map(state, "", one)
+
+
 def bind(specs, mesh):
     """A tree of specs as :class:`NamedSharding` on ``mesh``."""
     return map_state(specs, lambda s: NamedSharding(mesh, s),
@@ -321,17 +391,15 @@ def train_shardings(model, opt, mesh, batch_struct: Optional[dict] = None,
     state through its hook, a replicated step counter), and
     ``batch_shardings`` places ``{"tokens": shape}`` batches over the dp
     axes (None without ``batch_struct``).  The optimizer state's
-    structure comes from ``opt.init`` on meta tensors of the shapes of
-    ``params`` (default: a CPU init), so no state is allocated."""
+    structure comes from ``opt.init`` on meta tensors of the parameters'
+    shapes and dtypes (:func:`param_structs` of ``params``: tensors, fake
+    ones included, or shapes; default: the model's init without
+    storage), so nothing is allocated at any size."""
     from repro_torch.train.steps import TrainState   # import cycle
-    if params is None:
-        params = model.init(torch.Generator().manual_seed(0))
-    flat = TREE.flatten(params) if any(
-        isinstance(v, dict) for v in params.values()) else params
-    pspecs = param_pspecs(model, mesh, kind, fsdp, flat)
+    structs = param_structs(model, params)
+    pspecs = param_pspecs(model, mesh, kind, fsdp, structs)
     with torch.no_grad():
-        opt_state = opt.init({k: torch.empty_like(v, device="meta")
-                              for k, v in flat.items()})
+        opt_state = opt.init(structs)
     state = TrainState(
         params={k: NamedSharding(mesh, s) for k, s in pspecs.items()},
         opt_state=opt_state_shardings(opt, opt_state, pspecs, mesh),

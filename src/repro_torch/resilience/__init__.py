@@ -9,6 +9,6 @@ from repro_torch.resilience.chaos import (FaultPlan,
                                           flip_bit, inject_faults,
                                           remesh_after_loss, truncate_file)
 from repro_torch.resilience.guards import (GuardConfig, GuardedState,
-                                           GuardState, guard_updates,
-                                           init_guard_state,
+                                           GuardState, guard_spec,
+                                           guard_updates, init_guard_state,
                                            tree_all_finite)

@@ -122,6 +122,16 @@ def init_guard_state(factored_shapes, max_demotions: int,
                       demotions=_counter(0), dense_v=dense_v)
 
 
+def guard_spec(gstate: GuardState, factored_pspecs) -> GuardState:
+    """Sharding spec of a ``GuardState``: the counters replicated, each
+    dense shadow buffer split like the factored parameter it mirrors
+    (``factored_pspecs``, in factored-leaf order), as in the JAX
+    package."""
+    return GuardState(trips=P(), force_refresh=P(), demoted=P(),
+                      trip_total=P(), demotions=P(),
+                      dense_v=tuple(factored_pspecs[:len(gstate.dense_v)]))
+
+
 def advance_counters(gstate: GuardState, gcfg: GuardConfig,
                      xi_max: np.ndarray):
     """The counter half of the JAX package's ``_advance_guard_state`` on

@@ -76,4 +76,4 @@ from repro_torch.telemetry.sink import (EVENT_SCHEMA, SCHEMA_VERSION,
 from repro_torch.telemetry.snapshot import (SketchSnapshot,
                                             TelemetrySnapshot,
                                             init_sketch_snapshot,
-                                            init_snapshot)
+                                            init_snapshot, snapshot_spec)

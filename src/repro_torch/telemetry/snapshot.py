@@ -35,6 +35,8 @@ from typing import ClassVar, Iterable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.types import replicate_state_spec
+
 
 class _HostCopy:
     """The host copy of a snapshot's device vectors (``VECTORS``)."""
@@ -151,6 +153,14 @@ def init_sketch_snapshot(n_sketched: int, leaf_indices: tuple = (),
         step=0, occupancy=torch.zeros((n_sketched,), dtype=torch.float32),
         overestimate=torch.ones((n_sketched,), dtype=torch.float32),
         leaf_indices=tuple(leaf_indices)), device)
+
+
+def snapshot_spec(snap):
+    """Sharding spec of a ``TelemetrySnapshot`` or ``SketchSnapshot``:
+    every leaf replicated (scalars and per-leaf vectors, nothing worth
+    splitting), as in the JAX package; ``None`` (telemetry off) stays
+    ``None``."""
+    return replicate_state_spec(snap)
 
 
 def pending(snaps: Iterable[_HostCopy]) -> list:

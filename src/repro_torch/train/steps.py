@@ -67,13 +67,10 @@ class _MeshStep:
         with torch.no_grad():
             full = {k: self.SH.gather(v) for k, v in state.params.items()}
             opt_state = self.SH.gather_tree(state.opt_state)
-        model_params = {}
-        for k, v in state.params.items():
-            if k in self.local:
-                v = v.to_local() if hasattr(v, "to_local") else v
-                model_params[k] = v.detach().requires_grad_(True)
-            else:
-                model_params[k] = full[k].requires_grad_(True)
+        model_params = {
+            k: (v.detach() if k in self.local else v).requires_grad_(True)
+            for k, v in self.SH.model_params(state.params, self.local,
+                                             full).items()}
         return full, model_params, opt_state
 
     def split(self, batch: dict) -> dict:
@@ -110,13 +107,41 @@ class _MeshStep:
         return out, metrics
 
     def place(self, params: dict, opt_state, step: int) -> TrainState:
-        with torch.no_grad():
-            return TrainState(
-                params={k: self.SH.place(v, self.shardings.params[k])
-                        for k, v in params.items()},
-                opt_state=self.SH.place_tree(opt_state,
-                                             self.shardings.opt_state),
-                step=step)
+        return self.SH.place_state(TrainState(params, opt_state, step),
+                                   self.shardings)
+
+
+def _grads_of(model, params: dict, batch: dict):
+    loss, metrics = model.loss(tree.unflatten(params), batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return (dict(zip(params, grads)), loss.detach(),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def microbatch_grads(model, params: dict, batch: dict,
+                     microbatches: int = 1):
+    """``(grads, loss, metrics)`` of the model's loss on ``batch`` at
+    ``params`` (flat): with ``microbatches`` > 1 every tensor of the batch
+    splits on its leading axis, and the gradients are accumulated in fp32
+    and averaged, as is the loss."""
+    if microbatches == 1:
+        return _grads_of(model, params, batch)
+    for k, x in batch.items():
+        if x.shape[0] % microbatches:
+            raise ValueError(f"batch {k!r} of {x.shape[0]} does not "
+                             f"split into {microbatches} microbatches")
+    parts = {k: x.chunk(microbatches) for k, x in batch.items()}
+    acc = {k: torch.zeros_like(p, dtype=torch.float32)
+           for k, p in params.items()}
+    loss_sum = None
+    for i in range(microbatches):
+        grads, loss, _ = _grads_of(
+            model, params, {k: xs[i] for k, xs in parts.items()})
+        acc = {k: a + grads[k].float() for k, a in acc.items()}
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+    inv = 1.0 / microbatches
+    loss = loss_sum * inv
+    return {k: g * inv for k, g in acc.items()}, loss, {"loss": loss}
 
 
 def build_train_step(model, opt: GradientTransformation,
@@ -134,32 +159,6 @@ def build_train_step(model, opt: GradientTransformation,
     mesh = (_MeshStep(model, state_shardings, batch_shardings)
             if state_shardings is not None else None)
 
-    def grads_of(params: dict, batch: dict):
-        loss, metrics = model.loss(tree.unflatten(params), batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return (dict(zip(params, grads)), loss.detach(),
-                {k: v.detach() for k, v in metrics.items()})
-
-    def compute_grads(params: dict, batch: dict):
-        if microbatches == 1:
-            return grads_of(params, batch)
-        for k, x in batch.items():
-            if x.shape[0] % microbatches:
-                raise ValueError(f"batch {k!r} of {x.shape[0]} does not "
-                                 f"split into {microbatches} microbatches")
-        parts = {k: x.chunk(microbatches) for k, x in batch.items()}
-        acc = {k: torch.zeros_like(p, dtype=torch.float32)
-               for k, p in params.items()}
-        loss_sum = None
-        for i in range(microbatches):
-            grads, loss, _ = grads_of(
-                params, {k: xs[i] for k, xs in parts.items()})
-            acc = {k: a + grads[k].float() for k, a in acc.items()}
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-        inv = 1.0 / microbatches
-        loss = loss_sum * inv
-        return {k: g * inv for k, g in acc.items()}, loss, {"loss": loss}
-
     def train_step(state: TrainState, batch: dict):
         if mesh is None:
             params, model_params, opt_state = (state.params, state.params,
@@ -167,7 +166,8 @@ def build_train_step(model, opt: GradientTransformation,
         else:
             params, model_params, opt_state = mesh.gather(state)
             batch = mesh.split(batch)
-        grads, loss, metrics = compute_grads(model_params, batch)
+        grads, loss, metrics = microbatch_grads(model, model_params, batch,
+                                                microbatches)
         if mesh is not None:
             metrics = dict(metrics, loss=loss)
             grads, metrics = mesh.reduce(grads, metrics)

@@ -148,12 +148,7 @@ def train(model, opt: GradientTransformation, data_cfg: DataConfig,
         for p in state.params.values():   # a given state's, gathered ones
             p.requires_grad_(True)
     else:
-        state = TrainState(
-            params={k: SH.place(v, state_shardings.params[k])
-                    for k, v in state.params.items()},
-            opt_state=SH.place_tree(state.opt_state,
-                                    state_shardings.opt_state),
-            step=state.step)
+        state = SH.place_state(state, state_shardings)
     start_step = state.step
     if ckpt is not None and ckpt.latest_step() is not None:
         state, start_step = ckpt.restore(state)

@@ -127,8 +127,9 @@ sm_90a) and the CUDA toolkit.  In order, it
      checkpoint) and OLMoE-1B-7B (4 layers, 6 steps, the MoE block
      through moe_apply_sharded) through the launcher with --mesh 1,1
      --fsdp, on a one-rank NCCL group (the split leaves DTensors, the
-     step's gathers, batch split and gradient sums real collectives),
-     and holds each to its run without a mesh, bitwise: every loss,
+     step on each rank's blocks: batch split and gradient sums real
+     collectives), and holds each to its run without a mesh, bitwise:
+     every loss,
      every final state tensor, the launches; the checkpoint's manifest
      carries a spec string on every leaf and the rules' param specs, and
      restores without a mesh bitwise; then breaks a step of each run
@@ -137,8 +138,8 @@ sm_90a) and the CUDA toolkit.  In order, it
      on a one-rank fake mesh (1, 1), fake CPU tensors, its step 2 (a fold
      step), holds its per-rank parameter and optimizer-state bytes
      exactly to a 2-step ``--mesh 1,1`` run on the card and to [mesh]'s
-     final state, and prints its predicted peak beside the card's
-     fold-step max_memory_allocated, with their ratio;
+     final state, and holds the card's fold-step max_memory_allocated
+     within 0.97-1.03 of its predicted peak;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
      them against ``BENCH_memory.json``, and those of
@@ -3101,9 +3102,11 @@ def mesh_phase(mixed_state: list, mixed_info: dict, mixed_expect: dict,
                olmoe_state: list, olmoe_info: dict) -> dict:
     """[mesh]: the launcher's distributed path (``--mesh 1,1 --fsdp``) on
     a one-rank NCCL group: every split leaf a DTensor on a (data=1,
-    model=1) mesh, the step gathering, splitting the batch and summing the
-    gradients over the dp axes through real collectives, OLMoE's MoE block
-    through ``moe_apply_sharded`` (a model axis of 1).  Each is held
+    model=1) mesh, the step running on each rank's blocks (the model
+    gathering at use, the optimizer updating the blocks, the new state
+    wrapped from them), splitting the batch and summing the gradients
+    over the dp axes through real collectives, OLMoE's MoE block through
+    ``moe_apply_sharded`` (a model axis of 1).  Each is held
     bitwise to its run without a mesh ([train-mixed], [train-olmoe]):
     losses, launches and every final state tensor; per-rank state bytes
     and the fold / refresh step times printed beside the unsharded run's.
@@ -3140,7 +3143,9 @@ def mesh_phase(mixed_state: list, mixed_info: dict, mixed_expect: dict,
               f"the run without a mesh; optimizer state per rank "
               f"{rank_mb:.1f} MB vs {ref_info['state_mb']:.1f} MB without "
               f"a mesh; fold step {info['fold_s']:.4f} vs "
-              f"{ref_info['fold_s']:.4f} s; refresh steps "
+              f"{ref_info['fold_s']:.4f} s "
+              f"({info['fold_s'] / ref_info['fold_s'] - 1:+.1%}); "
+              f"refresh steps "
               f"{info['refresh_s']} vs {ref_info['refresh_s']}; peak "
               f"{info['peak_gib']:.2f} vs {ref_info['peak_gib']:.2f} GiB "
               f"({card})")
@@ -3202,6 +3207,11 @@ def mesh_phase(mixed_state: list, mixed_info: dict, mixed_expect: dict,
     dist.destroy_process_group()
     print(f"  [mesh] {time.monotonic() - t0:.1f} s")
     return runs
+
+
+# [dryrun]: the card's fold-step peak over the dry run's prediction (the
+# plain route's, on fake tensors), which must lie within these
+DRYRUN_PEAK_RATIO = (0.97, 1.03)
 
 
 def dryrun_cell(mesh, train: bool = True):
@@ -3286,9 +3296,9 @@ def dryrun_phase(device, mesh_info: dict) -> dict:
     """[dryrun]: the dry run's prediction of [mesh]'s GPT-2 117M run
     against the card.  Its per-rank parameter and optimizer-state bytes
     must equal the card's exactly, both the 2-step run's and [mesh]'s
-    12-step final state's; its predicted peak (the plain route's, on fake
-    tensors) is printed beside the card's fold-step
-    ``max_memory_allocated``, with their ratio."""
+    12-step final state's; the card's fold-step ``max_memory_allocated``
+    must lie within ``DRYRUN_PEAK_RATIO`` of its predicted peak (the
+    plain route's, on fake tensors), printed with their ratio."""
     t0 = time.monotonic()
     pred = dryrun_predict()
     t_pred = time.monotonic() - t0
@@ -3300,6 +3310,10 @@ def dryrun_phase(device, mesh_info: dict) -> dict:
                  f"2-step run {got[key]}, [mesh]'s final state "
                  f"{mesh_info[mesh_key]}")
     ratio = got["peak_bytes"] / pred["peak_bytes"]
+    if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+        fail(f"[dryrun] the card's fold-step peak {got['peak_bytes']} B is "
+             f"{ratio:.4f} of the predicted {pred['peak_bytes']} B, outside "
+             f"{DRYRUN_PEAK_RATIO}")
     print(f"  per-rank bytes: parameters {pred['param_bytes']}, optimizer "
           f"state {pred['opt_state_bytes']}: predicted = the card's 2-step "
           f"run = [mesh]'s final state, exactly")

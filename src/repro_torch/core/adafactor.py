@@ -12,7 +12,9 @@ optional relative step sizes.  :func:`adafactor` is the chain
           scale(-1.0))
 
 The row and column means are tensor code on every device: the JAX package
-has no kernel for them either.  ``b2_t`` is a float32 power taken as the
+has no kernel for them either.  On a mesh (``core/blocks.py``) a block's
+row and column means, the mean of R and the RMS clip add over the split
+axis they cross.  ``b2_t`` is a float32 power taken as the
 port's Adam takes ``b ** t`` (``adamw.float32_pow``).
 """
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.adamw import float32_pow
+from repro_torch.core.blocks import WHOLE, Split, split_of
 from repro_torch.core.factored import should_factor
 from repro_torch.core.transform import (add_decayed_weights, rms, scale,
                                         scale_by_relative_step,
@@ -60,16 +63,18 @@ class AdafactorState:
     leaves: tuple                 # AdafactorLeaf per param, flatten order
 
 
-def factored_vhat(r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``outer(r, c) / mean(r)`` over the trailing axis of r and c."""
-    denom = torch.mean(r, dim=-1, keepdim=True).unsqueeze(-1)
+def factored_vhat(r: torch.Tensor, c: torch.Tensor,
+                  split: Split = WHOLE) -> torch.Tensor:
+    """``outer(r, c) / mean(r)`` over the trailing axis of r and c (r's
+    mean over the whole rows of a row-split block)."""
+    denom = split.mean(r, -1, (-2,)).unsqueeze(-1).unsqueeze(-1)
     return (r.unsqueeze(-1) * c.unsqueeze(-2)) / (denom + 1e-30)
 
 
-def ema_rowcol(r, c, gsq, b: float, omb: float):
+def ema_rowcol(r, c, gsq, b: float, omb: float, split: Split = WHOLE):
     """The row and column statistics' EMA of ``gsq`` (*batch, m, n)."""
-    return (b * r + omb * torch.mean(gsq, dim=-1),
-            b * c + omb * torch.mean(gsq, dim=-2))
+    return (b * r + omb * split.mean(gsq, -1),
+            b * c + omb * split.mean(gsq, -2))
 
 
 def scale_by_factored_rms(cfg: AdafactorConfig) -> GradientTransformation:
@@ -97,17 +102,18 @@ def scale_by_factored_rms(cfg: AdafactorConfig) -> GradientTransformation:
         omb2 = f32_one_minus(b2t) if cfg.b2_schedule else 1.0 - cfg.b2
         outs, new_leaves = {}, []
         for (name, g), leaf in zip(grads.items(), state.leaves):
+            split = split_of(name, g)
             g32 = g.float()
             gsq = torch.square(g32) + cfg.eps1
             if leaf.r is not None:
-                r, c = ema_rowcol(leaf.r, leaf.c, gsq, b2t, omb2)
-                u = g32 / (torch.sqrt(factored_vhat(r, c)) + 1e-30)
+                r, c = ema_rowcol(leaf.r, leaf.c, gsq, b2t, omb2, split)
+                u = g32 / (torch.sqrt(factored_vhat(r, c, split)) + 1e-30)
                 new = AdafactorLeaf(r=r, c=c, v=None, m1=leaf.m1)
             else:
                 v = b2t * leaf.v + omb2 * gsq
                 u = g32 / (torch.sqrt(v) + 1e-30)
                 new = AdafactorLeaf(r=None, c=None, v=v, m1=leaf.m1)
-            u = u / torch.clamp_min(rms(u) / cfg.clip_d, 1.0)
+            u = u / torch.clamp_min(rms(u, split) / cfg.clip_d, 1.0)
             if leaf.m1 is not None:
                 u = cfg.b1 * leaf.m1 + (1.0 - cfg.b1) * u
                 new.m1 = u

@@ -63,6 +63,13 @@ update and its engineered knobs on the GPT-2 path:
     wrapper, which reads it with its all-finite flag in one transfer and
     advances the host counters (:func:`settle_guards`).
 
+On a mesh the update runs on each rank's blocks (``core/blocks.py``):
+V's low-rank term Q U^T is local block by block; the RMS clip and pass
+1's sums add over both split axes of a matrix, the fold (G^2)^T Q over the
+row axis, and S-RSI's products and sums as ``core/srsi.py`` says; the
+sketch is drawn whole and every rank takes its block of it.  Off a mesh
+every such sum is the identity.
+
 Stacked ``(L, m, n)`` leaves are batched: each leaf is one batched call,
 not a loop over its matrices.  Leaves are walked in JAX's flatten order;
 leaf ``i``'s sketch at step ``t`` is drawn from a generator seeded by
@@ -80,6 +87,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import blocks as B
 from repro_torch.core import factored as F
 from repro_torch.core import quantized as QZ
 from repro_torch.core import rank as R
@@ -191,12 +199,11 @@ def _bc(s: torch.Tensor) -> torch.Tensor:
     return s.reshape(s.shape + (1, 1))
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
+def _rms(x: torch.Tensor, split: B.Split) -> torch.Tensor:
     """Per-matrix RMS over the trailing two axes, as sum / size (the same
     rounding as the fused path's usq / size)."""
-    size = x.shape[-2] * x.shape[-1]
-    return torch.sqrt(torch.sum(torch.square(x), dim=(-2, -1)) / size
-                      + 1e-30)
+    size = split.count((-2, -1))
+    return torch.sqrt(split.sum(torch.square(x), (-2, -1)) / size + 1e-30)
 
 
 def _fused_scalars(usq, m1dot, m1sq, size: int, cfg: AdapproxConfig,
@@ -274,20 +281,23 @@ def _init_leaf(p: torch.Tensor, cfg: AdapproxConfig):
 def _factored_update(g, leaf: F.FactoredLeaf, step: int,
                      sketch: Optional[S.SketchSource], cfg: AdapproxConfig,
                      r_store: int, p_eff: int, k_max_leaf: int,
-                     refresh_t: int, force_refresh: bool = False):
+                     refresh_t: int, force_refresh: bool = False,
+                     split: B.Split = B.WHOLE):
     """One step of a factored leaf.  ``leaf.q`` / ``leaf.u`` are fp32, or
     int8 :class:`QuantizedMatrix` factors on the fused path (pass 1 takes
     them as they are; the refresh or fold takes them dequantized once).
     ``sketch`` returns this step's Gaussian sketch on refresh steps;
     ``refresh_t`` is the cadence in effect; ``force_refresh`` (the xi
-    watchdog's) makes a fold step a refresh.  Returns ``(m_out, new_leaf,
-    denom)``, ``denom`` the per-matrix clip denominator ``max(1,
-    RMS(u) / d)`` the step divided by (telemetry reads it)."""
+    watchdog's) makes a fold step a refresh; ``split`` the leaf's on a
+    mesh, where ``g`` and ``leaf`` are this rank's blocks.  Returns
+    ``(m_out, new_leaf, denom)``, ``denom`` the per-matrix clip
+    denominator ``max(1, RMS(u) / d)`` the step divided by (telemetry
+    reads it)."""
     q, u, k, xi_prev, m1 = leaf.q, leaf.u, leaf.k, leaf.xi, leaf.m1
     g32 = g.float()
     q32, u32 = ((QZ.dequantize(q), QZ.dequantize(u))
                 if isinstance(q, QZ.QuantizedMatrix) else (q, u))
-    v_op = S.make_implicit_v(q32, u32, g32, cfg.b2)
+    v_op = S.make_implicit_v(q32, u32, g32, cfg.b2, split=split)
     # Paper-faithful: V_t is formed every step for the elementwise update.
     # The fused pipeline and the use_kernels update reconstruct it
     # tile-wise instead, and the refresh branch forms it only when it runs.
@@ -306,6 +316,10 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
         (u_hat_raw, vfro, usq, m1dot, m1sq, yfold) = ops.fused_precond(
             q, u, g32, cfg.b2, cfg.eps, m1=m1 if need_guid else None,
             with_vfro=cfg.implicit, with_fold=not refresh)
+        vfro, usq, m1dot, m1sq = (None if x is None else split.both(x)
+                                  for x in (vfro, usq, m1dot, m1sq))
+        if yfold is not None:
+            yfold = split.rows(yfold)
 
     if refresh:
         # Step 1 has no subspace to inherit and runs cold; the drift guard
@@ -319,13 +333,13 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
             # streaming frob_sq
             fs = vfro
             if fs is None and vmat is not None:
-                fs = torch.sum(torch.square(vmat), dim=(-2, -1))
+                fs = split.sum(torch.square(vmat), (-2, -1))
             res = S.srsi_implicit(v_op, r_store, p_eff, n_it, sketch,
                                   frob_sq=fs, u0=u0, use_warm=use_warm)
         else:
             vm = vmat if vmat is not None else v_op.materialize()
             res = S.srsi_dense(vm, r_store, p_eff, n_it, sketch, u0=u0,
-                               use_warm=use_warm)
+                               use_warm=use_warm, split=split)
         k_new = R.select_rank(res.cum_energy, res.frob_sq, cfg.rank,
                               k_max_leaf, step,
                               torch.clamp_max(k, k_max_leaf),
@@ -341,9 +355,9 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
                      ) * mask.unsqueeze(-2)
         else:
             u_new = (ops if cfg.use_kernels else ref).one_sided_fold(
-                u32, q32, g32, cfg.b2, mask)
+                u32, q32, g32, cfg.b2, mask, reduce=split.rows)
 
-    size = g32.shape[-2] * g32.shape[-1]
+    size = split.count((-2, -1))
     if cfg.fused_update:
         denom, out_scale, store_scale = _fused_scalars(
             usq, m1dot, m1sq, size, cfg, need_guid)
@@ -360,16 +374,16 @@ def _factored_update(g, leaf: F.FactoredLeaf, step: int,
         u_hat = ops.lowrank_update(q32, u32, g32, cfg.b2, cfg.eps)
     else:
         u_hat = g32 / (torch.sqrt(vmat) + cfg.eps)
-    denom = torch.clamp_min(_rms(u_hat) / cfg.clip_d, 1.0)
+    denom = torch.clamp_min(_rms(u_hat, split) / cfg.clip_d, 1.0)
     u_hat = u_hat / _bc(denom)
     if cfg.b1 > 0:
         m1_acc = cfg.b1 * m1 + (1.0 - cfg.b1) * u_hat
         m_out = m1_acc
         if cfg.guidance != "off":
             dims = (-2, -1)
-            num = torch.sum(u_hat * m1_acc, dim=dims)
-            den = (torch.sqrt(torch.sum(u_hat ** 2, dim=dims))
-                   * torch.sqrt(torch.sum(m1_acc ** 2, dim=dims)))
+            num = split.sum(u_hat * m1_acc, dims)
+            den = (torch.sqrt(split.sum(u_hat ** 2, dims))
+                   * torch.sqrt(split.sum(m1_acc ** 2, dims)))
             theta = num / (den + 1e-30)
             gscale = _bc(torch.clamp(1.0 / (1.0 - theta + cfg.eps), 0.0,
                                      cfg.guidance_max_scale))
@@ -392,11 +406,12 @@ def _r_store(leaf: F.FactoredLeaf) -> int:
 
 def _update_factored(g, leaf: F.FactoredLeaf, shape: tuple, step: int,
                      sketch: Optional[S.SketchSource], cfg: AdapproxConfig,
-                     refresh_t: int, force_refresh: bool = False):
+                     refresh_t: int, force_refresh: bool = False,
+                     split: B.Split = B.WHOLE):
     """A factored leaf's step around :func:`_factored_update`: int8 factors
     are dequantized first unless the fused pass 1 takes them as they are;
     they are requantized after the step, on fold steps too.  ``shape`` is the
-    parameter's, or a bucket's stacked shape.  Returns ``(m_out,
+    parameter's (the whole one, on a mesh), or a bucket's stacked shape.  Returns ``(m_out,
     new_leaf, denom)``, the new factors fp32: the caller requantizes int8
     ones (:func:`_requant`), per leaf of a bucket."""
     int8 = cfg.factor_dtype == "int8"
@@ -406,7 +421,7 @@ def _update_factored(g, leaf: F.FactoredLeaf, shape: tuple, step: int,
     r_store = _r_store(leaf)
     p_eff, k_max_leaf = _leaf_meta(shape, r_store, cfg)
     return _factored_update(g, leaf, step, sketch, cfg, r_store, p_eff,
-                            k_max_leaf, refresh_t, force_refresh)
+                            k_max_leaf, refresh_t, force_refresh, split)
 
 
 def _requant(nl: F.FactoredLeaf, cfg: AdapproxConfig) -> F.FactoredLeaf:
@@ -428,11 +443,12 @@ def _stack(xs: list):
 
 def _update_bucket(gs: list, leaves: list, shape: tuple, step: int,
                    draws: Optional[list], cfg: AdapproxConfig,
-                   refresh_t: int) -> list:
+                   refresh_t: int, split: B.Split = B.WHOLE) -> list:
     """One stacked step for a bucket of same-signature factored leaves:
     their gradients, state and (on refresh steps) their sketches, each
     drawn from its own leaf's generator, stack along a new leading axis,
-    so every slice sees the per-leaf arithmetic, batched.  Returns
+    so every slice sees the per-leaf arithmetic, batched (on a mesh their
+    blocks, which share their ``split``).  Returns
     ``[(m_out, new_leaf, denom)]`` in the bucket's order."""
     stacked = F.FactoredLeaf(
         **{f.name: _stack([getattr(leaf, f.name) for leaf in leaves])
@@ -440,7 +456,8 @@ def _update_bucket(gs: list, leaves: list, shape: tuple, step: int,
     sketch = None if draws is None else _drawn(torch.stack(draws))
     m_out, nl, denom = _update_factored(torch.stack(gs), stacked,
                                         (len(leaves),) + tuple(shape), step,
-                                        sketch, cfg, refresh_t)
+                                        sketch, cfg, refresh_t,
+                                        split=split.stacked(len(leaves)))
     return [(m_out[j], _requant(F.FactoredLeaf(
         q=nl.q[j], u=nl.u[j], k=nl.k[j], xi=nl.xi[j],
         m1=None if nl.m1 is None else nl.m1[j]), cfg), denom[j])
@@ -448,7 +465,7 @@ def _update_bucket(gs: list, leaves: list, shape: tuple, step: int,
 
 
 def _update_demoted(g, leaf: F.FactoredLeaf, dense_v: torch.Tensor,
-                    cfg: AdapproxConfig):
+                    cfg: AdapproxConfig, split: B.Split = B.WHOLE):
     """A demoted factored leaf's step: the exact dense second moment on
     its shadow buffer, with the factored path's per-matrix RMS clip (over
     the trailing two axes), guidance off, the factors and k frozen and xi
@@ -458,7 +475,7 @@ def _update_demoted(g, leaf: F.FactoredLeaf, dense_v: torch.Tensor,
     g32 = g.float()
     v = cfg.b2 * dense_v + (1.0 - cfg.b2) * torch.square(g32)
     u_hat = g32 / (torch.sqrt(v) + cfg.eps)
-    rms = torch.sqrt(torch.mean(torch.square(u_hat), dim=(-2, -1)) + 1e-30)
+    rms = torch.sqrt(split.mean(torch.square(u_hat), (-2, -1)) + 1e-30)
     denom = torch.clamp_min(rms / cfg.clip_d, 1.0)
     u_hat = u_hat / _bc(denom)
     if leaf.m1 is not None:
@@ -497,7 +514,8 @@ def settle_guards(state: AdapproxState, xi_max: np.ndarray) -> None:
     state.pending = None
 
 
-def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
+def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig,
+                  split: B.Split = B.WHOLE):
     """A dense leaf's step; returns ``(m_out, new_leaf, denom)``."""
     g32 = g.float()
     v = cfg.b2 * leaf.v + (1.0 - cfg.b2) * torch.square(g32)
@@ -506,8 +524,8 @@ def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
         # Same pass 2 as the factored leaves (no guidance): the leaf is
         # viewed as one (1, size) row.
         denom, out_scale, store_scale = _fused_scalars(
-            torch.sum(torch.square(u_hat)), None, None, u_hat.numel(), cfg,
-            guidance=False)
+            split.sum(torch.square(u_hat), None), None, None, split.count(),
+            cfg, guidance=False)
         m1 = None if leaf.m1 is None else leaf.m1.reshape(1, -1)
         m_out, m1_new = ops.fused_apply(
             u_hat.reshape(1, -1), m1, denom, cfg.b1, out_scale, store_scale,
@@ -516,8 +534,8 @@ def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
                 F.DenseLeaf(v=v, m1=None if m1_new is None
                             else m1_new.reshape(u_hat.shape)), denom)
     denom = torch.clamp_min(
-        torch.sqrt(torch.sum(torch.square(u_hat)) / u_hat.numel() + 1e-30)
-        / cfg.clip_d, 1.0)
+        torch.sqrt(split.sum(torch.square(u_hat), None) / split.count()
+                   + 1e-30) / cfg.clip_d, 1.0)
     u_hat = u_hat / denom
     if leaf.m1 is not None:
         m1 = cfg.b1 * leaf.m1 + (1.0 - cfg.b1) * u_hat
@@ -531,22 +549,26 @@ def _update_dense(g, leaf: F.DenseLeaf, cfg: AdapproxConfig):
 
 def _assemble_snapshot(prev: TelemetrySnapshot, step: int, new_leaves,
                        denoms, k_max: dict, refresh_t: int,
-                       did_refresh: bool) -> TelemetrySnapshot:
+                       did_refresh: bool, splits: list) -> TelemetrySnapshot:
     """This step's snapshot, as the JAX package's ``_assemble_snapshot``:
     per factored leaf the mean of its xi, of ``min(k, k_max)`` and of that
     over k_max; per leaf the fraction of its matrices whose clip
     denominator exceeded 1; the counters from the host's refresh decision
     (the cadence's, not a refresh the xi watchdog forces).  Only means of
-    per-matrix values the update already holds run on the device."""
+    per-matrix values the update already holds run on the device (on a
+    mesh summed over the ranks holding other matrices of a stack)."""
+    def mean(x, i):
+        return splits[i].mean(x, None, tuple(range(x.dim())))
+
     xi, k, k_frac = [], [], []
     for i, leaf in enumerate(new_leaves):
         if i not in k_max:
             continue
         kf = torch.clamp_max(leaf.k, k_max[i]).float()
-        xi.append(torch.mean(leaf.xi.float()))
-        k.append(torch.mean(kf))
-        k_frac.append(torch.mean(kf / k_max[i]))
-    clip = [torch.mean((d > 1.0).float()) for d in denoms]
+        xi.append(mean(leaf.xi.float(), i))
+        k.append(mean(kf, i))
+        k_frac.append(mean(kf / k_max[i], i))
+    clip = [mean((d > 1.0).float(), i) for i, d in enumerate(denoms)]
     stack = lambda xs: (torch.stack(xs) if xs else
                         torch.zeros((0,), dtype=torch.float32,
                                     device=prev.clip_rate.device))
@@ -603,7 +625,8 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
                 "with AdapproxConfig.guards runs inside guards.guard_updates")
         step = state.step + 1              # paper counts from t = 1
         names = list(params)
-        shapes = [tuple(w.shape) for w in params.values()]
+        splits = [B.split_of(k, w) for k, w in params.items()]
+        shapes = [sp.shape for sp in splits]     # the whole leaves
         fact = [i for i, leaf in enumerate(state.leaves)
                 if isinstance(leaf, F.FactoredLeaf)]
         ordinal = {i: j for j, i in enumerate(fact)}
@@ -629,21 +652,23 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
             g, leaf = grads[names[i]], state.leaves[i]
             r = _r_store(leaf)
             p_eff, _ = _leaf_meta(shapes[i], r, cfg)
+            # drawn whole: on a mesh every rank takes its block of it
             draw = (cfg.sketch or S.torch_normal(g.device))(
                 F.batch_dims(shapes[i]) + (shapes[i][-1], r + p_eff),
                 _sketch_generator(cfg.seed, step, i, g.device))
-            draws[i] = draw.to(device=g.device, dtype=torch.float32)
+            draws[i] = splits[i].side(
+                draw.to(device=g.device, dtype=torch.float32), -1)
         outs, new_leaves = [None] * len(names), [None] * len(names)
         denoms = [None] * len(names)     # each leaf's clip denominator
         buckets: dict = {}
         for i, leaf in enumerate(state.leaves):
             g = grads[names[i]]
             if not isinstance(leaf, F.FactoredLeaf):
-                outs[i], new_leaves[i], denoms[i] = _update_dense(g, leaf,
-                                                                  cfg)
+                outs[i], new_leaves[i], denoms[i] = _update_dense(
+                    g, leaf, cfg, splits[i])
             elif cfg.bucketed and gcfg is None:
-                buckets.setdefault(F.leaf_signature(shapes[i], g.dtype),
-                                   []).append(i)
+                buckets.setdefault(F.leaf_signature(shapes[i], g.dtype)
+                                   + splits[i].key(), []).append(i)
             else:
                 buckets[i] = [i]
         for idxs in buckets.values():
@@ -653,18 +678,21 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
                 if demoted[j]:
                     (outs[i], new_leaves[i], dense_v[j],
                      denoms[i]) = _update_demoted(
-                        grads[names[i]], state.leaves[i], dense_v[j], cfg)
+                        grads[names[i]], state.leaves[i], dense_v[j], cfg,
+                        splits[i])
                     continue
                 sketch = _drawn(draws[i]) if i in draws else None
                 m_out, nl, denoms[i] = _update_factored(
                     grads[names[i]], state.leaves[i], shapes[i], step,
-                    sketch, cfg, refresh_t, force_refresh=force[j] > 0)
+                    sketch, cfg, refresh_t, force_refresh=force[j] > 0,
+                    split=splits[i])
                 outs[i], new_leaves[i] = m_out, _requant(nl, cfg)
                 continue
             res = _update_bucket(
                 [grads[names[i]] for i in idxs],
                 [state.leaves[i] for i in idxs], shapes[idxs[0]], step,
-                [draws[i] for i in idxs] if draws else None, cfg, refresh_t)
+                [draws[i] for i in idxs] if draws else None, cfg, refresh_t,
+                splits[idxs[0]])
             for i, (m_out, nl, denom) in zip(idxs, res):
                 outs[i], new_leaves[i], denoms[i] = m_out, nl, denom
         tel = None
@@ -672,7 +700,8 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
             k_max = {i: _leaf_meta(shapes[i], _r_store(state.leaves[i]),
                                    cfg)[1] for i in fact}
             tel = _assemble_snapshot(state.telemetry, step, new_leaves,
-                                     denoms, k_max, refresh_t, cadence)
+                                     denoms, k_max, refresh_t, cadence,
+                                     splits)
         new_state = AdapproxState(step=step, leaves=tuple(new_leaves),
                                   telemetry=tel,
                                   refresh_every=state.refresh_every,
@@ -682,7 +711,8 @@ def scale_by_adapprox(cfg: AdapproxConfig) -> GradientTransformation:
                 new_state.guards = dataclasses.replace(
                     gstate, dense_v=tuple(dense_v))
             new_state.pending = PendingGuards(torch.stack([
-                new_leaves[i].xi.float().amax() for i in fact]), gcfg)
+                splits[i].pmax(new_leaves[i].xi.float().amax(), tuple(
+                    range(new_leaves[i].xi.dim()))) for i in fact]), gcfg)
         return dict(zip(names, outs)), new_state
 
     return GradientTransformation(init, update, _state_spec)

@@ -13,7 +13,8 @@ chain
           scale(-1.0))
 
 The row and column means are tensor code on every device, as in the JAX
-package.
+package; on a mesh they add over the split axis they cross, as
+Adafactor's do.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.adafactor import ema_rowcol, factored_vhat, rowcol_spec
+from repro_torch.core.blocks import split_of
 from repro_torch.core.factored import should_factor
 from repro_torch.core.transform import (add_decayed_weights, rms, scale,
                                         scale_by_schedule)
@@ -84,21 +86,24 @@ def scale_by_came(cfg: CAMEConfig) -> GradientTransformation:
         del params
         outs, new_leaves = {}, []
         for (name, g), leaf in zip(grads.items(), state.leaves):
+            split = split_of(name, g)
             g32 = g.float()
             gsq = torch.square(g32) + cfg.eps1
             if leaf.r is not None:
-                r, c = ema_rowcol(leaf.r, leaf.c, gsq, cfg.b2, 1.0 - cfg.b2)
-                u = g32 / (torch.sqrt(factored_vhat(r, c)) + 1e-30)
+                r, c = ema_rowcol(leaf.r, leaf.c, gsq, cfg.b2, 1.0 - cfg.b2,
+                                  split)
+                u = g32 / (torch.sqrt(factored_vhat(r, c, split)) + 1e-30)
             else:
                 v = cfg.b2 * leaf.v + (1.0 - cfg.b2) * gsq
                 u = g32 / (torch.sqrt(v) + 1e-30)
-            u = u / torch.clamp_min(rms(u) / cfg.clip_d, 1.0)
+            u = u / torch.clamp_min(rms(u, split) / cfg.clip_d, 1.0)
             m1 = cfg.b1 * leaf.m1 + (1.0 - cfg.b1) * u
             if leaf.r is not None:
                 s = torch.square(u - m1) + cfg.eps2
                 rs, cs = ema_rowcol(leaf.rs, leaf.cs, s, cfg.b3,
-                                    1.0 - cfg.b3)
-                outs[name] = m1 / (torch.sqrt(factored_vhat(rs, cs)) + 1e-30)
+                                    1.0 - cfg.b3, split)
+                outs[name] = m1 / (torch.sqrt(factored_vhat(rs, cs, split))
+                                   + 1e-30)
                 new = CAMELeaf(r=r, c=c, v=None, rs=rs, cs=cs, m1=m1)
             else:
                 outs[name] = m1

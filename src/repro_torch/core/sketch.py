@@ -22,6 +22,12 @@ JAX package holds them as trace-time constants.
 The scatter + query goes through ``kernels.ops.sketch_update``: CUDA
 kernels on the card, the plain version on the CPU.
 
+On a mesh (``core/blocks.py``) the table is replicated over the hashed
+row axis, so a row-split leaf's per-bucket sums of G^2 add over the ranks
+holding its other rows, in a fixed order, before the EMA; each rank
+hashes its block's global row indices, exactly as a whole leaf's.  A 2-D
+leaf's table splits its columns as the leaf does.
+
 :func:`sketch` is the chain
 
     chain(scale_by_sketch(cfg),
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.adamw import adam_leaf, bias_corrections
+from repro_torch.core.blocks import WHOLE, Split, split_of
 from repro_torch.core.transform import (add_decayed_weights, scale,
                                         scale_by_schedule)
 from repro_torch.core.types import (GradientTransformation, P, chain,
@@ -134,15 +141,19 @@ def scale_by_sketch(cfg: SketchConfig) -> GradientTransformation:
     every >= 2-D leaf whose leading dim reaches ``cfg.min_rows``; exact
     dense Adam on the rest.  Learning rate, weight decay and the descent
     sign are later stages (see :func:`sketch`)."""
-    # (seeds, rows, width, device) -> (idx, order, offsets), built once
+    # (seeds, rows, width, device, first row, rows held) -> (idx, order,
+    # offsets), built once
     index: dict = {}
 
-    def buckets(leaf: SketchLeaf, device: torch.device):
+    def buckets(leaf: SketchLeaf, device: torch.device,
+                split: Split = WHOLE):
         rows, width = leaf.shape[0], leaf.table.shape[1]
-        key = (leaf.seeds, rows, width, str(device))
+        first, held = split.start(0) if split.is_split else (0, rows)
+        key = (leaf.seeds, rows, width, str(device), first, held)
         if key not in index:
-            idx = torch.from_numpy(bucket_indices(rows, width,
-                                                  leaf.seeds)).to(device)
+            idx = bucket_indices(rows, width, leaf.seeds)
+            idx = torch.from_numpy(np.ascontiguousarray(
+                idx[:, first:first + held])).to(device)
             index[key] = (idx, *ops.bucket_order(idx, width))
         return index[key]
 
@@ -180,12 +191,20 @@ def scale_by_sketch(cfg: SketchConfig) -> GradientTransformation:
         dirs, new_leaves, occs, overs = {}, [], [], []
         for (name, g), leaf in zip(grads.items(), state.leaves):
             if isinstance(leaf, SketchLeaf):
+                split = split_of(name, g)
+                if len(leaf.shape) > 2 and split.axes(range(1, len(
+                        leaf.shape))):
+                    raise NotImplementedError(
+                        f"{name}: a sketched leaf of {len(leaf.shape)} dims "
+                        f"split past its rows (its table is replicated)")
                 g32 = g.float()
                 rows, inner = g.shape[0], leaf.table.shape[-1]
-                idx, order, offsets = buckets(leaf, g.device)
+                idx, order, offsets = buckets(leaf, g.device, split)
+                row_sum = ((lambda x: split.psum(x, (0,)))
+                           if split.axes((0,)) else None)
                 table_new, q = ops.sketch_update(
                     leaf.table, g.reshape(rows, inner), idx, cfg.b2,
-                    order=order, offsets=offsets)
+                    order=order, offsets=offsets, reduce=row_sum)
                 vhat = (q / bc2).reshape(g.shape)
                 if leaf.m is not None:
                     m_new = cfg.b1 * leaf.m + (1.0 - cfg.b1) * g32
@@ -199,10 +218,14 @@ def scale_by_sketch(cfg: SketchConfig) -> GradientTransformation:
                     # occupancy: the share of buckets holding any mass;
                     # overestimate: queried mass over table mass (one
                     # depth row holds it all), >= 1, 1 without collisions
-                    hit = torch.amax(table_new, dim=-1) > 0.0
+                    # (summed over a mesh's blocks of the rows and the
+                    # table's columns)
+                    inner_dims = tuple(range(1, len(leaf.shape)))
+                    hit = split.pmax(torch.amax(table_new, dim=-1),
+                                     inner_dims) > 0.0
                     occs.append(torch.mean(hit.float()))
-                    overs.append(torch.sum(q) / torch.clamp_min(
-                        torch.sum(table_new[0]), 1e-30))
+                    overs.append(split.sum(q, None) / torch.clamp_min(
+                        split.sum(table_new[0], None, inner_dims), 1e-30))
             else:
                 dirs[name], m, v = adam_leaf(g, leaf.m, leaf.v, cfg.b1,
                                              cfg.b2, cfg.eps, bc1, bc2)

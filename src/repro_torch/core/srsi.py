@@ -21,6 +21,14 @@ batched.  The triangular inverse is substitution in column order
 (:func:`_tri_inv_lower`), whose steps are elementwise, so it runs batched
 on every device.
 
+On a mesh each function takes this rank's blocks of a split matrix and
+its ``split`` (``core/blocks.py``): A U sums over the column axis, A^T Q,
+CholeskyQR's column norms and Gram over the row axis, ||A||_F^2 over
+both, the column energies of U over the column axis.  The card's
+one-matrix-at-a-time route and its float64 Gram stay as they are; the
+sums come after the local products.  Off a mesh every sum is the
+identity.
+
 The Gaussian sketch comes from a pluggable source, a callable
 ``(shape, generator) -> tensor``.  The default draws from the caller's
 seeded ``torch.Generator``; tests inject the JAX package's own threefry
@@ -32,6 +40,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.blocks import WHOLE, Split
 from repro_torch.core.rank import xi_of_k
 
 SketchSource = Callable[[tuple, Optional[torch.Generator]], torch.Tensor]
@@ -125,7 +134,8 @@ def gram_dtype(device: torch.device) -> torch.dtype:
     return torch.float64 if device.type == "cuda" else torch.float32
 
 
-def _cholesky_qr(y: torch.Tensor, shift_rel: float = 1e-5) -> torch.Tensor:
+def _cholesky_qr(y: torch.Tensor, shift_rel: float = 1e-5,
+                 rows: Callable = lambda x: x) -> torch.Tensor:
     """One shifted CholeskyQR pass over (*batch, m, r): column scaling with
     a relative clamp at 1e-6 * max column norm, a trace-relative diagonal
     shift, and non-finite entries of Q zeroed (a collapsed sketch column is
@@ -146,16 +156,17 @@ def _cholesky_qr(y: torch.Tensor, shift_rel: float = 1e-5) -> torch.Tensor:
     and the CPU's on one of wo's at step 11 (``chip_smoke.py`` ``[srsi]``;
     ROADMAP Queue C).  Formed in float64 from the same float32 columns,
     the Gram is their inner products to float64 rounding, which the shift
-    keeps positive definite."""
+    keeps positive definite.  ``rows`` sums a product over the rows of a
+    row-split ``y`` (on a mesh)."""
     y32 = y.float()
-    col = torch.sqrt(
-        _each(lambda m: torch.sum(m, dim=-2), torch.square(y32)) + 1e-30)
+    col = torch.sqrt(rows(
+        _each(lambda m: torch.sum(m, dim=-2), torch.square(y32))) + 1e-30)
     col = torch.maximum(col, 1e-6 * torch.amax(col, dim=-1, keepdim=True)
                         + 1e-30)
     ys = y32 / col.unsqueeze(-2)
     wide = gram_dtype(y.device)
     yw = ys.to(wide)
-    gram = _each(lambda m: m.transpose(-1, -2) @ m, yw)
+    gram = rows(_each(lambda m: m.transpose(-1, -2) @ m, yw))
     r = gram.shape[-1]
     gram = gram + (shift_rel + 1e-30) * torch.eye(r, dtype=wide,
                                                   device=y.device)
@@ -165,9 +176,11 @@ def _cholesky_qr(y: torch.Tensor, shift_rel: float = 1e-5) -> torch.Tensor:
     return torch.where(torch.isfinite(q), q, torch.zeros_like(q))
 
 
-def cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
+def cholesky_qr2(y: torch.Tensor, rows: Callable = lambda x: x
+                 ) -> torch.Tensor:
     """Shifted CholeskyQR3: three passes, shifts 1e-5, 1e-6, 1e-6."""
-    return _cholesky_qr(_cholesky_qr(_cholesky_qr(y, 1e-5), 1e-6), 1e-6)
+    return _cholesky_qr(_cholesky_qr(_cholesky_qr(y, 1e-5, rows), 1e-6,
+                                     rows), 1e-6, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -178,13 +191,16 @@ class ImplicitV(NamedTuple):
     """``V = b2 * (Q U^T) + (1 - b2) * G * G`` over (*batch, ...) factors,
     with ``b2`` a float32 scalar and ``col_mask`` (r,) selecting the active
     factor columns.  ``mv`` / ``rmv`` apply V without forming it, so the
-    implicit S-RSI runs in O((m + n) r) memory beside G."""
+    implicit S-RSI runs in O((m + n) r) memory beside G.  On a mesh the
+    tensors are this rank's blocks and ``split`` the matrix's: each
+    product is a partial over the split axis it crosses, summed."""
 
     q: torch.Tensor
     u: torch.Tensor
     g: torch.Tensor
     b2: torch.Tensor
     col_mask: torch.Tensor
+    split: Split = WHOLE
 
     @property
     def shape(self):
@@ -197,7 +213,7 @@ class ImplicitV(NamedTuple):
         low = _each(lambda q, u, b: q @ (u.transpose(-1, -2) @ b),
                     qm, self.u, x)
         sq = _each(lambda g, b: (g * g) @ b, g32, x)
-        return self.b2 * low + (1.0 - self.b2) * sq
+        return self.split.cols(self.b2 * low + (1.0 - self.b2) * sq)
 
     def rmv(self, y: torch.Tensor) -> torch.Tensor:
         """V^T @ y for y (*batch, m, s); V is not symmetric."""
@@ -206,7 +222,7 @@ class ImplicitV(NamedTuple):
         low = _each(lambda u, q, b: u @ (q.transpose(-1, -2) @ b),
                     um, self.q, y)
         sq = _each(lambda g, b: (g * g).transpose(-1, -2) @ b, g32, y)
-        return self.b2 * low + (1.0 - self.b2) * sq
+        return self.split.rows(self.b2 * low + (1.0 - self.b2) * sq)
 
     def materialize(self) -> torch.Tensor:
         """Clamp the low-rank term (not the sum) at zero before adding the
@@ -236,16 +252,17 @@ class ImplicitV(NamedTuple):
                 total = part if total is None else total + part
             return total
 
-        return _each(one, self.q, self.u, self.g)
+        return self.split.both(_each(one, self.q, self.u, self.g))
 
 
-def make_implicit_v(q, u, g, b2, col_mask=None) -> ImplicitV:
+def make_implicit_v(q, u, g, b2, col_mask=None,
+                    split: Split = WHOLE) -> ImplicitV:
     if col_mask is None:
         col_mask = torch.ones(q.shape[-1], dtype=torch.float32,
                               device=q.device)
     return ImplicitV(q.float(), u.float(), g,
                      torch.tensor(b2, dtype=torch.float32, device=q.device),
-                     col_mask.float())
+                     col_mask.float(), split)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +282,8 @@ def _srsi_core(matmul_a: Callable[[torch.Tensor], torch.Tensor],
                n_iter: int, sketch: SketchSource,
                generator: Optional[torch.Generator],
                u0: Optional[torch.Tensor] = None,
-               use_warm: Optional[torch.Tensor] = None) -> SRSIResult:
+               use_warm: Optional[torch.Tensor] = None,
+               split: Split = WHOLE) -> SRSIResult:
     """l rounds of  Q <- orth(A U); U <- A^T Q  on A / ||A||_F, sampling
     ``r_store + oversample`` Gaussian columns and truncating to
     ``r_store``; ``matmul_a(x (*batch, n, s)) -> (*batch, m, s)`` and
@@ -278,7 +296,12 @@ def _srsi_core(matmul_a: Callable[[torch.Tensor], torch.Tensor],
     are always fresh.  ``use_warm`` (*batch,) bool keeps the Gaussian
     sketch for the matrices where it is false (the caller's drift
     guard).  The Gaussian sketch is drawn either way, so the draws are
-    the same whether or not the warm seed is taken."""
+    the same whether or not the warm seed is taken.
+
+    On a mesh ``n`` and the sketch are the block's (the caller hands
+    every rank its block of one whole draw) and ``split`` sums U's
+    column energies over the column axis and CholeskyQR's over the row
+    axis; ``matmul_a`` / ``matmul_at`` sum their own."""
     bd = tuple(frob_sq.shape)
     want = bd + (n, r_store + oversample)
     u = sketch(want, generator)
@@ -286,8 +309,8 @@ def _srsi_core(matmul_a: Callable[[torch.Tensor], torch.Tensor],
         raise ValueError(f"sketch source returned shape {tuple(u.shape)}, "
                          f"expected {want}")
     u = u.to(device=frob_sq.device, dtype=torch.float32)
-    col_sq = lambda m: _each(lambda c: torch.sum(c, dim=-2),
-                             torch.square(m))
+    col_sq = lambda m: split.cols(_each(lambda c: torch.sum(c, dim=-2),
+                                        torch.square(m)))
     if u0 is not None:
         r_warm = u0.shape[-1]
         u032 = u0.float()
@@ -300,7 +323,7 @@ def _srsi_core(matmul_a: Callable[[torch.Tensor], torch.Tensor],
     scale = torch.sqrt(frob_sq) + 1e-30
     inv = (1.0 / scale).reshape(bd + (1, 1))
     for _ in range(n_iter):
-        q = cholesky_qr2(matmul_a(u) * inv)
+        q = cholesky_qr2(matmul_a(u) * inv, split.rows)
         u = matmul_at(q) * inv
     q = q[..., :r_store]
     u = u[..., :r_store] * scale.reshape(bd + (1, 1))
@@ -314,16 +337,20 @@ def srsi_dense(a: torch.Tensor, r_store: int, oversample: int, n_iter: int,
                sketch: SketchSource,
                generator: Optional[torch.Generator] = None,
                u0: Optional[torch.Tensor] = None,
-               use_warm: Optional[torch.Tensor] = None) -> SRSIResult:
+               use_warm: Optional[torch.Tensor] = None,
+               split: Split = WHOLE) -> SRSIResult:
     """Paper-faithful S-RSI on explicit targets ``a: (*batch, m, n)``;
-    ``u0`` / ``use_warm``: the warm start of :func:`_srsi_core`."""
+    ``u0`` / ``use_warm``: the warm start of :func:`_srsi_core`; ``split``
+    a's on a mesh, ``a`` this rank's block."""
     a32 = a.float()
     return _srsi_core(
-        lambda x: _each(lambda m, b: m @ b, a32, x),
-        lambda y: _each(lambda m, b: m.transpose(-1, -2) @ b, a32, y),
-        _each(lambda m: torch.sum(torch.square(m), dim=(-2, -1)), a32),
+        lambda x: split.cols(_each(lambda m, b: m @ b, a32, x)),
+        lambda y: split.rows(_each(lambda m, b: m.transpose(-1, -2) @ b,
+                                   a32, y)),
+        split.both(_each(lambda m: torch.sum(torch.square(m),
+                                             dim=(-2, -1)), a32)),
         a.shape[-1], r_store, oversample, n_iter, sketch, generator, u0=u0,
-        use_warm=use_warm)
+        use_warm=use_warm, split=split)
 
 
 def srsi_implicit(v: ImplicitV, r_store: int, oversample: int, n_iter: int,
@@ -338,7 +365,7 @@ def srsi_implicit(v: ImplicitV, r_store: int, oversample: int, n_iter: int,
         frob_sq = v.frob_sq()
     return _srsi_core(v.mv, v.rmv, frob_sq,
                       v.shape[-1], r_store, oversample, n_iter, sketch,
-                      generator, u0=u0, use_warm=use_warm)
+                      generator, u0=u0, use_warm=use_warm, split=v.split)
 
 
 def reconstruct(q: torch.Tensor, u: torch.Tensor,

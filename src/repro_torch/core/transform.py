@@ -17,6 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.blocks import WHOLE, Split, split_of
 from repro_torch.core.types import (EmptyState, GradientTransformation,
                                     resolve_schedule, state_sharding_spec)
 
@@ -82,9 +83,11 @@ def add_decayed_weights(weight_decay: float,
     return GradientTransformation(_empty_init, update)
 
 
-def rms(x: torch.Tensor) -> torch.Tensor:
-    """RMS over every entry of a leaf, as ``sqrt(mean(x^2) + 1e-30)``."""
-    return torch.sqrt(torch.mean(torch.square(x)) + 1e-30)
+def rms(x: torch.Tensor, split: Split = WHOLE) -> torch.Tensor:
+    """RMS over every entry of a leaf, as ``sqrt(mean(x^2) + 1e-30)``; of
+    the whole leaf for a block on a mesh (its ``split``,
+    ``core/blocks.py``)."""
+    return torch.sqrt(split.mean(torch.square(x)) + 1e-30)
 
 
 def clip_update_rms(d: float) -> GradientTransformation:
@@ -93,7 +96,7 @@ def clip_update_rms(d: float) -> GradientTransformation:
 
     def update(updates, state, params):
         del params
-        return {k: u / torch.clamp_min(rms(u) / d, 1.0)
+        return {k: u / torch.clamp_min(rms(u, split_of(k, u)) / d, 1.0)
                 for k, u in updates.items()}, state
 
     return GradientTransformation(_empty_init, update)
@@ -143,7 +146,8 @@ def scale_by_relative_step(eps2: float = 1e-3,
             rho = rho * lr_scale
         out = {}
         for k, u in updates.items():
-            alpha = torch.clamp_min(rms(params[k].float()), eps2) \
+            alpha = torch.clamp_min(rms(params[k].float(),
+                                        split_of(k, params[k])), eps2) \
                 * rho.to(u.device)
             out[k] = u * alpha
         return out, CountState(count=count)

@@ -163,7 +163,12 @@ def tree_nbytes(tree) -> int:
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.float())) for x in tree.values()]
+    """The 2-norm over every leaf; of blocks on a mesh (``core/blocks.py``)
+    each leaf's sum of squares summed over the ranks holding its other
+    blocks."""
+    from repro_torch.core.blocks import split_of
+    sq = [split_of(k, x).sum(torch.square(x.float()), None)
+          for k, x in tree.items()]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 

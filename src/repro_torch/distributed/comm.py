@@ -1,10 +1,14 @@
 """Deterministic collectives for the mesh paths, and the autograd pairs
 that make them differentiable.
 
-Every reduction here is an all-gather followed by a sum in group-rank
-order, so each rank gets the same bits, run after run, whatever the
-backend's own reduction order: the same-mesh restart is bitwise, and the
-ranks that run the same optimizer update stay identical.  On a group of
+Every reduction here sums in group-rank order, so each rank gets the same
+bits, run after run, whatever the backend's own reduction order: the
+same-mesh restart is bitwise, and the ranks that hold the same block stay
+identical.  :func:`reduce_scatter` hands each rank every rank's part of
+its own block (one ``all_to_all_single``) and adds those; :func:`all_sum`
+all-gathers a small tensor's n copies and adds them, and reduce-scatters
+a large one and all-gathers the sums: the same terms in the same order
+either way, so every form equals every other bit for bit.  On a group of
 one rank every function is an exact identity (a sum of one term is that
 term), which is what lets a ``--mesh 1,1`` run be held bitwise to the
 run without a mesh.
@@ -15,7 +19,9 @@ group holds whole, into a computation each rank does a part of);
 ``reduce_from`` sums forward and is the identity backward (the parts'
 combine, after which every rank computes the same loss).  ``gather_dim``
 concatenates the ranks' blocks along a dimension forward and hands each
-rank its block of the summed gradient backward (a reduce-scatter).
+rank its block of the summed gradient backward (a reduce-scatter); it
+keeps only the block, so a saved-tensor hook can gather the whole again
+in the backward instead of keeping it (``distributed/sharding.py``).
 """
 from __future__ import annotations
 
@@ -25,11 +31,45 @@ import torch
 import torch.distributed as dist
 
 
+# all_sum moves a tensor of at least this many entries as a reduce-scatter
+# and an all-gather of the summed chunks (the same sums, bit for bit)
+# instead of gathering every rank's whole copy
+SCATTER_MIN = 1 << 16
+
+
 def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` of every rank's ``x``, added in group-rank
-    order; the same on every rank."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    order; the same on every rank.  A small ``x`` is all-gathered and
+    added; a large one reduce-scattered in chunks (:func:`reduce_scatter`)
+    and the sums all-gathered, so no rank holds n copies."""
+    n = dist.get_world_size(group)
+    if x.numel() < SCATTER_MIN or n == 1:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return functools.reduce(torch.add, parts[1:], parts[0])
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    mine = reduce_scatter(flat, 0, group)
+    return all_concat(mine, 0, group)[:x.numel()].reshape(x.shape)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block (``x.chunk(n, dim)[rank]``) of the sum over
+    ``group`` of every rank's ``x``, added in group-rank order:
+    ``all_sum(x, group)`` sliced, bit for bit.  ``x.shape[dim]`` must
+    divide by the group's size; a group of one returns ``x``."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    send = torch.stack(x.chunk(n, dim))
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=group)
+    parts = got.unbind(0)
     return functools.reduce(torch.add, parts[1:], parts[0])
 
 
@@ -64,14 +104,18 @@ class _ReduceFrom(torch.autograd.Function):
 class _GatherDim(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        ctx.dim, ctx.group = dim, group
+        ctx.block = x.detach()
         return all_concat(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        me = dist.get_rank(ctx.group)
-        return (all_sum(g, ctx.group).narrow(ctx.dim, me * ctx.n, ctx.n)
-                .contiguous(), None, None)
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+    @staticmethod
+    def regather(ctx) -> torch.Tensor:
+        """The forward's output, gathered again from the block."""
+        return all_concat(ctx.block, ctx.dim, ctx.group)
 
 
 class _ScaleGrad(torch.autograd.Function):

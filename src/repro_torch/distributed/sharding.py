@@ -32,17 +32,21 @@ here produces them so, and :func:`placements_for` raises otherwise).
 
 How the port's training step uses the placement (``train/steps.py``):
 every parameter and optimizer-state leaf whose spec names a mesh axis is
-stored as a DTensor, so a rank's bytes follow JAX's layout; the step
-gathers the leaves it computes with, splits the batch over the dp axes,
-sums the gradients over them in a fixed order, runs the same optimizer
-update on every rank and keeps each rank's blocks.  Products are not
-split over ``model`` (Megatron-style TP is not ported; the MoE mesh paths
-split the experts over it for real).
+stored as a DTensor, so a rank's bytes follow JAX's layout.  The step
+hands the model each rank's blocks and splits the batch over the dp axes;
+the model gathers a leaf where it uses it, one layer's slice at a time
+(:class:`GatherAtUse`), and the backward hands back the gradient's block,
+summed over the dp axes in a fixed order and sliced over the others; the
+optimizer updates the blocks (``core/blocks.py``: :func:`leaf_splits`).
+No leaf is held whole outside the layer that uses it, and no optimizer
+state at all.  Products are not split over ``model`` (Megatron-style TP is
+not ported; the MoE mesh paths split the experts over it for real).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -316,20 +320,58 @@ def place_state(state, shardings):
             opt_state=place_tree(state.opt_state, shardings.opt_state))
 
 
-def model_params(params: dict, local=(), whole: Optional[dict] = None
-                 ) -> dict:
-    """The parameters a model runs on over a mesh: every leaf whole
-    (``whole``'s, where given, else gathered), but the leaves named in
-    ``local`` (the model's ``mesh_local_leaves``: the MoE mesh paths'
-    expert stacks) as this rank's block."""
+def model_params(params: dict, local=()) -> dict:
+    """The parameters a model serves with over a mesh: every leaf whole
+    (gathered), but the leaves named in ``local`` (the model's
+    ``mesh_local_leaves``: the MoE mesh paths' expert stacks) as this
+    rank's block.  (The train step gathers at use instead,
+    :class:`GatherAtUse`.)"""
     out = {}
     with torch.no_grad():
         for k, v in params.items():
             if k in local:
-                out[k] = v.to_local() if hasattr(v, "to_local") else v
+                out[k] = to_local(v)
             else:
-                out[k] = whole[k] if whole is not None else gather(v)
+                out[k] = gather(v)
     return out
+
+
+def to_local(t):
+    """A DTensor's block on this rank; anything else as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def local_tree(state):
+    """``state`` with every DTensor leaf replaced by this rank's block (no
+    copy)."""
+    return map_state(state, to_local)
+
+
+def wrap(t, sharding: Optional[NamedSharding]):
+    """This rank's block ``t`` as the DTensor ``sharding`` stores (no copy,
+    no communication); as :func:`place`, other leaves stay as they
+    are."""
+    if (not isinstance(t, torch.Tensor) or sharding is None
+            or hasattr(t, "full_tensor") or sharding.is_fully_replicated
+            or t.device.type != sharding.mesh.device_type):
+        return t
+    from torch.distributed.tensor import DTensor
+    # the whole shape follows from the block's (every spec divides its
+    # dimension evenly)
+    return DTensor.from_local(t.detach(), sharding.mesh,
+                              sharding.placements, run_check=False)
+
+
+def wrap_state(state, shardings):
+    """A ``TrainState`` of this rank's blocks as the DTensors of
+    ``shardings`` (:func:`train_shardings`' state shardings), no copy."""
+    from repro_torch.checkpoint.serialization import _map, spec_leaves
+    pairs = iter(spec_leaves(shardings.opt_state))
+    return dataclasses.replace(
+        state, params={k: wrap(v, shardings.params[k])
+                       for k, v in state.params.items()},
+        opt_state=_map(state.opt_state, "",
+                       lambda path, leaf: wrap(leaf, next(pairs)[1])))
 
 
 def gather_tree_except(state, shardings, keep: tuple):
@@ -505,3 +547,233 @@ def logits_pspec(mesh, long_context: bool = False) -> P:
 
 def logits_sharding(mesh, long_context: bool = False) -> NamedSharding:
     return NamedSharding(mesh, logits_pspec(mesh, long_context))
+
+
+# ---------------------------------------------------------------------------
+# The train step's blocks: gathered at use, updated as blocks
+# ---------------------------------------------------------------------------
+
+class _Plan(NamedTuple):
+    """How one leaf's block (of ``shape``) becomes the whole, and the
+    whole's gradient its block: ``gather`` the (dim, group) all-gathers in
+    order; the gradient, viewed as ``expand`` (each split dim as its
+    axes' sizes, major first, then the block's length), takes its index
+    on every non-dp axis (``narrow``: (expanded dim, index)) and is summed
+    over every dp axis, the minor first (``reduce``: (expanded dim or
+    None, group), a reduce-scatter there or an all-sum of an axis the
+    leaf is not split over)."""
+    shape: tuple
+    whole: tuple
+    gather: tuple
+    expand: tuple
+    narrow: tuple
+    reduce: tuple
+
+
+def _leaf_plan(mesh, spec: P, whole: tuple, dp: tuple) -> Optional[_Plan]:
+    names = tuple(mesh.mesh_dim_names)
+    size = lambda a: mesh.size(names.index(a))
+    gathers, expand, block, where = [], [], [], {}
+    for d, n in enumerate(whole):
+        ax = spec[d] if d < len(spec) else None
+        axes = tuple(a for a in (() if ax is None else ax if isinstance(
+            ax, tuple) else (ax,)) if size(a) > 1)
+        for a in reversed(axes):             # the major axis gathers last
+            gathers.append((d, mesh.get_group(a)))
+        for a in axes:
+            where[a] = len(expand)
+            expand.append(size(a))
+            n //= size(a)
+        expand.append(n)
+        block.append(n)
+    reduce = tuple((where.get(a), mesh.get_group(a))
+                   for a in reversed(dp) if a in names and size(a) > 1)
+    if not gathers and not reduce:
+        return None
+    narrow = tuple((e, mesh.get_local_rank(a)) for a, e in where.items()
+                   if a not in dp)
+    return _Plan(tuple(block), tuple(whole), tuple(gathers), tuple(expand),
+                 narrow, reduce)
+
+
+def _gather(x: torch.Tensor, gathers: tuple) -> torch.Tensor:
+    from repro_torch.distributed import comm
+    for dim, group in gathers:
+        x = comm.all_concat(x, dim, group)
+    return x
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """A leaf's block -> the whole leaf; its gradient -> the gradient's
+    block (see :class:`_Plan`).  Keeps only the block."""
+
+    @staticmethod
+    def forward(ctx, block, plan):
+        ctx.block, ctx.plan = block.detach(), plan
+        return _gather(block, plan.gather)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed import comm
+        plan = ctx.plan
+        x = g.reshape(plan.expand)
+        for e, i in plan.narrow:
+            x = x.narrow(e, i, 1)
+        for e, group in plan.reduce:
+            x = (comm.all_sum(x, group) if e is None
+                 else comm.reduce_scatter(x, e, group))
+        return x.reshape(plan.shape), None
+
+    @staticmethod
+    def regather(ctx) -> torch.Tensor:
+        """The forward's output, gathered again from the block."""
+        return _gather(ctx.block, ctx.plan.gather)
+
+
+class _GatherStack(torch.autograd.Function):
+    """A stacked leaf split on its stack axis (the fsdp rule's (L, d)
+    leaves) -> the whole stack; the gradient -> this rank's slice of it,
+    not summed: the per-layer gathers' backward has summed it over the dp
+    axes already."""
+
+    @staticmethod
+    def forward(ctx, block, gathers, first):
+        ctx.first, ctx.n = first, block.shape[0]
+        return _gather(block, gathers)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.first, ctx.n), None, None
+
+
+class GatherAtUse:
+    """The train step's gather-at-use hook (``models.layers.gathering``):
+    ``use(tree, path)`` returns the leaves of ``tree`` (a tensor, or a
+    nested dict of them, at ``path`` in the flat parameter paths) whole,
+    each gathered from this rank's block over the mesh axes its spec
+    (``shardings[path]``, of a leaf of whole shape ``shapes[path]``)
+    splits; a per-layer view of a stacked leaf takes its spec without the
+    stack axis.  The backward hands back each block's gradient summed
+    over the ``dp`` axes, the minor first, as the gather design's
+    ``all_sum`` order: the same terms in the same order, so the blocks
+    are that design's gradient sliced, bit for bit.  Leaves in ``local``
+    (the MoE mesh paths' expert stacks), replicated ones and a leaf given
+    whole already (or this hook's output) stay as they are: the step sums
+    the others' gradients itself (:meth:`gathers` says which).
+    ``use(tree, path, stack=True)`` gathers a stack's leaves over their
+    stack axis only, before the model takes the layers apart (the fsdp
+    rule splits the stack axis of (L, d) leaves; JAX's scan gathers them
+    whole too)."""
+
+    def __init__(self, shardings: dict, shapes: dict, dp: tuple,
+                 local=()):
+        self.shardings, self.shapes = shardings, shapes
+        self.dp, self.local = tuple(dp), set(local)
+        self._plans: dict = {}
+
+    def plan(self, path: str, ndim: Optional[int] = None) -> Optional[_Plan]:
+        """The plan of the leaf at ``path``, or of its per-layer slices
+        (``ndim`` dims); None where nothing is gathered."""
+        whole = tuple(self.shapes[path])
+        ndim = len(whole) if ndim is None else ndim
+        key = (path, ndim)
+        if key not in self._plans:
+            sh = self.shardings.get(path)
+            plan = None
+            if sh is not None and path not in self.local \
+                    and not sh.is_fully_replicated:
+                spec = tuple(sh.spec) + (None,) * (len(whole) - len(sh.spec))
+                cut = len(whole) - ndim
+                plan = _leaf_plan(sh.mesh, P(*spec[cut:]), whole[cut:],
+                                  self.dp)
+            self._plans[key] = plan
+        return self._plans[key]
+
+    def gathers(self, path: str) -> bool:
+        """Whether the leaf at ``path`` is gathered at use, its gradient
+        summed in the backward."""
+        return self.plan(path) is not None
+
+    def __call__(self, tree, path: str, stack: bool = False):
+        if isinstance(tree, dict):
+            return {k: self(v, f"{path}/{k}", stack)
+                    for k, v in tree.items()}
+        if stack:
+            return self._stack(tree, path)
+        plan = self.plan(path, tree.dim())
+        if plan is None or isinstance(tree.grad_fn, _GatherLeaf._backward_cls) \
+                or (plan.gather and tuple(tree.shape) == plan.whole):
+            return tree
+        if tuple(tree.shape) != plan.shape:
+            raise ValueError(f"{path}: a block of {tuple(tree.shape)}, the "
+                             f"spec gives {plan.shape}")
+        return _GatherLeaf.apply(tree, plan)
+
+    def _stack(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        from repro_torch.core.blocks import Split
+        sh = self.shardings.get(path)
+        if sh is None or path in self.local or not sh.spec \
+                or sh.spec[0] is None:
+            return t
+        whole = tuple(self.shapes[path])
+        plan = _leaf_plan(sh.mesh, P(sh.spec[0]), whole[:1], ())
+        if plan is None or t.shape[0] == whole[0]:
+            return t
+        first, _ = Split(whole, sh.spec, sh.mesh).start(0)
+        return _GatherStack.apply(t, plan.gather, first)
+
+
+class _Regather(NamedTuple):
+    node: Any
+    fwd: Any
+    cast: Optional[torch.dtype]
+    size: tuple
+    stride: tuple
+    offset: int
+
+
+def _pack(t: torch.Tensor):
+    """A saved tensor that is a gathered leaf (a gather's output, its cast
+    to another dtype, or a view of either) is saved as the way to gather
+    it again, not as itself."""
+    base = t if t._base is None else t._base
+    node, cast = base.grad_fn, None
+    if node is not None and type(node).__name__ == "ToCopyBackward0":
+        node, cast = node.next_functions[0][0], base.dtype
+    fwd = getattr(type(node), "_forward_cls", None)
+    if fwd is None or not hasattr(fwd, "regather") \
+            or not base.is_contiguous():
+        return t
+    return _Regather(node, fwd, cast, tuple(t.size()), tuple(t.stride()),
+                     t.storage_offset())
+
+
+def _unpack(x):
+    if not isinstance(x, _Regather):
+        return x
+    with torch.no_grad():
+        whole = x.fwd.regather(x.node)
+        if x.cast is not None:
+            whole = whole.to(x.cast)
+    return whole.as_strided(x.size, x.stride, x.offset)
+
+
+@contextlib.contextmanager
+def gathering(use: GatherAtUse):
+    """The models gather at use through ``use`` (``models.layers``), and
+    the autograd graph keeps no gathered leaf: the backward gathers it
+    again from the block (under ``remat="none"`` too), so the peak holds
+    at most the layer being computed whole."""
+    from repro_torch.models import layers as L
+    with L.gathering(use), torch.autograd.graph.saved_tensors_hooks(
+            _pack, _unpack):
+        yield
+
+
+def leaf_splits(shardings: dict, shapes: dict) -> dict:
+    """``{path: core.blocks.Split}`` of the parameters' shardings and whole
+    shapes: how the optimizer's reductions cross each leaf's split
+    axes."""
+    from repro_torch.core.blocks import Split
+    return {k: Split(shapes[k], sh.spec, sh.mesh)
+            for k, sh in shardings.items()}

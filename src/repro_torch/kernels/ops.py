@@ -143,13 +143,16 @@ def sq_matmul_t(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def one_sided_fold(u: torch.Tensor, q: torch.Tensor, g: torch.Tensor,
-                   b2: float, col_mask: torch.Tensor | None = None
-                   ) -> torch.Tensor:
+                   b2: float, col_mask: torch.Tensor | None = None,
+                   reduce=None) -> torch.Tensor:
     """The rank-projected fold ``mask * (b2 U + (1 - b2) (G^2)^T Q)`` (see
     ``ref.one_sided_fold``): the product goes through :func:`sq_matmul_t`,
+    summed by ``reduce`` over the row axis of a row-split G (on a mesh);
     the rank-r EMA and mask are tensor code on any device.  col_mask
     (..., r) or None."""
-    folded = b2 * u.float() + (1.0 - b2) * sq_matmul_t(g, q)
+    y = sq_matmul_t(g, q)
+    folded = b2 * u.float() + (1.0 - b2) * (y if reduce is None
+                                            else reduce(y))
     if col_mask is not None:
         folded = folded * col_mask.unsqueeze(-2)
     return folded
@@ -216,20 +219,22 @@ def bucket_order(idx: torch.Tensor, width: int
 
 def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
                   b2: float, order: torch.Tensor | None = None,
-                  offsets: torch.Tensor | None = None):
+                  offsets: torch.Tensor | None = None, reduce=None):
     """Count-min EMA scatter + min-over-depth query (see
     ``ref.sketch_update``).  table (depth, width, d) f32, g (rows, d), idx
     (depth, rows) int32.  On the card, ``order`` / ``offsets`` (from
     :func:`bucket_order`, built once per leaf) feed the scatter; they are
-    built here when not given.  Returns ``(table_new, vhat)``."""
+    built here when not given.  ``reduce`` sums the per-bucket sums over
+    the ranks holding a row-split leaf's other rows (on a mesh).  Returns
+    ``(table_new, vhat)``."""
     if not _on_cuda(g):
-        return ref.sketch_update(table, g, idx, b2)
+        return ref.sketch_update(table, g, idx, b2, reduce=reduce)
     from repro_torch.kernels import sketch_update as SK
     if order is None or offsets is None:
         order, offsets = bucket_order(idx, table.shape[1])
     return SK.sketch_update(table.float().contiguous(),
                             g.float().contiguous(), idx.int().contiguous(),
-                            order, offsets, b2)
+                            order, offsets, b2, reduce=reduce)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -66,16 +66,19 @@ def sq_matmul_t(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def one_sided_fold(u: torch.Tensor, q: torch.Tensor, g: torch.Tensor,
-                   b2: float, col_mask: torch.Tensor | None = None
-                   ) -> torch.Tensor:
+                   b2: float, col_mask: torch.Tensor | None = None,
+                   reduce=None) -> torch.Tensor:
     """The amortized-refresh fold under a frozen basis Q:
 
         U_t = mask * (b2 * U_{t-1} + (1 - b2) * (G^2)^T @ Q)
 
     u: (..., n, r), q: (..., m, r), g: (..., m, n), col_mask: (..., r) or
-    None.  Returns (..., n, r) f32.
+    None; ``reduce`` sums the product over the ranks holding the other
+    row blocks of a row-split G (on a mesh).  Returns (..., n, r) f32.
     """
-    folded = b2 * u.float() + (1.0 - b2) * sq_matmul_t(g, q)
+    y = sq_matmul_t(g, q)
+    folded = b2 * u.float() + (1.0 - b2) * (y if reduce is None
+                                            else reduce(y))
     if col_mask is not None:
         folded = folded * col_mask.unsqueeze(-2)
     return folded
@@ -139,7 +142,8 @@ def fused_apply(u_hat: torch.Tensor, m1: torch.Tensor | None,
 
 
 def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
-                  b2: float) -> tuple[torch.Tensor, torch.Tensor]:
+                  b2: float, reduce=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Count-min second-moment EMA update + per-row query:
 
         S_t[j, b, :] = b2 * S_{t-1}[j, b, :]
@@ -149,18 +153,22 @@ def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     table: (depth, width, d) f32, g: (rows, d) any float, idx: (depth,
     rows) integer bucket per row per depth.  Returns ``(S_t (depth, width,
     d) f32, vhat (rows, d) f32)``.  ``b2`` and ``1 - b2`` are float32, as
-    in the JAX package's ``ref.sketch_update``.
+    in the JAX package's ``ref.sketch_update``.  ``reduce`` adds the
+    per-bucket sums of the ranks holding the other row blocks of a
+    row-split g (on a mesh) before the EMA.
     """
     g32 = g.float()
     gsq = g32 * g32
     tab = table.float()
     width = tab.shape[1]
     idx = idx.long()
-    new = torch.stack([
-        f32(b2) * tab[j] + f32_one_minus(b2) * torch.zeros(
-            (width, gsq.shape[1]), dtype=torch.float32,
-            device=gsq.device).index_add_(0, idx[j], gsq)
+    sums = torch.stack([
+        torch.zeros((width, gsq.shape[1]), dtype=torch.float32,
+                    device=gsq.device).index_add_(0, idx[j], gsq)
         for j in range(tab.shape[0])])
+    if reduce is not None:
+        sums = reduce(sums)
+    new = f32(b2) * tab + f32_one_minus(b2) * sums
     gathered = torch.stack([new[j][idx[j]] for j in range(new.shape[0])])
     return new, torch.amin(gathered, dim=0)
 

@@ -64,11 +64,18 @@ def column_slices(d: int) -> list[tuple[int, int]]:
 
 
 def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
-                  order: torch.Tensor, offsets: torch.Tensor, b2: float):
+                  order: torch.Tensor, offsets: torch.Tensor, b2: float,
+                  reduce=None):
     """Scatter then query on the card.  table (depth, width, d) fp32, g
     (rows, d) fp32, idx / order (depth, rows) int32, offsets (depth, width
     + 1) int32 (see ``ops.bucket_order``), all contiguous.  Returns
-    ``(table_new (depth, width, d), vhat (rows, d))``."""
+    ``(table_new (depth, width, d), vhat (rows, d))``.
+
+    ``reduce`` (g a row block of a leaf split over a mesh): the scatter
+    sums this rank's rows into their buckets (b2 = 0 on a zero table, so
+    the kernel's EMA is the sum itself), ``reduce`` adds the ranks' sums,
+    the EMA is tensor code as in ``ref.sketch_update``, and the query
+    reads the new table."""
     if table.dim() != 3 or g.dim() != 2:
         raise ValueError(f"expected table (depth, width, d) and g (rows, "
                          f"d), got {tuple(table.shape)} and "
@@ -83,16 +90,25 @@ def sketch_update(table: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     cuda.check("idx", idx, (depth, rows), torch.int32)
     cuda.check("order", order, (depth, rows), torch.int32)
     cuda.check("offsets", offsets, (depth, width + 1), torch.int32)
-    new = torch.empty_like(table)
     vhat = torch.empty_like(g)
     slices, s = len(column_slices(d)), cuda.stream(g)
     lib = _lib()
-    err = lib.sketch_scatter_f32(
-        table.data_ptr(), g.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-        new.data_ptr(), rows, width, depth, d, f32(b2), f32_one_minus(b2),
-        slices, s)
-    cuda.raise_on(err, "sketch_scatter")
-    LAUNCHES["sketch_scatter"] += 1
+
+    def scatter(tab, b, omb):
+        out = torch.empty_like(tab)
+        err = lib.sketch_scatter_f32(
+            tab.data_ptr(), g.data_ptr(), order.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(), rows, width, depth, d, b,
+            omb, slices, s)
+        cuda.raise_on(err, "sketch_scatter")
+        LAUNCHES["sketch_scatter"] += 1
+        return out
+
+    if reduce is None:
+        new = scatter(table, f32(b2), f32_one_minus(b2))
+    else:
+        sums = reduce(scatter(torch.zeros_like(table), 0.0, 1.0))
+        new = f32(b2) * table + f32_one_minus(b2) * sums
     err = lib.sketch_query_f32(new.data_ptr(), idx.data_ptr(),
                                vhat.data_ptr(), rows, width, depth, d,
                                slices, s)

@@ -15,21 +15,25 @@ For every (architecture x shape cell x mesh) combination it
     block;
   * runs one step of it as rank 0 runs it, under ``launch/step_cost.py``'s
     counter: train cells one ``build_train_step`` step of the mesh step
-    (``train/steps.py::_MeshStep``), prefill and decode cells ``prefill`` /
-    ``decode_step`` on the parameters gathered the same way (the expert
-    stacks of the MoE mesh paths as this rank's blocks, every other leaf
-    whole) and the cache gathered over every axis but the dp axes (the
-    rank keeps its batch block);
+    (``train/steps.py::_MeshStep``: this rank's blocks, each leaf gathered
+    where a layer uses it, the optimizer on the blocks), prefill and
+    decode cells ``prefill`` / ``decode_step`` on the parameters gathered
+    whole (the expert stacks of the MoE mesh paths as this rank's blocks)
+    and the cache gathered over every axis but the dp axes (the rank
+    keeps its batch block);
   * records per-rank bytes (parameters, optimizer state, batch block,
     cache: each a DTensor's local block), the step's peak of live bytes,
-    FLOPs, bytes accessed and the collectives it calls, and writes one
-    JSON per cell.
+    FLOPs, bytes accessed, the collectives it calls and the largest of
+    each kind, and writes one JSON per cell.
 
 What the numbers are.  The stored bytes follow JAX's specs leaf for leaf.
-The step is the port's gather design: it gathers every split parameter
-and the whole optimizer state and runs every product whole, so its peak
-and its FLOPs are the unsharded model's on the rank's batch block (the
-MoE expert stacks excepted).  Fake tensors live on the CPU, so every
+The train step holds a split leaf whole only inside the layer that uses
+it and never the optimizer state (the update runs on the blocks), but it
+still runs every product whole: nothing splits a product over ``model``
+yet, so its FLOPs are the unsharded model's on the rank's batch block
+(the MoE expert stacks excepted), and its peak one layer's leaves whole
+beside the activations.  Serving cells gather every leaf whole.  Fake
+tensors live on the CPU, so every
 kernel wrapper takes its plain version (``kernels/ops.py``): the peak is
 the plain route's (``"route": "plain"``), whose temporaries (a
 materialised V, u_hat) exceed the CUDA kernels'.  The counts are per rank
@@ -372,6 +376,7 @@ def run_cell(arch: str, cell_name: str, multi_pod: bool, out_dir: Path,
             m["bytes_accessed"]),
         "collectives": m["collectives"],
         "collective_bytes": m["collective_bytes"],
+        "largest_collective": m["largest_collective"],
         "param_bytes": m["param_bytes"],
         "opt_state_bytes": m["opt_state_bytes"],
         "batch_bytes": m["batch_bytes"], "cache_bytes": m["cache_bytes"],

@@ -16,7 +16,9 @@ for every op dispatched while it is active:
   * collectives per kind, with their count and link bytes by JAX's
     formulas (:func:`link_bytes`): the functional collectives DTensor
     calls and the ``torch.distributed`` calls of ``distributed/comm.py``
-    alike, both being ops of the ``c10d`` namespaces;
+    alike, both being ops of the ``c10d`` namespaces; and the most bytes
+    one collective of each kind wrote (an all-gather: the whole it
+    made);
   * the live bytes of tensor storage and their peak: the storages of
     :meth:`StepCost.track`'s tensors (what the step is handed) and of
     every op's outputs, each until it is freed.  On fake tensors this is
@@ -131,6 +133,8 @@ class StepCost(TorchDispatchMode):
         self.bytes_accessed = 0
         self.collectives: dict = collections.defaultdict(
             lambda: {"count": 0, "bytes": 0})
+        # kind -> the most bytes one collective of the kind wrote
+        self.largest: dict = collections.defaultdict(int)
         self.live_bytes = 0
         self.peak_bytes = 0
         self.peak_op = None         # the op whose output set the peak
@@ -177,6 +181,7 @@ class StepCost(TorchDispatchMode):
             rec["count"] += 1
             rec["bytes"] += link_bytes(kind, nbytes,
                                        _group_size(args, kwargs))
+            self.largest[kind] = max(self.largest[kind], nbytes)
         elif not (func.is_view or name in _NO_TRAFFIC):
             self.bytes_accessed += sum(
                 _nbytes(t) for t in _tensors((args, kwargs, out)))
@@ -207,4 +212,5 @@ class StepCost(TorchDispatchMode):
                 "collectives": {k: dict(v) for k, v in
                                 self.collectives.items()},
                 "collective_bytes": self.collective_bytes,
+                "largest_collective": dict(self.largest),
                 "peak_bytes": self.peak_bytes, "peak_op": self.peak_op}

@@ -5,9 +5,15 @@ Weights keep the JAX package's layout ``(d_in, d_out)`` with ``x @ W``
 orientation and the side S-RSI sketches all match the reference.  Master
 weights are fp32; compute casts them to the activation dtype, as the JAX
 models do with ``.astype(dt)``.
+
+On a mesh the train step hands the models each rank's blocks of the
+parameters and a gather-at-use hook (:func:`gather_hook`): a model passes
+each layer's parameters through it inside the layer's remat body, and
+the leaves outside the layers where it uses them.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Callable, Optional
@@ -24,6 +30,36 @@ _DOTS = (_aten.mm.default, _aten.bmm.default, _aten.addmm.default)
 def _save_dots(ctx, op, *args, **kwargs):
     return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def no_gather(tree, path: str, stack: bool = False):
+    """The gather-at-use hook off a mesh: ``tree`` as it is."""
+    return tree
+
+
+_USE: list = [no_gather]
+
+
+def gather_hook() -> Callable:
+    """``use(tree, path) -> tree``: the parameters ``tree`` (a tensor or a
+    nested dict, at ``path`` in the flat parameter paths; a per-layer
+    view of a stack takes the stack's path) whole; ``stack=True`` only
+    over a stack's leading axis, before :func:`unstack`.  The identity, but
+    under :func:`gathering`, which the train step on a mesh sets around
+    its forward and backward (``distributed.sharding.GatherAtUse``).  A
+    model reads it once a forward and calls it inside each layer's remat
+    body, so that a recomputed body gathers again."""
+    return _USE[0]
+
+
+@contextlib.contextmanager
+def gathering(use: Callable):
+    prev = _USE[0]
+    _USE[0] = use
+    try:
+        yield
+    finally:
+        _USE[0] = prev
 
 
 def remat(mode: str, fn: Callable, *args):

@@ -5,8 +5,8 @@ attention-free stack of RMSNorm + Mamba2 blocks, as the JAX package's
 Parameters keep the JAX tree (``embed``, ``layers.{norm,mamba}.*`` stacked
 ``(L, ...)``, ``final_norm``, ``lm_head``), so ``repro_torch.convert``
 carries the JAX parameters across unchanged; the forward walks the layers
-with a Python loop over ``layers.unstack``'s views of the stack, as
-``TransformerLM`` does.
+with a Python loop over ``layers.unstack``'s views of the stack, each
+gathered at use on a mesh, as ``TransformerLM`` does.
 
 Serving, as the JAX model: one ``MambaCache`` per layer, stacked
 (``init_cache``); ``prefill`` and ``decode_step`` run a length-1 input
@@ -55,7 +55,9 @@ class SSMLM(nn.Module):
                 "final_norm": L.norm_specs(cfg),
                 "lm_head": ("embed", "vocab")}
 
-    def _block(self, x: torch.Tensor, lp: dict) -> torch.Tensor:
+    def _block(self, x: torch.Tensor, lp: dict,
+               use=L.no_gather) -> torch.Tensor:
+        lp = use(lp, "layers")
         return x + M.mamba_apply(self.cfg, lp["mamba"],
                                  L.apply_norm(self.cfg, lp["norm"], x))
 
@@ -64,12 +66,14 @@ class SSMLM(nn.Module):
         aux)``, aux 0 (the JAX package's model API)."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
-        x = params["embed"].to(dt)[tokens]
+        use = L.gather_hook()
+        x = use(params["embed"], "embed").to(dt)[tokens]
         mode = L.layer_remat(cfg)
-        for lp in L.unstack(params["layers"], cfg.n_layers):
-            x = L.remat(mode, self._block, x, lp)
-        x = L.apply_norm(cfg, params["final_norm"], x)
-        return (x @ params["lm_head"].to(dt),
+        for lp in L.unstack(use(params["layers"], "layers", stack=True),
+                            cfg.n_layers):
+            x = L.remat(mode, self._block, x, lp, use)
+        x = L.apply_norm(cfg, use(params["final_norm"], "final_norm"), x)
+        return (x @ use(params["lm_head"], "lm_head").to(dt),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
     def loss(self, params: dict, batch: dict):

@@ -9,7 +9,10 @@ Block parameters are stacked ``(L, ...)`` leaves, as in the JAX package,
 so the optimizer sees the same ``(L, m, n)`` matrices (``(L, E, m, n)``
 for the experts); the forward walks the layers with a Python loop over
 ``layers.unstack``'s views of the stack, each layer's body under
-``cfg.remat`` (``layers.remat``), as the JAX package's scan body.  The
+``cfg.remat`` (``layers.remat``), as the JAX package's scan body, which
+gathers the layer's parameters at use on a mesh (``layers.gather_hook``;
+the leaves outside the layers where they are used, a tied embedding once
+for both its uses).  The
 model holds no parameters itself: ``init`` returns a nested dict of fp32
 master tensors and ``forward`` / ``loss`` take it, mirroring the JAX API
 (``repro_torch.convert`` loads the JAX package's parameters into it).
@@ -123,9 +126,10 @@ class TransformerLM(nn.Module):
                                          dp_axes=dp, gather_axes=gather)
         return MOE.moe_apply_local(cfg, bp["moe"], h)
 
-    def _block(self, x: torch.Tensor, bp: dict):
+    def _block(self, x: torch.Tensor, bp: dict, use=L.no_gather):
         """One layer: ``(x, aux)``."""
         cfg = self.cfg
+        bp = use(bp, "blocks")
         h = L.apply_norm(cfg, bp["norm1"], x)
         x = self.constrain(
             x + A.attn_apply_full(cfg, bp["attn"], h, causal=True))
@@ -134,26 +138,39 @@ class TransformerLM(nn.Module):
 
     def _lm_head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
+        use = L.gather_hook()
         if self.cfg.tie_embeddings:
-            return x @ params["embed"].to(dt).T
-        return x @ params["lm_head"].to(dt)
+            return x @ use(params["embed"], "embed").to(dt).T
+        return x @ use(params["lm_head"], "lm_head").to(dt)
+
+    def _tied(self, params: dict) -> dict:
+        """``params`` with a tied embedding gathered once for both of its
+        uses (the lookup and the head), so that its gradient is summed
+        over the ranks once."""
+        if not self.cfg.tie_embeddings:
+            return params
+        return dict(params, embed=L.gather_hook()(params["embed"], "embed"))
 
     def _trunk(self, params: dict, x: torch.Tensor):
         """Every layer, then the final norm: ``(x, aux summed over the
         layers)``."""
         cfg = self.cfg
+        use = L.gather_hook()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for bp in L.unstack(params["blocks"], cfg.n_layers):
-            x, a = L.remat(cfg.remat, self._block, x, bp)
+        for bp in L.unstack(use(params["blocks"], "blocks", stack=True),
+                            cfg.n_layers):
+            x, a = L.remat(cfg.remat, self._block, x, bp, use)
             if a is not None:
                 aux = aux + a
-        return L.apply_norm(cfg, params["final_norm"], x), aux
+        return L.apply_norm(cfg, use(params["final_norm"], "final_norm"),
+                            x), aux
 
     def forward(self, params: dict, tokens: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None):
         """tokens: (B, S_txt) int, embeds: (B, F, D) the stub frontend's
         output or None -> ``(logits (B, F + S_txt, V) in the compute dtype,
         aux)``."""
+        params = self._tied(params)
         x, aux = self._trunk(params, self._embed(params, tokens,
                                                  embeds=embeds))
         return self._lm_head(params, x), aux
@@ -163,7 +180,8 @@ class TransformerLM(nn.Module):
         ``_hidden``: it adds no learned positions (no arch combines them
         with an untied head)."""
         dt = getattr(torch, self.cfg.dtype)
-        return self._trunk(params, params["embed"].to(dt)[tokens])
+        embed = L.gather_hook()(params["embed"], "embed")
+        return self._trunk(params, embed.to(dt)[tokens])
 
     def loss(self, params: dict, batch: dict):
         """Next-token cross entropy over the text tokens plus 0.01 x the
@@ -177,7 +195,8 @@ class TransformerLM(nn.Module):
         if (not cfg.tie_embeddings and embeds is None
                 and cfg.vocab * tokens.shape[1] >= FUSED_XENT_MIN):
             x, aux = self._hidden(params, tokens)
-            ce = L.fused_xent_from_hidden(x, params["lm_head"], tokens)
+            ce = L.fused_xent_from_hidden(
+                x, L.gather_hook()(params["lm_head"], "lm_head"), tokens)
         else:
             logits, aux = self.forward(params, tokens, embeds)
             n_front = 0 if embeds is None else embeds.shape[1]
@@ -205,14 +224,16 @@ class TransformerLM(nn.Module):
         at ``positions`` (default 0 .. S - 1)."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
-        x = params["embed"].to(dt)[tokens]
+        use = L.gather_hook()
+        x = use(params["embed"], "embed").to(dt)[tokens]
         if embeds is not None:
             x = torch.cat([embeds.to(dt), x], dim=1)
         if cfg.pos_embedding == "learned":
+            pos = use(params["pos_embed"], "pos_embed").to(dt)
             if positions is None:
-                x = x + params["pos_embed"].to(dt)[None, :x.shape[1], :]
+                x = x + pos[None, :x.shape[1], :]
             else:
-                x = x + _pos_rows(params["pos_embed"].to(dt), positions)
+                x = x + _pos_rows(pos, positions)
         return x
 
     @torch.inference_mode()

@@ -88,8 +88,10 @@ class EncDecLM(nn.Module):
             "dec_norm": norm,
         }
 
-    def _enc_block(self, x: torch.Tensor, bp: dict) -> torch.Tensor:
+    def _enc_block(self, x: torch.Tensor, bp: dict,
+                   use=L.no_gather) -> torch.Tensor:
         cfg = self.cfg
+        bp = use(bp, "enc_blocks")
         h = L.apply_norm(cfg, bp["norm1"], x)
         x = x + A.attn_apply_full(cfg, bp["attn"], h, causal=False)
         h = L.apply_norm(cfg, bp["norm2"], x)
@@ -100,11 +102,14 @@ class EncDecLM(nn.Module):
         in the compute dtype."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
+        use = L.gather_hook()
         s = enc_embeds.shape[1]
-        x = enc_embeds.to(dt) + params["enc_pos"].to(dt)[None, :s, :]
-        for bp in L.unstack(params["enc_blocks"], cfg.enc_layers):
-            x = L.remat(L.layer_remat(cfg), self._enc_block, x, bp)
-        return L.apply_norm(cfg, params["enc_norm"], x)
+        x = (enc_embeds.to(dt)
+             + use(params["enc_pos"], "enc_pos").to(dt)[None, :s, :])
+        for bp in L.unstack(use(params["enc_blocks"], "enc_blocks",
+                                stack=True), cfg.enc_layers):
+            x = L.remat(L.layer_remat(cfg), self._enc_block, x, bp, use)
+        return L.apply_norm(cfg, use(params["enc_norm"], "enc_norm"), x)
 
     def _cross_kv(self, bp: dict, enc_out: torch.Tensor):
         cfg = self.cfg
@@ -126,8 +131,9 @@ class EncDecLM(nn.Module):
         return A._sdpa(cfg, q, ek, ev, mask) @ p["wo"].to(dt)
 
     def _dec_block(self, x: torch.Tensor, enc_out: torch.Tensor,
-                   bp: dict) -> torch.Tensor:
+                   bp: dict, use=L.no_gather) -> torch.Tensor:
         cfg = self.cfg
+        bp = use(bp, "dec_blocks")
         h = L.apply_norm(cfg, bp["norm1"], x)
         x = x + A.attn_apply_full(cfg, bp["self_attn"], h, causal=True)
         h = L.apply_norm(cfg, bp["norm_x"], x)
@@ -141,14 +147,19 @@ class EncDecLM(nn.Module):
         output -> ``(logits (B, S, V) in the compute dtype, aux)``, aux 0."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
+        use = L.gather_hook()
         enc_out = self.encode(params, embeds)
         s = tokens.shape[1]
-        x = (params["embed"].to(dt)[tokens]
-             + params["dec_pos"].to(dt)[None, :s, :])
-        for bp in L.unstack(params["dec_blocks"], cfg.n_layers):
-            x = L.remat(L.layer_remat(cfg), self._dec_block, x, enc_out, bp)
-        x = L.apply_norm(cfg, params["dec_norm"], x)
-        return (x @ params["embed"].to(dt).T,
+        # the tied embedding gathered once for the lookup and the head
+        embed = use(params["embed"], "embed")
+        x = (embed.to(dt)[tokens]
+             + use(params["dec_pos"], "dec_pos").to(dt)[None, :s, :])
+        for bp in L.unstack(use(params["dec_blocks"], "dec_blocks",
+                                stack=True), cfg.n_layers):
+            x = L.remat(L.layer_remat(cfg), self._dec_block, x, enc_out, bp,
+                        use)
+        x = L.apply_norm(cfg, use(params["dec_norm"], "dec_norm"), x)
+        return (x @ embed.to(dt).T,
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
     def loss(self, params: dict, batch: dict):

@@ -92,11 +92,15 @@ class HybridLM(nn.Module):
         h = L.apply_norm(cfg, sp["norm2"], x)
         return x + L.mlp_apply(cfg, sp["mlp"], h)
 
-    def _layer(self, x: torch.Tensor, lp: dict,
-               sp: Optional[dict]) -> torch.Tensor:
+    def _layer(self, x: torch.Tensor, lp: dict, sp: Optional[dict],
+               use=L.no_gather) -> torch.Tensor:
         """One Mamba2 layer, then the shared block ``sp`` if this layer is
-        an application point."""
+        an application point; on a mesh both are gathered here, the shared
+        block at each of its applications, whose gradient blocks autograd
+        adds in the backward's order."""
         cfg = self.cfg
+        lp = use(lp, "layers")
+        sp = None if sp is None else use(sp, "shared")
         x = x + M.mamba_apply(cfg, lp["mamba"],
                               L.apply_norm(cfg, lp["norm"], x))
         return x if sp is None else self._shared_block(sp, x)
@@ -109,16 +113,19 @@ class HybridLM(nn.Module):
         cfg = self.cfg
         every = cfg.hybrid_attn_every
         dt = getattr(torch, cfg.dtype)
-        x = params["embed"].to(dt)[tokens]
-        layers = L.unstack(params["layers"], cfg.n_layers)
-        shared = L.unstack(params["shared"], cfg.n_shared_blocks)
+        use = L.gather_hook()
+        x = use(params["embed"], "embed").to(dt)[tokens]
+        layers = L.unstack(use(params["layers"], "layers", stack=True),
+                           cfg.n_layers)
+        shared = L.unstack(use(params["shared"], "shared", stack=True),
+                           cfg.n_shared_blocks)
         mode = L.layer_remat(cfg)
         for i, lp in enumerate(layers):
             sp = (shared[(i // every) % cfg.n_shared_blocks]
                   if i % every == every - 1 else None)
-            x = L.remat(mode, self._layer, x, lp, sp)
-        x = L.apply_norm(cfg, params["final_norm"], x)
-        return (x @ params["lm_head"].to(dt),
+            x = L.remat(mode, self._layer, x, lp, sp, use)
+        x = L.apply_norm(cfg, use(params["final_norm"], "final_norm"), x)
+        return (x @ use(params["lm_head"], "lm_head").to(dt),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
     def loss(self, params: dict, batch: dict):

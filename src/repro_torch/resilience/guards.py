@@ -220,6 +220,7 @@ def guard_updates(inner: GradientTransformation) -> GradientTransformation:
     It forwards the ``state_sharding_spec`` protocol, its own counters
     replicated."""
     from repro_torch.core.adapprox import AdapproxState, settle_guards
+    from repro_torch.core.blocks import all_ranks
     from repro_torch.telemetry import collect
     from repro_torch.telemetry import snapshot as SN
 
@@ -241,8 +242,9 @@ def guard_updates(inner: GradientTransformation) -> GradientTransformation:
             list(collect.named_snapshots(new_inner).values())
             + list(collect.named_sketch_snapshots(new_inner).values()))
         tel = SN.packed(snaps)
-        finite = torch.logical_and(tree_all_finite(grads),
-                                   tree_all_finite(upd))
+        # (on a mesh, of every rank's blocks)
+        finite = all_ranks(torch.logical_and(tree_all_finite(grads),
+                                             tree_all_finite(upd)))
         # one device-to-host transfer: the flag, each stage's xi, then
         # the telemetry snapshots' vectors
         dev = pending[0].pending.xi_max.device if pending else finite.device

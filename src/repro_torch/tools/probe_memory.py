@@ -5,11 +5,12 @@ port of the JAX package's ``tools/probe_memory.py``, over the dry run.
     PYTHONPATH=src python -m repro_torch.tools.probe_memory kimi-k2-1t-a32b grad --mesh multi
 
 The ``train_4k`` cell is placed on fake tensors over the fake production
-mesh, as ``launch/dryrun.py`` places it, and each stage runs on what the
-port's mesh step (``train/steps.py::_MeshStep``) gathers from it: ``fwd``
-the loss over the microbatches of this rank's batch block, ``grad`` their
-gradients accumulated in fp32 by the step's own ``microbatch_grads``, ``opt`` the optimizer update on gradients
-of the parameters' shapes, ``train`` the whole step.  Each line gives the
+mesh, as ``launch/dryrun.py`` places it, and each stage runs on this
+rank's blocks as the port's mesh step (``train/steps.py::_MeshStep``)
+does: ``fwd`` the loss over the microbatches of this rank's batch block,
+each leaf gathered at use, ``grad`` their gradient blocks accumulated in
+fp32 by the step's own ``grads``, ``opt`` the optimizer update on
+gradient blocks, ``train`` the whole step.  Each line gives the
 stage's peak of live bytes and what the rank held before it (the placed
 state and the batch), counted by ``launch/step_cost.py``; no time, and the
 plain route's temporaries (see the dry run's docstring).
@@ -25,7 +26,8 @@ from repro_torch.core.types import apply_updates
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.step_cost import StepCost
-from repro_torch.train.steps import _MeshStep, microbatch_grads
+from repro_torch.distributed.sharding import gathering
+from repro_torch.train.steps import _MeshStep
 
 STAGES = ("fwd", "grad", "opt", "train")
 
@@ -42,18 +44,18 @@ def _stage(c: D.Cell, inputs: dict, what: str) -> None:
         return
     ms = _MeshStep(c.model, inputs["state_shardings"],
                    inputs["batch_shardings"])
-    params, model_params, opt_state = ms.gather(inputs["state"])
+    params, model_params, opt_state = ms.blocks(inputs["state"])
     batch = ms.split(inputs["batch"])
     if what == "fwd":
-        with torch.no_grad():
+        with torch.no_grad(), gathering(ms.use):
             for b in _microbatches(batch, c.microbatches):
                 c.model.loss(tree.unflatten(model_params), b)
         return
     if what == "grad":
-        microbatch_grads(c.model, model_params, batch, c.microbatches)
+        ms.grads(c.model, model_params, batch, c.microbatches)
         return
     grads = {k: torch.zeros_like(p) for k, p in params.items()}
-    with torch.no_grad():
+    with torch.no_grad(), ms.on_blocks():
         updates, _ = c.opt.update(grads, opt_state, params)
         apply_updates(params, updates)
 

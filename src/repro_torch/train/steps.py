@@ -8,18 +8,25 @@ aggregates (``telemetry.collect.telemetry_metrics``).
 
 On a device mesh (``state_shardings`` from
 ``distributed.sharding.train_shardings``) the state's split leaves are
-DTensors, and a step: gathers every leaf whole (the model's mesh-local
-leaves, the MoE expert stacks, it takes as this rank's blocks instead);
-takes this rank's block of the batch (``batch_shardings``, over the dp
-axes); sums the gradients and the metrics over the dp axes in a fixed
-order (``distributed/comm.py``) and divides by their size, so every rank
-holds the gradient of the global batch's mean loss; runs the same
-optimizer update on every rank; and keeps each rank's blocks of the new
-state.  On a mesh of one rank every collective is an identity, and the
-step is the unsharded one, bit for bit."""
+DTensors, and a step works on each rank's blocks: the model takes the
+parameter blocks and this rank's block of the batch (``batch_shardings``,
+over the dp axes) and gathers each leaf where it uses it, one layer's
+slice at a time (``sharding.GatherAtUse``); the backward hands back each
+gradient's block, summed over the dp axes in a fixed order (microbatch
+by microbatch, accumulated in fp32 as blocks) and divided by their size,
+so every rank holds its block of the global batch's mean-loss gradient;
+the leaves the model does not gather (replicated ones, the MoE mesh
+paths' expert stacks) are summed here, and so are the metrics.  The
+global-norm clip sums block norms over the mesh, the optimizer updates
+the blocks (``core/blocks.py``) and the new state is wrapped as DTensors
+from them, with no copy.  No split leaf is held whole outside the layer
+that uses it, and the optimizer state never is.  On a mesh of one rank
+every collective is an identity, and the step is the unsharded one, bit
+for bit."""
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Any, Callable, Optional
 
 import torch
@@ -61,17 +68,22 @@ class _MeshStep:
         self.dp = (spec0 if isinstance(spec0, tuple)
                    else (spec0,) if spec0 else ())
         self.n_dp = comm.axis_size(self.mesh, self.dp)
+        self.use = self.splits = None
 
-    def gather(self, state: TrainState):
-        """(whole params, the model's params, whole optimizer state)."""
+    def blocks(self, state: TrainState):
+        """(this rank's parameter blocks, the model's: the same as
+        autograd leaves, the optimizer state's blocks); no copy."""
+        if self.use is None:        # the whole shapes, from the first state
+            shapes = {k: tuple(v.shape) for k, v in state.params.items()}
+            self.use = self.SH.GatherAtUse(self.shardings.params, shapes,
+                                           self.dp, self.local)
+            self.splits = self.SH.leaf_splits(self.shardings.params, shapes)
         with torch.no_grad():
-            full = {k: self.SH.gather(v) for k, v in state.params.items()}
-            opt_state = self.SH.gather_tree(state.opt_state)
-        model_params = {
-            k: (v.detach() if k in self.local else v).requires_grad_(True)
-            for k, v in self.SH.model_params(state.params, self.local,
-                                             full).items()}
-        return full, model_params, opt_state
+            params = {k: self.SH.to_local(v) for k, v in state.params.items()}
+            opt_state = self.SH.local_tree(state.opt_state)
+        model_params = {k: v.detach().requires_grad_(True)
+                        for k, v in params.items()}
+        return params, model_params, opt_state
 
     def split(self, batch: dict) -> dict:
         return {k: self.SH.local_block(x, self.batch[k]) if k in self.batch
@@ -85,30 +97,36 @@ class _MeshStep:
             x = self.comm.all_sum(x, g)
         return x / self.n_dp
 
-    def reduce(self, grads: dict, metrics: dict):
-        """Whole gradients of the global batch's mean loss, and the
-        metrics averaged over the dp axes."""
+    def grads(self, model, params: dict, batch: dict, microbatches: int):
+        """``(grads, loss, metrics)``: the gradient blocks of the global
+        batch's mean loss, and the metrics averaged over the dp axes."""
+        with self.SH.gathering(self.use):
+            grads, loss, metrics = microbatch_grads(model, params, batch,
+                                                    microbatches)
         out = {}
         for k, g in grads.items():
-            if k in self.local:
+            if self.use.gathers(k):         # summed in the backward
+                g = g / self.n_dp
+            elif k in self.local:
                 # moe_apply_sharded's gather summed these over "data" in
                 # its backward; the other dp axes remain
                 g = self.dp_mean(g, tuple(a for a in self.dp if a != "data"))
-                from torch.distributed.tensor import DTensor
-                sh = self.shardings.params[k]
-                g = DTensor.from_local(g, sh.mesh, sh.placements,
-                                       run_check=False).full_tensor()
             else:
                 g = self.dp_mean(g)
             out[k] = g
+        metrics = dict(metrics, loss=loss)
         metrics = {k: self.dp_mean(v.float()) if isinstance(v, torch.Tensor)
                    and v.dim() == 0 and v.is_floating_point() else v
                    for k, v in metrics.items()}
-        return out, metrics
+        return out, metrics["loss"], metrics
+
+    def on_blocks(self):
+        from repro_torch.core import blocks
+        return blocks.on_blocks(self.splits, self.mesh)
 
     def place(self, params: dict, opt_state, step: int) -> TrainState:
-        return self.SH.place_state(TrainState(params, opt_state, step),
-                                   self.shardings)
+        return self.SH.wrap_state(TrainState(params, opt_state, step),
+                                  self.shardings)
 
 
 def _grads_of(model, params: dict, batch: dict):
@@ -161,25 +179,23 @@ def build_train_step(model, opt: GradientTransformation,
 
     def train_step(state: TrainState, batch: dict):
         if mesh is None:
-            params, model_params, opt_state = (state.params, state.params,
-                                               state.opt_state)
+            params, opt_state = state.params, state.opt_state
+            grads, loss, metrics = microbatch_grads(model, params, batch,
+                                                    microbatches)
         else:
-            params, model_params, opt_state = mesh.gather(state)
-            batch = mesh.split(batch)
-        grads, loss, metrics = microbatch_grads(model, model_params, batch,
-                                                microbatches)
-        if mesh is not None:
-            metrics = dict(metrics, loss=loss)
-            grads, metrics = mesh.reduce(grads, metrics)
-            loss = metrics["loss"]
-        if grad_clip_norm is not None:
-            norm = global_norm(grads)
-            scale = torch.clamp_max(grad_clip_norm / (norm + 1e-12), 1.0)
-            grads = {k: g * scale for k, g in grads.items()}
-            metrics = dict(metrics, grad_norm=norm)
-        with torch.no_grad():
-            updates, opt_state = opt.update(grads, opt_state, params)
-            apply_updates(params, updates)
+            params, model_params, opt_state = mesh.blocks(state)
+            grads, loss, metrics = mesh.grads(model, model_params,
+                                              mesh.split(batch), microbatches)
+        blocks = mesh.on_blocks() if mesh is not None else nullcontext()
+        with blocks:
+            if grad_clip_norm is not None:
+                norm = global_norm(grads)
+                scale = torch.clamp_max(grad_clip_norm / (norm + 1e-12), 1.0)
+                grads = {k: g * scale for k, g in grads.items()}
+                metrics = dict(metrics, grad_norm=norm)
+            with torch.no_grad():
+                updates, opt_state = opt.update(grads, opt_state, params)
+                apply_updates(params, updates)
         # the model's metrics (the MoE aux loss), the total as "loss" and
         # the step, as in the JAX package; then per-group aggregates of the
         # optimizer's snapshots and the guard counters (empty without

@@ -4,7 +4,11 @@ runs every multi-rank scenario and rank 0 writes what the tests read.
 The scenarios are the JAX package's sharded-training contracts
 (``tests/test_sharded_train.py``), on the smoke GPT-2 with the mixed
 three-family partition, plus the MoE mesh paths, the 4-stage GPipe
-pipeline and the elastic restore onto the six survivors of eight ranks.
+pipeline and the elastic restore onto the six survivors of eight ranks;
+and the blocked step held to the gather design (:func:`gather_step`, the
+mesh step as it was before it ran on blocks, kept here as the
+reference): its gradient blocks bitwise, every optimizer's state blocks
+after 3 steps.
 Inputs (the JAX init, JAX's S-RSI draws keyed by the port's generator
 seeds, the MoE and pipeline arrays) come from the test in a pickle.
 """
@@ -131,9 +135,11 @@ def training(inp, out, res, arrs):
     from torch.distributed.tensor import DTensor
     base = os.path.join(out, "ckpt")
 
-    # uninterrupted reference: 5 steps on (4, 2)
+    # uninterrupted reference: 5 steps on (4, 2); and on (2, 4) and (8,)
     state5, l5, ssh42 = run(inp, (4, 2), 5)
     res["losses_42"] = l5
+    for tag, shape in [("24", (2, 4)), ("8", (8,))]:
+        res[f"losses_{tag}"] = run(inp, shape, 5)[1]
     res["bytes_42"] = tree_nbytes(state5.opt_state)
     res["param_bytes_42"] = tree_nbytes(state5.params)
     pstate = state5.opt_state
@@ -212,6 +218,167 @@ LAUNCH_ARGV = ["--smoke", "--device", "cpu", "--fused-update",
                "--refresh-every", "3", "--embedding-min-rows", "256",
                "--sketch-width", "256", "--sketch-depth", "2", "--steps", "6",
                "--log-every", "1"]
+
+
+# ---------------------------------------------------------------------------
+# the blocked step against the gather design
+# ---------------------------------------------------------------------------
+
+def gather_step(model, opt, ssh, bsh, microbatches=1):
+    """The gather design's train step (the reference): every parameter and
+    the optimizer state gathered whole, the whole gradient on this rank's
+    batch block summed over the dp axes in rank order (``comm.all_sum``,
+    the minor axis first) over their size, the whole update on every
+    rank, each rank's blocks kept.  Returns ``(step, grads)``:
+    ``step(state, batch) -> (state, loss)`` and ``grads(state, batch)``
+    the whole summed gradients."""
+    from repro_torch.core.types import apply_updates
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.train.steps import TrainState, _MeshStep, \
+        microbatch_grads
+    mesh = _MeshStep(model, ssh, bsh)
+
+    def grads(state, batch):
+        with torch.no_grad():
+            full = {k: SH.gather(v) for k, v in state.params.items()}
+        whole = {k: v.detach().requires_grad_(True) for k, v in full.items()}
+        g, loss, _ = microbatch_grads(model, whole, mesh.split(batch),
+                                      microbatches)
+        return full, {k: mesh.dp_mean(v) for k, v in g.items()}, \
+            mesh.dp_mean(loss)
+
+    def step(state, batch):
+        full, g, loss = grads(state, batch)
+        with torch.no_grad():
+            opt_state = SH.gather_tree(state.opt_state)
+            upd, opt_state = opt.update(g, opt_state, full)
+            apply_updates(full, upd)
+        return SH.place_state(TrainState(full, opt_state, state.step + 1),
+                              ssh), float(loss)
+
+    return step, grads
+
+
+OPTIMIZERS = {
+    "adapprox_fused": dict(fused_update=True, implicit=False),
+    "adapprox_unfused": dict(implicit=False),
+    "implicit": dict(implicit=True),
+    "warm_start": dict(implicit=False, warm_start=True),
+    "sketch": dict(fused_update=True, implicit=False,
+                   embedding_min_rows=64, sketch_width=256, sketch_depth=2),
+    "adamw": dict(name="adamw"),
+    "adafactor": dict(name="adafactor"),
+    "came": dict(name="came"),
+}
+
+
+# CAME's trajectories part wherever the summation order differs (two
+# gather-design runs on (8,) and (4, 2) differ by 8% of a leaf's largest
+# entry after 3 steps: it divides by row means of (u - m1)^2 that come
+# near 0), so its blocked step is held to the reference one step at a
+# time, each step taken from the reference's state
+ANCHORED = ("came",)
+
+
+def opt_of(kind: str):
+    from repro_torch.config import OptimizerConfig, default_mixed_groups
+    from repro_torch.core.build import build_optimizer
+    over = dict(OPTIMIZERS[kind])
+    if kind == "sketch":
+        over["groups"] = default_mixed_groups()
+    return build_optimizer(OptimizerConfig(**{
+        **dict(name="adapprox", schedule="constant", lr=1e-3,
+               weight_decay=0.1, decay_mask="no_1d", min_dim_factor=32, k=4,
+               rank_mode="static", refresh_every=2), **over}))
+
+
+def blocked(inp, res):
+    """The blocked step (``train/steps.py``) against :func:`gather_step`
+    from the same init on the same batches: one step's gradient blocks on
+    every mesh under remat none and full, to be the reference's slices
+    bit for bit (and on (4, 2) under the fsdp rule, which splits the (L,
+    d) leaves' stack axis); every optimizer's state and parameter blocks
+    after each
+    of 3 steps on (4, 2) (and Adapprox's at microbatches 2 and under remat
+    full; ``ANCHORED`` ones step by step), each leaf's largest difference
+    over its largest entry, for the tests to hold."""
+    import dataclasses
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.checkpoint.serialization import leaves_with_paths
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.steps import (TrainState, _MeshStep,
+                                         build_train_step)
+    batches = [{"tokens": torch.from_numpy(b)} for b in inp["batches"]]
+
+    def setup(shape, kind="adapprox_fused", remat="none", strategy="tp"):
+        mesh = mesh_of(shape)
+        model = build_model(dataclasses.replace(
+            smoke_config(), remat=remat, parallel_strategy=strategy), mesh)
+        opt = opt_of(kind)
+        params = params_from_numpy(inp["params"])
+        ssh, bsh = SH.train_shardings(model, opt, mesh,
+                                      {"tokens": (BATCH, SEQ)},
+                                      params=params)
+        state = SH.place_state(TrainState.create(params, opt), ssh)
+        return model, opt, ssh, bsh, state
+
+    def everywhere(x: float) -> float:
+        return max(comm.all_concat(torch.tensor([float(x)]), 0,
+                                   dist.group.WORLD).tolist())
+
+    grid = [(shape, remat, "tp") for shape in [(4, 2), (2, 4), (8,)]
+            for remat in ("none", "full")] + [((4, 2), "none", "fsdp")]
+    for shape, remat, strategy in grid:
+        model, opt, ssh, bsh, state = setup(shape, remat=remat,
+                                            strategy=strategy)
+        step = _MeshStep(model, ssh, bsh)
+        _, mparams, _ = step.blocks(state)
+        got, _, _ = step.grads(model, mparams, step.split(batches[0]), 1)
+        _, want, _ = gather_step(model, opt, ssh, bsh)[1](state,
+                                                           batches[0])
+        bad = [k for k in want if not torch.equal(
+            got[k], SH.local_block(want[k], ssh.params[k]))]
+        tag = "x".join(map(str, shape))
+        tag += "_fsdp" if strategy == "fsdp" else ""
+        res[f"grads_bad_{tag}_{remat}"] = everywhere(len(bad))
+
+    def rel_err(a, b) -> float:
+        worst = 0.0
+        for (pa, x), (pb, y) in zip(leaves_with_paths(SH.local_tree(a)),
+                                    leaves_with_paths(SH.local_tree(b))):
+            assert pa == pb, (pa, pb)
+            if isinstance(x, torch.Tensor) and x.is_floating_point():
+                x, y = x.double(), y.double()
+                scale = float(y.abs().max()) if y.numel() else 0.0
+                err = float((x - y).abs().max()) if y.numel() else 0.0
+                worst = max(worst, err / scale if scale else err)
+        return worst
+
+    runs = [(kind, kind, 1, "none") for kind in OPTIMIZERS]
+    runs += [("microbatches_2", "adapprox_fused", 2, "none"),
+             ("remat_full", "adapprox_fused", 1, "full")]
+    errs = {}
+    for tag, kind, mb, remat in runs:
+        model, opt, ssh, bsh, state = setup((4, 2), kind, remat)
+        ref = setup((4, 2), kind, remat)[-1]
+        step = build_train_step(model, opt, microbatches=mb,
+                                state_shardings=ssh, batch_shardings=bsh)
+        ref_step = gather_step(model, opt, ssh, bsh, mb)[0]
+        rec = dict(opt_state=[], params=[], losses=[])
+        for batch in batches:
+            if tag in ANCHORED:        # each step from the reference's state
+                state = SH.place_state(SH.gather_tree(ref), ssh)
+            state, metrics = step(state, batch)
+            ref, ref_loss = ref_step(ref, batch)
+            rec["losses"].append((float(metrics["loss"]), ref_loss))
+            rec["opt_state"].append(everywhere(rel_err(state.opt_state,
+                                                       ref.opt_state)))
+            rec["params"].append(everywhere(rel_err(state.params,
+                                                    ref.params)))
+        errs[tag] = rec
+    res["blocked_vs_gather"] = errs
 
 
 def launcher_mesh(inp, res):
@@ -385,6 +552,7 @@ def worker(rank: int, port: int, inp_path: str, out: str):
     res, arrs = {}, {}
     try:
         training(inp, out, res, arrs)
+        blocked(inp, res)
         launcher_mesh(inp, res)
         moe(inp, res, arrs)
         pipeline(inp, res, arrs)

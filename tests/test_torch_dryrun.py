@@ -585,6 +585,41 @@ def test_importing_the_dry_run_starts_nothing():
         out.stderr[-2000:]
 
 
+def test_blocked_step_gathers_one_layer_at_a_time(fake_group):
+    """The mesh step on each rank's blocks, on a wide smoke train cell
+    with a short sequence (Qwen2-7B's smoke at d_model 512, d_ff 2048, 12
+    layers, 16 tokens a sequence, static rank 8) over a fake (data 8,
+    model 8) mesh: its parameters outweigh its activations, so the
+    gather design, which held every parameter, its gradient and the
+    optimizer state whole, peaked above the whole model's fp32 bytes by
+    construction.  The blocked step's largest all-gather is no larger
+    than the largest per-layer leaf slice or table, and its peak stays
+    below the whole parameters' bytes."""
+    from repro_torch.core.build import build_optimizer
+    mesh = make_fake_mesh((8, 8), ("data", "model"))
+    cfg = get_smoke_config("qwen2-7b", d_model=512, d_ff=2048, n_heads=8,
+                           n_kv_heads=2, head_dim=64, n_layers=12)
+    model = build_model(cfg, mesh)
+    model.constrain = SH.make_act_constrainer(mesh, "train")
+    cell = dataclasses.replace(C.CELLS["train_4k"], seq_len=16,
+                               global_batch=16)
+    opt = build_optimizer(dataclasses.replace(
+        D.dryrun_opt_config("qwen2-7b"), k=8))
+    rec = D.measure(D.Cell("qwen2-7b", "train_4k", cfg, cell, mesh, model,
+                           opt=opt))
+    structs = SH.param_structs(model)
+    whole = sum(v.numel() * 4 for v in structs.values())
+    largest = max((v.numel() // v.shape[0] if k.startswith("blocks/")
+                   else v.numel()) * 4 for k, v in structs.items())
+    print(f"peak {rec['peak_bytes']} B at {rec['peak_op']}, whole fp32 "
+          f"parameters {whole} B; largest collectives "
+          f"{rec['largest_collective']}, largest layer slice or table "
+          f"{largest} B")
+    assert 0 < rec["largest_collective"]["all-gather"] <= largest
+    assert rec["param_bytes"] + rec["opt_state_bytes"] < rec["peak_bytes"]
+    assert rec["peak_bytes"] < whole
+
+
 def test_probe_memory_stages_bisect_the_step(fake_group):
     """``tools/probe_memory.py``'s stages on a smoke train cell over 8
     fake ranks: each peaks above the placed state it starts from, the

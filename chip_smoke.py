@@ -165,7 +165,19 @@ sm_90a) and the CUDA toolkit.  In order, it
      not tell a path off by one position); [parity-serve] runs every
      family's smoke model and the paged path in fp32 on the card and the
      CPU, and paged decode against dense decode on the card, bitwise;
-  9. prints one JSON line with each training run's loss, times and peak
+  9. runs the four examples of ``examples/torch`` through their ``main``
+     ([examples]): ``train_gpt2_pile.py --full --steps 8`` (GPT-2 117M,
+     batch 16 x 256, the launcher's mixed groups) into a checkpoint
+     directory and again (a falling loss, the second run restoring at
+     step 8 and taking none, B5 launched twice a step for each of the two
+     sketched tables and nothing else), ``quickstart.py --steps 20`` (a
+     falling loss, finite rank metrics, the mean rank in [1, k_max], its
+     trace through ``repro_torch.tools.traceview --check``),
+     ``elastic_restart.py`` (a bitwise restore) and ``serve_batched.py``
+     (each request's continuous stream against the request alone on a
+     one-slot wave engine, parting only at a tie), and prints the
+     phase's seconds;
+ 10. prints one JSON line with each training run's loss, times and peak
      memory, one with each kernel's launches, error and times, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -177,6 +189,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import shutil
@@ -218,6 +231,14 @@ TRAIN_GUARDED_ARGV = TRAIN_MIXED_ARGV + ["--guards"]
 # [0, 1]): the skip-step guard alone, a no-op on healthy steps
 TRAIN_GUARDED_CALM_ARGV = TRAIN_GUARDED_ARGV + ["--guard-skip-threshold", "1"]
 CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+# [examples]: the four examples of examples/torch, run as a user runs them
+# ([examples]); their checkpoints and traces under build/, removed after.
+# train_gpt2_pile.py --full is GPT-2 117M at full width, batch 16 x 256,
+# on the launcher's defaults (mixed groups, refresh every step)
+EXAMPLES = ROOT / "examples" / "torch"
+EXAMPLES_ROOT = ROOT / "build" / "chip_smoke_examples"
+EXAMPLE_GPT2_STEPS = 8
+EXAMPLE_QUICKSTART_STEPS = 20
 # slice 12: the dense family's features and the MoE block at full width,
 # depth cut to 4 layers (``depth_cut``): Qwen2-7B's 7.6B fp32 master
 # parameters, their gradients and the first moment exceed 80 GB.  Batch
@@ -3371,7 +3392,7 @@ def telemetry_phase(device, mixed_state: list, mixed_expect: dict) -> dict:
     from repro_torch.checkpoint import CheckpointConfig
     from repro_torch.config import TelemetryConfig
     from repro_torch.configs.archs import get_config
-    from repro_torch.core import adapprox as TA
+    from repro_torch.core.adapprox import _refresh_pred, adapprox_state
     from repro_torch.core.build import build_optimizer
     from repro_torch.core.factored import FactoredLeaf
     from repro_torch.data.pipeline import DataConfig
@@ -3406,7 +3427,7 @@ def telemetry_phase(device, mixed_state: list, mixed_expect: dict) -> dict:
             out = super().on_step(step, state)
             snap = T.named_snapshots(state.opt_state)["factored"]
             fetch_host([snap])
-            fact = [leaf for leaf in TA.adapprox_state(state.opt_state).leaves
+            fact = [leaf for leaf in adapprox_state(state.opt_state).leaves
                     if isinstance(leaf, FactoredLeaf)]
             own = torch.stack(
                 [torch.mean(leaf.xi.float()) for leaf in fact]
@@ -3418,7 +3439,7 @@ def telemetry_phase(device, mixed_state: list, mixed_expect: dict) -> dict:
                      f"{snap.host('xi')} / {snap.host('k')} are not the "
                      f"leaves' {own}")
             t = snap.refresh_every
-            want = t <= 1 or TA._refresh_pred(step, t)
+            want = t <= 1 or _refresh_pred(step, t)
             if (snap.step != step or snap.refresh_steps + snap.fold_steps
                     != step or bool(snap.did_refresh) != want
                     or folds != [not want] * len(fact)):
@@ -4266,6 +4287,182 @@ SERVE_SSD = [("mamba2-370m serve prefill", (2, 1024, 32, 1, 64, 128, 256)),
              ("zamba2-2.7b serve prefill", (1, 8192, 80, 1, 64, 64, 256))]
 
 
+# -- the examples --------------------------------------------------------------
+
+def example(name: str):
+    """``examples/torch/<name>.py`` loaded as a module (the examples are
+    scripts, not a package); its ``main(argv)`` runs it."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def engines_recorded(mod):
+    """Within it, each ``Engine`` and ``ContinuousEngine`` that ``mod``
+    builds wraps its model in a :class:`ServeRecorder` of its own, yielded
+    as ``rec["wave"]`` / ``rec["continuous"]`` (the last one built of
+    each)."""
+    saved = (mod.Engine, mod.ContinuousEngine)
+    rec = {}
+
+    class Wave(saved[0]):
+        def __init__(self, model, *args, **kw):
+            rec["wave"] = ServeRecorder(model)
+            super().__init__(rec["wave"], *args, **kw)
+
+        def run_wave(self, reqs, t0=None):
+            self.model.wave = reqs
+            super().run_wave(reqs, t0)
+
+    class Continuous(saved[1]):
+        def __init__(self, model, *args, **kw):
+            rec["continuous"] = ServeRecorder(model)
+            super().__init__(rec["continuous"], *args, **kw)
+            rec["continuous"].engine = self
+
+    mod.Engine, mod.ContinuousEngine = Wave, Continuous
+    try:
+        yield rec
+    finally:
+        mod.Engine, mod.ContinuousEngine = saved
+
+
+def examples_phase() -> dict:
+    """[examples]: the four examples of ``examples/torch`` on the card, each
+    through its ``main`` as its command line runs it.  train_gpt2_pile.py
+    --full (GPT-2 117M at full width, batch 16 x 256, the launcher's mixed
+    groups) trains ``EXAMPLE_GPT2_STEPS`` steps into a checkpoint directory
+    and runs again: the loss falls, the second run restores at the last
+    step and takes none, and B5 (the sketch's scatter and query) launches
+    twice a step for each sketched leaf (embed and pos_embed) and nothing
+    else launches.  quickstart.py: the loss falls, ``rank_metrics`` gives a
+    finite mean rank in [1, k_max] and a finite mean xi, its trace passes
+    ``repro_torch.tools.traceview --check``, and no kernel launches (no
+    fused update, no sketch).  elastic_restart.py: the restore is
+    bitwise.  serve_batched.py: every request's continuous stream equals
+    the same request served alone on the wave engine (a wave of one slot:
+    the wave engine right-aligns a wave's prompts and attends the pad, as
+    JAX's does, so a shorter prompt in a mixed wave is another input),
+    parting only at a tie within ``SERVE_TIE_ULPS``.  Returns ``{path:
+    (launch counts, info)}`` and the phase's seconds."""
+    import torch
+    from repro_torch.core.sketch import SketchLeaf, SketchState
+    from repro_torch.core.types import find_states
+    from repro_torch.tools import traceview
+    t_phase = time.monotonic()
+    shutil.rmtree(EXAMPLES_ROOT, ignore_errors=True)
+    runs = {}
+
+    argv = ["--full", "--steps", str(EXAMPLE_GPT2_STEPS), "--ckpt-dir",
+            str(EXAMPLES_ROOT / "gpt2"), "--log-every", "1"]
+    phase("[examples] examples/torch/train_gpt2_pile.py " + " ".join(argv))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    (state, hist), (again, hist2) = example("train_gpt2_pile").main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    losses = [h["loss"] for h in hist]
+    times = [h["step_time_s"] for h in hist]
+    for h in hist:
+        print(f"  step {h['step']:2d} loss {h['loss']:.4f} "
+              f"step_time_s {h['step_time_s']:.4f}")
+    if (len(losses) != EXAMPLE_GPT2_STEPS
+            or not all(math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0]):
+        fail(f"[examples] train_gpt2_pile: losses {losses}")
+    if hist2 or again.step != EXAMPLE_GPT2_STEPS:
+        fail(f"[examples] train_gpt2_pile's second run: step {again.step}, "
+             f"{len(hist2)} steps taken; expected a restore at "
+             f"{EXAMPLE_GPT2_STEPS} and none")
+    n_sk = sum(isinstance(leaf, SketchLeaf)
+               for sub in find_states(state.opt_state, SketchState)
+               for leaf in sub.leaves)
+    want = expected_launches("none", EXAMPLE_GPT2_STEPS, 0, 0, 0, n_sk)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = statistics.median(times[1:])
+    print(f"  launches {launches} (expected {want}: {n_sk} sketched "
+          f"leaves); the second run restored step {again.step} and took "
+          f"none; median step {step_s:.4f} s after the first "
+          f"({16 * 256 / step_s:.0f} tokens/s); peak memory {peak:.2f} "
+          f"GiB; both runs {wall:.1f} s")
+    if n_sk != 2 or launches != want:
+        fail(f"[examples] train_gpt2_pile launches {launches}, expected "
+             f"{want} (sketched leaves {n_sk}, expected 2)")
+    runs["examples-gpt2"] = (launches, {
+        "loss": losses[-1], "losses": losses, "step_s": step_s,
+        "first_step_s": times[0], "peak_gib": peak, "wall_s": wall})
+    del state, again
+
+    argv = ["--steps", str(EXAMPLE_QUICKSTART_STEPS), "--trace-dir",
+            str(EXAMPLES_ROOT / "quickstart")]
+    phase("[examples] examples/torch/quickstart.py " + " ".join(argv))
+    reset_launches()
+    t0 = time.perf_counter()
+    out = example("quickstart").main(argv)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    losses, rm = out["losses"], out["rank_metrics"]
+    rank, xi = rm.get("adapprox/mean_rank"), rm.get("adapprox/mean_xi")
+    print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}; mean rank {rank}, "
+          f"mean xi {xi}; launches {launches}; {wall:.1f} s")
+    if (not all(math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0]):
+        fail(f"[examples] quickstart: losses {losses}")
+    if not (rank is not None and math.isfinite(rank)
+            and 1 <= rank <= out["k_max"] and xi is not None
+            and math.isfinite(xi)):
+        fail(f"[examples] quickstart: rank metrics {rm}")
+    if any(launches.values()):
+        fail(f"[examples] quickstart launched {launches}; its path (no "
+             f"fused update, no sketch) launches no kernel")
+    print("  python -m repro_torch.tools.traceview --check on its trace:")
+    if traceview.main([out["trace_dir"], "--check"]) != 0:
+        fail("[examples] quickstart's trace fails traceview --check")
+    runs["examples-quickstart"] = (launches, {
+        "loss": losses[-1], "losses": losses, "mean_rank": rank,
+        "mean_xi": xi, "wall_s": wall})
+
+    phase("[examples] examples/torch/elastic_restart.py")
+    out = example("elastic_restart").main([])
+    if not (out["bit_identical"] is True and out["step"] == 123):
+        fail(f"[examples] elastic_restart: restored step {out['step']}, "
+             f"bit-identical {out['bit_identical']}")
+
+    phase("[examples] examples/torch/serve_batched.py, then each request "
+          "alone on a one-slot wave engine")
+    mod = example("serve_batched")
+    reset_launches()
+    with engines_recorded(mod) as rec:
+        out = mod.main([])
+        cont, c_reqs = out["continuous"]
+        solo_reqs = mod.clone(c_reqs)
+        solo = mod.Engine(rec["continuous"].model, cont.params,
+                          mod.ServeConfig(slots=1, cache_len=mod.CACHE_LEN))
+        solo.run(solo_reqs)
+    w_reqs = out["wave"][1]
+    same_wave = sum(a.out_tokens == b.out_tokens
+                    for a, b in zip(c_reqs, w_reqs))
+    print(f"  the mixed waves' streams equal the continuous ones for "
+          f"{same_wave} of {len(c_reqs)} requests (a mixed wave attends "
+          f"its pad)")
+    parted = hold_streams("[examples] serve_batched",
+                          (cont, c_reqs, rec["continuous"]),
+                          (solo, solo_reqs, rec["wave"]))
+    runs["examples-serve"] = (launch_counts(), {
+        "wave_s": out["wave_s"], "continuous_s": out["continuous_s"],
+        "parted": parted, "same_as_mixed_wave": same_wave})
+    shutil.rmtree(EXAMPLES_ROOT, ignore_errors=True)
+    seconds = time.monotonic() - t_phase
+    print(f"  [examples] phase: {seconds:.1f} s")
+    return runs, seconds
+
+
 def time_stream(kern, plain, kernel_name: str, rec: dict, bound: float,
                 label: str) -> None:
     """:func:`time_pair` for calls of a millisecond or so, by CUDA events
@@ -4761,6 +4958,10 @@ def main():
     print(f"  serving phases: {time.monotonic() - t_s:.1f} s")
     serve_info = {p: r[1] for p, r in serve.items()}
     runs.update({p: r[0] for p, r in serve.items()})
+    examples, examples_s = examples_phase()
+    examples_info = {p: r[1] for p, r in examples.items()}
+    examples_info["seconds"] = examples_s
+    runs.update({p: r[0] for p, r in examples.items()})
 
     def launches(*names):
         return dict(
@@ -4870,7 +5071,8 @@ def main():
     ]
     phase("[report] every check passed")
     print(json.dumps({"train": info, "remat": remat, "ckpt": ckpt_costs,
-                      "serve": serve_info, "dryrun": dryrun}))
+                      "serve": serve_info, "dryrun": dryrun,
+                      "examples": examples_info}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

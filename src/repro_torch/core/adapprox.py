@@ -777,3 +777,22 @@ def adapprox_state(state) -> AdapproxState:
     for sub in find_states(state, AdapproxState):
         return sub
     raise ValueError("no AdapproxState found in optimizer state")
+
+
+def rank_metrics(state) -> dict:
+    """Mean effective rank and mean xi over the factored leaves, for
+    logging: a mean per leaf over its batch dims (k as float32), then a
+    mean over leaves, as 0-d tensors on the state's device; ``{}`` without
+    a factored leaf.  ``state`` is a bare ``AdapproxState`` or any chain,
+    partition or guarded state holding one; int8 factors and bucketed
+    states count the same way."""
+    ks, xis = [], []
+    for sub in find_states(state, AdapproxState):
+        for leaf in sub.leaves:
+            if isinstance(leaf, F.FactoredLeaf):
+                ks.append(leaf.k.to(torch.float32).mean())
+                xis.append(leaf.xi.mean())
+    if not ks:
+        return {}
+    return {"adapprox/mean_rank": torch.stack(ks).mean(),
+            "adapprox/mean_xi": torch.stack(xis).mean()}

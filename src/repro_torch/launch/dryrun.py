@@ -167,12 +167,22 @@ class Cell:
         return self.name == "long_500k"
 
 
-def build_cell(arch: str, cell_name: str, mesh, smoke: bool = False) -> Cell:
+def build_cell(arch: str, cell_name: str, mesh, smoke: bool = False, *,
+               overrides: Optional[dict] = None,
+               microbatches: Optional[int] = None,
+               opt_overrides: Optional[dict] = None) -> Cell:
     """The config, model and optimizer of a cell on ``mesh`` (no tensor
     yet): the full-size config (the smoke one at sequence 64 and batch
     max(4, ranks / 2) with ``smoke``), pure FSDP for the train cells of
-    ``FSDP_TRAIN_ARCHS``, the MoE decode path for MoE decode cells."""
+    ``FSDP_TRAIN_ARCHS``, the MoE decode path for MoE decode cells.
+    For the hill-climb tool (``tools/hillclimb.py``): ``overrides``
+    replaces fields of the model config before the FSDP rule applies,
+    ``microbatches`` a train cell's microbatch count and
+    ``opt_overrides`` fields of :func:`dryrun_opt_config`'s config;
+    without them the cell is the dry run's own."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     cell = CELLS[cell_name]
     if not smoke and cell.kind == "train" and arch in FSDP_TRAIN_ARCHS:
         cfg = dataclasses.replace(cfg, parallel_strategy="fsdp")
@@ -189,8 +199,11 @@ def build_cell(arch: str, cell_name: str, mesh, smoke: bool = False) -> Cell:
         return Cell(arch, cell_name, cfg, cell, mesh, model)
     mb = 1 if smoke else microbatches_for(arch, cell_name, mesh,
                                           cell.global_batch)
-    return Cell(arch, cell_name, cfg, cell, mesh, model,
-                opt=dryrun_optimizer(arch), microbatches=mb)
+    opt = (build_optimizer(dataclasses.replace(dryrun_opt_config(arch),
+                                               **opt_overrides))
+           if opt_overrides else dryrun_optimizer(arch))
+    return Cell(arch, cell_name, cfg, cell, mesh, model, opt=opt,
+                microbatches=mb if microbatches is None else microbatches)
 
 
 def batch_shardings(c: Cell, batch: dict) -> dict:

@@ -11,8 +11,12 @@ for every op dispatched while it is active:
   * FLOPs, by ``torch.utils.flop_counter.FlopCounterMode`` (products,
     convolutions and attention; elementwise ops count none);
   * bytes accessed: each tensor operand's and output's bytes, an upper
-    proxy for memory traffic like JAX's walker (view ops, ``detach`` and
-    ``empty`` move nothing and count nothing);
+    proxy for memory traffic like JAX's walker (view ops, ``detach``,
+    ``empty`` and the ``prim`` metadata queries such as ``t.device`` move
+    nothing and count nothing), also summed per site: the
+    aten op and its first output's dtype and shape (``"mm
+    float32[4096, 768]"``), JAX's ``by_site`` keyed by the fusion or dot
+    and its type (:meth:`StepCost.top_sites`);
   * collectives per kind, with their count and link bytes by JAX's
     formulas (:func:`link_bytes`): the functional collectives DTensor
     calls and the ``torch.distributed`` calls of ``distributed/comm.py``
@@ -96,6 +100,17 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _site(name: str, out) -> str:
+    """An op's site key: its name and its first output's dtype and shape,
+    cut to JAX's 48 characters of type string."""
+    outs = _tensors(out)
+    if not outs:
+        return name
+    t = outs[0]
+    dtype = str(t.dtype).removeprefix("torch.")
+    return f"{name} {(dtype + str(list(t.shape)))[:48]}"
+
+
 def _group_size(args, kwargs) -> int:
     """The group size a collective names: an int ``group_size``, a
     process group, or a group name."""
@@ -131,6 +146,7 @@ class StepCost(TorchDispatchMode):
         from torch.utils.flop_counter import FlopCounterMode
         self._flop_mode = FlopCounterMode(display=False)
         self.bytes_accessed = 0
+        self.by_site: dict = collections.defaultdict(int)
         self.collectives: dict = collections.defaultdict(
             lambda: {"count": 0, "bytes": 0})
         # kind -> the most bytes one collective of the kind wrote
@@ -182,9 +198,11 @@ class StepCost(TorchDispatchMode):
             rec["bytes"] += link_bytes(kind, nbytes,
                                        _group_size(args, kwargs))
             self.largest[kind] = max(self.largest[kind], nbytes)
-        elif not (func.is_view or name in _NO_TRAFFIC):
-            self.bytes_accessed += sum(
-                _nbytes(t) for t in _tensors((args, kwargs, out)))
+        elif not (func.is_view or name in _NO_TRAFFIC
+                  or func.namespace == "prim"):
+            nbytes = sum(_nbytes(t) for t in _tensors((args, kwargs, out)))
+            self.bytes_accessed += nbytes
+            self.by_site[_site(name, out)] += nbytes
         for t in _tensors(out):
             self._hold(t)
         return out
@@ -207,8 +225,14 @@ class StepCost(TorchDispatchMode):
     def collective_bytes(self) -> int:
         return sum(v["bytes"] for v in self.collectives.values())
 
+    def top_sites(self, n: int = 12) -> list:
+        """The ``n`` sites with the most bytes accessed, as ``(site,
+        bytes)`` pairs, most first (JAX's ``HloCost.top_sites``)."""
+        return sorted(self.by_site.items(), key=lambda kv: -kv[1])[:n]
+
     def summary(self) -> dict:
         return {"flops": self.flops, "bytes_accessed": self.bytes_accessed,
+                "top_sites": self.top_sites(10),
                 "collectives": {k: dict(v) for k, v in
                                 self.collectives.items()},
                 "collective_bytes": self.collective_bytes,

@@ -35,8 +35,6 @@ from typing import ClassVar, Iterable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.types import replicate_state_spec
-
 
 class _HostCopy:
     """The host copy of a snapshot's device vectors (``VECTORS``)."""
@@ -160,6 +158,7 @@ def snapshot_spec(snap):
     every leaf replicated (scalars and per-leaf vectors, nothing worth
     splitting), as in the JAX package; ``None`` (telemetry off) stays
     ``None``."""
+    from repro_torch.core.types import replicate_state_spec  # core imports us
     return replicate_state_spec(snap)
 
 

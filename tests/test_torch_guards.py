@@ -2,7 +2,9 @@
 silently swaps the optimizer the user asked for, refuses the parts that
 are not ported yet and the misuse of those that are (and builds and steps
 those that are), and never imports JAX or the JAX package."""
+import ast
 import dataclasses
+import importlib
 import os
 import subprocess
 import sys
@@ -14,7 +16,6 @@ import torch
 from repro_torch import telemetry as T
 from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
 from repro_torch.config import OptimizerConfig, TelemetryConfig
-from repro_torch.core import adapprox as TA
 from repro_torch.core.adafactor import AdafactorState
 from repro_torch.core.build import build_optimizer
 from repro_torch.core.came import CAMEState
@@ -27,6 +28,7 @@ from repro_torch.launch import train as launcher
 from repro_torch.resilience import (GuardConfig, GuardedState, GuardState,
                                     guard_updates)
 
+TA = importlib.import_module("repro_torch.core.adapprox")
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ["--smoke", "--steps", "1", "--batch", "2", "--seq", "16"]
 
@@ -249,6 +251,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_port_examples_import_neither_jax_nor_the_jax_package():
+    """The examples under ``examples/torch`` (scripts: what they import
+    runs when they run) import nothing from ``jax``, ``jaxlib`` or
+    ``repro``, read from their source with ``ast``."""
+    files = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert len(files) == 4
+    for f in files:
+        mods = set()
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                mods.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                mods.add(node.module or "")
+        bad = sorted(m for m in mods
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, (f.name, bad)
+        assert any(m.startswith("repro_torch") for m in mods), f.name
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

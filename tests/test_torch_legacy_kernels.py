@@ -37,7 +37,6 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import tree
 from repro_torch.convert import params_from_numpy
-from repro_torch.core import adapprox as TA
 from repro_torch.core.factored import FactoredLeaf
 from repro_torch.core.rank import RankConfig
 from repro_torch.kernels import lowrank_update as LU
@@ -47,6 +46,7 @@ from test_torch_parity import _cfg_kw, _close_rel, _grads, _jax_params
 from test_torch_parity import _JaxSketch
 
 JA = importlib.import_module("repro.core.adapprox")
+TA = importlib.import_module("repro_torch.core.adapprox")
 
 B2, EPS = 0.999, 1e-8
 # (m, n, r): none a multiple of 64 or 256, r not a multiple of 16

@@ -34,7 +34,6 @@ from repro.core.rank import RankConfig as JRankConfig
 from repro.models import build_model as jax_build_model
 from repro_torch import tree
 from repro_torch.convert import adapprox_state_from_numpy, params_from_numpy
-from repro_torch.core import adapprox as TA
 from repro_torch.core.factored import FactoredLeaf
 from repro_torch.core.rank import RankConfig
 from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
@@ -42,6 +41,7 @@ from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 # repro.core re-exports a function named ``adapprox`` over the module
 JA = importlib.import_module("repro.core.adapprox")
+TA = importlib.import_module("repro_torch.core.adapprox")
 
 SEQ = 128
 MIN_DIM = 64          # the launcher's min_dim_factor

@@ -44,7 +44,6 @@ from repro.core.rank import RankConfig as JRankConfig
 from repro_torch import tree
 from repro_torch.convert import (adapprox_state_from_numpy, params_from_numpy,
                                  quantized_from_numpy)
-from repro_torch.core import adapprox as TA
 from repro_torch.core import quantized as TQ
 from repro_torch.core.factored import FactoredLeaf
 from repro_torch.core.rank import RankConfig
@@ -55,6 +54,7 @@ from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 
 JA = importlib.import_module("repro.core.adapprox")
+TA = importlib.import_module("repro_torch.core.adapprox")
 
 _jax_params = functools.cache(_init_jax_params)
 RANK = dict(k_init=1, k_max=128, mode="paper")

@@ -27,7 +27,6 @@ from repro.core import srsi as JS
 from repro.core.rank import RankConfig as JRankConfig
 from repro_torch import tree
 from repro_torch.convert import params_from_numpy
-from repro_torch.core import adapprox as TA
 from repro_torch.core import srsi as S
 from repro_torch.core.factored import FactoredLeaf, leaf_signature
 from repro_torch.core.rank import RankConfig
@@ -37,6 +36,7 @@ from test_torch_srsi import _jax_draws, _second_moment
 from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 JA = importlib.import_module("repro.core.adapprox")
+TA = importlib.import_module("repro_torch.core.adapprox")
 
 
 def _fixed(draws: np.ndarray):

@@ -44,7 +44,6 @@ from repro_torch import tree
 from repro_torch.config import OptimizerConfig
 from repro_torch.configs.archs import get_smoke_config
 from repro_torch.convert import params_from_numpy
-from repro_torch.core import adapprox as TA
 from repro_torch.core import make_optimizer
 from repro_torch.core.build import build_optimizer
 from repro_torch.core.factored import FactoredLeaf
@@ -60,6 +59,7 @@ from repro_torch.train.train_loop import LoopConfig, train
 from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 JA = importlib.import_module("repro.core.adapprox")
+TA = importlib.import_module("repro_torch.core.adapprox")
 CPU = torch.device("cpu")
 
 

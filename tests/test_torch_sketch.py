@@ -24,14 +24,14 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.convert import sketch_state_from_numpy
-from repro_torch.core import adamw as TW
-from repro_torch.core import sketch as TS
 from repro_torch.kernels import ops, ref
 
 # repro.core re-exports functions named ``adamw`` and ``sketch`` over the
 # modules
 JW = importlib.import_module("repro.core.adamw")
 JS = importlib.import_module("repro.core.sketch")
+TW = importlib.import_module("repro_torch.core.adamw")
+TS = importlib.import_module("repro_torch.core.sketch")
 
 TOL = 1e-6
 

@@ -62,7 +62,6 @@ from repro_torch.config import OptimizerConfig, TelemetryConfig
 from repro_torch.configs.archs import get_smoke_config
 from repro_torch.convert import (adapprox_state_from_numpy,
                                  params_from_numpy, sketch_state_from_numpy)
-from repro_torch.core import adapprox as TA
 from repro_torch.core.build import build_optimizer
 from repro_torch.core.rank import RankConfig
 from repro_torch.core.types import apply_updates
@@ -75,6 +74,7 @@ from repro_torch.train.train_loop import LoopConfig, train
 from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 JA = importlib.import_module("repro.core.adapprox")
+TA = importlib.import_module("repro_torch.core.adapprox")
 JC = importlib.import_module("repro.telemetry.controller")
 CPU = torch.device("cpu")
 SMALL = dict(embedding_min_rows=256, sketch_width=256, sketch_depth=2)

@@ -17,7 +17,8 @@ JAX package's tools.
     event; the loop's metric cadence.
   * Launcher: ``--telemetry-dir D --trace-dir D --metrics-every N
     --auto-refresh`` on a CPU smoke run: the stream passes both
-    validators and ``tools/traceview.py --check``, ``metrics.prom``
+    validators and both viewers' ``--check`` (the port's
+    ``repro_torch.tools.traceview`` and JAX's ``tools/traceview.py``), ``metrics.prom``
     parses with both parsers; ``--auto-refresh`` alone builds the
     dynamic cadence; ``--mesh 2`` in one process raises.
 
@@ -40,6 +41,7 @@ from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch import train as launcher
 from repro_torch.telemetry import validate as validate_cli
 from repro_torch.telemetry.trace import ROOT_SPAN
+from repro_torch.tools import traceview
 from repro_torch.train.train_loop import LoopConfig, train
 from _torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
@@ -48,7 +50,14 @@ CPU = torch.device("cpu")
 
 
 def _traceview_check(directory) -> int:
-    """``tools/traceview.py --check DIRECTORY``'s exit code, in process."""
+    """``python -m repro_torch.tools.traceview --check DIRECTORY``'s exit
+    code, in process."""
+    return traceview.main([str(directory), "--check"])
+
+
+def _jax_traceview_check(directory) -> int:
+    """The JAX package's ``tools/traceview.py --check DIRECTORY``'s exit
+    code, in process: the port's events in JAX's schema."""
     spec = importlib.util.spec_from_file_location(
         "traceview", ROOT / "tools" / "traceview.py")
     mod = importlib.util.module_from_spec(spec)
@@ -310,9 +319,10 @@ SMOKE = ["--smoke", "--device", "cpu", "--fused-update", "--refresh-every",
 
 def test_launcher_telemetry_flags(tmp_path, capsys):
     """The four flags on a CPU smoke run, one shared stream: both
-    validators, ``tools/traceview.py --check`` and both Prometheus
-    parsers accept its output; every step has its span, phase and
-    optimizer event; the controller is armed (``--auto-refresh``)."""
+    validators, both viewers' ``--check`` (the port's
+    ``repro_torch.tools.traceview`` and JAX's ``tools/traceview.py``) and
+    both Prometheus parsers accept its output; every step has its span,
+    phase and optimizer event; the controller is armed (``--auto-refresh``)."""
     d = tmp_path / "events"
     state, hist = launcher.main(SMOKE + [
         "--telemetry-dir", str(d), "--trace-dir", str(d), "--metrics-every",
@@ -328,7 +338,7 @@ def test_launcher_telemetry_flags(tmp_path, capsys):
          and e["name"] == "train_step"), key=lambda e: e["step"])]
     assert phases == ["refresh", "fold", "fold", "refresh", "fold", "fold"]
     assert T.get_refresh_every(state.opt_state) == {"factored": 3}
-    assert _traceview_check(d) == 0
+    assert _traceview_check(d) == _jax_traceview_check(d) == 0
     text = (d / "metrics.prom").read_text()
     assert (T.parse_prometheus(text) == JT.parse_prometheus(text))
     assert T.parse_prometheus(text)["samples"]["train_steps_total"] == 6

@@ -139,7 +139,12 @@ sm_90a) and the CUDA toolkit.  In order, it
      step), holds its per-rank parameter and optimizer-state bytes
      exactly to a 2-step ``--mesh 1,1`` run on the card and to [mesh]'s
      final state, and holds the card's fold-step max_memory_allocated
-     within 0.97-1.03 of its predicted peak;
+     within 0.97-1.03 of its predicted peak; [mesh] last trains the
+     smoke GPT-2 with --mesh 1,2 on two gloo ranks on cuda:0 (the
+     products split over model: two heads, half the MLP and half the
+     vocabulary a rank; ``scripts/mesh_ranks.py --ranks-only``, a
+     subprocess) and holds its losses to the run without a mesh at rtol
+     1e-3;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
      them against ``BENCH_memory.json``, and those of
@@ -3226,8 +3231,47 @@ def mesh_phase(mixed_state: list, mixed_info: dict, mixed_expect: dict,
          olmoe_state, kept["st"])
     del kept
     dist.destroy_process_group()
+    mesh_ranks_run(card)
     print(f"  [mesh] {time.monotonic() - t0:.1f} s")
     return runs
+
+
+# [mesh]'s two-rank run: the smoke GPT-2 as scripts/mesh_ranks.py trains it
+MESH_RANKS_ARGV = ["--arch", "gpt2-117m", "--smoke", "--steps", "6",
+                   "--fused-update", "--refresh-every", "5", "--log-every",
+                   "1", "--device", "cuda"]
+TOL_MESH_RANKS = 1e-3        # the CPU tests' cross-mesh tolerance
+
+
+def mesh_ranks_run(card: str) -> None:
+    """The smoke GPT-2 with ``--mesh 1,2`` on two gloo ranks sharing
+    cuda:0 (NCCL refuses two ranks on one device), the products split
+    over ``model``, through ``scripts/mesh_ranks.py --ranks-only`` in a
+    subprocess; its losses held to the run without a mesh in this
+    process at rtol ``TOL_MESH_RANKS``."""
+    from repro_torch.launch import train as launcher
+    phase("[mesh] two gloo ranks on cuda:0, --mesh 1,2 (heads, MLP and "
+          "vocabulary split over model): " + " ".join(MESH_RANKS_ARGV))
+    t0 = time.monotonic()
+    ref = [h["loss"] for h in launcher.main(MESH_RANKS_ARGV)[1]]
+    out = ROOT / "build" / "mesh_ranks.json"
+    out.unlink(missing_ok=True)
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "mesh_ranks.py"),
+         "--ranks-only", "--mesh", "1,2", "--json", str(out)],
+        capture_output=True, text=True, timeout=300)
+    res = json.loads(out.read_text()) if out.exists() else {}
+    if "1,2" not in res:
+        fail(f"[mesh] two ranks: {res.get('error', 'no result')}\n"
+             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(res["1,2"], ref))
+    if len(res["1,2"]) != len(ref) or err > TOL_MESH_RANKS:
+        fail(f"[mesh] two ranks: losses {res['1,2']} vs {ref} without a "
+             f"mesh, largest relative difference {err:.3e}")
+    print(f"  --mesh 1,2 on two gloo ranks on cuda:0: losses {res['1,2']} "
+          f"vs {ref} without a mesh, largest relative difference "
+          f"{err:.3e} (rtol {TOL_MESH_RANKS}); {time.monotonic() - t0:.1f} "
+          f"s ({card})")
 
 
 # [dryrun]: the card's fold-step peak over the dry run's prediction (the

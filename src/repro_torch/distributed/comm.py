@@ -55,6 +55,17 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     return all_concat(mine, 0, group)[:x.numel()].reshape(x.shape)
 
 
+def all_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over ``group`` of every rank's ``x`` (no
+    gradient); the same on every rank."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.stack(parts).amax(dim=0)
+
+
 def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This rank's block (``x.chunk(n, dim)[rank]``) of the sum over
     ``group`` of every rank's ``x``, added in group-rank order:

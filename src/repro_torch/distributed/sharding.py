@@ -39,8 +39,12 @@ the model gathers a leaf where it uses it, one layer's slice at a time
 summed over the dp axes in a fixed order and sliced over the others; the
 optimizer updates the blocks (``core/blocks.py``: :func:`leaf_splits`).
 No leaf is held whole outside the layer that uses it, and no optimizer
-state at all.  Products are not split over ``model`` (Megatron-style TP is
-not ported; the MoE mesh paths split the experts over it for real).
+state at all.  Under the ``tp`` strategy the transformer's products split
+over ``model``, Megatron-style (the heads, the MLP's hidden units, the
+vocabulary; the MoE mesh paths split the experts): those leaves reach
+the model as this rank's block over ``model``, gathered over the dp axes
+only, or whole where the rank uses a part of the block's range, their
+gradient then summed over ``model`` (:class:`GatherAtUse`'s routes).
 """
 from __future__ import annotations
 
@@ -534,8 +538,9 @@ def make_act_constrainer(mesh, kind: str, long_context: bool = False,
     """The activation hook the models apply to their residual stream
     (``TransformerLM.constrain``).  In JAX it pins the batch split for
     GSPMD; the port's step hands the model this rank's block of the batch
-    as a plain tensor, so the hook returns its input unchanged: it stays
-    as the place where split products would place their activations."""
+    as a plain tensor, and its split products sum their parts over
+    ``model`` themselves (``comm.reduce_from``), so the residual stream is
+    whole between them and the hook returns its input unchanged."""
     del mesh, kind, long_context, all_axes_batch
     return lambda x, *_, **__: x
 
@@ -554,11 +559,15 @@ def logits_sharding(mesh, long_context: bool = False) -> NamedSharding:
 # ---------------------------------------------------------------------------
 
 class _Plan(NamedTuple):
-    """How one leaf's block (of ``shape``) becomes the whole, and the
-    whole's gradient its block: ``gather`` the (dim, group) all-gathers in
-    order; the gradient, viewed as ``expand`` (each split dim as its
-    axes' sizes, major first, then the block's length), takes its index
-    on every non-dp axis (``narrow``: (expanded dim, index)) and is summed
+    """How one leaf's block (of ``shape``) becomes what the model uses
+    (``whole``: the whole leaf, or, for a leaf a split product uses as its
+    block, the block over the model axis gathered over the others), and
+    that one's gradient the block's: ``gather`` the (dim, group)
+    all-gathers in order; the gradient, viewed as ``expand`` (each
+    gathered dim as its axes' sizes, major first, then the block's
+    length), takes its index on every gathered axis it is not summed over
+    (``narrow``: (expanded dim, index)) and is summed over the ``total``
+    axes (the model axis of a leaf a split product uses a part of), then
     over every dp axis, the minor first (``reduce``: (expanded dim or
     None, group), a reduce-scatter there or an all-sum of an axis the
     leaf is not split over)."""
@@ -570,14 +579,26 @@ class _Plan(NamedTuple):
     reduce: tuple
 
 
-def _leaf_plan(mesh, spec: P, whole: tuple, dp: tuple) -> Optional[_Plan]:
+def _leaf_plan(mesh, spec: P, whole: tuple, dp: tuple, keep: tuple = (),
+               total: tuple = ()) -> Optional[_Plan]:
+    """The plan of a leaf of whole shape ``whole`` stored by ``spec``: a
+    dimension split over an axis in ``keep`` alone stays the block (not
+    gathered, its gradient not narrowed); the gradient is summed over the
+    ``total`` axes before the dp axes."""
     names = tuple(mesh.mesh_dim_names)
     size = lambda a: mesh.size(names.index(a))
-    gathers, expand, block, where = [], [], [], {}
+    gathers, expand, block, use, where = [], [], [], [], {}
     for d, n in enumerate(whole):
         ax = spec[d] if d < len(spec) else None
         axes = tuple(a for a in (() if ax is None else ax if isinstance(
             ax, tuple) else (ax,)) if size(a) > 1)
+        if len(axes) == 1 and axes[0] in keep:
+            n //= size(axes[0])
+            expand.append(n)
+            block.append(n)
+            use.append(n)
+            continue
+        use.append(n)
         for a in reversed(axes):             # the major axis gathers last
             gathers.append((d, mesh.get_group(a)))
         for a in axes:
@@ -586,18 +607,21 @@ def _leaf_plan(mesh, spec: P, whole: tuple, dp: tuple) -> Optional[_Plan]:
             n //= size(a)
         expand.append(n)
         block.append(n)
-    reduce = tuple((where.get(a), mesh.get_group(a))
-                   for a in reversed(dp) if a in names and size(a) > 1)
+    sums = [a for a in total if a in names and size(a) > 1]
+    sums += [a for a in reversed(dp) if a in names and size(a) > 1]
+    reduce = tuple((where.get(a), mesh.get_group(a)) for a in sums)
     if not gathers and not reduce:
         return None
     narrow = tuple((e, mesh.get_local_rank(a)) for a, e in where.items()
-                   if a not in dp)
-    return _Plan(tuple(block), tuple(whole), tuple(gathers), tuple(expand),
+                   if a not in dp and a not in total)
+    return _Plan(tuple(block), tuple(use), tuple(gathers), tuple(expand),
                  narrow, reduce)
 
 
 def _gather(x: torch.Tensor, gathers: tuple) -> torch.Tensor:
     from repro_torch.distributed import comm
+    if not gathers:          # a leaf used whole, its gradient summed
+        return x.view_as(x)
     for dim, group in gathers:
         x = comm.all_concat(x, dim, group)
     return x
@@ -663,35 +687,90 @@ class GatherAtUse:
     ``use(tree, path, stack=True)`` gathers a stack's leaves over their
     stack axis only, before the model takes the layers apart (the fsdp
     rule splits the stack axis of (L, d) leaves; JAX's scan gathers them
-    whole too)."""
+    whole too).
+
+    Under ``split`` (a ``models.layers.ModelSplit`` over the mesh's
+    ``model`` axis; the hook carries it to the model) the leaves in
+    ``products`` (the model's ``split_products``: ``{path: (dim, lo,
+    hi)}``, the range of ``dim`` this rank's split products use) take one
+    of two other routes (:meth:`route`): "block" where the leaf's ``dim``
+    is split over ``model`` alone and this rank's block is that range:
+    gathered over the dp axes only, its gradient this rank's own block,
+    summed over the dp axes; "slice" otherwise: gathered whole (the model
+    takes its range), its gradient summed over ``model`` (reduce-scattered
+    to the block where the leaf is split over it) before the dp axes, as
+    the model ranks' gradients differ.  Every other leaf takes the
+    "gather" route above ("local" and "whole" where nothing is
+    gathered)."""
 
     def __init__(self, shardings: dict, shapes: dict, dp: tuple,
-                 local=()):
+                 local=(), products: Optional[dict] = None, split=None):
         self.shardings, self.shapes = shardings, shapes
         self.dp, self.local = tuple(dp), set(local)
+        self.split = split
+        self.products = dict(products or {}) if split is not None else {}
         self._plans: dict = {}
+
+    def route(self, path: str) -> str:
+        """How the leaf at ``path`` reaches the model: "block", "slice" or
+        "gather" (see the class docstring), "local" (a ``local`` leaf) or
+        "whole" (nothing to gather: replicated, or split over axes of one
+        rank)."""
+        if path in self.local:
+            return "local"
+        if path in self.products:
+            return "block" if self._kept(path, len(self.shapes[path])) \
+                else "slice"
+        return "gather" if self.plan(path) is not None else "whole"
+
+    def routes(self) -> dict:
+        """``{path: route}`` of every parameter (:meth:`route`)."""
+        return {k: self.route(k) for k in self.shapes}
+
+    def _kept(self, path: str, ndim: int) -> bool:
+        """Whether the leaf at ``path`` (viewed with ``ndim`` dims) is used
+        as its block over the model axis: its product's dimension split
+        over ``model`` alone, the block this rank's range of it."""
+        dim, lo, hi = self.products[path]
+        sh = self.shardings.get(path)
+        if dim is None or sh is None:
+            return False
+        full = tuple(self.shapes[path])
+        cut = len(full) - ndim
+        spec = (tuple(sh.spec) + (None,) * len(full))[cut:cut + ndim]
+        d = dim % ndim
+        m, n = self.split.size, full[cut + d]
+        return spec[d] in ("model", ("model",)) and n % m == 0 \
+            and (lo, hi) == (self.split.rank * n // m,
+                             (self.split.rank + 1) * n // m)
 
     def plan(self, path: str, ndim: Optional[int] = None) -> Optional[_Plan]:
         """The plan of the leaf at ``path``, or of its per-layer slices
-        (``ndim`` dims); None where nothing is gathered."""
+        (``ndim`` dims); None where nothing is gathered or summed."""
         whole = tuple(self.shapes[path])
         ndim = len(whole) if ndim is None else ndim
         key = (path, ndim)
         if key not in self._plans:
             sh = self.shardings.get(path)
             plan = None
-            if sh is not None and path not in self.local \
-                    and not sh.is_fully_replicated:
+            product = path in self.products
+            if sh is not None and path not in self.local and (
+                    product or not sh.is_fully_replicated):
                 spec = tuple(sh.spec) + (None,) * (len(whole) - len(sh.spec))
                 cut = len(whole) - ndim
+                keep = total = ()
+                if product and self._kept(path, ndim):
+                    keep = ("model",)
+                elif product:
+                    total = ("model",)
                 plan = _leaf_plan(sh.mesh, P(*spec[cut:]), whole[cut:],
-                                  self.dp)
+                                  self.dp, keep, total)
             self._plans[key] = plan
         return self._plans[key]
 
     def gathers(self, path: str) -> bool:
-        """Whether the leaf at ``path`` is gathered at use, its gradient
-        summed in the backward."""
+        """Whether the leaf at ``path`` is gathered at use (or summed over
+        the model axis), its gradient summed in the backward."""
         return self.plan(path) is not None
 
     def __call__(self, tree, path: str, stack: bool = False):

@@ -28,11 +28,16 @@ For every (architecture x shape cell x mesh) combination it
 
 What the numbers are.  The stored bytes follow JAX's specs leaf for leaf.
 The train step holds a split leaf whole only inside the layer that uses
-it and never the optimizer state (the update runs on the blocks), but it
-still runs every product whole: nothing splits a product over ``model``
-yet, so its FLOPs are the unsharded model's on the rank's batch block
-(the MoE expert stacks excepted), and its peak one layer's leaves whole
-beside the activations.  Serving cells gather every leaf whole.  Fake
+it and never the optimizer state (the update runs on the blocks).  Under
+the ``tp`` strategy the transformer's products split over ``model``
+(rank 0's heads, MLP hidden units and vocabulary rows; the MoE expert
+stacks over it as before): those leaves are gathered over the dp axes
+only where the rank's block is its range, whole where it uses a part,
+and a record's ``routes`` names each leaf's route
+(``sharding.GatherAtUse.route``); the other families and the ``fsdp``
+strategy run every product whole on the rank's batch block, one layer's
+leaves whole beside the activations.  Serving cells gather every leaf
+whole.  Fake
 tensors live on the CPU, so every
 kernel wrapper takes its plain version (``kernels/ops.py``): the peak is
 the plain route's (``"route": "plain"``), whose temporaries (a
@@ -85,7 +90,7 @@ from repro_torch.launch.mesh import make_fake_mesh, make_production_mesh
 from repro_torch.launch.step_cost import StepCost
 from repro_torch.models.model_zoo import build_model
 from repro_torch.telemetry.trace import NULL_TRACER
-from repro_torch.train.steps import TrainState, build_train_step
+from repro_torch.train.steps import TrainState, _MeshStep, build_train_step
 
 DEFAULT_OUT = Path("experiments/dryrun_torch")
 # the memory a rank's peak is held to: an NVIDIA H100 80GB HBM3's stated
@@ -311,7 +316,8 @@ def at_step(state, n: int):
 def measure(c: Cell, tracer=None, start_step: int = 0) -> dict:
     """Place the cell's inputs and run its step on fake tensors under the
     cost counter: the per-rank bytes of what was placed, the step's counts
-    and the seconds each part took.  A train cell's state starts at
+    and the seconds each part took; a train cell's ``routes`` (each
+    parameter's, as the mesh step takes it).  A train cell's state starts at
     ``start_step`` (:func:`at_step`): 1 makes a cadence's fold step of
     step 2.  A refresh step of the paper's adaptive rank (``rank_mode``
     "paper") reads xi to the host, which fake tensors cannot: the dry
@@ -327,6 +333,12 @@ def measure(c: Cell, tracer=None, start_step: int = 0) -> dict:
         t1 = time.perf_counter()
         rec = {k: inputs[k] for k in ("param_bytes", "opt_state_bytes",
                                       "batch_bytes", "cache_bytes")}
+        if c.kind == "train":
+            rec["routes"] = _MeshStep(
+                c.model, inputs["state_shardings"],
+                inputs["batch_shardings"]).gather_at_use(
+                    {k: tuple(v.shape) for k, v in
+                     inputs["state"].params.items()}).routes()
         cost = StepCost()
         cost.track(inputs.get("state"), inputs.get("params"),
                    inputs.get("cache"), inputs["batch"])
@@ -390,6 +402,7 @@ def run_cell(arch: str, cell_name: str, multi_pod: bool, out_dir: Path,
         "collectives": m["collectives"],
         "collective_bytes": m["collective_bytes"],
         "largest_collective": m["largest_collective"],
+        "routes": m.get("routes"),
         "param_bytes": m["param_bytes"],
         "opt_state_bytes": m["opt_state_bytes"],
         "batch_bytes": m["batch_bytes"], "cache_bytes": m["cache_bytes"],

@@ -8,6 +8,15 @@ dense KV cache (``attn_prefill``, ``attn_decode``) or a paged block pool
 (``attn_decode_paged``, ``attn_prefill_paged``), which run the naive
 ``_sdpa`` as in JAX.
 
+Under a ``layers.ModelSplit`` (the train step's ``tp`` strategy on a
+model axis of more than one rank) ``attn_apply_full`` runs the heads
+split over ``model``, Megatron-style: rank r of M takes the contiguous q
+heads ``[floor(r H / M), floor((r + 1) H / M))`` and the KV heads they
+read (:func:`head_split`), the input entering through ``comm.copy_to``
+and the output product's partial sums added by ``comm.reduce_from``.
+The projections, norms, RoPE and both attention paths take their head
+counts and the q-to-kv grouping from the tensors they are given.
+
 The serving paths write the cache in place (the JAX functions return an
 updated copy, which the engines donate); they return the cache all the
 same, so the call sites read as JAX's.  Where JAX clamps an index that a
@@ -90,7 +99,8 @@ def init_kv_cache(batch: int, cache_len: int, cfg, dtype,
 def _project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
     """q (B, S, H, dh), k / v (B, S, KV, dh): the projections, then the
     biases, then RMSNorm of q and k per head, then RoPE at ``positions``,
-    in the JAX package's order."""
+    in the JAX package's order; H and KV are the heads the weights hold
+    (a rank's range under a split)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
@@ -101,9 +111,9 @@ def _project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = q.reshape(b, s, q.shape[-1] // hd, hd)
+    k = k.reshape(b, s, k.shape[-1] // hd, hd)
+    v = v.reshape(b, s, v.shape[-1] // hd, hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -114,11 +124,11 @@ def _project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
 
 
 def _sdpa(cfg, q, k, v, mask):
-    """q: (B, Sq, H, dh), k/v: (B, Sk, KV, dh), mask: (B|1, Sq, Sk) bool."""
-    hd = q.shape[-1]
-    groups = cfg.n_heads // cfg.n_kv_heads
-    b, sq = q.shape[:2]
-    q = q.reshape(b, sq, cfg.n_kv_heads, groups, hd)
+    """q: (B, Sq, H, dh), k/v: (B, Sk, KV, dh), mask: (B|1, Sq, Sk) bool;
+    q head h reads kv head h // (H / KV)."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    q = q.reshape(b, sq, kv, h // kv if kv else 1, hd)
     logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(),
                           k.float()) / math.sqrt(float(hd))
     logits = torch.where(mask[:, None, None, :, :], logits,
@@ -126,16 +136,15 @@ def _sdpa(cfg, q, k, v, mask):
                                     device=logits.device))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
-    return out.reshape(b, sq, cfg.n_heads * hd)
+    return out.reshape(b, sq, h * hd)
 
 
 def _sdpa_chunked(cfg, q, k, v, *, causal: bool):
     """Exact attention without a score matrix: the flash-attention forward
     and recompute backward (fp32 scores and ``p v``), q (B, Sq, H, dh),
     k / v (B, Sk, KV, dh) -> (B, Sq, H * dh)."""
-    b, sq = q.shape[:2]
-    return ops.FlashAttention.apply(q, k, v, causal).reshape(
-        b, sq, cfg.n_heads * q.shape[-1])
+    b, sq, h, hd = q.shape
+    return ops.FlashAttention.apply(q, k, v, causal).reshape(b, sq, h * hd)
 
 
 def sdpa_auto(cfg, q, k, v, *, causal: bool):
@@ -156,14 +165,74 @@ def sdpa_auto(cfg, q, k, v, *, causal: bool):
     return _sdpa(cfg, q, k, v, mask)
 
 
+def head_split(cfg, split) -> tuple:
+    """``(h0, h1, kv0, kv1)``: the q heads ``[h0, h1)`` rank
+    ``split.rank`` takes (``split.span(H)``) and the KV heads ``[kv0,
+    kv1)`` they read (q head h reads kv head h // (H / KV))."""
+    h0, h1 = split.span(cfg.n_heads)
+    g = cfg.n_heads // cfg.n_kv_heads
+    kv0 = h0 // g
+    return h0, h1, kv0, -(-h1 // g) if h1 > h0 else kv0
+
+
+def attn_split_ranges(cfg, split) -> dict:
+    """``{leaf: (dim, lo, hi)}``: the range of each attention leaf's
+    dimension ``dim`` that rank ``split.rank`` uses (:func:`head_split`'s
+    heads times the head dimension); the per-head q / k norm scales
+    (``dim`` None) are used whole, their gradient a part on each rank."""
+    h0, h1, kv0, kv1 = head_split(cfg, split)
+    hd = cfg.resolved_head_dim
+    q, kv = (-1, h0 * hd, h1 * hd), (-1, kv0 * hd, kv1 * hd)
+    out = {"wq": q, "wk": kv, "wv": kv, "wo": (-2, h0 * hd, h1 * hd)}
+    if cfg.qkv_bias:
+        out.update(bq=q, bk=kv, bv=kv)
+    if cfg.qk_norm:
+        out.update(q_norm=(None, 0, 0), k_norm=(None, 0, 0))
+    return out
+
+
+def _split_heads(cfg, p: dict, x: torch.Tensor, positions, causal: bool,
+                 split) -> torch.Tensor:
+    """:func:`attn_apply_full` on rank ``split.rank``'s heads (see the
+    module docstring): each leaf the rank's block or whole
+    (``layers.take``); where its q heads do not map onto its kv heads in
+    equal groups (a range that straddles a group boundary unevenly), each
+    q head gets its own copy of the kv head it reads."""
+    from repro_torch.distributed import comm
+    ranges = attn_split_ranges(cfg, split)
+    p = {k: L.take(v, *ranges[k]) if ranges.get(k, (None,))[0] is not None
+         else v for k, v in p.items()}
+    x = comm.copy_to(x, split.group)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    b, s, hl, hd = q.shape
+    if hl == 0:     # more ranks than heads: empty, but in the graph alike
+        out = _sdpa(cfg, q, k, v, torch.ones((1, s, s), dtype=torch.bool,
+                                             device=x.device))
+    else:
+        h0, _, kv0, _ = head_split(cfg, split)
+        g = cfg.n_heads // cfg.n_kv_heads
+        idx = [(h0 + i) // g - kv0 for i in range(hl)]
+        kvl = k.shape[2]
+        if hl % kvl or idx != [i // (hl // kvl) for i in range(hl)]:
+            sel = torch.tensor(idx, device=k.device)
+            k, v = k.index_select(2, sel), v.index_select(2, sel)
+        out = sdpa_auto(cfg, q, k, v, causal=causal)
+    return comm.reduce_from(out @ p["wo"].to(x.dtype), split.group)
+
+
 def attn_apply_full(cfg, p: dict, x: torch.Tensor, *, causal: bool,
                     positions: Optional[torch.Tensor] = None,
-                    kv_override: Optional[tuple] = None) -> torch.Tensor:
+                    kv_override: Optional[tuple] = None,
+                    split=None) -> torch.Tensor:
     """Full-sequence attention (training, the encoder): causal or not,
     positions ``arange(S)`` unless given; ``kv_override`` (k, v) replaces
-    the projected keys and values (cross-attention on the encoder's)."""
+    the projected keys and values (cross-attention on the encoder's);
+    ``split`` (a ``layers.ModelSplit``, no ``kv_override``) runs this
+    rank's heads and sums the output over the model axis."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    if split is not None:
+        return _split_heads(cfg, p, x, positions, causal, split)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if kv_override is not None:
         k, v = kv_override

@@ -9,14 +9,23 @@ models do with ``.astype(dt)``.
 On a mesh the train step hands the models each rank's blocks of the
 parameters and a gather-at-use hook (:func:`gather_hook`): a model passes
 each layer's parameters through it inside the layer's remat body, and
-the leaves outside the layers where it uses them.
+the leaves outside the layers where it uses them.  Under the ``tp``
+strategy the hook also carries a :class:`ModelSplit` (:func:`model_split`),
+and the products split over the mesh's ``model`` axis, Megatron-style:
+each rank of a model group computes its range of the MLP's hidden units
+(:func:`mlp_apply`, column then row), of the heads
+(``attention.attn_apply_full``) and of the vocabulary
+(:func:`embed_rows`, :func:`softmax_xent`, :func:`fused_xent_from_hidden`),
+the input entering through ``comm.copy_to`` and the partial results
+summed by ``comm.reduce_from``, so the residual stream is whole and the
+same on every rank of the group between the split products.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import math
-from typing import Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +59,34 @@ def gather_hook() -> Callable:
     model reads it once a forward and calls it inside each layer's remat
     body, so that a recomputed body gathers again."""
     return _USE[0]
+
+
+class ModelSplit(NamedTuple):
+    """The products split over the mesh's ``model`` axis: its process
+    group, this rank's index on it and its size."""
+    group: Any
+    rank: int
+    size: int
+
+    def span(self, n: int) -> tuple:
+        """This rank's contiguous range ``[floor(r n / M), floor((r + 1) n
+        / M))`` of ``n`` units (heads, hidden units, vocabulary rows): the
+        stored block when M divides n."""
+        return self.rank * n // self.size, (self.rank + 1) * n // self.size
+
+
+def model_split(use: Callable) -> Optional[ModelSplit]:
+    """The :class:`ModelSplit` the gather hook ``use`` carries (the train
+    step's under the ``tp`` strategy on a model axis of more than one
+    rank), else None: every product whole."""
+    return getattr(use, "split", None)
+
+
+def take(t: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
+    """``t``'s range ``[lo, hi)`` along ``dim``: ``t`` itself where it holds
+    just that range (the rank's block), else a view of it (a leaf given
+    whole)."""
+    return t if t.shape[dim] == hi - lo else t.narrow(dim, lo, hi - lo)
 
 
 @contextlib.contextmanager
@@ -191,9 +228,34 @@ def mlp_specs(cfg) -> dict:
     return s
 
 
-def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_split_ranges(cfg, split: ModelSplit) -> dict:
+    """``{leaf: (dim, lo, hi)}``: the range of each MLP leaf's dimension
+    ``dim`` that rank ``split.rank`` uses under :func:`mlp_apply`'s split,
+    its hidden units ``split.span(d_ff)``."""
+    f0, f1 = split.span(cfg.d_ff)
+    out = {"w_up": (-1, f0, f1), "w_down": (-2, f0, f1)}
+    if cfg.act == "swiglu":
+        out["w_gate"] = (-1, f0, f1)
+    elif cfg.mlp_bias:
+        out["b_up"] = (-1, f0, f1)
+    return out
+
+
+def mlp_apply(cfg, p: dict, x: torch.Tensor,
+              split: Optional[ModelSplit] = None) -> torch.Tensor:
     """SwiGLU, or up -> ``cfg.act`` -> down.  As in the JAX package, the
-    SwiGLU branch never adds ``b_up``, even under ``mlp_bias``."""
+    SwiGLU branch never adds ``b_up``, even under ``mlp_bias``.  Under
+    ``split`` the rank computes its range of the hidden units (column-split
+    gate / up, row-split down) on ``x`` entering through ``copy_to``, the
+    parts are summed over the model axis (one all-reduce) and ``b_down``
+    is added once, after the sum; each leaf may be the rank's block or
+    whole (:func:`take`)."""
+    if split is not None:
+        from repro_torch.distributed import comm
+        ranges = mlp_split_ranges(cfg, split)
+        p = {k: take(v, *ranges[k]) if k in ranges else v
+             for k, v in p.items()}
+        x = comm.copy_to(x, split.group)
     dt = x.dtype
     if cfg.act == "swiglu":
         gate = x @ p["w_gate"].to(dt)
@@ -205,6 +267,8 @@ def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
             h = h + p["b_up"].to(dt)
         h = _act(cfg.act, h)
     out = h @ p["w_down"].to(dt)
+    if split is not None:
+        out = comm.reduce_from(out, split.group)
     if cfg.mlp_bias and "b_down" in p:
         out = out + p["b_down"].to(dt)
     return out
@@ -233,31 +297,79 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.reshape(x.shape).to(x.dtype)
 
 
-def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token-level cross entropy, logits upcast to fp32."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long().unsqueeze(-1))[..., 0]
-    return torch.mean(logz - gold)
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+               split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """``table[tokens]``.  Under ``split`` ``table`` is this rank's block of
+    the vocabulary's rows (``split.rank``-th of ``split.size``): a token
+    outside it gives a zero row, and the rows are summed over the model
+    axis (``reduce_from``: one nonzero term each, so the sum is exact)."""
+    if split is None:
+        return table[tokens]
+    from repro_torch.distributed import comm
+    n = table.shape[0]
+    local = tokens - split.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[torch.where(inside, local, 0)]
+    rows = torch.where(inside[..., None], rows, torch.zeros(
+        (), dtype=rows.dtype, device=rows.device))
+    return comm.reduce_from(rows, split.group)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor,
+         split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """Each position's ``logsumexp(logits) - logits[target]``, ``logits``
+    fp32.  Under ``split`` they are this rank's block of the vocabulary:
+    the max (held fixed), the sum of exponentials and the gold logit are
+    each reduced over the model axis, so every rank returns the same
+    values and its backward reaches its own block's logits only."""
+    if split is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long().unsqueeze(-1))[..., 0]
+        return logz - gold
+    from repro_torch.distributed import comm
+    n = logits.shape[-1]
+    with torch.no_grad():
+        m = comm.all_max(torch.amax(logits, dim=-1), split.group)
+    sumexp = comm.reduce_from(torch.sum(torch.exp(logits - m[..., None]),
+                                        dim=-1), split.group)
+    local = targets.long() - split.rank * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)
+                        .unsqueeze(-1))[..., 0]
+    gold = comm.reduce_from(torch.where(inside, gold, torch.zeros(
+        (), dtype=gold.dtype, device=gold.device)), split.group)
+    return m + torch.log(sumexp) - gold
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """Mean token-level cross entropy, logits upcast to fp32; under
+    ``split`` the logits are this rank's vocabulary block (:func:`_nll`)."""
+    return torch.mean(_nll(logits.float(), targets, split))
 
 
 def _chunk_nll(xc: torch.Tensor, head: torch.Tensor, tc: torch.Tensor,
-               mc: torch.Tensor) -> torch.Tensor:
+               mc: torch.Tensor, split: Optional[ModelSplit] = None
+               ) -> torch.Tensor:
     logits = (xc @ head.to(xc.dtype)).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tc.long().unsqueeze(-1))[..., 0]
-    return torch.sum((logz - gold) * mc)
+    return torch.sum(_nll(logits, tc, split) * mc)
 
 
 def fused_xent_from_hidden(x: torch.Tensor, head: torch.Tensor,
-                           targets: torch.Tensor,
-                           chunk: int = 512) -> torch.Tensor:
+                           targets: torch.Tensor, chunk: int = 512,
+                           split: Optional[ModelSplit] = None
+                           ) -> torch.Tensor:
     """Cross entropy from the pre-head hiddens in sequence chunks, each
     chunk's logits recomputed in the backward, so the (B, S, V) fp32
     logits never exist.  x: (B, S, D); head: (D, V); targets: (B, S);
     returns the mean nll over the first S-1 positions (next-token), padded
     to whole chunks with target 0 and mask 0, as the JAX package's
-    ``fused_xent_from_hidden``."""
+    ``fused_xent_from_hidden``.  Under ``split`` ``head`` is this rank's
+    block of the vocabulary's columns and ``x`` enters through
+    ``copy_to`` (:func:`_nll`)."""
+    if split is not None:
+        from repro_torch.distributed import comm
+        x = comm.copy_to(x, split.group)
     b, s, d = x.shape
     s_eff = s - 1
     n_chunks = max(1, (s_eff + chunk - 1) // chunk)
@@ -270,6 +382,6 @@ def fused_xent_from_hidden(x: torch.Tensor, head: torch.Tensor,
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
         total = total + ckpt.checkpoint(_chunk_nll, xs[:, sl], head,
-                                        ts[:, sl], msk[:, sl],
+                                        ts[:, sl], msk[:, sl], split,
                                         use_reentrant=False)
     return total / (b * s_eff)

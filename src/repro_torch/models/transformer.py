@@ -12,7 +12,12 @@ for the experts); the forward walks the layers with a Python loop over
 ``cfg.remat`` (``layers.remat``), as the JAX package's scan body, which
 gathers the layer's parameters at use on a mesh (``layers.gather_hook``;
 the leaves outside the layers where they are used, a tied embedding once
-for both its uses).  The
+for both its uses).  Under the ``tp`` strategy the hook carries a
+``layers.ModelSplit`` and the products split over ``model``
+(:meth:`TransformerLM.split_products`): the heads, the MLP's hidden
+units and, where the vocabulary divides, the vocabulary (the lookup, the
+logits and the cross entropy); the MoE block keeps its expert-parallel
+mesh path.  The
 model holds no parameters itself: ``init`` returns a nested dict of fp32
 master tensors and ``forward`` / ``loss`` take it, mirroring the JAX API
 (``repro_torch.convert`` loads the JAX package's parameters into it).
@@ -111,11 +116,39 @@ class TransformerLM(nn.Module):
             return ()
         return tuple(f"blocks/moe/{w}" for w in ("w_gate", "w_up", "w_down"))
 
-    def _moe_or_mlp(self, bp: dict, h: torch.Tensor):
+    def split_products(self, split: L.ModelSplit) -> dict:
+        """``{path: (dim, lo, hi)}``: the parameters whose products split
+        over the model axis under ``split``, and the range of dimension
+        ``dim`` rank ``split.rank`` uses (``dim`` None: the leaf whole, its
+        gradient a part on each rank).  The train step gathers these over
+        the dp axes only where the stored block is that range, else whole
+        (``distributed.sharding.GatherAtUse``); the embedding and an
+        untied head only where the vocabulary divides by the axis."""
+        cfg = self.cfg
+        out = {f"blocks/attn/{k}": r
+               for k, r in A.attn_split_ranges(cfg, split).items()}
+        if not self.is_moe:
+            out.update({f"blocks/mlp/{k}": r for k, r in
+                        L.mlp_split_ranges(cfg, split).items()})
+        if cfg.vocab % split.size == 0:
+            v0, v1 = split.span(cfg.vocab)
+            out["embed"] = (-2, v0, v1)
+            if not cfg.tie_embeddings:
+                out["lm_head"] = (-1, v0, v1)
+        return out
+
+    def _vocab_split(self, use) -> Optional[L.ModelSplit]:
+        """The hook's split where the vocabulary splits under it."""
+        split = L.model_split(use)
+        if split is None or self.cfg.vocab % split.size:
+            return None
+        return split
+
+    def _moe_or_mlp(self, bp: dict, h: torch.Tensor, split=None):
         """``(y, aux)``, aux the MoE load-balance loss or None."""
         cfg = self.cfg
         if not self.is_moe:
-            return L.mlp_apply(cfg, bp["mlp"], h), None
+            return L.mlp_apply(cfg, bp["mlp"], h, split), None
         if self.mesh is not None and cfg.moe.impl == "sort":
             names = self.mesh.mesh_dim_names or ()
             if self.moe_mode == "decode":
@@ -129,16 +162,25 @@ class TransformerLM(nn.Module):
     def _block(self, x: torch.Tensor, bp: dict, use=L.no_gather):
         """One layer: ``(x, aux)``."""
         cfg = self.cfg
+        split = L.model_split(use)
         bp = use(bp, "blocks")
         h = L.apply_norm(cfg, bp["norm1"], x)
         x = self.constrain(
-            x + A.attn_apply_full(cfg, bp["attn"], h, causal=True))
-        y, aux = self._moe_or_mlp(bp, L.apply_norm(cfg, bp["norm2"], x))
+            x + A.attn_apply_full(cfg, bp["attn"], h, causal=True,
+                                  split=split))
+        y, aux = self._moe_or_mlp(bp, L.apply_norm(cfg, bp["norm2"], x),
+                                  split)
         return self.constrain(x + y), aux
 
     def _lm_head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """The logits; under the vocabulary's split this rank's block of
+        them, ``x`` entering through ``copy_to``."""
         dt = x.dtype
         use = L.gather_hook()
+        split = self._vocab_split(use)
+        if split is not None:
+            from repro_torch.distributed import comm
+            x = comm.copy_to(x, split.group)
         if self.cfg.tie_embeddings:
             return x @ use(params["embed"], "embed").to(dt).T
         return x @ use(params["lm_head"], "lm_head").to(dt)
@@ -180,27 +222,33 @@ class TransformerLM(nn.Module):
         ``_hidden``: it adds no learned positions (no arch combines them
         with an untied head)."""
         dt = getattr(torch, self.cfg.dtype)
-        embed = L.gather_hook()(params["embed"], "embed")
-        return self._trunk(params, embed.to(dt)[tokens])
+        use = L.gather_hook()
+        return self._trunk(params, L.embed_rows(
+            use(params["embed"], "embed").to(dt), tokens,
+            self._vocab_split(use)))
 
     def loss(self, params: dict, batch: dict):
         """Next-token cross entropy over the text tokens plus 0.01 x the
         MoE aux loss; returns ``(total, {"loss": ce, "aux_loss": aux})``, as
         the JAX package.  With ``batch["embeds"]`` the logits of the
         frontend's positions are dropped, and the chunked cross entropy is
-        never taken."""
+        never taken.  Under the vocabulary's split the cross entropy
+        reduces over the model axis and is the same on every rank."""
         cfg = self.cfg
         tokens = batch["tokens"]
         embeds = batch.get("embeds")
+        use = L.gather_hook()
+        split = self._vocab_split(use)
         if (not cfg.tie_embeddings and embeds is None
                 and cfg.vocab * tokens.shape[1] >= FUSED_XENT_MIN):
             x, aux = self._hidden(params, tokens)
             ce = L.fused_xent_from_hidden(
-                x, L.gather_hook()(params["lm_head"], "lm_head"), tokens)
+                x, use(params["lm_head"], "lm_head"), tokens, split=split)
         else:
             logits, aux = self.forward(params, tokens, embeds)
             n_front = 0 if embeds is None else embeds.shape[1]
-            ce = L.softmax_xent(logits[:, n_front:-1, :], tokens[:, 1:])
+            ce = L.softmax_xent(logits[:, n_front:-1, :], tokens[:, 1:],
+                                split)
         return ce + 0.01 * aux, {"loss": ce, "aux_loss": aux}
 
 
@@ -225,7 +273,8 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         use = L.gather_hook()
-        x = use(params["embed"], "embed").to(dt)[tokens]
+        x = L.embed_rows(use(params["embed"], "embed").to(dt), tokens,
+                         self._vocab_split(use))
         if embeds is not None:
             x = torch.cat([embeds.to(dt), x], dim=1)
         if cfg.pos_embedding == "learned":

@@ -16,7 +16,14 @@ gradient's block, summed over the dp axes in a fixed order (microbatch
 by microbatch, accumulated in fp32 as blocks) and divided by their size,
 so every rank holds its block of the global batch's mean-loss gradient;
 the leaves the model does not gather (replicated ones, the MoE mesh
-paths' expert stacks) are summed here, and so are the metrics.  The
+paths' expert stacks) are summed here, and so are the metrics.  Under
+the ``tp`` strategy, on a model axis of more than one rank, a model that
+declares its split products (``TransformerLM.split_products``) runs them
+on the rank's blocks over ``model`` (Megatron-style: the heads, the MLP's
+hidden units, the vocabulary), each such leaf gathered over the dp axes
+only, or whole where the rank uses a part of it
+(``sharding.GatherAtUse``'s routes); the loss and the metrics are the
+same on every rank of a model group.  The
 global-norm clip sums block norms over the mesh, the optimizer updates
 the blocks (``core/blocks.py``) and the new state is wrapped as DTensors
 from them, with no copy.  No split leaf is held whole outside the layer
@@ -68,16 +75,44 @@ class _MeshStep:
         self.dp = (spec0 if isinstance(spec0, tuple)
                    else (spec0,) if spec0 else ())
         self.n_dp = comm.axis_size(self.mesh, self.dp)
+        self.model_split, self.products = self._split_products(model)
         self.use = self.splits = None
+
+    def _split_products(self, model):
+        """``(split, products)``: the ``layers.ModelSplit`` of the mesh's
+        model axis and the model's ``split_products`` under it, where the
+        strategy is ``tp``, the axis has more than one rank and the model
+        declares them (None to keep every leaf on the gather route);
+        else ``(None, {})``."""
+        from repro_torch.models.layers import ModelSplit
+        names = self.mesh.mesh_dim_names or ()
+        declare = getattr(model, "split_products", None)
+        if (declare is None or "model" not in names or getattr(
+                model.cfg, "parallel_strategy", "tp") != "tp"
+                or self.mesh.size(names.index("model")) == 1):
+            return None, {}
+        split = ModelSplit(self.mesh.get_group("model"),
+                           self.mesh.get_local_rank("model"),
+                           self.mesh.size(names.index("model")))
+        products = declare(split)
+        return (split, products) if products else (None, {})
+
+    def gather_at_use(self, shapes: dict):
+        """The step's ``sharding.GatherAtUse`` for parameters of whole
+        shapes ``shapes``; made once."""
+        if self.use is None:
+            self.use = self.SH.GatherAtUse(
+                self.shardings.params, shapes, self.dp, self.local,
+                self.products, self.model_split)
+            self.splits = self.SH.leaf_splits(self.shardings.params, shapes)
+        return self.use
 
     def blocks(self, state: TrainState):
         """(this rank's parameter blocks, the model's: the same as
         autograd leaves, the optimizer state's blocks); no copy."""
         if self.use is None:        # the whole shapes, from the first state
-            shapes = {k: tuple(v.shape) for k, v in state.params.items()}
-            self.use = self.SH.GatherAtUse(self.shardings.params, shapes,
-                                           self.dp, self.local)
-            self.splits = self.SH.leaf_splits(self.shardings.params, shapes)
+            self.gather_at_use({k: tuple(v.shape)
+                                for k, v in state.params.items()})
         with torch.no_grad():
             params = {k: self.SH.to_local(v) for k, v in state.params.items()}
             opt_state = self.SH.local_tree(state.opt_state)

@@ -7,8 +7,11 @@ three-family partition, plus the MoE mesh paths, the 4-stage GPipe
 pipeline and the elastic restore onto the six survivors of eight ranks;
 and the blocked step held to the gather design (:func:`gather_step`, the
 mesh step as it was before it ran on blocks, kept here as the
-reference): its gradient blocks bitwise, every optimizer's state blocks
-after 3 steps.
+reference): on the gather route its gradient blocks bitwise, every
+optimizer's state blocks after 3 steps; with the products split over
+``model`` (the ``tp`` route) its gradient blocks, state and parameters
+within 1e-3, no attention, MLP or vocabulary leaf gathered over ``model``
+where every block is its rank's range, and the heads a rank computes.
 Inputs (the JAX init, JAX's S-RSI draws keyed by the port's generator
 seeds, the MoE and pipeline arrays) come from the test in a pickle.
 """
@@ -138,7 +141,7 @@ def training(inp, out, res, arrs):
     # uninterrupted reference: 5 steps on (4, 2); and on (2, 4) and (8,)
     state5, l5, ssh42 = run(inp, (4, 2), 5)
     res["losses_42"] = l5
-    for tag, shape in [("24", (2, 4)), ("8", (8,))]:
+    for tag, shape in [("24", (2, 4)), ("8", (8,)), ("18", (1, 8))]:
         res[f"losses_{tag}"] = run(inp, shape, 5)[1]
     res["bytes_42"] = tree_nbytes(state5.opt_state)
     res["param_bytes_42"] = tree_nbytes(state5.params)
@@ -292,16 +295,52 @@ def opt_of(kind: str):
                rank_mode="static", refresh_every=2), **over}))
 
 
+TP_MESHES = [(4, 2), (2, 4), (1, 8)]
+
+
+def spy_split_step(model, step, mparams, batch) -> dict:
+    """One step's gradients on the tp route with a spy on the leaf gathers
+    (``sharding._gather``) and on the attention (``attention.sdpa_auto``):
+    how many gathers ran over the model axis' group (the forward's and
+    the backward's regathers), and the q and kv head counts each
+    attention call saw, the same on every rank."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import attention as A
+    group = step.mesh.get_group("model")
+    seen = {"model_gathers": 0, "heads": set()}
+    gather, sdpa = SH._gather, A.sdpa_auto
+
+    def spy_gather(x, gathers):
+        seen["model_gathers"] += sum(1 for _, g in gathers if g is group)
+        return gather(x, gathers)
+
+    def spy_sdpa(cfg, q, k, v, **kw):
+        seen["heads"].add((q.shape[2], k.shape[2]))
+        return sdpa(cfg, q, k, v, **kw)
+
+    SH._gather, A.sdpa_auto = spy_gather, spy_sdpa
+    try:
+        step.grads(model, mparams, step.split(batch), 1)
+    finally:
+        SH._gather, A.sdpa_auto = gather, sdpa
+    return {"model_gathers": seen["model_gathers"],
+            "heads": sorted(seen["heads"])}
+
+
 def blocked(inp, res):
     """The blocked step (``train/steps.py``) against :func:`gather_step`
-    from the same init on the same batches: one step's gradient blocks on
-    every mesh under remat none and full, to be the reference's slices
-    bit for bit (and on (4, 2) under the fsdp rule, which splits the (L,
-    d) leaves' stack axis); every optimizer's state and parameter blocks
-    after each
-    of 3 steps on (4, 2) (and Adapprox's at microbatches 2 and under remat
-    full; ``ANCHORED`` ones step by step), each leaf's largest difference
-    over its largest entry, for the tests to hold."""
+    from the same init on the same batches.  On the gather route (every
+    product whole): one step's gradient blocks on every mesh under remat
+    none and full, to be the reference's slices bit for bit (and on (4,
+    2) under the fsdp rule, which splits the (L, d) leaves' stack axis);
+    every optimizer's state and parameter blocks after each of 3 steps on
+    (4, 2) (and Adapprox's at microbatches 2 and under remat full;
+    ``ANCHORED`` ones step by step).  On the tp route (the products split
+    over ``model``), in fp32 compute, on ``TP_MESHES``: one step's
+    gradient blocks under remat none and full, each leaf's route, and
+    Adapprox's state and parameter blocks after each of 3 steps; on (4, 2)
+    the spy of :func:`spy_split_step`.  Differences are each leaf's
+    largest over its largest entry, for the tests to hold."""
     import dataclasses
     from repro_torch.convert import params_from_numpy
     from repro_torch.checkpoint.serialization import leaves_with_paths
@@ -312,10 +351,17 @@ def blocked(inp, res):
                                          build_train_step)
     batches = [{"tokens": torch.from_numpy(b)} for b in inp["batches"]]
 
-    def setup(shape, kind="adapprox_fused", remat="none", strategy="tp"):
+    def setup(shape, kind="adapprox_fused", remat="none", strategy="tp",
+              split=False, dtype="bfloat16"):
+        """The model, optimizer, shardings and placed state; ``split``
+        False keeps every leaf on the gather route (the model declares no
+        split products)."""
         mesh = mesh_of(shape)
         model = build_model(dataclasses.replace(
-            smoke_config(), remat=remat, parallel_strategy=strategy), mesh)
+            smoke_config(), remat=remat, parallel_strategy=strategy,
+            dtype=dtype), mesh)
+        if not split:
+            model.split_products = None
         opt = opt_of(kind)
         params = params_from_numpy(inp["params"])
         ssh, bsh = SH.train_shardings(model, opt, mesh,
@@ -344,6 +390,38 @@ def blocked(inp, res):
         tag += "_fsdp" if strategy == "fsdp" else ""
         res[f"grads_bad_{tag}_{remat}"] = everywhere(len(bad))
 
+    def leaf_err(x, y) -> float:
+        x, y = x.double(), y.double()
+        scale = float(y.abs().max()) if y.numel() else 0.0
+        err = float((x - y).abs().max()) if y.numel() else 0.0
+        return err / scale if scale else err
+
+    # the products split over model, in fp32 compute (in bf16 the two
+    # routes' roundings, not the split, would set the difference)
+    for shape in TP_MESHES:
+        tag = "x".join(map(str, shape))
+        for remat in ("none", "full"):
+            model, opt, ssh, bsh, state = setup(
+                shape, remat=remat, split=True, dtype="float32")
+            step = _MeshStep(model, ssh, bsh)
+            _, mparams, _ = step.blocks(state)
+            got, _, _ = step.grads(model, mparams, step.split(batches[0]), 1)
+            _, want, _ = gather_step(model, opt, ssh, bsh)[1](state,
+                                                               batches[0])
+            routes = step.use.routes()
+            errs = {k: leaf_err(got[k], SH.local_block(want[k],
+                                                        ssh.params[k]))
+                    for k in want}
+            split = [k for k in errs if routes[k] in ("block", "slice")]
+            res[f"tp_grads_{tag}_{remat}"] = {
+                "split": everywhere(max(errs[k] for k in split)),
+                "other": everywhere(max(errs[k] for k in errs
+                                        if k not in split)),
+                "routes": routes}
+        if shape == (4, 2):
+            res["tp_spy_42"] = spy_split_step(model, step, mparams,
+                                              batches[0])
+
     def rel_err(a, b) -> float:
         worst = 0.0
         for (pa, x), (pb, y) in zip(leaves_with_paths(SH.local_tree(a)),
@@ -356,13 +434,17 @@ def blocked(inp, res):
                 worst = max(worst, err / scale if scale else err)
         return worst
 
-    runs = [(kind, kind, 1, "none") for kind in OPTIMIZERS]
-    runs += [("microbatches_2", "adapprox_fused", 2, "none"),
-             ("remat_full", "adapprox_fused", 1, "full")]
+    runs = [(kind, kind, 1, "none", (4, 2), False) for kind in OPTIMIZERS]
+    runs += [("microbatches_2", "adapprox_fused", 2, "none", (4, 2), False),
+             ("remat_full", "adapprox_fused", 1, "full", (4, 2), False)]
+    runs += [("tp_" + "x".join(map(str, shape)), "adapprox_fused", 1,
+              "none", shape, True) for shape in TP_MESHES]
     errs = {}
-    for tag, kind, mb, remat in runs:
-        model, opt, ssh, bsh, state = setup((4, 2), kind, remat)
-        ref = setup((4, 2), kind, remat)[-1]
+    for tag, kind, mb, remat, shape, split in runs:
+        dtype = "float32" if split else "bfloat16"
+        model, opt, ssh, bsh, state = setup(shape, kind, remat, split=split,
+                                            dtype=dtype)
+        ref = setup(shape, kind, remat, split=split, dtype=dtype)[-1]
         step = build_train_step(model, opt, microbatches=mb,
                                 state_shardings=ssh, batch_shardings=bsh)
         ref_step = gather_step(model, opt, ssh, bsh, mb)[0]
@@ -379,6 +461,45 @@ def blocked(inp, res):
                                                     ref.params)))
         errs[tag] = rec
     res["blocked_vs_gather"] = errs
+
+
+def split_chunked(res):
+    """The products split over ``model`` on (1, 8) with the chunked
+    attention (``attn_impl="chunked"``, the flash-attention op on each
+    rank's heads: its plain version on the CPU; half the ranks hold no
+    head) at 1024 tokens under remat full, in fp32 compute, from the
+    port's seed-0 init: one step's gradient blocks against
+    :func:`gather_step`'s, each leaf's largest difference over its
+    largest entry."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.steps import TrainState, _MeshStep
+    seq = 1024
+    cfg = dataclasses.replace(smoke_config(), max_seq_len=seq,
+                              attn_impl="chunked", remat="full",
+                              dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    params = tree.flatten(build_model(cfg).init(gen))
+    batch = {"tokens": torch.randint(0, VOCAB, (BATCH, seq), generator=gen)}
+    mesh = mesh_of((1, 8))
+    model = build_model(cfg, mesh)
+    opt = opt_of("adapprox_fused")
+    ssh, bsh = SH.train_shardings(model, opt, mesh, {"tokens": (BATCH, seq)},
+                                  params=params)
+    state = SH.place_state(TrainState.create(params, opt), ssh)
+    step = _MeshStep(model, ssh, bsh)
+    _, mparams, _ = step.blocks(state)
+    got, _, _ = step.grads(model, mparams, step.split(batch), 1)
+    _, want, _ = gather_step(model, opt, ssh, bsh)[1](state, batch)
+    worst = 0.0
+    for k in want:
+        x, y = got[k].double(), SH.local_block(want[k], ssh.params[k]).double()
+        worst = max(worst, float((x - y).abs().max() / y.abs().max()))
+    res["tp_grads_1x8_chunked"] = max(comm.all_concat(
+        torch.tensor([worst]), 0, dist.group.WORLD).tolist())
 
 
 def launcher_mesh(inp, res):
@@ -553,6 +674,7 @@ def worker(rank: int, port: int, inp_path: str, out: str):
     try:
         training(inp, out, res, arrs)
         blocked(inp, res)
+        split_chunked(res)
         launcher_mesh(inp, res)
         moe(inp, res, arrs)
         pipeline(inp, res, arrs)

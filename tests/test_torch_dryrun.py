@@ -620,6 +620,40 @@ def test_blocked_step_gathers_one_layer_at_a_time(fake_group):
     assert rec["peak_bytes"] < whole
 
 
+def test_split_products_cut_a_ranks_flops(fake_group):
+    """The smoke Qwen3-14B train cell (qk-norm, 4 q over 2 kv heads) on the
+    test preset's 8 fake ranks (pod 2, data 2, model 2), with the products
+    split over ``model`` (the ``tp`` route) and without (the model
+    declaring none, every leaf on the gather route): the same stored
+    bytes, fewer FLOPs a rank under the split, and the record names each
+    leaf's route: the attention, MLP and vocabulary leaves their ranks'
+    blocks, the norms gathered, nothing of the gather route left."""
+    mesh = make_fake_mesh(*D.TEST_MESH)
+    recs = {}
+    for split in (True, False):
+        c = D.build_cell("qwen3-14b", "train_4k", mesh, smoke=True)
+        if not split:
+            c.model.split_products = None
+        recs[split] = D.measure(c)
+    tp, whole = recs[True], recs[False]
+    print(f"flops a rank: split {tp['flops']:.4g}, whole "
+          f"{whole['flops']:.4g}; collectives split {tp['collectives']}, "
+          f"whole {whole['collectives']}")
+    for key in ("param_bytes", "opt_state_bytes", "batch_bytes"):
+        assert tp[key] == whole[key], key
+    assert tp["flops"] < whole["flops"]
+    split_leaves = [f"blocks/attn/{k}" for k in ("wq", "wk", "wv", "wo")]
+    split_leaves += [f"blocks/mlp/{k}" for k in ("w_gate", "w_up",
+                                                 "w_down")]
+    split_leaves += ["embed", "lm_head"]
+    assert {k: tp["routes"][k] for k in split_leaves} == dict.fromkeys(
+        split_leaves, "block")
+    assert {tp["routes"][k] for k in ("blocks/attn/q_norm",
+                                      "blocks/attn/k_norm")} == {"slice"}
+    assert tp["routes"]["blocks/norm1/w"] == "gather"
+    assert {whole["routes"][k] for k in split_leaves} == {"gather"}
+
+
 def test_probe_memory_stages_bisect_the_step(fake_group):
     """``tools/probe_memory.py``'s stages on a smoke train cell over 8
     fake ranks: each peaks above the placed state it starts from, the

@@ -144,7 +144,16 @@ sm_90a) and the CUDA toolkit.  In order, it
      products split over model: two heads, half the MLP and half the
      vocabulary a rank; ``scripts/mesh_ranks.py --ranks-only``, a
      subprocess) and holds its losses to the run without a mesh at rtol
-     1e-3;
+     1e-3; and serves on the same two ranks at --mesh 1,2 (the heads, MLP
+     and vocabulary split over model, the KV cache's sequence kept split;
+     ``scripts/mesh_ranks.py --serve --full --ranks-only``), after holding
+     B6's forward to its plain version at the shapes a rank gives it: the
+     smoke Qwen2-7B at head_dim 64 in fp32 compute, then Qwen2-7B at full
+     width and depth in bf16, each prefilling 2 x 8192 tokens, so B6 runs
+     on each rank's heads (one launch a layer a rank), then 8 decode
+     steps, every step's logits held to the run without a mesh in this
+     process at ``TOL_SERVE_MESH`` / ``TOL_SERVE_DENSE`` and the greedy
+     tokens equal but at a tie;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
      them against ``BENCH_memory.json``, and those of
@@ -3232,6 +3241,7 @@ def mesh_phase(mixed_state: list, mixed_info: dict, mixed_expect: dict,
     del kept
     dist.destroy_process_group()
     mesh_ranks_run(card)
+    runs["serve-mesh"] = mesh_serve_run(card)
     print(f"  [mesh] {time.monotonic() - t0:.1f} s")
     return runs
 
@@ -3241,6 +3251,105 @@ MESH_RANKS_ARGV = ["--arch", "gpt2-117m", "--smoke", "--steps", "6",
                    "--fused-update", "--refresh-every", "5", "--log-every",
                    "1", "--device", "cuda"]
 TOL_MESH_RANKS = 1e-3        # the CPU tests' cross-mesh tolerance
+# [mesh]'s smoke serving case in fp32 compute against the run without a
+# mesh: B6's fp32 kernel computes each head alike on either route, so only
+# the split products' sums over model and the decode's log-sum-exp combine
+# differ, in summation order (1.1e-6 on the CPU), as the CPU tests'
+# serving parity (test_torch_mesh_serve.py, 1e-4).  The full-width case
+# runs in bf16 and takes TOL_SERVE_DENSE, [serve-qwen2]'s tolerance.
+TOL_SERVE_MESH = 1e-4
+
+
+def mesh_serve_run(card: str) -> tuple:
+    """[mesh]'s serving cases at --mesh 1,2 on two gloo ranks sharing
+    cuda:0 (``scripts/mesh_ranks.py --serve --full --ranks-only``, a
+    subprocess): the smoke Qwen2-7B at head_dim 64 (4 q / 2 kv heads, 2
+    layers) in fp32 compute, then Qwen2-7B at full width and depth (28
+    layers) in bf16, each a prefill of 2 x 8192 tokens (B6 on each rank's
+    heads) and 8 decode steps on each rank's blocks, the cache's sequence
+    split.  First B6's forward is held to its plain version at the shapes
+    a rank gives it, then each case runs without a mesh in this process
+    (its memory freed before the ranks start); every step's logits are
+    held to it (``TOL_SERVE_MESH``, ``TOL_SERVE_DENSE``), the greedy
+    tokens equal but at a tie (:func:`parting`), each rank's B6 forward
+    launches one a layer.  Returns ``(the ranks' launches summed over
+    both cases, info)``."""
+    import torch
+    phase("[mesh] serving on two gloo ranks on cuda:0, --mesh 1,2: smoke "
+          "Qwen2-7B at head_dim 64 in fp32, then Qwen2-7B whole in bf16, "
+          "each a prefill of 2 x 8192 (B6 on each rank's heads) and 8 "
+          "decode steps, the KV cache's sequence split over model")
+    t0 = time.monotonic()
+    spec = importlib.util.spec_from_file_location(
+        "mesh_ranks", ROOT / "scripts" / "mesh_ranks.py")
+    MR = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(MR)
+    cases = MR.serve_cases(full=True)
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(11)
+    layers, refs = {}, {}
+    for case in cases:
+        cfg = MR.serve_config(case)
+        layers[case] = cfg.n_layers
+        shape = (MR.SERVE_BATCH, MR.SERVE_PROMPT, MR.SERVE_PROMPT,
+                 cfg.n_heads // MR.SERVE_MESH[1],
+                 cfg.n_kv_heads // MR.SERVE_MESH[1], cfg.resolved_head_dim)
+        with torch.inference_mode():
+            got = flash_fwd_held(device, gen, f"{case} qwen2-7b, a rank of "
+                                 f"--mesh 1,2", shape,
+                                 getattr(torch, cfg.dtype), new_rec())
+        del got
+        MR.free_memory()
+        refs[case] = MR.serve_case(case, device)
+        if refs[case]["launches"]["flash_fwd"] != layers[case]:
+            fail(f"[mesh] {case} serving without a mesh: "
+                 f"{refs[case]['launches']} B6 launches, {layers[case]} "
+                 f"expected")
+        MR.free_memory()
+    out = ROOT / "build" / "mesh_serve.json"
+    out.unlink(missing_ok=True)
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "mesh_ranks.py"), "--serve",
+         "--full", "--ranks-only", "--json", str(out)],
+        capture_output=True, text=True, timeout=600)
+    res = json.loads(out.read_text()) if out.exists() else {
+        "error": "no result"}
+    info, counts = {}, {}
+    for case in cases:
+        bad = MR.serve_errors(res, case)
+        if bad:
+            fail(f"[mesh] {case} serving on two ranks: {bad}\n"
+                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        ranks = [r[case] for r in res["ranks"]]
+        err, ties = MR.hold_serve(case, refs[case], str(out))
+        tol = MR.SERVE_TOL[case]
+        per_rank = [r["launches"]["flash_fwd"] for r in ranks]
+        if err > tol or ties < 0 or per_rank != [layers[case]] * 2:
+            fail(f"[mesh] {case} serving on two ranks: largest logit "
+                 f"difference {err:.3e} (tolerance {tol}), greedy tokens "
+                 f"{'differ beyond a tie' if ties < 0 else 'equal'}, B6 "
+                 f"launches a rank {per_rank} ({layers[case]} expected)")
+        for r in ranks:
+            for k, n in r["launches"].items():
+                counts[k] = counts.get(k, 0) + n
+        ref = refs[case]
+        info[case] = {"max_rel_err": err, "tolerance": tol,
+                      "greedy_ties": ties, "b6_launches_per_rank": per_rank,
+                      "rank_seconds": [r["seconds"] for r in ranks],
+                      "rank_peak_gib": [r["peak_gib"] for r in ranks],
+                      "ref_seconds": ref["seconds"],
+                      "ref_peak_gib": ref["peak_gib"]}
+        print(f"  --mesh 1,2 serving, {case}: largest logit difference "
+              f"{err:.3e} of the largest logit (tolerance {tol}), greedy "
+              f"tokens equal but {ties} ties; B6 forward launches a rank "
+              f"{per_rank}, {ref['launches']['flash_fwd']} without a mesh; "
+              f"prefill + {MR.SERVE_STEPS} steps {info[case]['rank_seconds']}"
+              f" s a rank, {ref['seconds']:.2f} s without a mesh; peak a "
+              f"rank {info[case]['rank_peak_gib']} GiB, "
+              f"{ref['peak_gib']:.2f} without a mesh")
+    info["seconds"] = time.monotonic() - t0
+    print(f"  serving cases: {info['seconds']:.1f} s ({card})")
+    return counts, info
 
 
 def mesh_ranks_run(card: str) -> None:
@@ -3977,6 +4086,18 @@ def serve_run(device, argv, expect: dict, what: str, layers=None,
     return launches, info, (eng, reqs, rec)
 
 
+def parting(a, b, ta: int, tb: int, tol: float) -> tuple:
+    """Where two runs' greedy tokens part, ``ta`` chosen from the logits
+    row ``a`` and ``tb`` from ``b``: ``(the rows' largest difference over
+    b's largest entry, each row's lead of its own token over the other's
+    in bf16 ulps of the row's largest entry, whether that is a tie: the
+    rows within ``tol`` and each lead within SERVE_TIE_ULPS)``."""
+    diff = float((a - b).abs().max()) / float(b.abs().max())
+    gaps = [float((r[mine] - r[other]) / bf16_ulp(r.abs().max()))
+            for r, mine, other in ((a, ta, tb), (b, tb, ta))]
+    return diff, gaps, diff <= tol and max(gaps) <= SERVE_TIE_ULPS
+
+
 def hold_streams(what: str, cont, wave) -> int:
     """The continuous run's streams against the wave run's of the same
     requests: equal, or where one parts, both logits rows at that step
@@ -3997,16 +4118,12 @@ def hold_streams(what: str, cont, wave) -> int:
         parted += 1
         a, b = c_rec.rows[(c.uid, t)].float(), w_rec.rows[(w.uid, t)].float()
         tc, tw = c.out_tokens[t], w.out_tokens[t]
-        diff = float((a - b).abs().max()) / float(b.abs().max())
-        # each row's lead of its own token over the other engine's, in
-        # bf16 ulps of the row's largest entry
-        gaps = [float((r[mine] - r[other]) / bf16_ulp(r.abs().max()))
-                for r, mine, other in ((a, tc, tw), (b, tw, tc))]
+        diff, gaps, tie = parting(a, b, tc, tw, tol)
         print(f"  {what} request {c.uid} parts at token {t}: continuous "
               f"{tc} vs wave {tw}; rows rel diff {diff:.3e}; each row's "
               f"token leads the other's by {gaps[0]:g} (continuous) and "
               f"{gaps[1]:g} (wave) bf16 ulps of the row's largest entry")
-        if not (diff <= tol and max(gaps) <= SERVE_TIE_ULPS):
+        if not tie:
             fail(f"{what}: request {c.uid} parts at token {t} without a "
                  f"tie (rows {diff:.3e} > {tol}, or leads {gaps} ulps > "
                  f"{SERVE_TIE_ULPS})")
@@ -4524,6 +4641,28 @@ def time_stream(kern, plain, kernel_name: str, rec: dict, bound: float,
     rec["bound_ms"] += bound
 
 
+def flash_fwd_held(device, gen, name: str, shape: tuple, dtype,
+                   rec: dict) -> tuple:
+    """B6's forward on seeded ``(B, Sq, Sk, H, KV, dh)`` inputs of
+    ``dtype``, causal, launched twice and held to its plain version on the
+    same inputs (:func:`hold`, ``TOL_FLASH``; the error into ``rec``).
+    Returns ``(q, k, v, the launch)`` for a caller that times it."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    b, sq, sk, h, kv, dh = shape
+    rnd = lambda *dims: torch.randn(dims, generator=gen,
+                                    device=device).to(dtype)
+    q, k, v = rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)
+    fwd = lambda: ops.flash_attention_fwd(q, k, v, True)
+    got, again = fwd(), fwd()
+    want = ref.flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    errs = hold(f"flash_attention {name}", ("out", "lse"), (TOL_FLASH,) * 2,
+                got, want, rec, again)
+    print(f"  flash_attention {name} {tuple(q.shape)} {dtype} fwd: {errs}")
+    return q, k, v, fwd
+
+
 def check_serve_kernels(device) -> dict:
     """[kernels-serve]: the forward kernels at the serving path's prefill
     shapes, bf16 as the models feed them, under ``torch.inference_mode``:
@@ -4543,17 +4682,8 @@ def check_serve_kernels(device) -> dict:
     name, (b, sq, sk, h, kv, dh) = SERVE_FLASH
     rec = new_rec()
     with torch.inference_mode():
-        rnd = lambda *shape: torch.randn(shape, generator=gen,
-                                         device=device).to(bf16)
-        q, k, v = rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)
-        fwd = lambda: ops.flash_attention_fwd(q, k, v, True)
-        got, again = fwd(), fwd()
-        want = ref.flash_attention(q, k, v, True)
-        torch.cuda.synchronize()
-        errs = hold(f"flash_attention {name}", ("out", "lse"),
-                    (TOL_FLASH,) * 2, got, want, rec, again)
-        print(f"  flash_attention {name} {tuple(q.shape)} bf16 fwd: {errs}")
-        del got, again, want
+        q, k, v, fwd = flash_fwd_held(device, gen, name, SERVE_FLASH[1],
+                                      bf16, rec)
         bound = flash_bounds(b, sq, sk, h, kv, dh, True, bf16)[0]
         time_stream(fwd, lambda: ref.flash_attention(q, k, v, True),
                     "flash_fwd_kernel", rec, bound, f"{name} bf16 fwd")

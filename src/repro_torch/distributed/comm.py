@@ -91,6 +91,24 @@ def all_concat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int,
+               group) -> torch.Tensor:
+    """Chunk i of ``x`` along ``split_dim`` to rank i of ``group``, and the
+    chunks this rank receives concatenated along ``cat_dim`` in group-rank
+    order (one ``all_to_all_single``; no gradient).  ``x.shape[split_dim]``
+    must divide by the group's size; a group of one returns ``x``."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dimension {split_dim} of {tuple(x.shape)} does "
+                         f"not split over {n} ranks")
+    send = torch.stack(x.chunk(n, split_dim))
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=group)
+    return torch.cat(got.unbind(0), dim=cat_dim)
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):

@@ -45,6 +45,14 @@ vocabulary; the MoE mesh paths split the experts): those leaves reach
 the model as this rank's block over ``model``, gathered over the dp axes
 only, or whole where the rank uses a part of the block's range, their
 gradient then summed over ``model`` (:class:`GatherAtUse`'s routes).
+
+Serving on a mesh (:func:`serving_view`): the transformer families'
+``prefill`` and ``decode_step`` take the same hook, forward only, on each
+rank's parameter blocks (a serving kind has no FSDP axis, so a "block"
+leaf is used as it is stored and nothing moves) and on the rank's block of
+the KV cache, whose sequence stays split over ``model`` (flash-decoding);
+the other families gather every leaf and the cache's sequence whole first
+(:func:`model_params`, :func:`gather_tree_except`).
 """
 from __future__ import annotations
 
@@ -325,10 +333,13 @@ def place_state(state, shardings):
 
 
 def model_params(params: dict, local=()) -> dict:
-    """The parameters a model serves with over a mesh: every leaf whole
-    (gathered), but the leaves named in ``local`` (the model's
-    ``mesh_local_leaves``: the MoE mesh paths' expert stacks) as this
-    rank's block.  (The train step gathers at use instead,
+    """The parameters a model serves with over a mesh where its products
+    do not split (:func:`serving_view` gives None: the ssm, hybrid and
+    encdec families, the ``fsdp`` strategy, a model that declares no split
+    products): every leaf whole (gathered), but the leaves named in
+    ``local`` (the model's ``mesh_local_leaves``: the MoE mesh paths'
+    expert stacks) as this rank's block.  (The train step and the
+    transformer families' serving gather at use instead,
     :class:`GatherAtUse`.)"""
     out = {}
     with torch.no_grad():
@@ -383,8 +394,10 @@ def gather_tree_except(state, shardings, keep: tuple):
     the mesh axes in ``keep`` only (the matching leaf of ``shardings``
     gives its spec): all-gathered over every other axis the spec splits,
     a dimension split over ``keep`` axes alone staying split (a cache
-    keeps its batch block over the dp axes and gathers its sequence).
-    Other leaves as they are."""
+    keeps its batch block over the dp axes and gathers its sequence: the
+    serving cells whose model takes :func:`model_params`; under
+    :func:`serving_view` the cache stays the rank's block).  Other leaves
+    as they are."""
     from repro_torch.checkpoint.serialization import _map, spec_leaves
     pairs = iter(spec_leaves(shardings))
 
@@ -701,13 +714,19 @@ class GatherAtUse:
     to the block where the leaf is split over it) before the dp axes, as
     the model ranks' gradients differ.  Every other leaf takes the
     "gather" route above ("local" and "whole" where nothing is
-    gathered)."""
+    gathered).
+
+    ``seq_split`` (serving, :func:`serving_view`): the KV cache the model
+    is handed holds this rank's block of the sequence over ``model``, the
+    rows ``[r n, (r + 1) n)`` of a block of n rows (the hook carries it to
+    the model, ``layers.cache_seq_split``)."""
 
     def __init__(self, shardings: dict, shapes: dict, dp: tuple,
-                 local=(), products: Optional[dict] = None, split=None):
+                 local=(), products: Optional[dict] = None, split=None,
+                 seq_split: bool = False):
         self.shardings, self.shapes = shardings, shapes
         self.dp, self.local = tuple(dp), set(local)
-        self.split = split
+        self.split, self.seq_split = split, seq_split
         self.products = dict(products or {}) if split is not None else {}
         self._plans: dict = {}
 
@@ -800,6 +819,75 @@ class GatherAtUse:
             return t
         first, _ = Split(whole, sh.spec, sh.mesh).start(0)
         return _GatherStack.apply(t, plan.gather, first)
+
+
+def model_products(model, mesh) -> tuple:
+    """``(split, products)``: the ``layers.ModelSplit`` of ``mesh``'s model
+    axis and the model's ``split_products`` under it, where the strategy
+    is ``tp``, the axis has more than one rank and the model declares them
+    (None to keep every leaf on the gather route); else ``(None, {})``.
+    The train step (``train/steps.py``) and :func:`serving_view` take
+    it."""
+    from repro_torch.models.layers import ModelSplit
+    names = mesh.mesh_dim_names or ()
+    declare = getattr(model, "split_products", None)
+    if (declare is None or "model" not in names or getattr(
+            model.cfg, "parallel_strategy", "tp") != "tp"
+            or mesh.size(names.index("model")) == 1):
+        return None, {}
+    split = ModelSplit(mesh.get_group("model"), mesh.get_local_rank("model"),
+                       mesh.size(names.index("model")))
+    products = declare(split)
+    return (split, products) if products else (None, {})
+
+
+def _cache_seq_axis(cache_shardings) -> Optional[tuple]:
+    """The mesh axes the KV caches' sequence dimension splits over (every
+    (L, B, S, KV, dh) leaf's, which must agree); () where none splits it
+    or the cache has no KV leaf."""
+    from repro_torch.checkpoint.serialization import spec_leaves
+    found = set()
+    for _, sh in spec_leaves(cache_shardings):
+        if sh is not None and len(sh.spec) == 5:
+            ax = sh.spec[2]
+            found.add(() if ax is None else ax if isinstance(ax, tuple)
+                      else (ax,))
+    if len(found) > 1:
+        raise ValueError(f"KV caches split their sequence differently: "
+                         f"{sorted(found)}")
+    return found.pop() if found else ()
+
+
+def serving_view(model, mesh, shardings: dict, shapes: dict,
+                 cache_shardings=None) -> Optional[GatherAtUse]:
+    """The serving hook of a model on ``mesh`` (set it with
+    ``models.layers.gathering`` around ``prefill`` / ``decode_step``, under
+    ``torch.inference_mode``), or None where the model's products do not
+    split (:func:`model_products`: the ssm, hybrid and encdec families,
+    the ``fsdp`` strategy, a model axis of one rank) or the cache's
+    sequence splits over more than ``model`` (the ``long_500k`` cells):
+    those serve on :func:`model_params` and the cache gathered over every
+    axis but the dp axes (:func:`gather_tree_except`).
+
+    The hook is the train step's :class:`GatherAtUse` on the parameters'
+    serving shardings (``shardings``, of whole shapes ``shapes``), forward
+    only: a "block" leaf is used as it is stored (a serving kind has no
+    FSDP axis, so no collective moves it), a "slice" leaf (the rank uses
+    part of its range: kv heads fewer than the model ranks) is gathered
+    whole, a replicated one used as it is, the MoE mesh paths' expert
+    stacks as the rank's blocks.  The model is handed the rank's
+    parameter blocks and its block of the cache (``cache_shardings``: the
+    batch over the dp axes, the sequence over ``model`` or whole), which
+    it writes in place (``seq_split``)."""
+    split, products = model_products(model, mesh)
+    if split is None:
+        return None
+    seq = _cache_seq_axis(cache_shardings) if cache_shardings else ()
+    if seq not in ((), ("model",)):
+        return None
+    return GatherAtUse(shardings, shapes, dp_axes(mesh),
+                       getattr(model, "mesh_local_leaves", tuple)(),
+                       products, split, seq_split=bool(seq))
 
 
 class _Regather(NamedTuple):

@@ -17,10 +17,14 @@ For every (architecture x shape cell x mesh) combination it
     counter: train cells one ``build_train_step`` step of the mesh step
     (``train/steps.py::_MeshStep``: this rank's blocks, each leaf gathered
     where a layer uses it, the optimizer on the blocks), prefill and
-    decode cells ``prefill`` / ``decode_step`` on the parameters gathered
-    whole (the expert stacks of the MoE mesh paths as this rank's blocks)
-    and the cache gathered over every axis but the dp axes (the rank
-    keeps its batch block);
+    decode cells ``prefill`` / ``decode_step``: the transformer families
+    (dense, vlm, moe) on this rank's parameter blocks and its block of
+    the cache, the heads, MLP and vocabulary split over ``model`` and the
+    cache's sequence kept split over it (``sharding.serving_view``); the
+    others (ssm, hybrid, encdec, and the ``long_500k`` cells) on the
+    parameters gathered whole (the expert stacks of the MoE mesh paths as
+    this rank's blocks) and the cache gathered over every axis but the dp
+    axes (the rank keeps its batch block);
   * records per-rank bytes (parameters, optimizer state, batch block,
     cache: each a DTensor's local block), the step's peak of live bytes,
     FLOPs, bytes accessed, the collectives it calls and the largest of
@@ -36,8 +40,12 @@ only where the rank's block is its range, whole where it uses a part,
 and a record's ``routes`` names each leaf's route
 (``sharding.GatherAtUse.route``); the other families and the ``fsdp``
 strategy run every product whole on the rank's batch block, one layer's
-leaves whole beside the activations.  Serving cells gather every leaf
-whole.  Fake
+leaves whole beside the activations.  The transformer families'
+serving cells run the same split products on the rank's blocks, no
+block and no cache row moving over ``model``, where a kv leaf the rank
+uses a part of is gathered whole (``routes`` as for a train cell); the
+ssm, hybrid and encdec families' serving cells (and ``long_500k``) gather
+every leaf whole, their ``routes`` all "whole".  Fake
 tensors live on the CPU, so every
 kernel wrapper takes its plain version (``kernels/ops.py``): the peak is
 the plain route's (``"route": "plain"``), whose temporaries (a
@@ -256,36 +264,52 @@ def place_inputs(c: Cell) -> dict:
                                    device="cpu")
         cshard = SH.cache_shardings(c.cfg, c.mesh, cache, c.long_context)
         cache = SH.place_tree(cache, cshard)
-    out.update(params=placed, cache=cache, cache_shardings=cshard,
-               param_bytes=tree_nbytes(placed), opt_state_bytes=0,
-               cache_bytes=tree_nbytes(cache))
+    out.update(params=placed, cache=cache, param_shardings=pshard,
+               cache_shardings=cshard, param_bytes=tree_nbytes(placed),
+               opt_state_bytes=0, cache_bytes=tree_nbytes(cache))
     return out
+
+
+def serving_view(c: Cell, inputs: dict):
+    """The serving cell's hook (``sharding.serving_view`` on its placed
+    parameters and cache), or None where the cell takes the whole route
+    (every leaf and the cache's sequence gathered first)."""
+    return SH.serving_view(c.model, c.mesh, inputs["param_shardings"],
+                           {k: tuple(v.shape) for k, v in
+                            inputs["params"].items()},
+                           inputs["cache_shardings"])
 
 
 def run_step(c: Cell, inputs: dict):
     """One step of the cell on its placed inputs, as rank 0 runs it (see
     the module docstring); returns the step's outputs."""
+    from repro_torch.models import layers as L
     if c.kind == "train":
         step = build_train_step(c.model, c.opt, microbatches=c.microbatches,
                                 state_shardings=inputs["state_shardings"],
                                 batch_shardings=inputs["batch_shardings"])
         return step(inputs["state"], inputs["batch"])
-    local = set(getattr(c.model, "mesh_local_leaves", tuple)())
-    dp = SH.dp_axes(c.mesh)
-    params = SH.model_params(inputs["params"], local)
+    use = serving_view(c, inputs)
     with torch.no_grad():
-        cache = SH.gather_tree_except(inputs["cache"],
-                                      inputs["cache_shardings"], dp)
+        if use is None:
+            local = set(getattr(c.model, "mesh_local_leaves", tuple)())
+            params = SH.model_params(inputs["params"], local)
+            cache = SH.gather_tree_except(inputs["cache"],
+                                          inputs["cache_shardings"],
+                                          SH.dp_axes(c.mesh))
+        else:
+            params = {k: SH.to_local(v) for k, v in inputs["params"].items()}
+            cache = SH.local_tree(inputs["cache"])
         shard = batch_shardings(c, inputs["batch"])
         batch = {k: SH.local_block(x, shard[k])
                  for k, x in inputs["batch"].items()}
     params = tree.unflatten(params)
-    if c.kind == "decode":
-        return c.model.decode_step(params, cache, batch["tokens"])
-    if "embeds" in batch:
+    with L.gathering(use if use is not None else L.no_gather):
+        if c.kind == "decode":
+            return c.model.decode_step(params, cache, batch["tokens"])
         return c.model.prefill(params, batch["tokens"], cache,
-                               embeds=batch["embeds"])
-    return c.model.prefill(params, batch["tokens"], cache)
+                               **({"embeds": batch["embeds"]}
+                                  if "embeds" in batch else {}))
 
 
 def at_step(state, n: int):
@@ -316,10 +340,11 @@ def at_step(state, n: int):
 def measure(c: Cell, tracer=None, start_step: int = 0) -> dict:
     """Place the cell's inputs and run its step on fake tensors under the
     cost counter: the per-rank bytes of what was placed, the step's counts
-    and the seconds each part took; a train cell's ``routes`` (each
-    parameter's, as the mesh step takes it).  A train cell's state starts at
-    ``start_step`` (:func:`at_step`): 1 makes a cadence's fold step of
-    step 2.  A refresh step of the paper's adaptive rank (``rank_mode``
+    and the seconds each part took; the cell's ``routes`` (each
+    parameter's, as the mesh step or the serving view takes it; "whole"
+    for every leaf of a serving cell on the whole route).  A train
+    cell's state starts at ``start_step`` (:func:`at_step`): 1 makes a
+    cadence's fold step of step 2.  A refresh step of the paper's adaptive rank (``rank_mode``
     "paper") reads xi to the host, which fake tensors cannot: the dry
     run's optimizer is static-rank, as JAX's."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -339,6 +364,10 @@ def measure(c: Cell, tracer=None, start_step: int = 0) -> dict:
                 inputs["batch_shardings"]).gather_at_use(
                     {k: tuple(v.shape) for k, v in
                      inputs["state"].params.items()}).routes()
+        else:
+            use = serving_view(c, inputs)
+            rec["routes"] = (dict.fromkeys(inputs["params"], "whole")
+                             if use is None else use.routes())
         cost = StepCost()
         cost.track(inputs.get("state"), inputs.get("params"),
                    inputs.get("cache"), inputs["batch"])

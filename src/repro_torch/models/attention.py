@@ -17,6 +17,13 @@ and the output product's partial sums added by ``comm.reduce_from``.
 The projections, norms, RoPE and both attention paths take their head
 counts and the q-to-kv grouping from the tensors they are given.
 
+Serving on a mesh (``split`` given to ``attn_prefill`` / ``attn_decode``)
+splits the heads the same way and keeps the KV cache's sequence split
+over ``model`` (flash-decoding): the prefill's rank heads attend through
+``sdpa_auto`` and each rank writes its rows of the cache for every kv
+head; a decode step attends every head over the rank's rows and combines
+the ranks' parts by log-sum-exp (see "serving on a mesh" below).
+
 The serving paths write the cache in place (the JAX functions return an
 updated copy, which the engines donate); they return the cache all the
 same, so the call sites read as JAX's.  Where JAX clamps an index that a
@@ -96,31 +103,31 @@ def init_kv_cache(batch: int, cache_len: int, cfg, dtype,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
-    """q (B, S, H, dh), k / v (B, S, KV, dh): the projections, then the
-    biases, then RMSNorm of q and k per head, then RoPE at ``positions``,
-    in the JAX package's order; H and KV are the heads the weights hold
-    (a rank's range under a split)."""
-    b, s, _ = x.shape
+def _project(cfg, p: dict, x: torch.Tensor, name: str,
+             positions: torch.Tensor) -> torch.Tensor:
+    """One of q, k, v (``name``), (B, S, n, dh): the projection, then the
+    bias, then (q and k) RMSNorm per head, then RoPE at ``positions``, in
+    the JAX package's order; n the heads the weight holds (a rank's range
+    under a split, or every head)."""
     hd = cfg.resolved_head_dim
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    t = x @ p["w" + name].to(dt)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    q = q.reshape(b, s, q.shape[-1] // hd, hd)
-    k = k.reshape(b, s, k.shape[-1] // hd, hd)
-    v = v.reshape(b, s, v.shape[-1] // hd, hd)
+        t = t + p["b" + name].to(dt)
+    t = t.reshape(*x.shape[:2], t.shape[-1] // hd, hd)
+    if name == "v":
+        return t
     if cfg.qk_norm:
-        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+        t = L.rms_norm(t, p[name + "_norm"], cfg.norm_eps)
     if cfg.pos_embedding == "rope":
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+        t = L.apply_rope(t, positions, cfg.rope_theta)
+    return t
+
+
+def _project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    """q (B, S, H, dh), k / v (B, S, KV, dh) (:func:`_project`); H and KV
+    are the heads the weights hold (a rank's range under a split)."""
+    return tuple(_project(cfg, p, x, name, positions) for name in "qkv")
 
 
 def _sdpa(cfg, q, k, v, mask):
@@ -191,13 +198,15 @@ def attn_split_ranges(cfg, split) -> dict:
     return out
 
 
-def _split_heads(cfg, p: dict, x: torch.Tensor, positions, causal: bool,
-                 split) -> torch.Tensor:
-    """:func:`attn_apply_full` on rank ``split.rank``'s heads (see the
-    module docstring): each leaf the rank's block or whole
-    (``layers.take``); where its q heads do not map onto its kv heads in
-    equal groups (a range that straddles a group boundary unevenly), each
-    q head gets its own copy of the kv head it reads."""
+def _rank_heads(cfg, p: dict, x: torch.Tensor, positions, causal: bool,
+                split):
+    """Rank ``split.rank``'s heads over the whole sequence: ``(out (B, S,
+    H_r dh) before the output product, k / v of its kv heads (B, S, KV_r,
+    dh), p with each leaf the rank's range)``; each leaf the rank's block
+    or whole (``layers.take``), the input entering through ``copy_to``;
+    where its q heads do not map onto its kv heads in equal groups (a
+    range that straddles a group boundary unevenly), each q head gets its
+    own copy of the kv head it reads."""
     from repro_torch.distributed import comm
     ranges = attn_split_ranges(cfg, split)
     p = {k: L.take(v, *ranges[k]) if ranges.get(k, (None,))[0] is not None
@@ -206,17 +215,26 @@ def _split_heads(cfg, p: dict, x: torch.Tensor, positions, causal: bool,
     q, k, v = _project_qkv(cfg, p, x, positions)
     b, s, hl, hd = q.shape
     if hl == 0:     # more ranks than heads: empty, but in the graph alike
-        out = _sdpa(cfg, q, k, v, torch.ones((1, s, s), dtype=torch.bool,
-                                             device=x.device))
-    else:
-        h0, _, kv0, _ = head_split(cfg, split)
-        g = cfg.n_heads // cfg.n_kv_heads
-        idx = [(h0 + i) // g - kv0 for i in range(hl)]
-        kvl = k.shape[2]
-        if hl % kvl or idx != [i // (hl // kvl) for i in range(hl)]:
-            sel = torch.tensor(idx, device=k.device)
-            k, v = k.index_select(2, sel), v.index_select(2, sel)
-        out = sdpa_auto(cfg, q, k, v, causal=causal)
+        return _sdpa(cfg, q, k, v, torch.ones(
+            (1, s, s), dtype=torch.bool, device=x.device)), k, v, p
+    h0, _, kv0, _ = head_split(cfg, split)
+    g = cfg.n_heads // cfg.n_kv_heads
+    idx = [(h0 + i) // g - kv0 for i in range(hl)]
+    kq, vq = k, v
+    kvl = k.shape[2]
+    if hl % kvl or idx != [i // (hl // kvl) for i in range(hl)]:
+        sel = torch.tensor(idx, device=k.device)
+        kq, vq = k.index_select(2, sel), v.index_select(2, sel)
+    return sdpa_auto(cfg, q, kq, vq, causal=causal), k, v, p
+
+
+def _split_heads(cfg, p: dict, x: torch.Tensor, positions, causal: bool,
+                 split) -> torch.Tensor:
+    """:func:`attn_apply_full` on rank ``split.rank``'s heads (see the
+    module docstring and :func:`_rank_heads`), the output product's parts
+    summed over the model axis."""
+    from repro_torch.distributed import comm
+    out, _, _, p = _rank_heads(cfg, p, x, positions, causal, split)
     return comm.reduce_from(out @ p["wo"].to(x.dtype), split.group)
 
 
@@ -239,10 +257,15 @@ def attn_apply_full(cfg, p: dict, x: torch.Tensor, *, causal: bool,
     return sdpa_auto(cfg, q, k, v, causal=causal) @ p["wo"].to(x.dtype)
 
 
-def attn_prefill(cfg, p: dict, x: torch.Tensor, cache: KVCache):
+def attn_prefill(cfg, p: dict, x: torch.Tensor, cache: KVCache,
+                 split=None, seq_split: bool = False):
     """Causal attention over the prompt x (B, S, D) through ``sdpa_auto``
     (the flash kernel where JAX takes ``_sdpa_chunked``); fills
-    ``cache[:, :S]``.  Returns ``(out, cache)``."""
+    ``cache[:, :S]``.  Returns ``(out, cache)``.  Under ``split`` (a
+    ``layers.ModelSplit``; serving on a mesh) the rank's heads attend and
+    ``cache`` is the rank's block (:func:`_prefill_split`)."""
+    if split is not None:
+        return _prefill_split(cfg, p, x, cache, split, seq_split)
     s = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x, torch.arange(s, device=x.device)[None])
     out = sdpa_auto(cfg, q, k, v, causal=True)
@@ -251,10 +274,14 @@ def attn_prefill(cfg, p: dict, x: torch.Tensor, cache: KVCache):
     return out @ p["wo"].to(x.dtype), cache
 
 
-def attn_decode(cfg, p: dict, x: torch.Tensor, cache: KVCache, pos: int):
+def attn_decode(cfg, p: dict, x: torch.Tensor, cache: KVCache, pos: int,
+                split=None, seq_split: bool = False):
     """One-token step, x (B, 1, D) at position ``pos`` (an int): its k / v
     written at row ``min(pos, S_max - 1)`` (JAX's clamp), attention over
-    rows ``<= pos``.  Returns ``(out, cache)``."""
+    rows ``<= pos``.  Returns ``(out, cache)``.  Under ``split`` ``cache``
+    is the rank's block (:func:`_decode_split`)."""
+    if split is not None:
+        return _decode_split(cfg, p, x, cache, pos, split, seq_split)
     b = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, torch.full((b, 1), pos,
                                                  device=x.device))
@@ -265,6 +292,147 @@ def attn_decode(cfg, p: dict, x: torch.Tensor, cache: KVCache, pos: int):
     mask = torch.arange(s_max, device=x.device)[None, None, :] <= pos
     out = _sdpa(cfg, q, cache.k, cache.v, mask)
     return out @ p["wo"].to(x.dtype), cache
+
+
+# -- serving on a mesh --------------------------------------------------------
+# Megatron's heads over ``model`` with the KV cache's sequence split over it
+# too (flash-decoding): rank r of M holds cache rows [r n, (r + 1) n) of
+# every kv head (n the block's rows; all of them where the cache's sequence
+# is not split, ``seq_split`` False) for its batch block, and the residual
+# stream is whole on every rank of the model group.
+
+def _cache_rows(cache: KVCache, split, seq_split: bool) -> tuple:
+    """``(first row, rows of the whole cache)`` of the rank's block."""
+    n = cache.k.shape[1]
+    return (split.rank * n, n * split.size) if seq_split else (0, n)
+
+
+def _all_heads(t: torch.Tensor, n: int, split) -> torch.Tensor:
+    """(B, S, h, dh) of the rank's block of ``n`` heads (a "block" leaf's
+    projection) -> every head, concatenated over the model axis in rank
+    order; ``t`` itself where it holds them all (a leaf given whole)."""
+    from repro_torch.distributed import comm
+    return t if t.shape[2] == n else comm.all_concat(t, 2, split.group)
+
+
+def _prompt_rows(cfg, p: dict, x: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, c0: int, n: int, split, seq_split: bool):
+    """k / v of every kv head at the prompt's rows ``[c0, c0 + n)`` (fewer
+    where the prompt ends first; None where it ends before ``c0``).
+
+    Two routes, by what the rank holds.  Where ``wk`` / ``wv`` reach the
+    rank whole (the "slice" route: kv heads fewer than the model ranks, or
+    not aligned with them; or replicated), the rank projects its rows of
+    the residual, which every rank holds whole, at their positions: no
+    collective.  Where they are the rank's block of kv heads (the "block"
+    route: each rank owns KV / M heads, and gathering the weights would
+    move them), the rank has projected its heads at every position for its
+    own attention already, and one ``all_to_all`` turns the head blocks
+    into sequence blocks (the prompt padded to the cache's whole length),
+    a tensor the size of the rank's cache block; with the sequence not
+    split, the heads are all-gathered instead."""
+    from repro_torch.distributed import comm
+    s = x.shape[1]
+    e = min(c0 + n, s)
+    if p["wk"].shape[-1] == cfg.n_kv_heads * cfg.resolved_head_dim:
+        if e <= c0:
+            return None
+        rows = x[:, c0:e]
+        pos = torch.arange(c0, e, device=x.device)[None]
+        return _project(cfg, p, rows, "k", pos), _project(cfg, p, rows, "v",
+                                                         pos)
+    if not seq_split:
+        return (comm.all_concat(k, 2, split.group),
+                comm.all_concat(v, 2, split.group))
+
+    def rows_of(t):       # every rank of the group takes part
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n * split.size - s))
+        return comm.all_to_all(t, 1, 2, split.group)[:, :max(e - c0, 0)]
+
+    return rows_of(k), rows_of(v)
+
+
+def _prefill_split(cfg, p: dict, x: torch.Tensor, cache: KVCache, split,
+                   seq_split: bool):
+    """:func:`attn_prefill` on rank ``split.rank``'s heads
+    (:func:`_rank_heads`, so past ``CHUNK_THRESHOLD`` tokens the flash
+    kernel runs on the rank's heads), the output product's parts summed
+    over the model axis; the rank writes its block of the cache, the
+    prompt's rows it holds for every kv head (:func:`_prompt_rows`)."""
+    from repro_torch.distributed import comm
+    s = x.shape[1]
+    out, k, v, pr = _rank_heads(cfg, p, x, torch.arange(
+        s, device=x.device)[None], True, split)
+    c0, _ = _cache_rows(cache, split, seq_split)
+    rows = _prompt_rows(cfg, p, x, k, v, c0, cache.k.shape[1], split,
+                        seq_split)
+    if rows is not None:
+        m = rows[0].shape[1]        # 0: the prompt ends before the block
+        cache.k[:, :m] = rows[0].to(cache.k.dtype)
+        cache.v[:, :m] = rows[1].to(cache.v.dtype)
+    return comm.reduce_from(out @ pr["wo"].to(x.dtype), split.group), cache
+
+
+def _sdpa_rows(q, k, v, mask, group) -> torch.Tensor:
+    """``_sdpa`` of q (B, Sq, H, dh) over the cache rows each rank of
+    ``group`` holds (k / v (B, n, KV, dh), ``mask`` (B|1, Sq, n)), the
+    ranks' parts combined by log-sum-exp: the maximum score over every
+    rank's unmasked rows, then the values they weight and the sums of
+    the exponentials, summed over the group in one collective (each
+    entry's sum as two would give it).  fp32 scores and sums, as
+    ``_sdpa``; a rank whose rows are all masked adds exact zeros."""
+    from repro_torch.distributed import comm
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    q = q.reshape(b, sq, kv, h // kv, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float(),
+                     k.float()) / math.sqrt(float(hd))
+    s = torch.where(mask[:, None, None, :, :], s,
+                    torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+    m = comm.all_max(s.amax(dim=-1, keepdim=True), group)
+    e = torch.exp(s - m)
+    num = torch.einsum("bkgqs,bskh->bqkgh", e, v.float())
+    den = e.sum(dim=-1).permute(0, 3, 1, 2)[..., None]    # (b, q, kv, g, 1)
+    both = comm.all_sum(torch.cat([num, den], dim=-1), group)
+    out = both[..., :hd] / both[..., hd:]
+    return out.to(v.dtype).reshape(b, sq, h * hd)
+
+
+def _decode_split(cfg, p: dict, x: torch.Tensor, cache: KVCache, pos: int,
+                  split, seq_split: bool):
+    """:func:`attn_decode` on the rank's block of the cache: q, k and v of
+    every head (the rank's heads projected and all-gathered over the model
+    axis, a few hundred bytes a token; or projected whole where the
+    weights reach the rank whole); the new row written only by the rank
+    that holds row ``min(pos, S_max - 1)``; every head attends over the
+    rank's rows and the ranks' parts combine by log-sum-exp
+    (:func:`_sdpa_rows`; where the sequence is not split, every rank holds
+    every row and attends alone); the output's slice of the rank's heads
+    goes through its rows of ``wo``, the parts summed over the model
+    axis.  A rank without a head takes part in every collective."""
+    from repro_torch.distributed import comm
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k, v = _project_qkv(cfg, p, x, torch.full((b, 1), pos,
+                                                 device=x.device))
+    q = _all_heads(q, cfg.n_heads, split)
+    k = _all_heads(k, cfg.n_kv_heads, split)
+    v = _all_heads(v, cfg.n_kv_heads, split)
+    c0, s_max = _cache_rows(cache, split, seq_split)
+    n = cache.k.shape[1]
+    row = min(max(pos, 0), s_max - 1) - c0
+    if 0 <= row < n:
+        cache.k[:, row] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, row] = v[:, 0].to(cache.v.dtype)
+    mask = (c0 + torch.arange(n, device=x.device))[None, None, :] <= pos
+    if seq_split:
+        out = _sdpa_rows(q, cache.k, cache.v, mask, split.group)
+    else:
+        out = _sdpa(cfg, q, cache.k, cache.v, mask)
+    h0, h1, _, _ = head_split(cfg, split)
+    wo = L.take(p["wo"], -2, h0 * hd, h1 * hd)
+    return comm.reduce_from(out[..., h0 * hd:h1 * hd] @ wo.to(x.dtype),
+                            split.group), cache
 
 
 # -- paged (block-table) KV cache ---------------------------------------------

@@ -18,7 +18,10 @@ each rank of a model group computes its range of the MLP's hidden units
 (:func:`embed_rows`, :func:`softmax_xent`, :func:`fused_xent_from_hidden`),
 the input entering through ``comm.copy_to`` and the partial results
 summed by ``comm.reduce_from``, so the residual stream is whole and the
-same on every rank of the group between the split products.
+same on every rank of the group between the split products.  Serving on a
+mesh takes the same hook and split (``distributed.sharding.serving_view``),
+forward only, with the KV cache's sequence split too
+(:func:`cache_seq_split`).
 """
 from __future__ import annotations
 
@@ -80,6 +83,13 @@ def model_split(use: Callable) -> Optional[ModelSplit]:
     step's under the ``tp`` strategy on a model axis of more than one
     rank), else None: every product whole."""
     return getattr(use, "split", None)
+
+
+def cache_seq_split(use: Callable) -> bool:
+    """Whether the serving hook ``use`` hands the model the rank's block
+    of the KV cache's sequence over the model axis (flash-decoding,
+    ``distributed.sharding.serving_view``), rather than every row."""
+    return bool(getattr(use, "seq_split", False))
 
 
 def take(t: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:

@@ -188,16 +188,29 @@ def moe_apply_sharded(cfg, p: dict, x: torch.Tensor, mesh,
 
 
 def moe_apply_ep_tp(cfg, p: dict, x: torch.Tensor, mesh,
-                    model_axis: str = "model", ff_axis: str = "data"):
+                    model_axis: str = "model", ff_axis: str = "data",
+                    batch_axes: tuple = ()):
     """Weights-stationary MoE for decode: experts split over
     ``model_axis`` and each expert's FFN dimension over ``ff_axis``, so
     no weight moves.  x (B, S, D) is the same on every rank; the expert
     weights are this rank's blocks (w_gate / w_up (E/M, D, F/Df), w_down
     (E/M, F/Df, D)).  SiLU(gate) * up is elementwise in F, so each rank's
     FFN block gives a partial sum of its experts' outputs; one sum over
-    both axes combines them.  Returns ``(y, aux)``."""
-    return _ep_body(cfg, p["router"], p["w_gate"], p["w_up"], p["w_down"],
-                    x, mesh, (ff_axis, model_axis))
+    both axes combines them.  Where x is this rank's block of a batch
+    split over ``batch_axes`` (the serving step's dp axes), x is
+    all-gathered over them first, as JAX's shard_map takes it replicated
+    (a few KB a token), and the rank's block of y taken back.  Returns
+    ``(y, aux)``."""
+    from repro_torch.distributed import comm
+    axes = [a for a in batch_axes if comm.axis_size(mesh, (a,)) > 1]
+    b, block = x.shape[0], 0
+    for a in reversed(axes):            # the major axis gathers last
+        x = comm.all_concat(x, 0, mesh.get_group(a))
+    for a in axes:
+        block = block * comm.axis_size(mesh, (a,)) + mesh.get_local_rank(a)
+    y, aux = _ep_body(cfg, p["router"], p["w_gate"], p["w_up"],
+                      p["w_down"], x, mesh, (ff_axis, model_axis))
+    return y.narrow(0, block * b, b), aux
 
 
 def _ep_body(cfg, router, wg, wu, wd, x, mesh, sum_axes: tuple):

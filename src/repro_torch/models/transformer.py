@@ -24,7 +24,11 @@ master tensors and ``forward`` / ``loss`` take it, mirroring the JAX API
 
 Serving, as the JAX model: a dense KV cache per layer (``init_cache``,
 ``prefill`` with the vlm family's ``embeds``, ``decode_step`` at the
-cache's position) and a paged block pool shared by the serving slots
+cache's position; on a mesh, under ``distributed.sharding.serving_view``,
+each on the rank's parameter blocks and its block of the cache, the
+heads, MLP and vocabulary split over ``model`` as in training and the
+cache's sequence split over it too, the logits whole on every rank) and
+a paged block pool shared by the serving slots, without a mesh
 (``init_paged_cache``, ``prefill_paged`` one chunk of one slot,
 ``decode_paged`` every slot at its own position; ``serve/``).  Each runs
 under ``torch.inference_mode`` and writes the cache in place.  Learned
@@ -51,6 +55,13 @@ def _pos_rows(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """``table[positions]`` with the indices clamped to the table, as the
     JAX package's gathers and ``dynamic_slice`` clamp them."""
     return table[torch.clamp(positions, 0, table.shape[0] - 1)]
+
+
+def _no_split() -> None:
+    """The paged cache serves without a mesh, as the JAX package's
+    engines do."""
+    if L.model_split(L.gather_hook()) is not None:
+        raise ValueError("the paged cache runs without a model split")
 
 
 class TransformerLM(nn.Module):
@@ -151,9 +162,10 @@ class TransformerLM(nn.Module):
             return L.mlp_apply(cfg, bp["mlp"], h, split), None
         if self.mesh is not None and cfg.moe.impl == "sort":
             names = self.mesh.mesh_dim_names or ()
-            if self.moe_mode == "decode":
-                return MOE.moe_apply_ep_tp(cfg, bp["moe"], h, self.mesh)
             dp = tuple(a for a in ("pod", "data") if a in names)
+            if self.moe_mode == "decode":
+                return MOE.moe_apply_ep_tp(cfg, bp["moe"], h, self.mesh,
+                                           batch_axes=dp)
             gather = tuple(a for a in ("data",) if a in names)
             return MOE.moe_apply_sharded(cfg, bp["moe"], h, self.mesh,
                                          dp_axes=dp, gather_axes=gather)
@@ -254,17 +266,36 @@ class TransformerLM(nn.Module):
 
     # -- serving -------------------------------------------------------------
     def _serve_layers(self, params: dict, x: torch.Tensor, caches, attend):
-        """Every layer with ``attend(attn params, h, layer cache) -> (out,
-        ...)`` in place of full attention, then the final norm.  ``caches``
-        is a list of per-layer caches (views of the stacks)."""
+        """Every layer with ``attend(attn params, h, layer cache, split) ->
+        (out, ...)`` in place of full attention, then the final norm.
+        ``caches`` is a list of per-layer caches (views of the stacks).
+        The parameters pass the gather hook layer by layer, as in
+        ``_trunk``; under a serving split (``sharding.serving_view``) the
+        MLP and the attention run on the rank's blocks."""
         cfg = self.cfg
-        layers = L.unstack(params["blocks"], cfg.n_layers)
+        use = L.gather_hook()
+        split = L.model_split(use)
+        layers = L.unstack(use(params["blocks"], "blocks", stack=True),
+                           cfg.n_layers)
         for bp, cache in zip(layers, caches):
+            bp = use(bp, "blocks")
             h = L.apply_norm(cfg, bp["norm1"], x)
-            x = x + attend(bp["attn"], h, cache)[0]
-            y, _ = self._moe_or_mlp(bp, L.apply_norm(cfg, bp["norm2"], x))
+            x = x + attend(bp["attn"], h, cache, split)[0]
+            y, _ = self._moe_or_mlp(bp, L.apply_norm(cfg, bp["norm2"], x),
+                                    split)
             x = x + y
-        return L.apply_norm(cfg, params["final_norm"], x)
+        return L.apply_norm(cfg, use(params["final_norm"], "final_norm"), x)
+
+    def _whole_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """The serving paths' logits: every rank's vocabulary block
+        concatenated over the model axis under the vocabulary's split, so
+        each rank returns the whole (B, S, V)."""
+        logits = self._lm_head(params, x)
+        split = self._vocab_split(L.gather_hook())
+        if split is None:
+            return logits
+        from repro_torch.distributed import comm
+        return comm.all_concat(logits, -1, split.group)
 
     def _embed(self, params: dict, tokens: torch.Tensor, positions=None,
                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -305,10 +336,11 @@ class TransformerLM(nn.Module):
         x = self._embed(params, tokens, embeds=embeds)
         kv = cache["kv"]
         caches = [A.KVCache(k, v) for k, v in zip(kv.k, kv.v)]
+        seq = L.cache_seq_split(L.gather_hook())
         x = self._serve_layers(
             params, x, caches,
-            lambda p, h, c: A.attn_prefill(cfg, p, h, c))
-        return (self._lm_head(params, x[:, -1:, :]),
+            lambda p, h, c, split: A.attn_prefill(cfg, p, h, c, split, seq))
+        return (self._whole_logits(params, x[:, -1:, :]),
                 {"kv": kv, "pos": x.shape[1]})
 
     @torch.inference_mode()
@@ -321,10 +353,12 @@ class TransformerLM(nn.Module):
             (1, 1), pos, device=tokens.device))
         kv = cache["kv"]
         caches = [A.KVCache(k, v) for k, v in zip(kv.k, kv.v)]
+        seq = L.cache_seq_split(L.gather_hook())
         x = self._serve_layers(
             params, x, caches,
-            lambda p, h, c: A.attn_decode(cfg, p, h, c, pos))
-        return self._lm_head(params, x), {"kv": kv, "pos": pos + 1}
+            lambda p, h, c, split: A.attn_decode(cfg, p, h, c, pos, split,
+                                                 seq))
+        return self._whole_logits(params, x), {"kv": kv, "pos": pos + 1}
 
     # -- paged serving (block-table KV cache; see serve/kv_cache.py) --------
     @torch.inference_mode()
@@ -347,13 +381,14 @@ class TransformerLM(nn.Module):
         p0 + C - 1, block_table (nbt,); returns ``(logits (1, 1, V) at
         chunk index last_idx (the last real prompt token), pool)``."""
         cfg = self.cfg
+        _no_split()
         c = tokens.shape[1]
         x = self._embed(params, tokens, positions=(
             p0 + torch.arange(c, device=tokens.device))[None])
         x = self._serve_layers(
             params, x, list(zip(pool["k"], pool["v"])),
-            lambda p, h, kv: A.attn_prefill_paged(cfg, p, h, *kv,
-                                                  block_table, p0))
+            lambda p, h, kv, split: A.attn_prefill_paged(
+                cfg, p, h, *kv, block_table, p0))
         return self._lm_head(params, x[:, last_idx:last_idx + 1]), pool
 
     @torch.inference_mode()
@@ -363,9 +398,10 @@ class TransformerLM(nn.Module):
         block_tables (B, nbt), positions (B,).  Idle rows point at the null
         block.  Returns ``(logits (B, 1, V), pool)``."""
         cfg = self.cfg
+        _no_split()
         x = self._embed(params, tokens, positions=positions[:, None])
         x = self._serve_layers(
             params, x, list(zip(pool["k"], pool["v"])),
-            lambda p, h, kv: A.attn_decode_paged(cfg, p, h, *kv,
-                                                 block_tables, positions))
+            lambda p, h, kv, split: A.attn_decode_paged(
+                cfg, p, h, *kv, block_tables, positions))
         return self._lm_head(params, x), pool

@@ -75,27 +75,9 @@ class _MeshStep:
         self.dp = (spec0 if isinstance(spec0, tuple)
                    else (spec0,) if spec0 else ())
         self.n_dp = comm.axis_size(self.mesh, self.dp)
-        self.model_split, self.products = self._split_products(model)
+        self.model_split, self.products = SH.model_products(model,
+                                                            self.mesh)
         self.use = self.splits = None
-
-    def _split_products(self, model):
-        """``(split, products)``: the ``layers.ModelSplit`` of the mesh's
-        model axis and the model's ``split_products`` under it, where the
-        strategy is ``tp``, the axis has more than one rank and the model
-        declares them (None to keep every leaf on the gather route);
-        else ``(None, {})``."""
-        from repro_torch.models.layers import ModelSplit
-        names = self.mesh.mesh_dim_names or ()
-        declare = getattr(model, "split_products", None)
-        if (declare is None or "model" not in names or getattr(
-                model.cfg, "parallel_strategy", "tp") != "tp"
-                or self.mesh.size(names.index("model")) == 1):
-            return None, {}
-        split = ModelSplit(self.mesh.get_group("model"),
-                           self.mesh.get_local_rank("model"),
-                           self.mesh.size(names.index("model")))
-        products = declare(split)
-        return (split, products) if products else (None, {})
 
     def gather_at_use(self, shapes: dict):
         """The step's ``sharding.GatherAtUse`` for parameters of whole

@@ -688,9 +688,11 @@ def worker(rank: int, port: int, inp_path: str, out: str):
         dist.destroy_process_group()
 
 
-def spawn(inp: dict, out: str, timeout_s: float = 600.0) -> None:
-    """Run the scenarios on 8 gloo ranks; results under ``out``.  Raises
-    if a rank fails, or (the ranks killed) if they take over
+def spawn(inp: dict, out: str, timeout_s: float = 600.0,
+          target=None) -> None:
+    """Run the scenarios (``target(rank, port, inputs path, out)``, by
+    default :func:`worker`) on 8 gloo ranks; results under ``out``.
+    Raises if a rank fails, or (the ranks killed) if they take over
     ``timeout_s``."""
     import socket
     import time
@@ -701,7 +703,7 @@ def spawn(inp: dict, out: str, timeout_s: float = 600.0) -> None:
     inp_path = os.path.join(out, "inputs.pkl")
     with open(inp_path, "wb") as f:
         pickle.dump(inp, f)
-    ctx = mp.start_processes(worker, args=(port, inp_path, out),
+    ctx = mp.start_processes(target or worker, args=(port, inp_path, out),
                              nprocs=WORLD, join=False,
                              start_method="spawn")
     deadline = time.monotonic() + timeout_s

@@ -654,6 +654,42 @@ def test_split_products_cut_a_ranks_flops(fake_group):
     assert {whole["routes"][k] for k in split_leaves} == {"gather"}
 
 
+@pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])
+def test_serving_cells_run_on_each_ranks_blocks(cell, fake_group):
+    """The smoke Qwen2-7B serving cells on the test preset's 8 fake ranks
+    (pod 2, data 2, model 2), on the serving view (the heads, MLP and
+    vocabulary over ``model``, the cache's sequence kept split) and on the
+    whole route (the model declaring no split products: every leaf and
+    the cache's sequence gathered first): both store JAX's per-rank
+    parameter and cache bytes, the record names each leaf's route (the
+    attention, MLP and vocabulary leaves blocks; "whole" everywhere on
+    the whole route), and the split's step peaks lower with fewer FLOPs a
+    rank."""
+    mesh = make_fake_mesh(*D.TEST_MESH)
+    recs = {}
+    for split in (True, False):
+        c = D.build_cell("qwen2-7b", cell, mesh, smoke=True)
+        if not split:
+            c.model.split_products = None
+        recs[split] = D.measure(c)
+    tp, whole = recs[True], recs[False]
+    print(f"{cell}: peak a rank split {tp['peak_bytes']} vs whole "
+          f"{whole['peak_bytes']} B; flops {tp['flops']:.4g} vs "
+          f"{whole['flops']:.4g}; collectives split {tp['collectives']}")
+    want = _jax_serve_bytes("qwen2-7b", cell)
+    for rec in recs.values():
+        assert (rec["param_bytes"], rec["cache_bytes"]) == want
+    leaves = [f"blocks/attn/{k}" for k in ("wq", "wk", "wv", "wo", "bq",
+                                           "bk", "bv")]
+    leaves += [f"blocks/mlp/{k}" for k in ("w_gate", "w_up", "w_down")]
+    leaves += ["embed", "lm_head"]
+    assert {k: tp["routes"][k] for k in leaves} == dict.fromkeys(leaves,
+                                                                 "block")
+    assert set(whole["routes"].values()) == {"whole"}
+    assert tp["peak_bytes"] < whole["peak_bytes"]
+    assert tp["flops"] < whole["flops"]
+
+
 def test_probe_memory_stages_bisect_the_step(fake_group):
     """``tools/probe_memory.py``'s stages on a smoke train cell over 8
     fake ranks: each peaks above the placed state it starts from, the

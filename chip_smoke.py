@@ -139,21 +139,27 @@ sm_90a) and the CUDA toolkit.  In order, it
      step), holds its per-rank parameter and optimizer-state bytes
      exactly to a 2-step ``--mesh 1,1`` run on the card and to [mesh]'s
      final state, and holds the card's fold-step max_memory_allocated
-     within 0.97-1.03 of its predicted peak; [mesh] last trains the
-     smoke GPT-2 with --mesh 1,2 on two gloo ranks on cuda:0 (the
-     products split over model: two heads, half the MLP and half the
-     vocabulary a rank; ``scripts/mesh_ranks.py --ranks-only``, a
-     subprocess) and holds its losses to the run without a mesh at rtol
-     1e-3; and serves on the same two ranks at --mesh 1,2 (the heads, MLP
-     and vocabulary split over model, the KV cache's sequence kept split;
-     ``scripts/mesh_ranks.py --serve --full --ranks-only``), after holding
-     B6's forward to its plain version at the shapes a rank gives it: the
-     smoke Qwen2-7B at head_dim 64 in fp32 compute, then Qwen2-7B at full
-     width and depth in bf16, each prefilling 2 x 8192 tokens, so B6 runs
-     on each rank's heads (one launch a layer a rank), then 8 decode
-     steps, every step's logits held to the run without a mesh in this
-     process at ``TOL_SERVE_MESH`` / ``TOL_SERVE_DENSE`` and the greedy
-     tokens equal but at a tie;
+     within 0.97-1.03 of its predicted peak; [mesh] last runs two gloo
+     ranks sharing cuda:0 at --mesh 1,2 in one subprocess and one spawn
+     (``scripts/mesh_ranks.py --ranks-only --case all --mesh 1,2 --serve
+     --full``): they train the smoke GPT-2, the smoke Mamba2-370m and
+     Zamba2-2.7B and Mamba2-370m at full width (12 of 48 layers, 3
+     steps), the products split over model (half the heads, SSM heads
+     included, the MLP and the vocabulary a rank), their losses held to
+     the runs without a mesh at rtol 1e-3 and B7's launches a rank to
+     the depth's; then they serve (the heads, MLP and vocabulary split
+     over model, the KV cache's sequence kept split, the Mamba states'
+     heads too) the smoke Qwen2-7B at head_dim 64, Mamba2-370m and
+     Zamba2-2.7B in fp32 compute, then Qwen2-7B at full width and depth
+     (28 layers) and Zamba2-2.7B at full width (12 of 54 layers) in
+     bf16, prefilling 2 x 8192 tokens (1024 for the smoke SSM models),
+     so B6 and B7 run on each rank's heads (one launch a layer a rank),
+     then 8 decode steps (no B6 or B7 launch), every step's logits held
+     to the run without a mesh in this process at ``TOL_SERVE_MESH`` /
+     ``TOL_SERVE_DENSE`` / ``TOL_SERVE_SSM`` and the greedy tokens equal
+     but at a tie; before the spawn, B6's forward and B7's forward and
+     backward are held to their plain versions at the shapes a rank
+     gives them;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
      them against ``BENCH_memory.json``, and those of
@@ -588,7 +594,7 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evs = prof.key_averages()
+        evs = averages(prof)
         us = sum(e.self_device_time_total for e in evs
                  if kernel is None or kernel in e.key)
         if us > 0:
@@ -2571,12 +2577,12 @@ def step_breakdown(device, ocfg, model_cfg=None):
             opt_state, t_opt = timed(opt_part)
         kind = "refresh" if t == 6 else "fold"
         kernel_records(prof, f"step {t} ({kind})")
-        busy = sum(e.self_device_time_total for e in prof.key_averages())
+        busy = sum(e.self_device_time_total for e in averages(prof))
         wall = t_model + t_opt
         print(f"  step {t} ({kind}, profiled): model fwd+bwd {t_model:.4f} "
               f"s, optimizer {t_opt:.4f} s; device busy {busy / 1e6:.4f} s "
               f"of {wall:.4f} s (idle share {1 - busy / 1e6 / wall:.3f})")
-        top = sorted(prof.key_averages(),
+        top = sorted(averages(prof),
                      key=lambda e: -e.self_device_time_total)[:8]
         for e in top:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
@@ -2607,7 +2613,7 @@ def codec_cost(opt_state):
         codec()
         torch.cuda.synchronize()
     kernel_records(prof, "int8 codec")
-    evs = prof.key_averages()
+    evs = averages(prof)
     print(f"  int8 codec per step ({len(leaves)} leaves, dequantize + "
           f"requantize Q and U): stream {stream:.4f} ms, device "
           f"{sum(e.self_device_time_total for e in evs) / 1e3:.4f} ms, "
@@ -3106,12 +3112,20 @@ def same_as_mixed(what: str, state, mixed_state: list) -> None:
           f"[train-mixed] bitwise equal")
 
 
+def averages(prof):
+    """``prof.key_averages()``, computed once a profile: each call walks
+    every event again (seconds for a refresh step's profile)."""
+    if not hasattr(prof, "_chip_smoke_averages"):
+        prof._chip_smoke_averages = prof.key_averages()
+    return prof._chip_smoke_averages
+
+
 def kernel_records(prof, what: str) -> None:
     """Fail unless the profile ``prof`` of ``what``, work known to launch
     kernels, holds a kernel record: a profile that lost them all would
     read no copies and no busy time."""
     from torch.autograd import DeviceType
-    n = sum(e.count for e in prof.key_averages()
+    n = sum(e.count for e in averages(prof)
             if e.device_type == DeviceType.CUDA
             and not e.key.startswith(("Memcpy", "Memset")))
     if n == 0:
@@ -3129,7 +3143,7 @@ def dtoh_copies(fn) -> int:
         fn()
         torch.cuda.synchronize()
     kernel_records(prof, "device-to-host copies")
-    return sum(e.count for e in prof.key_averages()
+    return sum(e.count for e in averages(prof)
                if "Memcpy DtoH" in e.key)
 
 
@@ -3240,13 +3254,13 @@ def mesh_phase(mixed_state: list, mixed_info: dict, mixed_expect: dict,
          olmoe_state, kept["st"])
     del kept
     dist.destroy_process_group()
-    mesh_ranks_run(card)
-    runs["serve-mesh"] = mesh_serve_run(card)
+    runs["mesh-ranks"], runs["serve-mesh"] = mesh_gloo_run(card)
     print(f"  [mesh] {time.monotonic() - t0:.1f} s")
     return runs
 
 
 # [mesh]'s two-rank run: the smoke GPT-2 as scripts/mesh_ranks.py trains it
+# (its smoke SSM cases the same way)
 MESH_RANKS_ARGV = ["--arch", "gpt2-117m", "--smoke", "--steps", "6",
                    "--fused-update", "--refresh-every", "5", "--log-every",
                    "1", "--device", "cuda"]
@@ -3260,127 +3274,219 @@ TOL_MESH_RANKS = 1e-3        # the CPU tests' cross-mesh tolerance
 TOL_SERVE_MESH = 1e-4
 
 
-def mesh_serve_run(card: str) -> tuple:
-    """[mesh]'s serving cases at --mesh 1,2 on two gloo ranks sharing
-    cuda:0 (``scripts/mesh_ranks.py --serve --full --ranks-only``, a
-    subprocess): the smoke Qwen2-7B at head_dim 64 (4 q / 2 kv heads, 2
-    layers) in fp32 compute, then Qwen2-7B at full width and depth (28
-    layers) in bf16, each a prefill of 2 x 8192 tokens (B6 on each rank's
-    heads) and 8 decode steps on each rank's blocks, the cache's sequence
-    split.  First B6's forward is held to its plain version at the shapes
-    a rank gives it, then each case runs without a mesh in this process
-    (its memory freed before the ranks start); every step's logits are
-    held to it (``TOL_SERVE_MESH``, ``TOL_SERVE_DENSE``), the greedy
-    tokens equal but at a tie (:func:`parting`), each rank's B6 forward
-    launches one a layer.  Returns ``(the ranks' launches summed over
-    both cases, info)``."""
-    import torch
-    phase("[mesh] serving on two gloo ranks on cuda:0, --mesh 1,2: smoke "
-          "Qwen2-7B at head_dim 64 in fp32, then Qwen2-7B whole in bf16, "
-          "each a prefill of 2 x 8192 (B6 on each rank's heads) and 8 "
-          "decode steps, the KV cache's sequence split over model")
-    t0 = time.monotonic()
+def mesh_ranks_module():
+    """``scripts/mesh_ranks.py`` as a module."""
     spec = importlib.util.spec_from_file_location(
         "mesh_ranks", ROOT / "scripts" / "mesh_ranks.py")
     MR = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(MR)
-    cases = MR.serve_cases(full=True)
+    return MR
+
+
+def ssd_rank_held(device, name: str, cfg, batch: int, seq: int,
+                  ranks: int, backward: bool = True) -> None:
+    """B7's forward (and, ``backward``, its backward: :func:`check_ssd`)
+    held to its plain version at the shape a rank of a model axis of
+    ``ranks`` gives it in ``cfg``'s Mamba2 block, in its compute dtype."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    s = cfg.ssm
+    nh = s.expand * cfg.d_model // s.head_dim
+    shape = (batch, seq, nh // ranks, s.n_groups, s.head_dim, s.d_state,
+             s.chunk)
+    name = f"{name}, a rank of --mesh 1,{ranks}"
+    if backward:
+        check_ssd(device, [(name, shape, (cfg.dtype,), True)], timed=None)
+        return
+    gen = torch.Generator(device=device).manual_seed(12)
+    with torch.inference_mode():
+        ins = ssd_inputs(gen, shape, getattr(torch, cfg.dtype), device)
+        got, again = ops.ssd_chunk_fwd(*ins), ops.ssd_chunk_fwd(*ins)
+        want = ref.ssd_chunk(*ins)
+        torch.cuda.synchronize()
+        errs = hold(f"ssd_chunk {name}", ("y",), (TOL_SSD,), (got,), (want,),
+                    new_rec(), (again,))
+    print(f"  ssd_chunk {name} {shape} {cfg.dtype} fwd: {errs}")
+
+
+def mesh_gloo_run(card: str) -> tuple:
+    """[mesh]'s cases on two gloo ranks sharing cuda:0 at --mesh 1,2 (NCCL
+    refuses two ranks on one device), all in one subprocess and one
+    spawn (``scripts/mesh_ranks.py --ranks-only --case all --mesh 1,2
+    --serve --full``): first the training cases of
+    ``mesh_ranks.TRAIN_CASES`` (the smoke GPT-2, the smoke Mamba2-370m
+    and Zamba2-2.7B, Mamba2-370m at full width, 12 of 48 layers), the
+    products split over ``model``, then the serving cases, each a prefill
+    of 2 prompts and 8 decode steps on each rank's blocks, the KV cache's
+    sequence split: the smoke Qwen2-7B at head_dim 64 (4 q / 2 kv heads,
+    2 layers) in fp32 compute at 8192 tokens (B6 on each rank's heads),
+    the smoke Mamba2-370m and Zamba2-2.7B in fp32 at 1024 (B7 on each
+    rank's SSM heads), then Qwen2-7B at full width and depth (28 layers)
+    and Zamba2-2.7B at full width (12 of 54 layers,
+    ``mesh_ranks.SERVE_DEPTH``: 2 shared-block applications) in bf16 at
+    8192.  Before the spawn B7's forward and backward (training) and
+    B6's and B7's forwards (serving) are held to their plain versions at
+    the shapes a rank gives them (:func:`ssd_rank_held`,
+    :func:`flash_fwd_held`), and each case runs without a mesh in this
+    process (its memory freed before the ranks start).  Each training
+    case's losses are held to its run at rtol ``TOL_MESH_RANKS`` and
+    each rank's B7 launches are those the depth implies
+    (``mesh_ranks.train_launches``); every serving step's logits are
+    held to its run (``TOL_SERVE_MESH``, ``TOL_SERVE_DENSE``,
+    ``TOL_SERVE_SSM``), the greedy tokens equal but at a tie
+    (:func:`parting`), and every run's launches in the prefill and in
+    decode are those the depth implies (``mesh_ranks.expected_launches``:
+    B7 once a Mamba2 layer and B6 once an attention layer past 4096
+    tokens in the prefill, neither in decode).  Returns ``((the ranks'
+    training launches summed over the cases, info), (the same of
+    serving))``."""
+    import torch
+    MR = mesh_ranks_module()
     device = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    phase("[mesh] two gloo ranks on cuda:0, --mesh 1,2 (heads, SSM heads, "
+          "MLP and vocabulary split over model), training: "
+          + "; ".join(" ".join(a) for a in MR.TRAIN_CASES.values()))
+    train_refs, held = {}, set()
+    for case in MR.TRAIN_CASES:
+        cfg = MR.train_config(case)
+        batch, seq = MR.TRAIN_SHAPE[case]
+        if cfg.ssm is not None and (cfg.ssm, batch, seq) not in held:
+            ssd_rank_held(device, f"{case} {cfg.arch} training", cfg,
+                          batch, seq, 2)
+            held.add((cfg.ssm, batch, seq))
+        train_refs[case] = MR.run_case(case)
+        MR.free_memory()
+    phase("[mesh] serving on the same two ranks, --mesh 1,2: smoke Qwen2-7B "
+          "at head_dim 64, smoke Mamba2-370m and Zamba2-2.7B in fp32, then "
+          "Qwen2-7B and Zamba2-2.7B at full width in bf16, each a prefill "
+          "(B6 / B7 on each rank's heads) and 8 decode steps, the KV "
+          "cache's sequence and the Mamba states' heads split over model")
+    serve_cases = MR.serve_cases(full=True)
     gen = torch.Generator(device=device).manual_seed(11)
-    layers, refs = {}, {}
-    for case in cases:
+    serve_refs = {}
+    for case in serve_cases:
         cfg = MR.serve_config(case)
-        layers[case] = cfg.n_layers
-        shape = (MR.SERVE_BATCH, MR.SERVE_PROMPT, MR.SERVE_PROMPT,
-                 cfg.n_heads // MR.SERVE_MESH[1],
-                 cfg.n_kv_heads // MR.SERVE_MESH[1], cfg.resolved_head_dim)
-        with torch.inference_mode():
-            got = flash_fwd_held(device, gen, f"{case} qwen2-7b, a rank of "
-                                 f"--mesh 1,2", shape,
-                                 getattr(torch, cfg.dtype), new_rec())
-        del got
+        prompt = MR.SERVE_CASES[case][0]
+        m = MR.SERVE_MESH[1]
+        if MR.expected_launches(case)["prefill"]["flash_fwd"]:
+            shape = (MR.SERVE_BATCH, prompt, prompt, cfg.n_heads // m,
+                     max(cfg.n_kv_heads // m, 1), cfg.resolved_head_dim)
+            with torch.inference_mode():
+                got = flash_fwd_held(device, gen, f"{case} {cfg.arch}, a "
+                                     f"rank of --mesh 1,2", shape,
+                                     getattr(torch, cfg.dtype), new_rec())
+            del got
+        if cfg.ssm is not None:
+            ssd_rank_held(device, f"{case} {cfg.arch}", cfg, MR.SERVE_BATCH,
+                          prompt, m, backward=False)
         MR.free_memory()
-        refs[case] = MR.serve_case(case, device)
-        if refs[case]["launches"]["flash_fwd"] != layers[case]:
-            fail(f"[mesh] {case} serving without a mesh: "
-                 f"{refs[case]['launches']} B6 launches, {layers[case]} "
-                 f"expected")
+        serve_refs[case] = MR.serve_case(case, device)
+        if not MR.launches_held(case, serve_refs[case]["launches"]):
+            fail(f"[mesh] {case} serving without a mesh: launches "
+                 f"{serve_refs[case]['launches']}, "
+                 f"{MR.expected_launches(case)} expected")
         MR.free_memory()
-    out = ROOT / "build" / "mesh_serve.json"
+    refs_s = time.monotonic() - t0
+    out = ROOT / "build" / "mesh_ranks.json"
     out.unlink(missing_ok=True)
+    t_spawn = time.monotonic()
     proc = subprocess.run(
-        [sys.executable, str(ROOT / "scripts" / "mesh_ranks.py"), "--serve",
-         "--full", "--ranks-only", "--json", str(out)],
-        capture_output=True, text=True, timeout=600)
+        [sys.executable, str(ROOT / "scripts" / "mesh_ranks.py"),
+         "--ranks-only", "--case", "all", "--mesh", "1,2", "--serve",
+         "--full", "--json", str(out)], capture_output=True, text=True,
+        timeout=900)
+    spawn_s = time.monotonic() - t_spawn
     res = json.loads(out.read_text()) if out.exists() else {
-        "error": "no result"}
+        "train": {"error": "no result"}, "serve": {"error": "no result"}}
+    said = f"\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}"
+    train = mesh_train_held(MR, res["train"], train_refs, said)
+    serve = mesh_serve_held(MR, res["serve"], serve_refs, str(out), said)
+    cases_s = sum(i["rank_seconds"] for c, i in train[1].items()) + sum(
+        max(i["rank_seconds"]) for i in serve[1].values())
+    seconds = time.monotonic() - t0
+    train[1]["seconds"] = serve[1]["seconds"] = seconds
+    train[1]["spawn_seconds"] = spawn_s
+    print(f"  two gloo ranks: {seconds:.1f} s, of which the holds and the "
+          f"runs without a mesh {refs_s:.1f} s, the subprocess "
+          f"{spawn_s:.1f} s (the ranks' start "
+          f"{res.get('startup_seconds', 0):.1f} s, their cases "
+          f"{cases_s:.1f} s) ({card})")
+    return train, serve
+
+
+def mesh_train_held(MR, res: dict, refs: dict, said: str) -> tuple:
+    """The training cases of a :func:`mesh_gloo_run` held (see there):
+    ``(the ranks' launches summed over the cases, info)``."""
     info, counts = {}, {}
-    for case in cases:
+    for case, ref in refs.items():
+        got = res.get(case, {}).get("1,2")
+        if got is None or "error" in res:
+            fail(f"[mesh] two ranks, {case}: "
+                 f"{res.get('error', 'no result')}{said}")
+        err = MR.losses_err(got, ref)
+        want = MR.train_launches(case)
+        per_rank = [{k: r[k] for k in want}
+                    for r in res[case]["1,2 launches"]]
+        if err > TOL_MESH_RANKS or per_rank != [want] * 2:
+            fail(f"[mesh] two ranks, {case}: losses {got} vs {ref} without "
+                 f"a mesh, largest relative difference {err:.3e}; B7 "
+                 f"launches a rank {per_rank} ({want} expected)")
+        for launched in res[case]["1,2 launches"]:
+            for k, n in launched.items():
+                counts[k] = counts.get(k, 0) + n
+        info[case] = {"max_rel_err": err, "losses": got, "ref": ref,
+                      "rank_seconds": res[case]["1,2 seconds"],
+                      "rank_peak_gib": res[case]["1,2 peak_gib"],
+                      "ssd_launches_per_rank": per_rank}
+        print(f"  {case} --mesh 1,2 on two gloo ranks on cuda:0: losses "
+              f"{got} vs {ref} without a mesh, largest relative difference "
+              f"{err:.3e} (rtol {TOL_MESH_RANKS}); B7 launches a rank "
+              f"{per_rank}; {res[case]['1,2 seconds']:.1f} s (rank 0), "
+              f"peak a rank {res[case]['1,2 peak_gib']} GiB")
+    return counts, info
+
+
+def mesh_serve_held(MR, res: dict, refs: dict, out: str, said: str) -> tuple:
+    """The serving cases of a :func:`mesh_gloo_run` held (see there):
+    ``(the ranks' launches summed over the cases, info)``."""
+    info, counts = {}, {}
+    for case, ref in refs.items():
         bad = MR.serve_errors(res, case)
         if bad:
-            fail(f"[mesh] {case} serving on two ranks: {bad}\n"
-                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+            fail(f"[mesh] {case} serving on two ranks: {bad}{said}")
         ranks = [r[case] for r in res["ranks"]]
-        err, ties = MR.hold_serve(case, refs[case], str(out))
+        err, ties = MR.hold_serve(case, ref, out)
         tol = MR.SERVE_TOL[case]
-        per_rank = [r["launches"]["flash_fwd"] for r in ranks]
-        if err > tol or ties < 0 or per_rank != [layers[case]] * 2:
+        per_rank = [{phase_: {k: r["launches"][phase_][k]
+                              for k in ("ssd_fwd", "flash_fwd")}
+                     for phase_ in ("prefill", "decode")} for r in ranks]
+        held = all(MR.launches_held(case, r["launches"]) for r in ranks)
+        if err > tol or ties < 0 or not held:
             fail(f"[mesh] {case} serving on two ranks: largest logit "
                  f"difference {err:.3e} (tolerance {tol}), greedy tokens "
-                 f"{'differ beyond a tie' if ties < 0 else 'equal'}, B6 "
-                 f"launches a rank {per_rank} ({layers[case]} expected)")
+                 f"{'differ beyond a tie' if ties < 0 else 'equal'}, "
+                 f"launches a rank {per_rank} "
+                 f"({MR.expected_launches(case)} expected)")
         for r in ranks:
-            for k, n in r["launches"].items():
-                counts[k] = counts.get(k, 0) + n
-        ref = refs[case]
+            for launched in r["launches"].values():
+                for k, n in launched.items():
+                    counts[k] = counts.get(k, 0) + n
         info[case] = {"max_rel_err": err, "tolerance": tol,
-                      "greedy_ties": ties, "b6_launches_per_rank": per_rank,
+                      "greedy_ties": ties, "launches_per_rank": per_rank,
                       "rank_seconds": [r["seconds"] for r in ranks],
                       "rank_peak_gib": [r["peak_gib"] for r in ranks],
                       "ref_seconds": ref["seconds"],
                       "ref_peak_gib": ref["peak_gib"]}
         print(f"  --mesh 1,2 serving, {case}: largest logit difference "
               f"{err:.3e} of the largest logit (tolerance {tol}), greedy "
-              f"tokens equal but {ties} ties; B6 forward launches a rank "
-              f"{per_rank}, {ref['launches']['flash_fwd']} without a mesh; "
-              f"prefill + {MR.SERVE_STEPS} steps {info[case]['rank_seconds']}"
-              f" s a rank, {ref['seconds']:.2f} s without a mesh; peak a "
-              f"rank {info[case]['rank_peak_gib']} GiB, "
-              f"{ref['peak_gib']:.2f} without a mesh")
-    info["seconds"] = time.monotonic() - t0
-    print(f"  serving cases: {info['seconds']:.1f} s ({card})")
+              f"tokens equal but {ties} ties; launches a rank {per_rank}, "
+              f"as the depth implies; prefill + {MR.SERVE_STEPS} steps "
+              f"{info[case]['rank_seconds']} s a rank, "
+              f"{ref['seconds']:.2f} s without a mesh; peak a rank "
+              f"{info[case]['rank_peak_gib']} GiB, {ref['peak_gib']:.2f} "
+              f"without a mesh")
     return counts, info
-
-
-def mesh_ranks_run(card: str) -> None:
-    """The smoke GPT-2 with ``--mesh 1,2`` on two gloo ranks sharing
-    cuda:0 (NCCL refuses two ranks on one device), the products split
-    over ``model``, through ``scripts/mesh_ranks.py --ranks-only`` in a
-    subprocess; its losses held to the run without a mesh in this
-    process at rtol ``TOL_MESH_RANKS``."""
-    from repro_torch.launch import train as launcher
-    phase("[mesh] two gloo ranks on cuda:0, --mesh 1,2 (heads, MLP and "
-          "vocabulary split over model): " + " ".join(MESH_RANKS_ARGV))
-    t0 = time.monotonic()
-    ref = [h["loss"] for h in launcher.main(MESH_RANKS_ARGV)[1]]
-    out = ROOT / "build" / "mesh_ranks.json"
-    out.unlink(missing_ok=True)
-    proc = subprocess.run(
-        [sys.executable, str(ROOT / "scripts" / "mesh_ranks.py"),
-         "--ranks-only", "--mesh", "1,2", "--json", str(out)],
-        capture_output=True, text=True, timeout=300)
-    res = json.loads(out.read_text()) if out.exists() else {}
-    if "1,2" not in res:
-        fail(f"[mesh] two ranks: {res.get('error', 'no result')}\n"
-             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-    err = max(abs(a - b) / abs(b) for a, b in zip(res["1,2"], ref))
-    if len(res["1,2"]) != len(ref) or err > TOL_MESH_RANKS:
-        fail(f"[mesh] two ranks: losses {res['1,2']} vs {ref} without a "
-             f"mesh, largest relative difference {err:.3e}")
-    print(f"  --mesh 1,2 on two gloo ranks on cuda:0: losses {res['1,2']} "
-          f"vs {ref} without a mesh, largest relative difference "
-          f"{err:.3e} (rtol {TOL_MESH_RANKS}); {time.monotonic() - t0:.1f} "
-          f"s ({card})")
 
 
 # [dryrun]: the card's fold-step peak over the dry run's prediction (the

@@ -1,45 +1,65 @@
 """Two ranks on one GPU under gloo: whether gloo's CUDA collectives carry
 the port's mesh training step (NCCL refuses two ranks on one device).
 
-The smoke GPT-2 (4 q / 2 kv heads of 16, d_ff 128, vocab 512), the
-launcher's mixed groups with --fused-update --refresh-every 5, batch 8 x
-128, 6 steps: first without a mesh in this process, then ``--mesh 1,2``
-(the products split over ``model``: two heads, half the MLP and half the
-vocabulary a rank) and ``--mesh 2`` (the batch split, every product
-whole) on two gloo ranks, both on cuda:0.  Each mesh run's losses are
-held to the run without a mesh at rtol 1e-3 (the CPU tests' cross-mesh
-tolerance).
+The training cases (``TRAIN_CASES``), each through the launcher with
+--fused-update --refresh-every 5 on its mixed groups: ``gpt2``, the smoke
+GPT-2 (4 q / 2 kv heads of 16, d_ff 128, vocab 512), batch 8 x 128, 6
+steps; ``mamba2`` and ``zamba2``, the smoke Mamba2-370m and Zamba2-2.7B
+the same way; ``mamba2-370m``, Mamba2-370m at full width, its depth cut
+to 12 of 48 layers (``TRAIN_DEPTH``), batch 2 x 1024, 3 steps (each
+case's batch and length in ``TRAIN_SHAPE``).  Each runs first without
+a mesh in this process, then ``--mesh 1,2`` (the products split over
+``model``: half the heads (SSM heads too), the MLP and the vocabulary a
+rank) and ``--mesh 2`` (the batch split, every product whole) on two
+gloo ranks, both on cuda:0.  Each mesh run's losses are held to the
+run without a mesh at rtol 1e-3 (the CPU tests' cross-mesh tolerance).
 
     python3 scripts/mesh_ranks.py        # on a machine with a GPU
-    python3 scripts/mesh_ranks.py --ranks-only --mesh 1,2 --json OUT.json
+    python3 scripts/mesh_ranks.py --case all --mesh 1,2
+    python3 scripts/mesh_ranks.py --ranks-only --case all --mesh 1,2 \
+        --json OUT.json
 
 Prints each run's losses and the reading, or the error the mesh run
 raised (a crash's Python stack through ``faulthandler``); the last line
-is ``RESULT ok`` or ``RESULT error``.  ``--ranks-only`` runs no reference
-and writes the ranks' ``{mesh: losses}`` (or ``{"error": ...}``) to
-``--json`` for a caller that holds them itself (``chip_smoke.py``'s
-``[mesh]``); ``--mesh`` picks one mesh.
+is ``RESULT ok`` or ``RESULT error``.  ``--case`` picks the training
+cases (``gpt2`` by default, ``all`` for every one), ``--mesh`` the
+meshes.  ``--ranks-only`` runs no reference and writes the ranks'
+``{"train": {case: {mesh: losses}}, "serve": ...}`` (and ``"error"``
+where a run failed) to ``--json`` for a caller that holds them itself
+(``chip_smoke.py``'s ``[mesh]``).
 
-``--serve`` serves instead, at ``--mesh 1,2`` on the two ranks
-(``sharding.serving_view``: the heads, MLP and vocabulary split over
-``model``, the KV cache's sequence kept split), 2 prompts of 8192 tokens
-(so the flash-attention kernel, B6, runs on each rank's heads) and 8
-decode steps fed seeded tokens, each step's logits and greedy tokens
-held to the run without a mesh in this process, and B6's forward
-launches counted (one a layer on each rank).  The smoke Qwen2-7B at
-head_dim 64 (4 q / 2 kv heads, d_model 64, 2 layers) in fp32 compute is
-held at ``chip_smoke.TOL_SERVE_MESH``; ``--full`` adds Qwen2-7B at full
-width and depth (28 layers, 30.5 GB of fp32 parameters whole, ~15 GB a
-rank) in its bf16 compute, the reference's memory freed before the
-ranks start, held at ``chip_smoke.TOL_SERVE_DENSE``.  Greedy tokens must
-be equal but where the rows part at a tie (``chip_smoke.parting``).  The
-weights are seeded leaf by leaf on the card, so every process draws the
-same and none holds more than one whole leaf beyond its blocks.
+``--serve`` serves, alone or, with ``--case``, after the training cases
+in the same spawn of the two ranks, at ``--mesh 1,2``
+(``sharding.serving_view``: the heads (SSM heads too), MLP and
+vocabulary split over ``model``, the KV cache's sequence kept split, the
+Mamba states' heads too), 2 prompts and 8 decode steps fed seeded
+tokens, each step's logits and greedy tokens held to the run without a
+mesh in this process, and the kernels' launches a rank counted in the
+prefill and in decode (``expected_launches``).  The smoke cases in fp32
+compute, held at ``chip_smoke.TOL_SERVE_MESH``: ``smoke``, Qwen2-7B at
+head_dim 64 (4 q / 2 kv heads, d_model 64, 2 layers), prompts of 8192
+tokens (so the flash-attention kernel, B6, runs on each rank's heads);
+``smoke-mamba2`` and ``smoke-zamba2``, prompts of 1024 (B7, the SSD
+block, on each rank's SSM heads).  ``--full`` adds Qwen2-7B at full
+width and depth (``full``: 28 layers) in its bf16 compute, held at
+``chip_smoke.TOL_SERVE_DENSE``, and Zamba2-2.7B (``full-zamba2``: 12 of
+its 54 Mamba2 layers, so 2 shared-block applications, one of each
+block) in bf16, prompts of 8192, held at ``chip_smoke.TOL_SERVE_SSM``;
+each reference's memory is freed before the ranks start.  Gloo moves
+every collective through the host, so the full-width cases' seconds a
+rank grow with the depth: Zamba2-2.7B's (``SERVE_DEPTH``) and
+Mamba2-370m's (``TRAIN_DEPTH``) are cut to keep ``chip_smoke.py``
+inside its time limit.  Greedy tokens must be equal but where the rows
+part at a tie (``chip_smoke.parting``).  The weights are seeded leaf by
+leaf on the card, so every process draws the same and none holds more
+than one whole leaf beyond its blocks.
 
     python3 scripts/mesh_ranks.py --serve [--full]
-    python3 scripts/mesh_ranks.py --serve --full --ranks-only --json OUT.json
+    python3 scripts/mesh_ranks.py --ranks-only --case all --mesh 1,2 \
+        --serve --full --json OUT.json     # chip_smoke.py's one spawn
 """
 import argparse
+import contextlib
 import json
 import os
 import socket
@@ -58,21 +78,102 @@ import chip_smoke as CS                      # noqa: E402
 
 ARGV = CS.MESH_RANKS_ARGV
 MESHES = ("1,2", "2")
+# name -> (batch, seq) of the training case
+TRAIN_SHAPE = {"gpt2": (8, 128), "mamba2": (8, 128), "zamba2": (8, 128),
+               "mamba2-370m": (2, 1024)}
+# name -> the launcher's argv (the mesh appended), its TRAIN_SHAPE
+# appended; the smoke SSM cases as the smoke GPT-2 (ARGV's first two
+# entries are its --arch)
+TRAIN_CASES = {name: argv + ["--batch", str(TRAIN_SHAPE[name][0]),
+                             "--seq", str(TRAIN_SHAPE[name][1])]
+               for name, argv in {
+    "gpt2": ARGV,
+    "mamba2": ["--arch", "mamba2-370m"] + ARGV[2:],
+    "zamba2": ["--arch", "zamba2-2.7b"] + ARGV[2:],
+    "mamba2-370m": ["--arch", "mamba2-370m", "--steps", "3",
+                    "--fused-update", "--refresh-every", "5", "--log-every",
+                    "1", "--device", "cuda"]}.items()}
+# the full-width cases' depth cuts (layers), the time limit's choice;
+# Qwen2-7B ("full") serves at its full depth
+TRAIN_DEPTH = {"mamba2-370m": 12}
+SERVE_DEPTH = {"full-zamba2": 12}
+
+
+def train_config(case: str):
+    """The model config the launcher builds for the training case."""
+    from repro_torch.configs.archs import get_smoke_config
+    argv = TRAIN_CASES[case]
+    arch = argv[argv.index("--arch") + 1]
+    if "--smoke" in argv:
+        return get_smoke_config(arch)
+    return CS.arch_config(arch, TRAIN_DEPTH.get(case))
+
+
+def run_case(case: str, extra=()) -> list:
+    """The training case's losses through the launcher (``extra``
+    appended to its argv), at its ``TRAIN_DEPTH``."""
+    depth = TRAIN_DEPTH.get(case)
+    with (CS.depth_cut(depth) if depth else contextlib.nullcontext()):
+        return run(TRAIN_CASES[case] + list(extra))[1]
+
+
+def train_launches(case: str) -> dict:
+    """B7's launches a rank in the training case's run: its forward once
+    a Mamba2 layer a step (twice under remat), each backward kernel
+    once."""
+    cfg = train_config(case)
+    argv = TRAIN_CASES[case]
+    n = int(argv[argv.index("--steps") + 1]) * (
+        cfg.n_layers if cfg.ssm is not None else 0)
+    return {"ssd_fwd": n * (1 if cfg.remat == "none" else 2),
+            "ssd_bwd_rows": n, "ssd_bwd_cols": n}
+
+
 SERVE_MESH = (1, 2)
-SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 2, 8192, 8
-# each serve case's tolerance on the logits against the run without a mesh
-SERVE_TOL = {"smoke": CS.TOL_SERVE_MESH, "full": CS.TOL_SERVE_DENSE}
+SERVE_BATCH, SERVE_STEPS = 2, 8
+# name -> (prompt tokens, tolerance on the logits against the run without
+# a mesh)
+SERVE_CASES = {"smoke": (8192, CS.TOL_SERVE_MESH),
+               "smoke-mamba2": (1024, CS.TOL_SERVE_MESH),
+               "smoke-zamba2": (1024, CS.TOL_SERVE_MESH),
+               "full": (8192, CS.TOL_SERVE_DENSE),
+               "full-zamba2": (8192, CS.TOL_SERVE_SSM)}
+SERVE_TOL = {case: tol for case, (_, tol) in SERVE_CASES.items()}
 
 
 def serve_config(case: str):
-    """Qwen2-7B whole (``"full"``, bf16 compute), or its smoke config at
-    head_dim 64 in fp32 compute (``"smoke"``), ``max_seq_len`` the prompt
-    and the decode steps."""
-    from repro_torch.configs.archs import get_config, get_smoke_config
-    if case == "full":
-        return get_config("qwen2-7b")
-    return get_smoke_config("qwen2-7b", head_dim=64, dtype="float32",
-                            max_seq_len=SERVE_PROMPT + SERVE_STEPS)
+    """The case's config (``SERVE_CASES``): Qwen2-7B (``"full"``) at full
+    width and depth or Zamba2-2.7B (``"full-zamba2"``) at full width, its
+    depth cut to ``SERVE_DEPTH``, bf16 compute; the smoke
+    Qwen2-7B at head_dim 64 (``"smoke"``), Mamba2-370m or Zamba2-2.7B in
+    fp32 compute, ``max_seq_len`` the prompt and the decode steps."""
+    from repro_torch.configs.archs import get_smoke_config
+    if case in ("full", "full-zamba2"):
+        arch = "qwen2-7b" if case == "full" else "zamba2-2.7b"
+        return CS.arch_config(arch, SERVE_DEPTH.get(case))
+    seq = SERVE_CASES[case][0] + SERVE_STEPS
+    if case == "smoke":
+        return get_smoke_config("qwen2-7b", head_dim=64, dtype="float32",
+                                max_seq_len=seq)
+    arch = {"smoke-mamba2": "mamba2-370m", "smoke-zamba2": "zamba2-2.7b"}[
+        case]
+    return get_smoke_config(arch, dtype="float32", max_seq_len=seq)
+
+
+def expected_launches(case: str) -> dict:
+    """``{"prefill" | "decode": {kernel: launches a rank}}`` of the serving
+    kernels: B7's forward once a Mamba2 layer and B6's once an attention
+    layer where the prompt takes the chunked path (past 4096 tokens), in
+    the prefill; neither in decode."""
+    from repro_torch.models.attention import CHUNK_THRESHOLD
+    cfg = serve_config(case)
+    ssd = cfg.n_layers if cfg.ssm is not None else 0
+    attn = {"dense": cfg.n_layers, "hybrid": cfg.n_layers
+            // max(cfg.hybrid_attn_every, 1)}.get(cfg.family, 0)
+    if SERVE_CASES[case][0] <= CHUNK_THRESHOLD:
+        attn = 0
+    return {"prefill": {"ssd_fwd": ssd, "flash_fwd": attn},
+            "decode": {"ssd_fwd": 0, "flash_fwd": 0}}
 
 
 def serve_leaf(path: str, shape: tuple, index: int, device) -> torch.Tensor:
@@ -80,7 +181,8 @@ def serve_leaf(path: str, shape: tuple, index: int, device) -> torch.Tensor:
     leaf alone): norm scales ones, tables and biases normal x 0.02,
     matrices normal over the root of their fan-in."""
     gen = torch.Generator(device=device).manual_seed(1000 + index)
-    if path.endswith(("norm1/w", "norm2/w", "final_norm/w", "_norm")):
+    if path.endswith(("norm1/w", "norm2/w", "final_norm/w", "_norm",
+                      "/norm/w", "norm_w")):
         return torch.ones(shape, device=device)
     x = torch.randn(shape, generator=gen, device=device)
     if path in ("embed", "lm_head") or len(shape) < 3:
@@ -91,12 +193,12 @@ def serve_leaf(path: str, shape: tuple, index: int, device) -> torch.Tensor:
 def serve_case(case: str, device, mesh=None) -> dict:
     """Prefill and ``SERVE_STEPS`` decode steps of :func:`serve_config`'s
     model, without a mesh or on ``mesh`` through the serving view (each
-    rank its parameter blocks and its block of the cache; it fails where
-    the view does not apply: no fallback to the whole route).  Returns
-    the logits of the prefill and of every step (numpy, fp32), each
-    step's greedy tokens, the kernels' launches in the case, the seconds
-    from the prefill to the last step and the peak memory of this
-    process."""
+    rank its parameter blocks and its blocks of the caches; it fails
+    where the view does not apply: no fallback to the whole route).
+    Returns the logits of the prefill and of every step (numpy, fp32),
+    each step's greedy tokens, the kernels' launches in the prefill and
+    in decode, the seconds from the prefill to the last step and the
+    peak memory of this process."""
     import time
     from repro_torch.distributed import sharding as SH
     from repro_torch.models import layers as L
@@ -114,17 +216,18 @@ def serve_case(case: str, device, mesh=None) -> dict:
         params[k] = leaf if mesh is None else SH.to_local(
             SH.place(leaf, pshard[k]))
         del leaf
-    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_STEPS,
+    prompt = SERVE_CASES[case][0]
+    cache = model.init_cache(SERVE_BATCH, prompt + SERVE_STEPS,
                              device=device)
     use = L.no_gather
     if mesh is not None:
         cshard = SH.cache_shardings(cfg, mesh, cache, False)
         cache = SH.local_tree(SH.place_tree(cache, cshard))
         use = SH.serving_view(model, mesh, pshard, shapes, cshard)
-        if use is None or not use.seq_split:
+        if use is None or ("kv" in cache and not use.seq_split):
             raise RuntimeError("the serving view does not split this model")
     gen = torch.Generator(device=device).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, prompt),
                            generator=gen, device=device)
     feed = torch.randint(0, cfg.vocab, (SERVE_STEPS, SERVE_BATCH, 1),
                          generator=gen, device=device)
@@ -145,6 +248,8 @@ def serve_case(case: str, device, mesh=None) -> dict:
     with torch.inference_mode(), L.gathering(use):
         lg, cache = model.prefill(params, tokens, cache)
         keep(lg)
+        launches = {"prefill": CS.launch_counts()}
+        CS.reset_launches()
         for tok in feed:
             lg, cache = model.decode_step(params, cache, tok)
             keep(lg)
@@ -153,8 +258,16 @@ def serve_case(case: str, device, mesh=None) -> dict:
     out["seconds"] = time.perf_counter() - t0
     out["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2**30
                        if cuda else 0.0)
-    out["launches"] = CS.launch_counts()
+    out["launches"] = dict(launches, decode=CS.launch_counts())
     return out
+
+
+def launches_held(case: str, launches: dict) -> bool:
+    """Whether a rank's (or the run without a mesh's) launches in the
+    prefill and in decode are :func:`expected_launches`'."""
+    want = expected_launches(case)
+    return all(launches[phase].get(k, 0) == n for phase in want
+               for k, n in want[phase].items())
 
 
 def free_memory() -> None:
@@ -164,18 +277,12 @@ def free_memory() -> None:
         torch.cuda.empty_cache()
 
 
-def serve_worker(rank: int, port: int, out: str, cases: tuple):
-    """One rank of the ``--serve`` cases, in turn; rank 0 writes each
-    case's logits and greedy tokens (``out.<case>.npz``) and every rank's
-    ``{case: launches, seconds and peak, or the error}`` (``out``)."""
-    import faulthandler
+def serve_ranks(rank: int, out: str, cases: tuple) -> dict:
+    """This rank's ``--serve`` cases, in turn, at ``SERVE_MESH``: ``{case:
+    launches, seconds and peak, or the error}``; rank 0 writes each
+    case's logits and greedy tokens (``out.<case>.npz``)."""
     import numpy as np
-    import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
-    faulthandler.enable()
-    os.environ["LOCAL_RANK"] = "0"
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=2)
     mesh = make_mesh(SERVE_MESH, ("data", "model"), "cuda")
     res = {}
     for case in cases:
@@ -189,11 +296,7 @@ def serve_worker(rank: int, port: int, out: str, cases: tuple):
         except Exception:  # noqa: BLE001 -- the reading is the error
             res[case] = {"error": traceback.format_exc()}
         free_memory()
-    ranks = [None, None]
-    dist.all_gather_object(ranks, res)
-    if rank == 0:
-        Path(out).write_text(json.dumps({"ranks": ranks}))
-    dist.destroy_process_group()
+    return res
 
 
 def run(argv):
@@ -202,49 +305,88 @@ def run(argv):
     return state, [h["loss"] for h in hist]
 
 
-def worker(rank: int, port: int, out: str, meshes=MESHES):
+def train_ranks(meshes: tuple, cases: tuple) -> dict:
+    """This rank's training cases on each mesh: ``{case: {mesh: losses,
+    "<mesh> seconds" / "<mesh> peak_gib" / "<mesh> launches": ...}}``,
+    with ``"error"`` where a run failed."""
+    import time
+    res = {}
+    for case in cases:
+        res[case] = {}
+        for spec in meshes:
+            try:
+                CS.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res[case][spec] = run_case(case, ["--mesh", spec])
+                res[case][spec + " seconds"] = time.perf_counter() - t0
+                res[case][spec + " peak_gib"] = \
+                    torch.cuda.max_memory_allocated() / 2**30
+                res[case][spec + " launches"] = CS.launch_counts()
+            except Exception:  # noqa: BLE001 -- the reading is the error
+                res["error"] = res.get("error", "") + \
+                    f"{case} --mesh {spec}:\n" + traceback.format_exc()
+            free_memory()
+    return res
+
+
+def worker(rank: int, port: int, out: str, meshes=MESHES, cases=("gpt2",),
+           serve=()):
+    """One rank: the training ``cases`` on each of ``meshes``, then the
+    ``serve`` cases, in one process group; rank 0 writes ``{"train":
+    rank 0's training record with each rank's launches and peak, "serve":
+    {"ranks": [each rank's serving record]}, "startup_seconds": from
+    the rank's start to its first case}`` to ``out``."""
     import faulthandler
+    import time
     import torch.distributed as dist
+    t0 = time.perf_counter()
     faulthandler.enable()                   # a crash prints its stack
     os.environ["LOCAL_RANK"] = "0"          # both ranks on the one card
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=2)
-    res = {}
-    for spec in meshes:
-        try:
-            _, losses = run(ARGV + ["--mesh", spec])
-            res[spec] = losses
-        except Exception:  # noqa: BLE001 -- the reading is the error
-            res["error"] = res.get("error", "") + f"--mesh {spec}:\n" \
-                + traceback.format_exc()
+    torch.cuda.init()
+    startup = time.perf_counter() - t0
+    res = train_ranks(meshes, cases)
+    served = serve_ranks(rank, out, serve)
+    ranks = [None, None]
+    dist.all_gather_object(ranks, (res, served))
+    for case in cases:
+        for spec in meshes:
+            for key in (spec + " launches", spec + " peak_gib"):
+                if key in res[case]:
+                    res[case][key] = [r[0][case].get(key) for r in ranks]
     if rank == 0:
-        Path(out).write_text(json.dumps(res))
+        Path(out).write_text(json.dumps({
+            "train": res, "serve": {"ranks": [r[1] for r in ranks]},
+            "startup_seconds": startup}))
     try:
         dist.destroy_process_group()
     except Exception:  # noqa: BLE001
         pass
 
 
-def spawn_ranks(out: str, meshes=MESHES, serve=None) -> dict:
-    """Each mesh of ``meshes`` trained on two gloo ranks on cuda:0; the
-    ranks' ``{mesh: losses}``, with ``"error"`` where a run failed, also
-    written to ``out``.  ``serve`` (a tuple of serve cases) runs
-    :func:`serve_worker` instead: ``{"ranks": [each rank's {case:
-    launches, seconds, peak or error}]}``, the arrays in
-    ``out.<case>.npz``."""
+def spawn_ranks(out: str, meshes=MESHES, cases=("gpt2",), serve=()) -> dict:
+    """The training ``cases`` on each mesh of ``meshes``, then the
+    ``serve`` cases, on two gloo ranks on cuda:0, in one spawn
+    (:func:`worker`).  Returns, as written to ``out``, ``{"train":
+    {case: {mesh: losses, "<mesh> seconds": s, "<mesh> launches" /
+    "<mesh> peak_gib": [each rank's launches / peak memory]}}, with
+    "error" where a run failed, "serve": {"ranks": [each rank's {case:
+    launches, seconds, peak or error}]}}``, the serving arrays in
+    ``out.<case>.npz``; both ``{"error": ...}`` where no result came."""
     import torch.multiprocessing as mp
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     try:
-        if serve is None:
-            mp.spawn(worker, args=(port, out, tuple(meshes)), nprocs=2)
-        else:
-            mp.spawn(serve_worker, args=(port, out, tuple(serve)), nprocs=2)
+        mp.spawn(worker, args=(port, out, tuple(meshes), tuple(cases),
+                               tuple(serve)), nprocs=2)
     except Exception:  # noqa: BLE001
         print(traceback.format_exc())
     if not os.path.exists(out):
-        Path(out).write_text(json.dumps({"error": "no result written"}))
+        none = {"error": "no result written"}
+        Path(out).write_text(json.dumps({"train": none, "serve": none}))
     return json.loads(Path(out).read_text())
 
 
@@ -280,57 +422,87 @@ def hold_serve(case: str, ref: dict, out: str) -> tuple:
 
 
 def serve_cases(full: bool) -> tuple:
-    return ("smoke", "full") if full else ("smoke",)
+    smoke = ("smoke", "smoke-mamba2", "smoke-zamba2")
+    return smoke + ("full", "full-zamba2") if full else smoke
+
+
+def losses_err(got: list, ref: list) -> float:
+    """The largest relative difference of two runs' losses (inf where
+    their lengths differ)."""
+    import numpy as np
+    if len(got) != len(ref):
+        return float("inf")
+    return float(np.max(np.abs(np.subtract(got, ref)) / np.abs(ref)))
 
 
 def main(argv=None) -> int:
-    import numpy as np
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mesh", action="append", default=None)
+    ap.add_argument("--case", action="append", default=None,
+                    help=f"training case, of {sorted(TRAIN_CASES)} or all")
     ap.add_argument("--ranks-only", action="store_true")
     ap.add_argument("--json", default=None)
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
     meshes = tuple(args.mesh or MESHES)
+    cases = tuple(args.case or (() if args.serve else ("gpt2",)))
+    if "all" in cases:
+        cases = tuple(TRAIN_CASES)
+    serve = serve_cases(args.full) if args.serve else ()
     if not torch.cuda.is_available():
         print("no GPU")
         return 1
     out = args.json or os.path.join(tempfile.mkdtemp(), "mesh_ranks.json")
-    if args.serve:
-        return serve_main(serve_cases(args.full), args.ranks_only, out)
     if args.ranks_only:
-        res = spawn_ranks(out, meshes)
-        print("RESULT " + ("error" if "error" in res else "ok"))
+        res = spawn_ranks(out, meshes, cases, serve)
+        bad = "error" in res["train"] or any(
+            serve_errors(res["serve"], case) for case in serve)
+        print("RESULT " + ("error" if bad else "ok"))
         return 0
-    _, ref = run(ARGV)
-    print(f"without a mesh: {ref}")
-    res = spawn_ranks(out, meshes)
-    ok = "error" not in res
-    for spec in meshes:
-        if spec in res:
-            err = float(np.max(np.abs(np.subtract(res[spec], ref))
-                               / np.abs(ref)))
-            print(f"--mesh {spec} on two gloo ranks on cuda:0: {res[spec]}; "
-                  f"largest relative difference {err:.3e}")
-            ok = ok and err <= CS.TOL_MESH_RANKS
-    if "error" in res:
-        print(res["error"])
+    refs = {}
+    for case in cases:
+        refs[case] = run_case(case)
+        print(f"{case} without a mesh: {refs[case]}")
+        free_memory()
+    serve_refs = {}
+    for case in serve:
+        serve_refs[case] = serve_case(case, torch.device("cuda", 0))
+        print(f"{case} without a mesh: {serve_refs[case]['seconds']:.2f} s, "
+              f"peak {serve_refs[case]['peak_gib']:.2f} GiB, launches "
+              f"{serve_refs[case]['launches']}")
+        free_memory()
+    res = spawn_ranks(out, meshes, cases, serve)
+    ok = hold_train(res["train"], refs, meshes)
+    ok = hold_serving(res["serve"], serve_refs, out) and ok
     print("RESULT " + ("ok" if ok else "error"))
     return 0
 
 
-def serve_main(cases: tuple, ranks_only: bool, out: str) -> int:
-    refs = {}
-    for case in ([] if ranks_only else cases):
-        refs[case] = serve_case(case, torch.device("cuda", 0))
-        print(f"{case} without a mesh: {refs[case]['seconds']:.2f} s, peak "
-              f"{refs[case]['peak_gib']:.2f} GiB, B6 forward launches "
-              f"{refs[case]['launches']['flash_fwd']}")
-        free_memory()
-    res = spawn_ranks(out, serve=cases)
+def hold_train(res: dict, refs: dict, meshes: tuple) -> bool:
+    """Prints each training case's mesh runs against its run without a
+    mesh; whether every one holds ``chip_smoke.TOL_MESH_RANKS``."""
+    ok = "error" not in res
+    for case in refs:
+        for spec in meshes:
+            got = res.get(case, {}).get(spec)
+            if got is None:
+                ok = False
+                continue
+            err = losses_err(got, refs[case])
+            print(f"{case} --mesh {spec} on two gloo ranks on cuda:0: {got}"
+                  f"; largest relative difference {err:.3e}")
+            ok = ok and err <= CS.TOL_MESH_RANKS
+    if "error" in res:
+        print(res["error"])
+    return ok
+
+
+def hold_serving(res: dict, refs: dict, out: str) -> bool:
+    """Prints each serving case's ranks against its run without a mesh;
+    whether every one holds its tolerance and its launches."""
     ok = True
-    for case in cases:
+    for case, ref in refs.items():
         bad = serve_errors(res, case)
         if bad:
             print(bad)
@@ -338,22 +510,22 @@ def serve_main(cases: tuple, ranks_only: bool, out: str) -> int:
             continue
         for i, r in enumerate(res["ranks"]):
             r = r[case]
+            held = launches_held(case, r["launches"])
+            ok = ok and held
             print(f"{case} rank {i}: {r['seconds']:.2f} s, peak "
-                  f"{r['peak_gib']:.2f} GiB, B6 forward launches "
-                  f"{r['launches']['flash_fwd']}")
-        if case in refs:
-            err, ties = hold_serve(case, refs[case], out)
-            tol = SERVE_TOL[case]
-            ok = ok and err <= tol and ties >= 0
-            model = "Qwen2-7B, bf16" if case == "full" else "smoke Qwen2, fp32"
-            tokens = ("differ beyond a tie" if ties < 0
-                      else f"equal but {ties} ties")
-            print(f"--mesh 1,2 serving on two gloo ranks on cuda:0 ({model})"
-                  f": largest logit difference {err:.3e} of the largest "
-                  f"logit (tolerance {tol}); greedy tokens {tokens} "
-                  f"({CS.card_line()})")
-    print("RESULT " + ("ok" if ok else "error"))
-    return 0
+                  f"{r['peak_gib']:.2f} GiB, launches {r['launches']} "
+                  f"({'as' if held else 'not as'} expected: "
+                  f"{expected_launches(case)})")
+        err, ties = hold_serve(case, ref, out)
+        tol = SERVE_TOL[case]
+        ok = ok and err <= tol and ties >= 0
+        tokens = ("differ beyond a tie" if ties < 0
+                  else f"equal but {ties} ties")
+        print(f"--mesh 1,2 serving on two gloo ranks on cuda:0 ({case}, "
+              f"{serve_config(case).dtype}): largest logit difference "
+              f"{err:.3e} of the largest logit (tolerance {tol}); greedy "
+              f"tokens {tokens} ({CS.card_line()})")
+    return ok
 
 
 if __name__ == "__main__":

@@ -39,20 +39,23 @@ the model gathers a leaf where it uses it, one layer's slice at a time
 summed over the dp axes in a fixed order and sliced over the others; the
 optimizer updates the blocks (``core/blocks.py``: :func:`leaf_splits`).
 No leaf is held whole outside the layer that uses it, and no optimizer
-state at all.  Under the ``tp`` strategy the transformer's products split
-over ``model``, Megatron-style (the heads, the MLP's hidden units, the
-vocabulary; the MoE mesh paths split the experts): those leaves reach
-the model as this rank's block over ``model``, gathered over the dp axes
-only, or whole where the rank uses a part of the block's range, their
-gradient then summed over ``model`` (:class:`GatherAtUse`'s routes).
+state at all.  Under the ``tp`` strategy the products split over
+``model``, Megatron-style (the heads, the MLP's hidden units, the
+vocabulary, the SSM heads of the Mamba2 blocks; the MoE mesh paths split
+the experts): those leaves reach the model as this rank's block over
+``model``, gathered over the dp axes only, or whole where the rank uses a
+part of the block's range, their gradient then summed over ``model``
+(:class:`GatherAtUse`'s routes).
 
-Serving on a mesh (:func:`serving_view`): the transformer families'
-``prefill`` and ``decode_step`` take the same hook, forward only, on each
+Serving on a mesh (:func:`serving_view`): every family but encdec takes
+the same hook in ``prefill`` and ``decode_step``, forward only, on each
 rank's parameter blocks (a serving kind has no FSDP axis, so a "block"
-leaf is used as it is stored and nothing moves) and on the rank's block of
-the KV cache, whose sequence stays split over ``model`` (flash-decoding);
-the other families gather every leaf and the cache's sequence whole first
-(:func:`model_params`, :func:`gather_tree_except`).
+leaf is used as it is stored and nothing moves) and on the rank's blocks
+of the caches: the KV cache's sequence stays split over ``model``
+(flash-decoding), the Mamba states' heads too.  Whisper, the ``fsdp``
+strategy and a KV cache whose sequence splits over more than ``model``
+(the ``long_500k`` cells) gather every leaf and the cache's sequence
+whole first (:func:`model_params`, :func:`gather_tree_except`).
 """
 from __future__ import annotations
 
@@ -334,12 +337,12 @@ def place_state(state, shardings):
 
 def model_params(params: dict, local=()) -> dict:
     """The parameters a model serves with over a mesh where its products
-    do not split (:func:`serving_view` gives None: the ssm, hybrid and
-    encdec families, the ``fsdp`` strategy, a model that declares no split
-    products): every leaf whole (gathered), but the leaves named in
-    ``local`` (the model's ``mesh_local_leaves``: the MoE mesh paths'
-    expert stacks) as this rank's block.  (The train step and the
-    transformer families' serving gather at use instead,
+    do not split (:func:`serving_view` gives None: the encdec family, the
+    ``fsdp`` strategy, a KV cache split over more than ``model``, a model
+    that declares no split products): every leaf whole (gathered), but
+    the leaves named in ``local`` (the model's ``mesh_local_leaves``: the
+    MoE mesh paths' expert stacks) as this rank's block.  (The train step and
+    :func:`serving_view`'s serving gather at use instead,
     :class:`GatherAtUse`.)"""
     out = {}
     with torch.no_grad():
@@ -763,12 +766,15 @@ class GatherAtUse:
             and (lo, hi) == (self.split.rank * n // m,
                              (self.split.rank + 1) * n // m)
 
-    def plan(self, path: str, ndim: Optional[int] = None) -> Optional[_Plan]:
+    def plan(self, path: str, ndim: Optional[int] = None,
+             stored: bool = False) -> Optional[_Plan]:
         """The plan of the leaf at ``path``, or of its per-layer slices
-        (``ndim`` dims); None where nothing is gathered or summed."""
+        (``ndim`` dims); None where nothing is gathered or summed.
+        ``stored``: the leaf used as its stored block over ``model``
+        (:meth:`stored`)."""
         whole = tuple(self.shapes[path])
         ndim = len(whole) if ndim is None else ndim
-        key = (path, ndim)
+        key = (path, ndim, stored)
         if key not in self._plans:
             sh = self.shardings.get(path)
             plan = None
@@ -778,7 +784,7 @@ class GatherAtUse:
                 spec = tuple(sh.spec) + (None,) * (len(whole) - len(sh.spec))
                 cut = len(whole) - ndim
                 keep = total = ()
-                if product and self._kept(path, ndim):
+                if stored or (product and self._kept(path, ndim)):
                     keep = ("model",)
                 elif product:
                     total = ("model",)
@@ -798,7 +804,9 @@ class GatherAtUse:
                     for k, v in tree.items()}
         if stack:
             return self._stack(tree, path)
-        plan = self.plan(path, tree.dim())
+        return self._leaf(tree, path, self.plan(path, tree.dim()))
+
+    def _leaf(self, tree: torch.Tensor, path: str, plan) -> torch.Tensor:
         if plan is None or isinstance(tree.grad_fn, _GatherLeaf._backward_cls) \
                 or (plan.gather and tuple(tree.shape) == plan.whole):
             return tree
@@ -806,6 +814,16 @@ class GatherAtUse:
             raise ValueError(f"{path}: a block of {tuple(tree.shape)}, the "
                              f"spec gives {plan.shape}")
         return _GatherLeaf.apply(tree, plan)
+
+    def stored(self, tree, path: str):
+        """``tree`` (as :meth:`__call__` takes it) with each leaf split over
+        ``model`` as its stored block there, gathered over the other axes
+        only, whatever range the split products use: a serving kind
+        stores no leaf over a dp axis, so nothing moves (the Mamba2 decode
+        step's ``in_proj`` and conv, ``layers.use_stored``)."""
+        if isinstance(tree, dict):
+            return {k: self.stored(v, f"{path}/{k}") for k, v in tree.items()}
+        return self._leaf(tree, path, self.plan(path, tree.dim(), True))
 
     def _stack(self, t: torch.Tensor, path: str) -> torch.Tensor:
         from repro_torch.core.blocks import Split
@@ -825,9 +843,9 @@ def model_products(model, mesh) -> tuple:
     """``(split, products)``: the ``layers.ModelSplit`` of ``mesh``'s model
     axis and the model's ``split_products`` under it, where the strategy
     is ``tp``, the axis has more than one rank and the model declares them
-    (None to keep every leaf on the gather route); else ``(None, {})``.
-    The train step (``train/steps.py``) and :func:`serving_view` take
-    it."""
+    (every family but encdec; None to keep every leaf on the gather
+    route); else ``(None, {})``.  The train step (``train/steps.py``) and
+    :func:`serving_view` take it."""
     from repro_torch.models.layers import ModelSplit
     names = mesh.mesh_dim_names or ()
     declare = getattr(model, "split_products", None)
@@ -843,12 +861,15 @@ def model_products(model, mesh) -> tuple:
 
 def _cache_seq_axis(cache_shardings) -> Optional[tuple]:
     """The mesh axes the KV caches' sequence dimension splits over (every
-    (L, B, S, KV, dh) leaf's, which must agree); () where none splits it
-    or the cache has no KV leaf."""
+    (L, B, S, KV, dh) leaf of the cache's ``kv``, which must agree); ()
+    where none splits it or the cache has no KV leaf.  Other 5-d leaves
+    (the Mamba ssm state (L, B, H, P, N), whose axis 2 is heads) are not
+    KV caches."""
     from repro_torch.checkpoint.serialization import spec_leaves
     found = set()
-    for _, sh in spec_leaves(cache_shardings):
-        if sh is not None and len(sh.spec) == 5:
+    for path, sh in spec_leaves(cache_shardings):
+        if (sh is not None and path.startswith("['kv']")
+                and len(sh.spec) == 5):
             ax = sh.spec[2]
             found.add(() if ax is None else ax if isinstance(ax, tuple)
                       else (ax,))
@@ -863,11 +884,12 @@ def serving_view(model, mesh, shardings: dict, shapes: dict,
     """The serving hook of a model on ``mesh`` (set it with
     ``models.layers.gathering`` around ``prefill`` / ``decode_step``, under
     ``torch.inference_mode``), or None where the model's products do not
-    split (:func:`model_products`: the ssm, hybrid and encdec families,
-    the ``fsdp`` strategy, a model axis of one rank) or the cache's
-    sequence splits over more than ``model`` (the ``long_500k`` cells):
-    those serve on :func:`model_params` and the cache gathered over every
-    axis but the dp axes (:func:`gather_tree_except`).
+    split (:func:`model_products`: the encdec family, the ``fsdp``
+    strategy, a model axis of one rank) or the KV cache's sequence splits
+    over more than ``model`` (the transformer and hybrid families'
+    ``long_500k`` cells; Mamba2's has no KV cache and splits): those serve
+    on :func:`model_params` and the cache gathered over every axis but
+    the dp axes (:func:`gather_tree_except`).
 
     The hook is the train step's :class:`GatherAtUse` on the parameters'
     serving shardings (``shardings``, of whole shapes ``shapes``), forward
@@ -875,10 +897,12 @@ def serving_view(model, mesh, shardings: dict, shapes: dict,
     FSDP axis, so no collective moves it), a "slice" leaf (the rank uses
     part of its range: kv heads fewer than the model ranks) is gathered
     whole, a replicated one used as it is, the MoE mesh paths' expert
-    stacks as the rank's blocks.  The model is handed the rank's
-    parameter blocks and its block of the cache (``cache_shardings``: the
-    batch over the dp axes, the sequence over ``model`` or whole), which
-    it writes in place (``seq_split``)."""
+    stacks as the rank's blocks, and the leaves the Mamba2 decode step
+    takes as stored (:meth:`GatherAtUse.stored`) as they are.  The model
+    is handed the rank's parameter blocks and its block of the cache
+    (``cache_shardings``: the batch over the dp axes, the KV sequence
+    over ``model`` or whole, the Mamba states' heads and conv channels
+    over ``model``), which it writes in place (``seq_split``)."""
     split, products = model_products(model, mesh)
     if split is None:
         return None

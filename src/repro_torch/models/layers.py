@@ -85,6 +85,16 @@ def model_split(use: Callable) -> Optional[ModelSplit]:
     return getattr(use, "split", None)
 
 
+def use_stored(use: Callable, tree, path: str):
+    """``tree`` (at ``path``) as the hook ``use`` stores it over the model
+    axis: each leaf split over ``model`` its stored block there, whatever
+    range of it the split products use (``sharding.GatherAtUse.stored``;
+    the Mamba2 decode step's ``in_proj`` and conv); as it is under a hook
+    without that method."""
+    stored = getattr(use, "stored", None)
+    return tree if stored is None else stored(tree, path)
+
+
 def cache_seq_split(use: Callable) -> bool:
     """Whether the serving hook ``use`` hands the model the rank's block
     of the KV cache's sequence over the model axis (flash-decoding,
@@ -323,6 +333,46 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
     rows = torch.where(inside[..., None], rows, torch.zeros(
         (), dtype=rows.dtype, device=rows.device))
     return comm.reduce_from(rows, split.group)
+
+
+def vocab_split(cfg, use: Callable) -> Optional[ModelSplit]:
+    """The hook ``use``'s split where the vocabulary splits under it (the
+    model axis divides it), else None."""
+    split = model_split(use)
+    if split is None or cfg.vocab % split.size:
+        return None
+    return split
+
+
+def vocab_split_ranges(cfg, split: ModelSplit) -> dict:
+    """The split products of an untied ``embed`` / ``lm_head`` pair: the
+    rank's rows of the vocabulary, where the model axis divides it."""
+    if cfg.vocab % split.size:
+        return {}
+    v0, v1 = split.span(cfg.vocab)
+    return {"embed": (-2, v0, v1), "lm_head": (-1, v0, v1)}
+
+
+def head_logits(x: torch.Tensor, head: torch.Tensor,
+                split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """``x @ head`` in ``x``'s dtype; under ``split`` ``head`` is the rank's
+    block of the vocabulary's columns and ``x`` enters through
+    ``copy_to``."""
+    if split is not None:
+        from repro_torch.distributed import comm
+        x = comm.copy_to(x, split.group)
+    return x @ head.to(x.dtype)
+
+
+def whole_logits(logits: torch.Tensor,
+                 split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """The serving paths' logits: under the vocabulary's ``split`` every
+    rank's block concatenated over the model axis, so each rank returns
+    the whole (B, S, V)."""
+    if split is None:
+        return logits
+    from repro_torch.distributed import comm
+    return comm.all_concat(logits, -1, split.group)
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor,

@@ -141,19 +141,11 @@ class TransformerLM(nn.Module):
         if not self.is_moe:
             out.update({f"blocks/mlp/{k}": r for k, r in
                         L.mlp_split_ranges(cfg, split).items()})
-        if cfg.vocab % split.size == 0:
-            v0, v1 = split.span(cfg.vocab)
-            out["embed"] = (-2, v0, v1)
-            if not cfg.tie_embeddings:
-                out["lm_head"] = (-1, v0, v1)
+        vocab = L.vocab_split_ranges(cfg, split)
+        if cfg.tie_embeddings:
+            vocab.pop("lm_head", None)
+        out.update(vocab)
         return out
-
-    def _vocab_split(self, use) -> Optional[L.ModelSplit]:
-        """The hook's split where the vocabulary splits under it."""
-        split = L.model_split(use)
-        if split is None or self.cfg.vocab % split.size:
-            return None
-        return split
 
     def _moe_or_mlp(self, bp: dict, h: torch.Tensor, split=None):
         """``(y, aux)``, aux the MoE load-balance loss or None."""
@@ -187,15 +179,11 @@ class TransformerLM(nn.Module):
     def _lm_head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """The logits; under the vocabulary's split this rank's block of
         them, ``x`` entering through ``copy_to``."""
-        dt = x.dtype
         use = L.gather_hook()
-        split = self._vocab_split(use)
-        if split is not None:
-            from repro_torch.distributed import comm
-            x = comm.copy_to(x, split.group)
+        split = L.vocab_split(self.cfg, use)
         if self.cfg.tie_embeddings:
-            return x @ use(params["embed"], "embed").to(dt).T
-        return x @ use(params["lm_head"], "lm_head").to(dt)
+            return L.head_logits(x, use(params["embed"], "embed").T, split)
+        return L.head_logits(x, use(params["lm_head"], "lm_head"), split)
 
     def _tied(self, params: dict) -> dict:
         """``params`` with a tied embedding gathered once for both of its
@@ -237,7 +225,7 @@ class TransformerLM(nn.Module):
         use = L.gather_hook()
         return self._trunk(params, L.embed_rows(
             use(params["embed"], "embed").to(dt), tokens,
-            self._vocab_split(use)))
+            L.vocab_split(self.cfg, use)))
 
     def loss(self, params: dict, batch: dict):
         """Next-token cross entropy over the text tokens plus 0.01 x the
@@ -250,7 +238,7 @@ class TransformerLM(nn.Module):
         tokens = batch["tokens"]
         embeds = batch.get("embeds")
         use = L.gather_hook()
-        split = self._vocab_split(use)
+        split = L.vocab_split(self.cfg, use)
         if (not cfg.tie_embeddings and embeds is None
                 and cfg.vocab * tokens.shape[1] >= FUSED_XENT_MIN):
             x, aux = self._hidden(params, tokens)
@@ -290,12 +278,8 @@ class TransformerLM(nn.Module):
         """The serving paths' logits: every rank's vocabulary block
         concatenated over the model axis under the vocabulary's split, so
         each rank returns the whole (B, S, V)."""
-        logits = self._lm_head(params, x)
-        split = self._vocab_split(L.gather_hook())
-        if split is None:
-            return logits
-        from repro_torch.distributed import comm
-        return comm.all_concat(logits, -1, split.group)
+        return L.whole_logits(self._lm_head(params, x),
+                              L.vocab_split(self.cfg, L.gather_hook()))
 
     def _embed(self, params: dict, tokens: torch.Tensor, positions=None,
                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -305,7 +289,7 @@ class TransformerLM(nn.Module):
         dt = getattr(torch, cfg.dtype)
         use = L.gather_hook()
         x = L.embed_rows(use(params["embed"], "embed").to(dt), tokens,
-                         self._vocab_split(use))
+                         L.vocab_split(self.cfg, use))
         if embeds is not None:
             x = torch.cat([embeds.to(dt), x], dim=1)
         if cfg.pos_embedding == "learned":

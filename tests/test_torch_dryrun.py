@@ -690,6 +690,79 @@ def test_serving_cells_run_on_each_ranks_blocks(cell, fake_group):
     assert tp["flops"] < whole["flops"]
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_train_cells_split_over_model(arch, fake_group):
+    """The smoke Mamba2 and Zamba2 train cells on the test preset's 8 fake
+    ranks under the ``tp`` strategy (a launcher's ``--mesh D,M``; the
+    full-size train cells of these archs take ``fsdp``): the same stored
+    bytes with and without the split, fewer FLOPs a rank under it, and
+    the routes: the Mamba leaves whose block is the rank's heads
+    "block", ``in_proj`` and the conv "slice", Zamba2's shared MLP and the
+    vocabulary "block"."""
+    mesh = make_fake_mesh(*D.TEST_MESH)
+    recs = {}
+    for split in (True, False):
+        c = D.build_cell(arch, "train_4k", mesh, smoke=True)
+        assert c.cfg.parallel_strategy == "tp"
+        if not split:
+            c.model.split_products = None
+        recs[split] = D.measure(c)
+    tp, whole = recs[True], recs[False]
+    print(f"{arch}: flops a rank split {tp['flops']:.4g}, whole "
+          f"{whole['flops']:.4g}; peak {tp['peak_bytes']} vs "
+          f"{whole['peak_bytes']} B")
+    for key in ("param_bytes", "opt_state_bytes", "batch_bytes"):
+        assert tp[key] == whole[key], key
+    assert tp["flops"] < whole["flops"]
+    routes = tp["routes"]
+    assert {routes[f"layers/mamba/{k}"] for k in ("norm_w", "out_proj",
+                                                   )} == {"block"}
+    assert {routes[f"layers/mamba/{k}"] for k in ("in_proj", "conv_w",
+                                                   "a_log")} == {"slice"}
+    assert {routes[k] for k in ("embed", "lm_head")} == {"block"}
+    if arch == "zamba2-2.7b":
+        assert routes["shared/mlp/w_up"] == "block"
+    assert "block" not in whole["routes"].values()
+
+
+SSM_SERVE = [("mamba2-370m", "prefill_32k"), ("mamba2-370m", "decode_32k"),
+             ("mamba2-370m", "long_500k"), ("zamba2-2.7b", "prefill_32k"),
+             ("zamba2-2.7b", "decode_32k"), ("zamba2-2.7b", "long_500k")]
+
+
+@pytest.mark.parametrize("arch,cell", SSM_SERVE)
+def test_ssm_serving_cells_run_on_each_ranks_blocks(arch, cell, fake_group):
+    """The smoke Mamba2 and Zamba2 serving cells on the test preset's 8
+    fake ranks, on the serving view (the SSM heads over ``model``,
+    Zamba2's shared attention, MLP and vocabulary as the transformer's,
+    its KV cache's sequence kept split) and on the whole route (the model
+    declaring no split products): both store JAX's per-rank parameter and
+    cache bytes; the split's routes are not all "whole" and its step
+    peaks lower.  Zamba2's ``long_500k`` (its KV sequence over (pod,
+    data, model)) keeps the whole route; Mamba2's (no KV cache) splits."""
+    mesh = make_fake_mesh(*D.TEST_MESH)
+    recs = {}
+    for split in (True, False):
+        c = D.build_cell(arch, cell, mesh, smoke=True)
+        if not split:
+            c.model.split_products = None
+        recs[split] = D.measure(c)
+    tp, whole = recs[True], recs[False]
+    print(f"{arch} {cell}: peak a rank split {tp['peak_bytes']} vs whole "
+          f"{whole['peak_bytes']} B; flops {tp['flops']:.4g} vs "
+          f"{whole['flops']:.4g}")
+    want = _jax_serve_bytes(arch, cell)
+    for rec in recs.values():
+        assert (rec["param_bytes"], rec["cache_bytes"]) == want
+    assert set(whole["routes"].values()) == {"whole"}
+    if (arch, cell) == ("zamba2-2.7b", "long_500k"):
+        assert set(tp["routes"].values()) == {"whole"}
+        return
+    assert tp["routes"]["layers/mamba/out_proj"] == "block"
+    assert tp["routes"]["layers/mamba/in_proj"] == "slice"
+    assert tp["peak_bytes"] < whole["peak_bytes"]
+
+
 def test_probe_memory_stages_bisect_the_step(fake_group):
     """``tools/probe_memory.py``'s stages on a smoke train cell over 8
     fake ranks: each peaks above the placed state it starts from, the

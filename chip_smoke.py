@@ -142,24 +142,33 @@ sm_90a) and the CUDA toolkit.  In order, it
      within 0.97-1.03 of its predicted peak; [mesh] last runs two gloo
      ranks sharing cuda:0 at --mesh 1,2 in one subprocess and one spawn
      (``scripts/mesh_ranks.py --ranks-only --case all --mesh 1,2 --serve
-     --full``): they train the smoke GPT-2, the smoke Mamba2-370m and
-     Zamba2-2.7B and Mamba2-370m at full width (12 of 48 layers, 3
-     steps), the products split over model (half the heads, SSM heads
-     included, the MLP and the vocabulary a rank), their losses held to
-     the runs without a mesh at rtol 1e-3 and B7's launches a rank to
-     the depth's; then they serve (the heads, MLP and vocabulary split
-     over model, the KV cache's sequence kept split, the Mamba states'
-     heads too) the smoke Qwen2-7B at head_dim 64, Mamba2-370m and
-     Zamba2-2.7B in fp32 compute, then Qwen2-7B at full width and depth
-     (28 layers) and Zamba2-2.7B at full width (12 of 54 layers) in
-     bf16, prefilling 2 x 8192 tokens (1024 for the smoke SSM models),
-     so B6 and B7 run on each rank's heads (one launch a layer a rank),
-     then 8 decode steps (no B6 or B7 launch), every step's logits held
-     to the run without a mesh in this process at ``TOL_SERVE_MESH`` /
-     ``TOL_SERVE_DENSE`` / ``TOL_SERVE_SSM`` and the greedy tokens equal
-     but at a tie; before the spawn, B6's forward and B7's forward and
-     backward are held to their plain versions at the shapes a rank
-     gives them;
+     --full``): they train the smoke GPT-2, the smoke Mamba2-370m
+     and Zamba2-2.7B and Mamba2-370m at full width (12 of 48 layers, 3
+     steps) through the launcher, and the smoke Whisper-large-v3 through
+     build_train_step on make_batch's embeds (the launcher stops for want
+     of them), the products split over model (half the heads, SSM heads
+     included, the MLP and the vocabulary a rank; Whisper's encoder,
+     self and cross attention), their losses held to the runs without a
+     mesh at rtol 1e-3 and B7's launches a rank to the depth's; then
+     they serve (the heads, MLP and vocabulary split over model, the KV
+     cache's sequence kept split, Whisper's cross cache's encoder rows
+     and the Mamba states' heads too) the smoke Qwen2-7B and
+     Whisper-large-v3 at head_dim 64, Mamba2-370m and Zamba2-2.7B in
+     fp32 compute, then Qwen2-7B at full width and depth (28 layers),
+     Zamba2-2.7B (12 of 54 layers) and Whisper-large-v3 (1500 frames;
+     ``mesh_ranks.SERVE_DEPTH``) at full width in bf16, prefilling 2 x
+     8192 tokens (1024 for the smoke SSM models), so B6 and B7 run on
+     each rank's heads (one launch a layer a rank), then 8 decode steps
+     (no B6 or B7 launch); then a second spawn of four gloo ranks at
+     --mesh 2,2 serves the smoke Zamba2-2.7B in fp32 and Zamba2-2.7B (12
+     layers) in bf16 at the long_500k cells' layout (B = 1, the KV
+     sequence over (data, model)), a prompt of 8192 into 16,384 rows and
+     8 decode steps that write into the second data group's block; every
+     step's logits held to the run without a mesh in this process at
+     ``TOL_SERVE_MESH`` / ``TOL_SERVE_DENSE`` / ``TOL_SERVE_SSM`` /
+     ``TOL_SERVE_ENCDEC`` and the greedy tokens equal but at a tie; before
+     the spawns, B6's forward and B7's forward and backward are held to
+     their plain versions at the shapes a rank gives them;
   7. sums the optimizer-state bytes of GPT-2 117M under the mixed groups
      and AdamW, and of Adafactor and CAME at 117M and 345M, and holds
      them against ``BENCH_memory.json``, and those of
@@ -3284,17 +3293,19 @@ def mesh_ranks_module():
 
 
 def ssd_rank_held(device, name: str, cfg, batch: int, seq: int,
-                  ranks: int, backward: bool = True) -> None:
+                  ranks: int, backward: bool = True,
+                  mesh: str | None = None) -> None:
     """B7's forward (and, ``backward``, its backward: :func:`check_ssd`)
     held to its plain version at the shape a rank of a model axis of
-    ``ranks`` gives it in ``cfg``'s Mamba2 block, in its compute dtype."""
+    ``ranks`` gives it in ``cfg``'s Mamba2 block, in its compute dtype;
+    ``mesh`` names the mesh in the label (``1,<ranks>`` by default)."""
     import torch
     from repro_torch.kernels import ops, ref
     s = cfg.ssm
     nh = s.expand * cfg.d_model // s.head_dim
     shape = (batch, seq, nh // ranks, s.n_groups, s.head_dim, s.d_state,
              s.chunk)
-    name = f"{name}, a rank of --mesh 1,{ranks}"
+    name = f"{name}, a rank of --mesh {mesh or f'1,{ranks}'}"
     if backward:
         check_ssd(device, [(name, shape, (cfg.dtype,), True)], timed=None)
         return
@@ -3310,21 +3321,28 @@ def ssd_rank_held(device, name: str, cfg, batch: int, seq: int,
 
 
 def mesh_gloo_run(card: str) -> tuple:
-    """[mesh]'s cases on two gloo ranks sharing cuda:0 at --mesh 1,2 (NCCL
-    refuses two ranks on one device), all in one subprocess and one
-    spawn (``scripts/mesh_ranks.py --ranks-only --case all --mesh 1,2
-    --serve --full``): first the training cases of
-    ``mesh_ranks.TRAIN_CASES`` (the smoke GPT-2, the smoke Mamba2-370m
-    and Zamba2-2.7B, Mamba2-370m at full width, 12 of 48 layers), the
-    products split over ``model``, then the serving cases, each a prefill
-    of 2 prompts and 8 decode steps on each rank's blocks, the KV cache's
-    sequence split: the smoke Qwen2-7B at head_dim 64 (4 q / 2 kv heads,
-    2 layers) in fp32 compute at 8192 tokens (B6 on each rank's heads),
-    the smoke Mamba2-370m and Zamba2-2.7B in fp32 at 1024 (B7 on each
-    rank's SSM heads), then Qwen2-7B at full width and depth (28 layers)
-    and Zamba2-2.7B at full width (12 of 54 layers,
-    ``mesh_ranks.SERVE_DEPTH``: 2 shared-block applications) in bf16 at
-    8192.  Before the spawn B7's forward and backward (training) and
+    """[mesh]'s cases on gloo ranks sharing cuda:0 (NCCL refuses two ranks
+    on one device), all in one subprocess (``scripts/mesh_ranks.py
+    --ranks-only --case all --mesh 1,2 --serve --full``) and two
+    spawns.  Two ranks at --mesh 1,2: first the training cases of
+    ``mesh_ranks.TRAIN_CASES`` (the smoke GPT-2, the smoke Mamba2-370m,
+    Zamba2-2.7B and Whisper-large-v3, Mamba2-370m at full width, 12 of 48
+    layers), the products split over ``model``, then the serving cases,
+    each a prefill of 2 prompts and 8 decode steps on each rank's blocks,
+    the KV cache's sequence split: the smoke Qwen2-7B and
+    Whisper-large-v3 at head_dim 64 (4 q / 2 kv heads, 2 layers) in fp32
+    compute at 8192 tokens (B6 on each rank's heads), the smoke
+    Mamba2-370m and Zamba2-2.7B in fp32 at 1024 (B7 on each rank's SSM
+    heads), then Qwen2-7B at full width and depth (28 layers),
+    Zamba2-2.7B (12 of 54 layers, ``mesh_ranks.SERVE_DEPTH``: 2
+    shared-block applications) and Whisper-large-v3 (1500 frames; its
+    ``SERVE_DEPTH``) at full width in bf16 at 8192, Whisper's cross cache
+    split over ``model`` by its encoder rows.  Four ranks at --mesh 2,2:
+    the long-context cases (``mesh_ranks.LONG_CASES``: the smoke
+    Zamba2-2.7B in fp32 and Zamba2-2.7B, 12 layers, in bf16), B = 1, a
+    prompt of 8192 into a cache of 16,384 rows whose sequence splits
+    over (data, model), and 8 decode steps into the second data group's
+    block.  Before the spawns B7's forward and backward (training) and
     B6's and B7's forwards (serving) are held to their plain versions at
     the shapes a rank gives them (:func:`ssd_rank_held`,
     :func:`flash_fwd_held`), and each case runs without a mesh in this
@@ -3358,28 +3376,36 @@ def mesh_gloo_run(card: str) -> tuple:
         train_refs[case] = MR.run_case(case)
         MR.free_memory()
     phase("[mesh] serving on the same two ranks, --mesh 1,2: smoke Qwen2-7B "
-          "at head_dim 64, smoke Mamba2-370m and Zamba2-2.7B in fp32, then "
-          "Qwen2-7B and Zamba2-2.7B at full width in bf16, each a prefill "
-          "(B6 / B7 on each rank's heads) and 8 decode steps, the KV "
-          "cache's sequence and the Mamba states' heads split over model")
+          "and Whisper-large-v3 at head_dim 64, smoke Mamba2-370m and "
+          "Zamba2-2.7B in fp32, then Qwen2-7B, Zamba2-2.7B and "
+          "Whisper-large-v3 at full width in bf16, each a prefill (B6 / B7 "
+          "on each rank's heads) and 8 decode steps, the KV cache's "
+          "sequence, Whisper's cross cache's encoder rows and the Mamba "
+          "states' heads split over model; then on four ranks, --mesh 2,2, "
+          "the smoke Zamba2-2.7B in fp32 and Zamba2-2.7B at full width in "
+          "bf16 at long_500k's layout (B = 1, the KV sequence over (data, "
+          "model))")
     serve_cases = MR.serve_cases(full=True)
+    long_cases = MR.long_cases(full=True)
     gen = torch.Generator(device=device).manual_seed(11)
     serve_refs = {}
-    for case in serve_cases:
+    for case in serve_cases + long_cases:
         cfg = MR.serve_config(case)
         prompt = MR.SERVE_CASES[case][0]
-        m = MR.SERVE_MESH[1]
+        batch, _, mesh = MR.serve_shape(case)
+        m = mesh[1]
         if MR.expected_launches(case)["prefill"]["flash_fwd"]:
-            shape = (MR.SERVE_BATCH, prompt, prompt, cfg.n_heads // m,
+            shape = (batch, prompt, prompt, cfg.n_heads // m,
                      max(cfg.n_kv_heads // m, 1), cfg.resolved_head_dim)
             with torch.inference_mode():
                 got = flash_fwd_held(device, gen, f"{case} {cfg.arch}, a "
-                                     f"rank of --mesh 1,2", shape,
+                                     f"rank of --mesh {mesh[0]},{m}", shape,
                                      getattr(torch, cfg.dtype), new_rec())
             del got
         if cfg.ssm is not None:
-            ssd_rank_held(device, f"{case} {cfg.arch}", cfg, MR.SERVE_BATCH,
-                          prompt, m, backward=False)
+            ssd_rank_held(device, f"{case} {cfg.arch}", cfg, batch,
+                          prompt, m, backward=False,
+                          mesh=f"{mesh[0]},{m}")
         MR.free_memory()
         serve_refs[case] = MR.serve_case(case, device)
         if not MR.launches_held(case, serve_refs[case]["launches"]):
@@ -3397,11 +3423,18 @@ def mesh_gloo_run(card: str) -> tuple:
          "--full", "--json", str(out)], capture_output=True, text=True,
         timeout=900)
     spawn_s = time.monotonic() - t_spawn
+    none = {"error": "no result"}
     res = json.loads(out.read_text()) if out.exists() else {
-        "train": {"error": "no result"}, "serve": {"error": "no result"}}
+        "train": none, "serve": none, "long": none}
     said = f"\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}"
     train = mesh_train_held(MR, res["train"], train_refs, said)
-    serve = mesh_serve_held(MR, res["serve"], serve_refs, str(out), said)
+    serve = mesh_serve_held(MR, res["serve"], {
+        c: serve_refs[c] for c in serve_cases}, str(out), said)
+    longs = mesh_serve_held(MR, res.get("long", none), {
+        c: serve_refs[c] for c in long_cases}, f"{out}.long", said)
+    for k, n in longs[0].items():
+        serve[0][k] = serve[0].get(k, 0) + n
+    serve[1].update(longs[1])
     cases_s = sum(i["rank_seconds"] for c, i in train[1].items()) + sum(
         max(i["rank_seconds"]) for i in serve[1].values())
     seconds = time.monotonic() - t0
@@ -3454,7 +3487,7 @@ def mesh_serve_held(MR, res: dict, refs: dict, out: str, said: str) -> tuple:
     for case, ref in refs.items():
         bad = MR.serve_errors(res, case)
         if bad:
-            fail(f"[mesh] {case} serving on two ranks: {bad}{said}")
+            fail(f"[mesh] {case} serving on gloo ranks: {bad}{said}")
         ranks = [r[case] for r in res["ranks"]]
         err, ties = MR.hold_serve(case, ref, out)
         tol = MR.SERVE_TOL[case]
@@ -3463,7 +3496,7 @@ def mesh_serve_held(MR, res: dict, refs: dict, out: str, said: str) -> tuple:
                      for phase_ in ("prefill", "decode")} for r in ranks]
         held = all(MR.launches_held(case, r["launches"]) for r in ranks)
         if err > tol or ties < 0 or not held:
-            fail(f"[mesh] {case} serving on two ranks: largest logit "
+            fail(f"[mesh] {case} serving on gloo ranks: largest logit "
                  f"difference {err:.3e} (tolerance {tol}), greedy tokens "
                  f"{'differ beyond a tie' if ties < 0 else 'equal'}, "
                  f"launches a rank {per_rank} "
@@ -3478,7 +3511,8 @@ def mesh_serve_held(MR, res: dict, refs: dict, out: str, said: str) -> tuple:
                       "rank_peak_gib": [r["peak_gib"] for r in ranks],
                       "ref_seconds": ref["seconds"],
                       "ref_peak_gib": ref["peak_gib"]}
-        print(f"  --mesh 1,2 serving, {case}: largest logit difference "
+        mesh = ",".join(map(str, MR.serve_shape(case)[2]))
+        print(f"  --mesh {mesh} serving, {case}: largest logit difference "
               f"{err:.3e} of the largest logit (tolerance {tol}), greedy "
               f"tokens equal but {ties} ties; launches a rank {per_rank}, "
               f"as the depth implies; prefill + {MR.SERVE_STEPS} steps "

@@ -47,15 +47,16 @@ the experts): those leaves reach the model as this rank's block over
 part of the block's range, their gradient then summed over ``model``
 (:class:`GatherAtUse`'s routes).
 
-Serving on a mesh (:func:`serving_view`): every family but encdec takes
-the same hook in ``prefill`` and ``decode_step``, forward only, on each
-rank's parameter blocks (a serving kind has no FSDP axis, so a "block"
-leaf is used as it is stored and nothing moves) and on the rank's blocks
-of the caches: the KV cache's sequence stays split over ``model``
-(flash-decoding), the Mamba states' heads too.  Whisper, the ``fsdp``
-strategy and a KV cache whose sequence splits over more than ``model``
-(the ``long_500k`` cells) gather every leaf and the cache's sequence
-whole first (:func:`model_params`, :func:`gather_tree_except`).
+Serving on a mesh (:func:`serving_view`): every family takes the same
+hook in ``prefill`` and ``decode_step``, forward only, on each rank's
+parameter blocks (a serving kind has no FSDP axis, so a "block" leaf is
+used as it is stored and nothing moves) and on the rank's blocks of the
+caches: the KV cache's sequence stays split over ``model``, or over the
+dp axes and ``model`` in the ``long_500k`` cells (flash-decoding), the
+Mamba states' heads too, a cross cache's encoder rows over ``model``
+where they divide.  The ``fsdp`` strategy gathers every leaf and the
+cache's sequence whole first (:func:`model_params`,
+:func:`gather_tree_except`).
 """
 from __future__ import annotations
 
@@ -337,13 +338,12 @@ def place_state(state, shardings):
 
 def model_params(params: dict, local=()) -> dict:
     """The parameters a model serves with over a mesh where its products
-    do not split (:func:`serving_view` gives None: the encdec family, the
-    ``fsdp`` strategy, a KV cache split over more than ``model``, a model
-    that declares no split products): every leaf whole (gathered), but
-    the leaves named in ``local`` (the model's ``mesh_local_leaves``: the
-    MoE mesh paths' expert stacks) as this rank's block.  (The train step and
-    :func:`serving_view`'s serving gather at use instead,
-    :class:`GatherAtUse`.)"""
+    do not split (:func:`serving_view` gives None: the ``fsdp`` strategy,
+    a model that declares no split products): every leaf whole
+    (gathered), but the leaves named in ``local`` (the model's
+    ``mesh_local_leaves``: the MoE mesh paths' expert stacks) as this
+    rank's block.  (The train step and :func:`serving_view`'s serving
+    gather at use instead, :class:`GatherAtUse`.)"""
     out = {}
     with torch.no_grad():
         for k, v in params.items():
@@ -719,19 +719,26 @@ class GatherAtUse:
     "gather" route above ("local" and "whole" where nothing is
     gathered).
 
-    ``seq_split`` (serving, :func:`serving_view`): the KV cache the model
-    is handed holds this rank's block of the sequence over ``model``, the
-    rows ``[r n, (r + 1) n)`` of a block of n rows (the hook carries it to
-    the model, ``layers.cache_seq_split``)."""
+    ``seq`` (serving, :func:`serving_view`; a ``layers.ModelSplit`` of
+    the ranks the KV cache's sequence splits over): the KV cache the model
+    is handed holds this rank's block of the sequence, the rows ``[i n,
+    (i + 1) n)`` of a block of n rows, i its index ``seq.rank`` (the hook
+    carries it to the model, ``layers.cache_seq_split``)."""
 
     def __init__(self, shardings: dict, shapes: dict, dp: tuple,
                  local=(), products: Optional[dict] = None, split=None,
-                 seq_split: bool = False):
+                 seq=None):
         self.shardings, self.shapes = shardings, shapes
         self.dp, self.local = tuple(dp), set(local)
-        self.split, self.seq_split = split, seq_split
+        self.split, self.seq = split, seq
         self.products = dict(products or {}) if split is not None else {}
         self._plans: dict = {}
+
+    @property
+    def seq_split(self) -> bool:
+        """Whether the KV cache the model is handed holds a block of the
+        sequence (``seq``) rather than every row."""
+        return self.seq is not None
 
     def route(self, path: str) -> str:
         """How the leaf at ``path`` reaches the model: "block", "slice" or
@@ -843,8 +850,8 @@ def model_products(model, mesh) -> tuple:
     """``(split, products)``: the ``layers.ModelSplit`` of ``mesh``'s model
     axis and the model's ``split_products`` under it, where the strategy
     is ``tp``, the axis has more than one rank and the model declares them
-    (every family but encdec; None to keep every leaf on the gather
-    route); else ``(None, {})``.  The train step (``train/steps.py``) and
+    (every family; None to keep every leaf on the gather route); else
+    ``(None, {})``.  The train step (``train/steps.py``) and
     :func:`serving_view` take it."""
     from repro_torch.models.layers import ModelSplit
     names = mesh.mesh_dim_names or ()
@@ -859,24 +866,60 @@ def model_products(model, mesh) -> tuple:
     return (split, products) if products else (None, {})
 
 
-def _cache_seq_axis(cache_shardings) -> Optional[tuple]:
-    """The mesh axes the KV caches' sequence dimension splits over (every
-    (L, B, S, KV, dh) leaf of the cache's ``kv``, which must agree); ()
-    where none splits it or the cache has no KV leaf.  Other 5-d leaves
-    (the Mamba ssm state (L, B, H, P, N), whose axis 2 is heads) are not
-    KV caches."""
+def _kv_specs(cache_shardings) -> list:
+    """The specs of the cache's KV leaves: every (L, B, S, KV, dh) leaf of
+    its ``kv``.  Other 5-d leaves (the Mamba ssm state (L, B, H, P, N),
+    whose axis 2 is heads) are not KV caches."""
     from repro_torch.checkpoint.serialization import spec_leaves
-    found = set()
-    for path, sh in spec_leaves(cache_shardings):
-        if (sh is not None and path.startswith("['kv']")
-                and len(sh.spec) == 5):
-            ax = sh.spec[2]
-            found.add(() if ax is None else ax if isinstance(ax, tuple)
-                      else (ax,))
+    return [sh.spec for path, sh in spec_leaves(cache_shardings)
+            if sh is not None and path.startswith("['kv']")
+            and len(sh.spec) == 5]
+
+
+def _cache_seq_axis(cache_shardings) -> tuple:
+    """The mesh axes the KV caches' sequence dimension splits over (every
+    KV leaf's, :func:`_kv_specs`, which must agree); () where none splits
+    it or the cache has no KV leaf."""
+    found = {() if ax is None else ax if isinstance(ax, tuple) else (ax,)
+             for ax in (spec[2] for spec in _kv_specs(cache_shardings))}
     if len(found) > 1:
         raise ValueError(f"KV caches split their sequence differently: "
                          f"{sorted(found)}")
     return found.pop() if found else ()
+
+
+_SEQ_GROUPS: dict = {}
+
+
+def _seq_split(mesh, spec: P, axes: tuple, split):
+    """The ``layers.ModelSplit`` of the ranks a KV cache of ``spec``
+    splits its sequence over (``axes``: the dp axes, then ``model``):
+    their process group (the model group itself where ``axes`` is
+    ``("model",)``; else the mesh's dimensions ``axes`` flattened, made
+    once a mesh), this rank's index, taken from the cache's own layout
+    (``core.blocks.Split.start``: the axes in mesh order, the first the
+    major one), and their count.  Raises where the group disagrees with
+    the layout on this rank's index."""
+    import math
+    import torch.distributed as dist
+    from repro_torch.core.blocks import Split
+    from repro_torch.models.layers import ModelSplit
+    names = tuple(mesh.mesh_dim_names)
+    size = math.prod(mesh.size(names.index(a)) for a in axes)
+    first, n = Split((1, 1, size, 1, 1), spec, mesh).start(2)
+    if axes == ("model",):
+        return ModelSplit(split.group, first // n, size)
+    key = (id(mesh), axes)
+    if key not in _SEQ_GROUPS:
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        with unset_fake_temporarily():     # (the dry run's fake mode)
+            _SEQ_GROUPS[key] = (mesh, mesh[axes]._flatten().get_group())
+    group = _SEQ_GROUPS[key][1]
+    if dist.get_group_rank(group, dist.get_rank()) != first // n:
+        raise ValueError(f"the group of {axes} puts this rank at "
+                         f"{dist.get_group_rank(group, dist.get_rank())}, "
+                         f"the cache's layout at {first // n}")
+    return ModelSplit(group, first // n, size)
 
 
 def serving_view(model, mesh, shardings: dict, shapes: dict,
@@ -884,12 +927,11 @@ def serving_view(model, mesh, shardings: dict, shapes: dict,
     """The serving hook of a model on ``mesh`` (set it with
     ``models.layers.gathering`` around ``prefill`` / ``decode_step``, under
     ``torch.inference_mode``), or None where the model's products do not
-    split (:func:`model_products`: the encdec family, the ``fsdp``
-    strategy, a model axis of one rank) or the KV cache's sequence splits
-    over more than ``model`` (the transformer and hybrid families'
-    ``long_500k`` cells; Mamba2's has no KV cache and splits): those serve
-    on :func:`model_params` and the cache gathered over every axis but
-    the dp axes (:func:`gather_tree_except`).
+    split (:func:`model_products`: the ``fsdp`` strategy, a model axis of
+    one rank) or the KV cache's sequence splits over axes other than
+    ``model`` alone or the dp axes followed by ``model``: those serve on
+    :func:`model_params` and the cache gathered over every axis but the
+    dp axes (:func:`gather_tree_except`).
 
     The hook is the train step's :class:`GatherAtUse` on the parameters'
     serving shardings (``shardings``, of whole shapes ``shapes``), forward
@@ -901,17 +943,24 @@ def serving_view(model, mesh, shardings: dict, shapes: dict,
     takes as stored (:meth:`GatherAtUse.stored`) as they are.  The model
     is handed the rank's parameter blocks and its block of the cache
     (``cache_shardings``: the batch over the dp axes, the KV sequence
-    over ``model`` or whole, the Mamba states' heads and conv channels
-    over ``model``), which it writes in place (``seq_split``)."""
+    over ``model``, over (data, model) or (pod, data, model) for the
+    ``long_500k`` cells (B = 1), or whole; the Mamba states' heads and
+    conv channels over ``model``; a cross cache's encoder rows over
+    ``model`` where they divide), which it writes in place; the hook's
+    ``seq`` names the ranks the KV sequence splits over
+    (:func:`_seq_split`)."""
     split, products = model_products(model, mesh)
     if split is None:
         return None
-    seq = _cache_seq_axis(cache_shardings) if cache_shardings else ()
-    if seq not in ((), ("model",)):
+    axes = _cache_seq_axis(cache_shardings) if cache_shardings else ()
+    dp = dp_axes(mesh)
+    if axes and (axes[-1] != "model" or not set(axes[:-1]) <= set(dp)):
         return None
-    return GatherAtUse(shardings, shapes, dp_axes(mesh),
+    seq = (_seq_split(mesh, _kv_specs(cache_shardings)[0], axes, split)
+           if axes else None)
+    return GatherAtUse(shardings, shapes, dp,
                        getattr(model, "mesh_local_leaves", tuple)(),
-                       products, split, seq_split=bool(seq))
+                       products, split, seq=seq)
 
 
 class _Regather(NamedTuple):

@@ -17,16 +17,14 @@ For every (architecture x shape cell x mesh) combination it
     counter: train cells one ``build_train_step`` step of the mesh step
     (``train/steps.py::_MeshStep``: this rank's blocks, each leaf gathered
     where a layer uses it, the optimizer on the blocks), prefill and
-    decode cells ``prefill`` / ``decode_step``: every family but encdec
-    (dense, vlm, moe, ssm, hybrid) on this rank's parameter blocks and its
-    blocks of the caches, the heads (SSM heads included), MLP and
+    decode cells ``prefill`` / ``decode_step``: every family (dense,
+    vlm, moe, ssm, hybrid, encdec) on this rank's parameter blocks and
+    its blocks of the caches, the heads (SSM heads included), MLP and
     vocabulary split over ``model``, the KV cache's sequence kept split
-    over it and the Mamba states' heads too (``sharding.serving_view``);
-    Whisper, and the ``long_500k`` cells with a KV cache (their sequence
-    over (data, model)), on the parameters gathered whole (the expert
-    stacks of the MoE mesh paths as this rank's blocks) and the cache
-    gathered over every axis but the dp axes (the rank keeps its batch
-    block); Mamba2's ``long_500k`` has no KV cache and splits;
+    over it (over (data, model), or (pod, data, model), in the
+    ``long_500k`` cells, B = 1), the Mamba states' heads too and
+    Whisper's cross cache's encoder rows where they divide
+    (``sharding.serving_view``);
   * records per-rank bytes (parameters, optimizer state, batch block,
     cache: each a DTensor's local block), the step's peak of live bytes,
     FLOPs, bytes accessed, the collectives it calls and the largest of
@@ -39,20 +37,18 @@ the ``tp`` strategy the products split over ``model`` (rank 0's heads,
 SSM heads, MLP hidden units and vocabulary rows; the MoE expert stacks
 over it as before): those leaves are gathered over the dp axes only
 where the rank's block is its range, whole where it uses a part (a kv
-leaf with fewer heads than ranks, Mamba2's ``in_proj`` and conv), and a
-record's ``routes`` names each leaf's route
-(``sharding.GatherAtUse.route``); encdec and the ``fsdp`` strategy (the
-full-size train cells of ``FSDP_TRAIN_ARCHS``, Mamba2's and Zamba2's
-among them) run every product whole on the rank's batch block, one
-layer's leaves whole beside the activations.  The serving cells run the
-same split products on the rank's blocks, no block and no cache row
-moving over ``model`` (a Mamba2 decode step moves no weight), where a
-leaf the rank uses a part of is gathered whole (``routes`` as for a
-train cell); Whisper's serving cells and the ``long_500k`` cells with a
-KV cache gather every leaf whole, their ``routes`` all "whole".  Fake
-tensors live on the CPU, so every
-kernel wrapper takes its plain version (``kernels/ops.py``): the peak is
-the plain route's (``"route": "plain"``), whose temporaries (a
+leaf with fewer heads than ranks, Mamba2's ``in_proj`` and conv, each of
+Whisper's attention leaves over 16 ranks), and a record's ``routes``
+names each leaf's route (``sharding.GatherAtUse.route``); the ``fsdp``
+strategy (the full-size train cells of ``FSDP_TRAIN_ARCHS``, Mamba2's,
+Zamba2's and Whisper's among them) runs every product whole on the
+rank's batch block, one layer's leaves whole beside the activations.
+The serving cells run the same split products on the rank's blocks, no
+block and no cache row moving over ``model`` (a Mamba2 decode step
+moves no weight), where a leaf the rank uses a part of is gathered whole
+(``routes`` as for a train cell).  Fake tensors live on the CPU, so
+every kernel wrapper takes its plain version (``kernels/ops.py``): the
+peak is the plain route's (``"route": "plain"``), whose temporaries (a
 materialised V, u_hat) exceed the CUDA kernels'.  The counts are per rank
 and come from fake tensors: no time is measured.  Each cell's peak is
 printed against one card's memory (``DEVICE_BYTES``, the same on every

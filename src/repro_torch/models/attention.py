@@ -17,12 +17,19 @@ and the output product's partial sums added by ``comm.reduce_from``.
 The projections, norms, RoPE and both attention paths take their head
 counts and the q-to-kv grouping from the tensors they are given.
 
+Cross attention (the encoder-decoder's) splits the same way
+(:func:`cross_attn_split`): the rank's q heads of the decoder's stream
+over its kv heads of the encoder's output.
+
 Serving on a mesh (``split`` given to ``attn_prefill`` / ``attn_decode``)
 splits the heads the same way and keeps the KV cache's sequence split
-over ``model`` (flash-decoding): the prefill's rank heads attend through
-``sdpa_auto`` and each rank writes its rows of the cache for every kv
-head; a decode step attends every head over the rank's rows and combines
-the ranks' parts by log-sum-exp (see "serving on a mesh" below).
+over ``model``, or over the dp axes and ``model`` (flash-decoding): the
+prefill's rank heads attend through ``sdpa_auto`` and each rank writes
+its rows of the cache for every kv head; a decode step attends every head
+over the rank's rows and combines the ranks' parts by log-sum-exp (see
+"serving on a mesh" below).  A cross cache keeps its encoder rows over
+``model`` where they divide, else whole (:func:`cross_cache_rows`,
+:func:`cross_decode_rows`).
 
 The serving paths write the cache in place (the JAX functions return an
 updated copy, which the engines donate); they return the cache all the
@@ -33,6 +40,7 @@ the paged prefill's block index to the table's last column (a gather).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -198,33 +206,47 @@ def attn_split_ranges(cfg, split) -> dict:
     return out
 
 
+def _rank_params(cfg, p: dict, split) -> dict:
+    """``p`` with each leaf rank ``split.rank``'s range
+    (:func:`attn_split_ranges`): the rank's block, or a view of the leaf
+    given whole (``layers.take``)."""
+    ranges = attn_split_ranges(cfg, split)
+    return {k: L.take(v, *ranges[k]) if ranges.get(k, (None,))[0] is not None
+            else v for k, v in p.items()}
+
+
+def _rank_kv(cfg, split, hl: int, k: torch.Tensor, v: torch.Tensor):
+    """k / v of the rank's kv heads (B, S, KV_r, dh) as its ``hl`` q heads
+    read them: as they are where the q heads map onto them in equal
+    groups, else (a range that straddles a group boundary unevenly) each
+    q head its own copy of the kv head it reads."""
+    if hl == 0:
+        return k, v
+    h0, _, kv0, _ = head_split(cfg, split)
+    g = cfg.n_heads // cfg.n_kv_heads
+    idx = [(h0 + i) // g - kv0 for i in range(hl)]
+    kvl = k.shape[2]
+    if hl % kvl or idx != [i // (hl // kvl) for i in range(hl)]:
+        sel = torch.tensor(idx, device=k.device)
+        return k.index_select(2, sel), v.index_select(2, sel)
+    return k, v
+
+
 def _rank_heads(cfg, p: dict, x: torch.Tensor, positions, causal: bool,
                 split):
     """Rank ``split.rank``'s heads over the whole sequence: ``(out (B, S,
     H_r dh) before the output product, k / v of its kv heads (B, S, KV_r,
-    dh), p with each leaf the rank's range)``; each leaf the rank's block
-    or whole (``layers.take``), the input entering through ``copy_to``;
-    where its q heads do not map onto its kv heads in equal groups (a
-    range that straddles a group boundary unevenly), each q head gets its
-    own copy of the kv head it reads."""
+    dh), p with each leaf the rank's range)`` (:func:`_rank_params`,
+    :func:`_rank_kv`), the input entering through ``copy_to``."""
     from repro_torch.distributed import comm
-    ranges = attn_split_ranges(cfg, split)
-    p = {k: L.take(v, *ranges[k]) if ranges.get(k, (None,))[0] is not None
-         else v for k, v in p.items()}
+    p = _rank_params(cfg, p, split)
     x = comm.copy_to(x, split.group)
     q, k, v = _project_qkv(cfg, p, x, positions)
     b, s, hl, hd = q.shape
     if hl == 0:     # more ranks than heads: empty, but in the graph alike
         return _sdpa(cfg, q, k, v, torch.ones(
             (1, s, s), dtype=torch.bool, device=x.device)), k, v, p
-    h0, _, kv0, _ = head_split(cfg, split)
-    g = cfg.n_heads // cfg.n_kv_heads
-    idx = [(h0 + i) // g - kv0 for i in range(hl)]
-    kq, vq = k, v
-    kvl = k.shape[2]
-    if hl % kvl or idx != [i // (hl // kvl) for i in range(hl)]:
-        sel = torch.tensor(idx, device=k.device)
-        kq, vq = k.index_select(2, sel), v.index_select(2, sel)
+    kq, vq = _rank_kv(cfg, split, hl, k, v)
     return sdpa_auto(cfg, q, kq, vq, causal=causal), k, v, p
 
 
@@ -245,11 +267,15 @@ def attn_apply_full(cfg, p: dict, x: torch.Tensor, *, causal: bool,
     """Full-sequence attention (training, the encoder): causal or not,
     positions ``arange(S)`` unless given; ``kv_override`` (k, v) replaces
     the projected keys and values (cross-attention on the encoder's);
-    ``split`` (a ``layers.ModelSplit``, no ``kv_override``) runs this
-    rank's heads and sums the output over the model axis."""
+    ``split`` (a ``layers.ModelSplit``, no ``kv_override``: the split
+    cross attention is :func:`cross_attn_split`) runs this rank's heads
+    and sums the output over the model axis."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if split is not None:
+        if kv_override is not None:
+            raise ValueError("kv_override under a split: use "
+                             "cross_attn_split")
         return _split_heads(cfg, p, x, positions, causal, split)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if kv_override is not None:
@@ -257,15 +283,58 @@ def attn_apply_full(cfg, p: dict, x: torch.Tensor, *, causal: bool,
     return sdpa_auto(cfg, q, k, v, causal=causal) @ p["wo"].to(x.dtype)
 
 
+def _plain_project(p: dict, x: torch.Tensor, name: str,
+                   hd: int) -> torch.Tensor:
+    """``x @ w<name>`` as (B, S, n, dh): a cross attention's projection,
+    as JAX's encoder-decoder projects it (no bias, norm or position)."""
+    t = x @ p["w" + name].to(x.dtype)
+    return t.reshape(*x.shape[:2], t.shape[-1] // hd, hd)
+
+
+def cross_attn_split(cfg, p: dict, h: torch.Tensor, split,
+                     enc: Optional[torch.Tensor] = None,
+                     kv: Optional[tuple] = None):
+    """Cross attention (the JAX encoder-decoder's ``_cross_attend``: plain
+    projections, the naive ``_sdpa`` under an all-true mask) on rank
+    ``split.rank``'s heads: q of its heads of ``h`` (B, S, D); k / v of
+    its kv heads projected from ``enc`` (the encoder's output, (B, S_enc,
+    D)) or read from ``kv`` ((k, v) of every kv head over every encoder
+    row: a cross cache the rank holds whole); ``h`` and ``enc`` entering
+    through ``copy_to`` (so each decoder layer's use of the encoder's
+    output sums its gradient over ``model``), the output through the
+    rank's rows of ``wo``, the parts summed by ``reduce_from``.  Each
+    leaf the rank's block or whole; the q-to-kv mapping and a headless
+    rank's empty output as :func:`_rank_heads`'.  Returns ``(out, k, v)``,
+    k / v the rank's kv heads (B, S_enc, KV_r, dh)."""
+    from repro_torch.distributed import comm
+    hd = cfg.resolved_head_dim
+    p = _rank_params(cfg, p, split)
+    h = comm.copy_to(h, split.group)
+    q = _plain_project(p, h, "q", hd)
+    if kv is None:
+        enc = comm.copy_to(enc, split.group)
+        k, v = _plain_project(p, enc, "k", hd), _plain_project(p, enc, "v",
+                                                               hd)
+    else:
+        _, _, kv0, kv1 = head_split(cfg, split)
+        k, v = kv[0][:, :, kv0:kv1], kv[1][:, :, kv0:kv1]
+    kq, vq = _rank_kv(cfg, split, q.shape[2], k, v)
+    mask = torch.ones((1, h.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=h.device)
+    out = _sdpa(cfg, q, kq, vq, mask)
+    return comm.reduce_from(out @ p["wo"].to(h.dtype), split.group), k, v
+
+
 def attn_prefill(cfg, p: dict, x: torch.Tensor, cache: KVCache,
-                 split=None, seq_split: bool = False):
+                 split=None, seq=None):
     """Causal attention over the prompt x (B, S, D) through ``sdpa_auto``
     (the flash kernel where JAX takes ``_sdpa_chunked``); fills
     ``cache[:, :S]``.  Returns ``(out, cache)``.  Under ``split`` (a
     ``layers.ModelSplit``; serving on a mesh) the rank's heads attend and
-    ``cache`` is the rank's block (:func:`_prefill_split`)."""
+    ``cache`` is the rank's block, of rows split over ``seq``
+    (``layers.cache_seq_split``; :func:`_prefill_split`)."""
     if split is not None:
-        return _prefill_split(cfg, p, x, cache, split, seq_split)
+        return _prefill_split(cfg, p, x, cache, split, seq)
     s = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x, torch.arange(s, device=x.device)[None])
     out = sdpa_auto(cfg, q, k, v, causal=True)
@@ -275,13 +344,14 @@ def attn_prefill(cfg, p: dict, x: torch.Tensor, cache: KVCache,
 
 
 def attn_decode(cfg, p: dict, x: torch.Tensor, cache: KVCache, pos: int,
-                split=None, seq_split: bool = False):
+                split=None, seq=None):
     """One-token step, x (B, 1, D) at position ``pos`` (an int): its k / v
     written at row ``min(pos, S_max - 1)`` (JAX's clamp), attention over
     rows ``<= pos``.  Returns ``(out, cache)``.  Under ``split`` ``cache``
-    is the rank's block (:func:`_decode_split`)."""
+    is the rank's block, of rows split over ``seq``
+    (:func:`_decode_split`)."""
     if split is not None:
-        return _decode_split(cfg, p, x, cache, pos, split, seq_split)
+        return _decode_split(cfg, p, x, cache, pos, split, seq)
     b = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, torch.full((b, 1), pos,
                                                  device=x.device))
@@ -295,16 +365,19 @@ def attn_decode(cfg, p: dict, x: torch.Tensor, cache: KVCache, pos: int,
 
 
 # -- serving on a mesh --------------------------------------------------------
-# Megatron's heads over ``model`` with the KV cache's sequence split over it
-# too (flash-decoding): rank r of M holds cache rows [r n, (r + 1) n) of
-# every kv head (n the block's rows; all of them where the cache's sequence
-# is not split, ``seq_split`` False) for its batch block, and the residual
-# stream is whole on every rank of the model group.
+# Megatron's heads over ``model`` with the KV cache's sequence split too
+# (flash-decoding): over ``seq`` (``layers.cache_seq_split``), the model
+# group, or the dp axes and ``model`` (the ``long_500k`` cells: B = 1, the
+# batch not split), the dp axes the major ones, so each model group holds
+# one contiguous segment of the sequence.  The rank of index i in ``seq``
+# holds cache rows [i n, (i + 1) n) of every kv head (n the block's rows;
+# all of them where the sequence is not split, ``seq`` None) for its batch
+# block, and the residual stream is whole on every rank of the model group.
 
-def _cache_rows(cache: KVCache, split, seq_split: bool) -> tuple:
+def _cache_rows(cache: KVCache, seq) -> tuple:
     """``(first row, rows of the whole cache)`` of the rank's block."""
     n = cache.k.shape[1]
-    return (split.rank * n, n * split.size) if seq_split else (0, n)
+    return (seq.rank * n, n * seq.size) if seq is not None else (0, n)
 
 
 def _all_heads(t: torch.Tensor, n: int, split) -> torch.Tensor:
@@ -316,21 +389,26 @@ def _all_heads(t: torch.Tensor, n: int, split) -> torch.Tensor:
 
 
 def _prompt_rows(cfg, p: dict, x: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor, c0: int, n: int, split, seq_split: bool):
+                 v: torch.Tensor, c0: int, n: int, split, seq,
+                 project=None):
     """k / v of every kv head at the prompt's rows ``[c0, c0 + n)`` (fewer
     where the prompt ends first; None where it ends before ``c0``).
 
     Two routes, by what the rank holds.  Where ``wk`` / ``wv`` reach the
     rank whole (the "slice" route: kv heads fewer than the model ranks, or
     not aligned with them; or replicated), the rank projects its rows of
-    the residual, which every rank holds whole, at their positions: no
+    the residual, which every rank holds whole, at their positions
+    (``project(rows, name, positions)``, :func:`_project` by default): no
     collective.  Where they are the rank's block of kv heads (the "block"
     route: each rank owns KV / M heads, and gathering the weights would
     move them), the rank has projected its heads at every position for its
-    own attention already, and one ``all_to_all`` turns the head blocks
-    into sequence blocks (the prompt padded to the cache's whole length),
-    a tensor the size of the rank's cache block; with the sequence not
-    split, the heads are all-gathered instead."""
+    own attention already, and one ``all_to_all`` over ``model`` turns the
+    head blocks of the model group's segment of the prompt (its rows
+    ``[c0 - r n, c0 + (M - r) n)``, padded to ``M n``) into the ranks'
+    sequence blocks, a tensor the size of the rank's cache block; with the
+    sequence not split (``seq`` None), the heads are all-gathered instead.
+    A rank whose rows lie past the prompt gets none and still takes part
+    in the collective."""
     from repro_torch.distributed import comm
     s = x.shape[1]
     e = min(c0 + n, s)
@@ -339,21 +417,28 @@ def _prompt_rows(cfg, p: dict, x: torch.Tensor, k: torch.Tensor,
             return None
         rows = x[:, c0:e]
         pos = torch.arange(c0, e, device=x.device)[None]
-        return _project(cfg, p, rows, "k", pos), _project(cfg, p, rows, "v",
-                                                         pos)
-    if not seq_split:
+        if project is None:
+            project = functools.partial(_project, cfg, p)
+        return project(rows, "k", pos), project(rows, "v", pos)
+    if seq is None:
         return (comm.all_concat(k, 2, split.group),
                 comm.all_concat(v, 2, split.group))
+    if seq.rank % split.size != split.rank:
+        raise ValueError(f"the sequence group's index {seq.rank} does not "
+                         f"put model rank {split.rank} of {split.size} "
+                         f"minor")
+    g0, m = c0 - split.rank * n, n * split.size
 
     def rows_of(t):       # every rank of the group takes part
-        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n * split.size - s))
+        t = t[:, g0:g0 + m]
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, m - t.shape[1]))
         return comm.all_to_all(t, 1, 2, split.group)[:, :max(e - c0, 0)]
 
     return rows_of(k), rows_of(v)
 
 
 def _prefill_split(cfg, p: dict, x: torch.Tensor, cache: KVCache, split,
-                   seq_split: bool):
+                   seq):
     """:func:`attn_prefill` on rank ``split.rank``'s heads
     (:func:`_rank_heads`, so past ``CHUNK_THRESHOLD`` tokens the flash
     kernel runs on the rank's heads), the output product's parts summed
@@ -363,9 +448,8 @@ def _prefill_split(cfg, p: dict, x: torch.Tensor, cache: KVCache, split,
     s = x.shape[1]
     out, k, v, pr = _rank_heads(cfg, p, x, torch.arange(
         s, device=x.device)[None], True, split)
-    c0, _ = _cache_rows(cache, split, seq_split)
-    rows = _prompt_rows(cfg, p, x, k, v, c0, cache.k.shape[1], split,
-                        seq_split)
+    c0, _ = _cache_rows(cache, seq)
+    rows = _prompt_rows(cfg, p, x, k, v, c0, cache.k.shape[1], split, seq)
     if rows is not None:
         m = rows[0].shape[1]        # 0: the prompt ends before the block
         cache.k[:, :m] = rows[0].to(cache.k.dtype)
@@ -398,41 +482,85 @@ def _sdpa_rows(q, k, v, mask, group) -> torch.Tensor:
     return out.to(v.dtype).reshape(b, sq, h * hd)
 
 
+def _heads_out(cfg, p: dict, out: torch.Tensor, dt, split) -> torch.Tensor:
+    """Every head's attention output (B, S, H dh) -> the slice of the
+    rank's heads through its rows of ``wo``, the parts summed over the
+    model axis."""
+    from repro_torch.distributed import comm
+    hd = cfg.resolved_head_dim
+    h0, h1, _, _ = head_split(cfg, split)
+    wo = L.take(p["wo"], -2, h0 * hd, h1 * hd)
+    return comm.reduce_from(out[..., h0 * hd:h1 * hd] @ wo.to(dt),
+                            split.group)
+
+
 def _decode_split(cfg, p: dict, x: torch.Tensor, cache: KVCache, pos: int,
-                  split, seq_split: bool):
+                  split, seq):
     """:func:`attn_decode` on the rank's block of the cache: q, k and v of
     every head (the rank's heads projected and all-gathered over the model
     axis, a few hundred bytes a token; or projected whole where the
     weights reach the rank whole); the new row written only by the rank
-    that holds row ``min(pos, S_max - 1)``; every head attends over the
-    rank's rows and the ranks' parts combine by log-sum-exp
-    (:func:`_sdpa_rows`; where the sequence is not split, every rank holds
-    every row and attends alone); the output's slice of the rank's heads
-    goes through its rows of ``wo``, the parts summed over the model
-    axis.  A rank without a head takes part in every collective."""
-    from repro_torch.distributed import comm
+    of ``seq`` that holds row ``min(pos, S_max - 1)``; every head attends
+    over the rank's rows and the parts of ``seq``'s ranks combine by
+    log-sum-exp (:func:`_sdpa_rows`; where the sequence is not split,
+    every rank holds every row and attends alone); the output's slice of
+    the rank's heads goes through its rows of ``wo``, the parts summed
+    over the model axis.  A rank without a head takes part in every
+    collective."""
     b = x.shape[0]
-    hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(cfg, p, x, torch.full((b, 1), pos,
                                                  device=x.device))
     q = _all_heads(q, cfg.n_heads, split)
     k = _all_heads(k, cfg.n_kv_heads, split)
     v = _all_heads(v, cfg.n_kv_heads, split)
-    c0, s_max = _cache_rows(cache, split, seq_split)
+    c0, s_max = _cache_rows(cache, seq)
     n = cache.k.shape[1]
     row = min(max(pos, 0), s_max - 1) - c0
     if 0 <= row < n:
         cache.k[:, row] = k[:, 0].to(cache.k.dtype)
         cache.v[:, row] = v[:, 0].to(cache.v.dtype)
     mask = (c0 + torch.arange(n, device=x.device))[None, None, :] <= pos
-    if seq_split:
-        out = _sdpa_rows(q, cache.k, cache.v, mask, split.group)
+    if seq is not None:
+        out = _sdpa_rows(q, cache.k, cache.v, mask, seq.group)
     else:
         out = _sdpa(cfg, q, cache.k, cache.v, mask)
-    h0, h1, _, _ = head_split(cfg, split)
-    wo = L.take(p["wo"], -2, h0 * hd, h1 * hd)
-    return comm.reduce_from(out[..., h0 * hd:h1 * hd] @ wo.to(x.dtype),
-                            split.group), cache
+    return _heads_out(cfg, p, out, x.dtype, split), cache
+
+
+# A cross cache (L, 2, B, S_enc, KV, dh) holds the encoder rows over
+# ``model`` where M divides S_enc (rank r its rows [r n, (r + 1) n) of
+# every kv head), else every row on every rank; the two routes below.
+
+def cross_cache_rows(cfg, p: dict, enc: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, n: int, split) -> tuple:
+    """k / v of every kv head at the rank's ``n`` rows of the cross cache:
+    its block ``[r n, (r + 1) n)`` where ``n`` is less than the encoder's
+    rows, else all of them; from ``enc`` (B, S_enc, D) and the rank's kv
+    heads ``k`` / ``v`` of it (:func:`cross_attn_split`), by
+    :func:`_prompt_rows`' two routes on the plain projections."""
+    hd = cfg.resolved_head_dim
+    seq = split if n < enc.shape[1] else None
+    return _prompt_rows(cfg, p, enc, k, v, split.rank * n if seq else 0, n,
+                        split, seq, lambda rows, name, _:
+                        _plain_project(p, rows, name, hd))
+
+
+def cross_decode_rows(cfg, p: dict, h: torch.Tensor, ck: torch.Tensor,
+                      cv: torch.Tensor, split) -> torch.Tensor:
+    """One token's cross attention over the rank's rows of a cross cache
+    split over ``model`` (``ck`` / ``cv`` (B, n, KV, dh) of every kv
+    head): every head's q (the rank's heads projected and all-gathered
+    over the model axis, or projected whole where ``wq`` reaches the rank
+    whole) attends over the rank's rows, the ranks' parts combined by
+    log-sum-exp (:func:`_sdpa_rows`, every row unmasked), the rank's
+    heads' slice through its rows of ``wo``, summed over the model axis.
+    No cache row moves."""
+    q = _all_heads(_plain_project(p, h, "q", cfg.resolved_head_dim),
+                   cfg.n_heads, split)
+    mask = torch.ones((1, h.shape[1], ck.shape[1]), dtype=torch.bool,
+                      device=h.device)
+    return _heads_out(cfg, p, _sdpa_rows(q, ck, cv, mask, split.group),
+                      h.dtype, split)
 
 
 # -- paged (block-table) KV cache ---------------------------------------------

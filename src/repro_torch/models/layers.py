@@ -20,8 +20,8 @@ the input entering through ``comm.copy_to`` and the partial results
 summed by ``comm.reduce_from``, so the residual stream is whole and the
 same on every rank of the group between the split products.  Serving on a
 mesh takes the same hook and split (``distributed.sharding.serving_view``),
-forward only, with the KV cache's sequence split too
-(:func:`cache_seq_split`).
+forward only, with the KV cache's sequence split too, over ``model`` or
+over the dp axes and ``model`` (:func:`cache_seq_split`).
 """
 from __future__ import annotations
 
@@ -95,11 +95,16 @@ def use_stored(use: Callable, tree, path: str):
     return tree if stored is None else stored(tree, path)
 
 
-def cache_seq_split(use: Callable) -> bool:
-    """Whether the serving hook ``use`` hands the model the rank's block
-    of the KV cache's sequence over the model axis (flash-decoding,
-    ``distributed.sharding.serving_view``), rather than every row."""
-    return bool(getattr(use, "seq_split", False))
+def cache_seq_split(use: Callable) -> Optional[ModelSplit]:
+    """The ranks the serving hook ``use``'s KV cache splits its sequence
+    over (flash-decoding, ``distributed.sharding.serving_view``), as a
+    :class:`ModelSplit`: their process group, this rank's index in it (its
+    block holds rows ``[index n, (index + 1) n)`` of a block of n rows)
+    and their count; the model group itself where the sequence splits
+    over ``model`` alone, a group of the dp axes and ``model`` where it
+    splits over both (the ``long_500k`` cells); None where the rank holds
+    every row."""
+    return getattr(use, "seq", None)
 
 
 def take(t: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:

@@ -23,6 +23,18 @@ position's logits; ``decode_step`` attends to the cached cross K / V.
 Both run under ``torch.inference_mode`` and write the caches in place.
 ``prefill`` needs ``embeds``: without them it stops with the JAX model's
 ``AttributeError`` (no serving engine passes them, in either package).
+
+On a model axis (the ``tp`` strategy; :meth:`EncDecLM.split_products`)
+the encoder's attention, the decoder's self and cross attention and both
+MLPs split over ``model`` as the transformer's do (heads, hidden units),
+the cross attention through ``attention.cross_attn_split``, and the tied
+embedding by vocabulary rows where the axis divides them.  Serving on a
+mesh (``distributed.sharding.serving_view``) runs the same on the rank's
+parameter blocks and its blocks of the caches: the self-attention cache's
+sequence split over ``model``, the cross cache's encoder rows over
+``model`` where they divide (decode combined by log-sum-exp over the
+rank's rows), else every row on every rank; the logits whole on every
+rank.
 """
 from __future__ import annotations
 
@@ -88,18 +100,42 @@ class EncDecLM(nn.Module):
             "dec_norm": norm,
         }
 
+    def split_products(self, split: L.ModelSplit) -> dict:
+        """``{path: (dim, lo, hi)}``: the parameters whose products split
+        over the model axis under ``split`` (see
+        ``TransformerLM.split_products``): the encoder's attention, the
+        decoder's self and cross attention (their heads), both MLPs (their
+        hidden units) and, where the vocabulary divides by the axis, the
+        tied embedding."""
+        cfg = self.cfg
+        attn, mlp = A.attn_split_ranges(cfg, split), \
+            L.mlp_split_ranges(cfg, split)
+        out = {}
+        for path in ("enc_blocks/attn", "dec_blocks/self_attn",
+                     "dec_blocks/cross_attn"):
+            out.update({f"{path}/{k}": r for k, r in attn.items()})
+        for path in ("enc_blocks/mlp", "dec_blocks/mlp"):
+            out.update({f"{path}/{k}": r for k, r in mlp.items()})
+        vocab = L.vocab_split_ranges(cfg, split)
+        vocab.pop("lm_head", None)          # the head is the tied embed
+        out.update(vocab)
+        return out
+
     def _enc_block(self, x: torch.Tensor, bp: dict,
                    use=L.no_gather) -> torch.Tensor:
         cfg = self.cfg
+        split = L.model_split(use)
         bp = use(bp, "enc_blocks")
         h = L.apply_norm(cfg, bp["norm1"], x)
-        x = x + A.attn_apply_full(cfg, bp["attn"], h, causal=False)
+        x = x + A.attn_apply_full(cfg, bp["attn"], h, causal=False,
+                                  split=split)
         h = L.apply_norm(cfg, bp["norm2"], x)
-        return x + L.mlp_apply(cfg, bp["mlp"], h)
+        return x + L.mlp_apply(cfg, bp["mlp"], h, split)
 
     def encode(self, params: dict, enc_embeds: torch.Tensor) -> torch.Tensor:
         """enc_embeds: (B, S_enc, D) -> the encoder's output (B, S_enc, D)
-        in the compute dtype."""
+        in the compute dtype (whole on every rank of a model group under a
+        split)."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         use = L.gather_hook()
@@ -133,42 +169,52 @@ class EncDecLM(nn.Module):
     def _dec_block(self, x: torch.Tensor, enc_out: torch.Tensor,
                    bp: dict, use=L.no_gather) -> torch.Tensor:
         cfg = self.cfg
+        split = L.model_split(use)
         bp = use(bp, "dec_blocks")
         h = L.apply_norm(cfg, bp["norm1"], x)
-        x = x + A.attn_apply_full(cfg, bp["self_attn"], h, causal=True)
+        x = x + A.attn_apply_full(cfg, bp["self_attn"], h, causal=True,
+                                  split=split)
         h = L.apply_norm(cfg, bp["norm_x"], x)
-        x = x + self._cross_attend(bp, h, *self._cross_kv(bp, enc_out))
+        if split is None:
+            x = x + self._cross_attend(bp, h, *self._cross_kv(bp, enc_out))
+        else:
+            x = x + A.cross_attn_split(cfg, bp["cross_attn"], h, split,
+                                       enc=enc_out)[0]
         h = L.apply_norm(cfg, bp["norm2"], x)
-        return x + L.mlp_apply(cfg, bp["mlp"], h)
+        return x + L.mlp_apply(cfg, bp["mlp"], h, split)
 
     def forward(self, params: dict, tokens: torch.Tensor,
                 embeds: torch.Tensor):
         """tokens: (B, S) int, embeds: (B, S_enc, D) the stub frontend's
-        output -> ``(logits (B, S, V) in the compute dtype, aux)``, aux 0."""
+        output -> ``(logits (B, S, V) in the compute dtype, aux)``, aux 0.
+        Under the vocabulary's split the rank's block of the logits."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         use = L.gather_hook()
+        vsplit = L.vocab_split(cfg, use)
         enc_out = self.encode(params, embeds)
         s = tokens.shape[1]
         # the tied embedding gathered once for the lookup and the head
-        embed = use(params["embed"], "embed")
-        x = (embed.to(dt)[tokens]
+        embed = use(params["embed"], "embed").to(dt)
+        x = (L.embed_rows(embed, tokens, vsplit)
              + use(params["dec_pos"], "dec_pos").to(dt)[None, :s, :])
         for bp in L.unstack(use(params["dec_blocks"], "dec_blocks",
                                 stack=True), cfg.n_layers):
             x = L.remat(L.layer_remat(cfg), self._dec_block, x, enc_out, bp,
                         use)
         x = L.apply_norm(cfg, use(params["dec_norm"], "dec_norm"), x)
-        return (x @ embed.to(dt).T,
+        return (L.head_logits(x, embed.T, vsplit),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
     def loss(self, params: dict, batch: dict):
         """Next-token cross entropy of the decoder; returns ``(loss,
-        {"loss": loss})``.  ``batch["embeds"]`` is required (KeyError
-        without it, as in JAX)."""
+        {"loss": loss})``; under the vocabulary's split reduced over the
+        model axis.  ``batch["embeds"]`` is required (KeyError without it,
+        as in JAX)."""
         tokens = batch["tokens"]
         logits, _ = self.forward(params, tokens, batch["embeds"])
-        ce = L.softmax_xent(logits[:, :-1, :], tokens[:, 1:])
+        ce = L.softmax_xent(logits[:, :-1, :], tokens[:, 1:],
+                            L.vocab_split(self.cfg, L.gather_hook()))
         return ce, {"loss": ce}
 
     # -- serving -------------------------------------------------------------
@@ -185,24 +231,87 @@ class EncDecLM(nn.Module):
                                       layers=cfg.n_layers),
                 "cross": cross, "pos": 0}
 
-    def _decoder(self, params: dict, x: torch.Tensor, cache: dict,
-                 self_attend, cross_kv) -> torch.Tensor:
-        """The decoder layers with ``self_attend(p, h, layer cache)`` and
-        ``cross_kv(i, bp) -> (k, v)``, then ``dec_norm`` and the tied head
-        of the last position."""
+    def _cross_serve(self, p: dict, h: torch.Tensor, cross: torch.Tensor,
+                     enc_out: Optional[torch.Tensor], split):
+        """The cross attention of one layer in serving, ``cross`` its (2, B,
+        n, KV, dh) block of the cross cache: from ``enc_out`` in the
+        prefill (the cache written), else from the cache.  Under ``split``
+        the block holds the rank's encoder rows of every kv head where n
+        is less than ``enc_seq`` (written by ``A.cross_cache_rows``, read
+        by ``A.cross_decode_rows``), else every row (the rank's heads
+        attend over its kv heads of them)."""
         cfg = self.cfg
-        kv = cache["kv"]
-        for i, bp in enumerate(L.unstack(params["dec_blocks"],
+        dt = cross.dtype
+        if split is None:
+            bp = {"cross_attn": p}
+            if enc_out is not None:
+                ek, ev = self._cross_kv(bp, enc_out)
+                cross[0] = ek.to(dt)
+                cross[1] = ev.to(dt)
+                return self._cross_attend(bp, h, ek, ev)
+            return self._cross_attend(bp, h, cross[0], cross[1])
+        n = cross.shape[2]
+        if n != cfg.enc_seq and n * split.size != cfg.enc_seq:
+            raise ValueError(f"a cross cache block of {n} encoder rows: "
+                             f"neither {cfg.enc_seq} nor their share of "
+                             f"{split.size} ranks")
+        if enc_out is not None:
+            out, k, v = A.cross_attn_split(cfg, p, h, split, enc=enc_out)
+            rows = A.cross_cache_rows(cfg, p, enc_out, k, v, n, split)
+            cross[0] = rows[0].to(dt)
+            cross[1] = rows[1].to(dt)
+            return out
+        if n < cfg.enc_seq:
+            return A.cross_decode_rows(cfg, p, h, cross[0], cross[1], split)
+        return A.cross_attn_split(cfg, p, h, split,
+                                  kv=(cross[0], cross[1]))[0]
+
+    def _serve(self, params: dict, tokens: torch.Tensor, cache: dict,
+               pos: int, enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+        """The decoder layers against the caches (written in place), the
+        prefill for ``enc_out`` given (the prompt's positions ``[0, S)``),
+        else one token's decode at ``pos`` (its learned position clamped
+        to ``dec_pos``, as JAX's ``dynamic_slice`` clamps it); the
+        parameters through the gather hook layer by layer (a decode step
+        reads no cross ``wk`` / ``wv``), then ``dec_norm`` and the tied
+        head: whole logits (B, 1, V) of the last position."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        use = L.gather_hook()
+        split, seq = L.model_split(use), L.cache_seq_split(use)
+        vsplit = L.vocab_split(cfg, use)
+        embed = use(params["embed"], "embed").to(dt)
+        table = use(params["dec_pos"], "dec_pos").to(dt)
+        prefill = enc_out is not None
+        s = tokens.shape[1]
+        where = (table[None, :s, :] if prefill else
+                 table[min(max(pos, 0), table.shape[0] - 1)][None, None, :])
+        x = L.embed_rows(embed, tokens, vsplit) + where
+        kv, cross = cache["kv"], cache["cross"]
+        for i, bp in enumerate(L.unstack(use(params["dec_blocks"],
+                                             "dec_blocks", stack=True),
                                          cfg.n_layers)):
+            cp = bp.pop("cross_attn")
+            if not prefill:
+                cp = {k: v for k, v in cp.items() if k not in ("wk", "wv")}
+            bp = use(bp, "dec_blocks")
+            cp = use(cp, "dec_blocks/cross_attn")
             h = L.apply_norm(cfg, bp["norm1"], x)
-            x = x + self_attend(bp["self_attn"], h,
-                                A.KVCache(kv.k[i], kv.v[i]))[0]
+            c = A.KVCache(kv.k[i], kv.v[i])
+            if prefill:
+                a_out, _ = A.attn_prefill(cfg, bp["self_attn"], h, c, split,
+                                          seq)
+            else:
+                a_out, _ = A.attn_decode(cfg, bp["self_attn"], h, c, pos,
+                                         split, seq)
+            x = x + a_out
             h = L.apply_norm(cfg, bp["norm_x"], x)
-            x = x + self._cross_attend(bp, h, *cross_kv(i, bp))
+            x = x + self._cross_serve(cp, h, cross[i], enc_out, split)
             h = L.apply_norm(cfg, bp["norm2"], x)
-            x = x + L.mlp_apply(cfg, bp["mlp"], h)
-        x = L.apply_norm(cfg, params["dec_norm"], x)
-        return x[:, -1:, :] @ params["embed"].to(x.dtype).T
+            x = x + L.mlp_apply(cfg, bp["mlp"], h, split)
+        x = L.apply_norm(cfg, use(params["dec_norm"], "dec_norm"), x)
+        return L.whole_logits(L.head_logits(x[:, -1:, :], embed.T, vsplit),
+                              vsplit)
 
     @torch.inference_mode()
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
@@ -211,39 +320,15 @@ class EncDecLM(nn.Module):
         through the decoder, filling the self-attention cache and each
         layer's cross K / V.  Returns ``(logits (B, 1, V), cache at pos
         S)``."""
-        cfg = self.cfg
-        dt = getattr(torch, cfg.dtype)
-        enc_out = self.encode(params, embeds)
-        s = tokens.shape[1]
-        x = (params["embed"].to(dt)[tokens]
-             + params["dec_pos"].to(dt)[None, :s, :])
-        cross = cache["cross"]
-
-        def cross_kv(i, bp):
-            ek, ev = self._cross_kv(bp, enc_out)
-            cross[i, 0] = ek.to(dt)
-            cross[i, 1] = ev.to(dt)
-            return ek, ev
-
-        logits = self._decoder(
-            params, x, cache, lambda p, h, c: A.attn_prefill(cfg, p, h, c),
-            cross_kv)
-        return logits, {"kv": cache["kv"], "cross": cross, "pos": s}
+        logits = self._serve(params, tokens, cache, 0,
+                             self.encode(params, embeds))
+        return logits, {"kv": cache["kv"], "cross": cache["cross"],
+                        "pos": tokens.shape[1]}
 
     @torch.inference_mode()
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
-        """tokens (B, 1) at ``cache["pos"]`` (its learned position clamped
-        to ``dec_pos``, as JAX's ``dynamic_slice`` clamps it) -> ``(logits
-        (B, 1, V), cache at pos + 1)``."""
-        cfg = self.cfg
-        dt = getattr(torch, cfg.dtype)
+        """tokens (B, 1) at ``cache["pos"]`` -> ``(logits (B, 1, V), cache
+        at pos + 1)``."""
         pos = int(cache["pos"])
-        table = params["dec_pos"].to(dt)
-        x = (params["embed"].to(dt)[tokens]
-             + table[min(max(pos, 0), table.shape[0] - 1)][None, None, :])
-        cross = cache["cross"]
-        logits = self._decoder(
-            params, x, cache,
-            lambda p, h, c: A.attn_decode(cfg, p, h, c, pos),
-            lambda i, bp: (cross[i, 0], cross[i, 1]))
-        return logits, {"kv": cache["kv"], "cross": cross, "pos": pos + 1}
+        return self._serve(params, tokens, cache, pos, None), {
+            "kv": cache["kv"], "cross": cache["cross"], "pos": pos + 1}

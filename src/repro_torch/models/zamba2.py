@@ -33,8 +33,9 @@ through ``mamba_apply`` and ``attn_prefill``) and ``decode_step``
 (``mamba_decode``, ``attn_decode``) under ``torch.inference_mode``,
 writing the caches in place.  On a mesh (``distributed.sharding.
 serving_view``) they run on the rank's parameter blocks and its blocks of
-the caches, the KV cache's sequence kept split over ``model`` and decode
-combined by log-sum-exp, the logits whole on every rank.
+the caches, the KV cache's sequence kept split over ``model`` (over the
+dp axes and ``model`` in the ``long_500k`` cells) and decode combined by
+log-sum-exp over those ranks, the logits whole on every rank.
 """
 from __future__ import annotations
 

@@ -36,7 +36,8 @@ class SpyUse:
     over ``model``)."""
 
     def __init__(self, use):
-        self.use, self.split, self.seq_split = use, use.split, use.seq_split
+        self.use, self.split, self.seq = use, use.split, use.seq
+        self.seq_split = use.seq_split
         self.moved = set()
 
     def __call__(self, tree, path, stack=False):

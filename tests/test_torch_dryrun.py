@@ -735,11 +735,11 @@ def test_ssm_serving_cells_run_on_each_ranks_blocks(arch, cell, fake_group):
     """The smoke Mamba2 and Zamba2 serving cells on the test preset's 8
     fake ranks, on the serving view (the SSM heads over ``model``,
     Zamba2's shared attention, MLP and vocabulary as the transformer's,
-    its KV cache's sequence kept split) and on the whole route (the model
-    declaring no split products): both store JAX's per-rank parameter and
-    cache bytes; the split's routes are not all "whole" and its step
-    peaks lower.  Zamba2's ``long_500k`` (its KV sequence over (pod,
-    data, model)) keeps the whole route; Mamba2's (no KV cache) splits."""
+    its KV cache's sequence kept split: over ``model``, and for Zamba2's
+    ``long_500k`` over (pod, data, model), decode combined over all 8)
+    and on the whole route (the model declaring no split products): both
+    store JAX's per-rank parameter and cache bytes; the split's routes are
+    not all "whole" and its step peaks lower."""
     mesh = make_fake_mesh(*D.TEST_MESH)
     recs = {}
     for split in (True, False):
@@ -755,12 +755,48 @@ def test_ssm_serving_cells_run_on_each_ranks_blocks(arch, cell, fake_group):
     for rec in recs.values():
         assert (rec["param_bytes"], rec["cache_bytes"]) == want
     assert set(whole["routes"].values()) == {"whole"}
-    if (arch, cell) == ("zamba2-2.7b", "long_500k"):
-        assert set(tp["routes"].values()) == {"whole"}
-        return
     assert tp["routes"]["layers/mamba/out_proj"] == "block"
     assert tp["routes"]["layers/mamba/in_proj"] == "slice"
     assert tp["peak_bytes"] < whole["peak_bytes"]
+
+
+@pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])
+def test_whisper_serving_cells_run_on_each_ranks_blocks(cell, fake_group):
+    """The smoke Whisper's serving cells on the test preset's 8 fake ranks,
+    on the serving view (the encoder's, the decoder's self and cross
+    attention's heads, both MLPs and the vocabulary over ``model``; the
+    self-attention cache's sequence and the cross cache's encoder rows
+    split over it) and on the whole route (the model declaring no split
+    products): both store JAX's per-rank parameter and cache bytes; the
+    split's routes are not all "whole" (the MLPs and the attention
+    "block": 2 kv heads over 2 ranks), its step peaks lower with fewer
+    FLOPs a rank."""
+    mesh = make_fake_mesh(*D.TEST_MESH)
+    recs = {}
+    for split in (True, False):
+        c = D.build_cell("whisper-large-v3", cell, mesh, smoke=True)
+        if not split:
+            c.model.split_products = None
+        recs[split] = D.measure(c)
+    tp, whole = recs[True], recs[False]
+    print(f"whisper {cell}: peak a rank split {tp['peak_bytes']} vs whole "
+          f"{whole['peak_bytes']} B; flops {tp['flops']:.4g} vs "
+          f"{whole['flops']:.4g}; collectives split {tp['collectives']}")
+    want = _jax_serve_bytes("whisper-large-v3", cell)
+    for rec in recs.values():
+        assert (rec["param_bytes"], rec["cache_bytes"]) == want
+    assert set(whole["routes"].values()) == {"whole"}
+    leaves = [f"{path}/{k}" for path in ("enc_blocks/attn",
+                                          "dec_blocks/self_attn",
+                                          "dec_blocks/cross_attn")
+              for k in ("wq", "wk", "wv", "wo")]
+    leaves += [f"{path}/{k}" for path in ("enc_blocks/mlp", "dec_blocks/mlp")
+               for k in ("w_up", "w_down")]
+    leaves += ["embed"]
+    assert {k: tp["routes"][k] for k in leaves} == dict.fromkeys(leaves,
+                                                                 "block")
+    assert tp["peak_bytes"] < whole["peak_bytes"]
+    assert tp["flops"] < whole["flops"]
 
 
 def test_probe_memory_stages_bisect_the_step(fake_group):

@@ -278,8 +278,8 @@ def test_cache_seq_axis_reads_the_kv_leaves_only():
     """The KV caches' sequence axis comes from the ``kv`` leaves alone: the
     Mamba ssm state (L, B, H, P, N) is 5-d, its axis 2 heads.  Zamba2's
     ``long_500k`` cache (sequence over (data, model), state heads over
-    ``model``) reads (data, model), so its cells keep the whole route,
-    where reading every 5-d leaf raised; Zamba2's 32k caches read
+    ``model``) reads (data, model), where reading every 5-d leaf raised;
+    Zamba2's 32k caches read
     ``model``; Mamba2's (no KV cache) read ()."""
     mesh = {"data": 2, "model": 4}
     for arch, long_context, want in (("zamba2-2.7b", True, ("data", "model")),
